@@ -7,8 +7,12 @@ runs one thread block per (batch*head, 64-query tile) and loops over
 
 `flash_attention` launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors. It never falls back: a shape, dtype or
-layout the kernel does not take raises. There is no backward pass yet;
-the port serves (ROADMAP Queue 2).
+layout the kernel does not take raises. On a CUDA tensor it is
+differentiable through `_AttentionFn`: the forward is the kernel, the
+backward is `_attention_backward`, which recomputes the fp32 logits and
+softmax and takes the four gradient products with `torch.matmul`. That is
+what the JAX package does outside Pallas (`_flash_bwd` recomputes through
+`_xla_reference` in XLA); it is not a kernel there either.
 """
 
 from __future__ import annotations
@@ -99,13 +103,67 @@ def _attention_cuda(q, k, v, bias, scale: float):
     return out
 
 
+def _sum_to(t, shape):
+    """Sum a gradient over the dims that broadcasting expanded."""
+    dims = tuple(i for i, (a, b) in enumerate(zip(shape, t.shape)) if a != b)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+def _attention_backward(q, k, v, bias, scale: float, g,
+                        bias_grad: bool = False):
+    """Gradients of `_attention_reference` (the JAX `_xla_reference`) at
+    (q, k, v, bias) for the output gradient g, by recompute:
+        P  = softmax(q k^T * scale + bias)   (fp32)
+        dV = P^T g, with P rounded to the input dtype first, as the
+             forward rounds it before the PV product
+        dP = g V^T,  dS = P * (dP - rowsum(dP * P))
+        dq = dS k * scale,  dk = dS^T q * scale
+    Every product runs in fp32 (exact for bf16 inputs); dq, dk, dv are
+    returned in the input dtype, dbias (None unless `bias_grad`) in fp32
+    at the bias's broadcast shape."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dbias = _sum_to(ds, bias.shape) if bias_grad else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+class _AttentionFn(torch.autograd.Function):
+    """The attention kernel forward with the `_attention_backward`
+    gradient; the bias gets one only if it requires one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale: float):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias)
+        return _attention_cuda(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        bias_grad = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = _attention_backward(q, k, v, bias, ctx.scale, g,
+                                                bias_grad)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None
+
+
 def flash_attention(q, k, v, bias=None, scale: Optional[float] = None):
     """Fused attention. q, k, v: (B, H, N, D); bias additive fp32,
-    broadcastable to (B, H, Nq, Nk). Forward only."""
+    broadcastable to (B, H, Nq, Nk). Differentiable in q, k, v and
+    bias."""
     d = q.shape[-1]
     scale = float((d ** -0.5) if scale is None else scale)
     if q.is_cuda:
-        return _attention_cuda(q, k, v, bias, scale)
+        return _AttentionFn.apply(q, k, v, bias, scale)
     if q.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {q.device}")
     return _attention_reference(q, k, v, bias, scale)

@@ -13,8 +13,12 @@ bias are read once per program. The eps is a runtime argument, so 1e-6
 (ViT) and 1e-12 (BERT) share one compiled kernel.
 
 `fused_layer_norm` launches the kernel for CUDA tensors and runs the plain
-version only for CPU tensors; it never falls back. Forward only: the
-backward pass waits for the training slice (ROADMAP Queue 2).
+version only for CPU tensors; it never falls back. On a CUDA tensor it is
+differentiable through `_LayerNormFn`: the forward is the kernel, the
+backward is `_ln_backward`, the closed-form LayerNorm gradient in fp32
+torch ops. That is what the JAX package does outside Pallas (`_ln_bwd`
+recomputes through `_ln_reference` in XLA); it is not a kernel there
+either.
 """
 
 from __future__ import annotations
@@ -97,10 +101,47 @@ def _ln_cuda(x, weight, bias, eps: float):
     return y
 
 
+def _ln_backward(x, weight, eps: float, g):
+    """Gradients of `_ln_reference` at (x, weight) for the output
+    gradient g: dx in x's dtype, dweight and dbias in fp32 (summed over
+    every row). Closed form, in fp32:
+        dx = rstd * (g*w - mean(g*w) - xhat * mean(g*w * xhat))."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    gf = g.float().reshape(-1, d)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt(xc.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dweight = (gf * xhat).sum(dim=0)
+    dbias = gf.sum(dim=0)
+    gw = gf * weight.float()
+    dx = rstd * (gw - gw.mean(dim=-1, keepdim=True)
+                 - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    return dx.reshape(x.shape).to(x.dtype), dweight, dbias
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """The LayerNorm kernel forward with the `_ln_backward` gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        ctx.eps = eps
+        ctx.save_for_backward(x, weight)
+        return _ln_cuda(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dweight, dbias = _ln_backward(x, weight, ctx.eps, g)
+        return (dx, dweight.to(weight.dtype), dbias.to(weight.dtype), None)
+
+
 def fused_layer_norm(x, weight, bias, eps: float = 1e-6):
-    """LayerNorm over the last axis. weight/bias: (d,)."""
+    """LayerNorm over the last axis. weight/bias: (d,). Differentiable in
+    x, weight and bias."""
     if x.is_cuda:
-        return _ln_cuda(x, weight, bias, float(eps))
+        return _LayerNormFn.apply(x, weight, bias, float(eps))
     if x.device.type != "cpu":
         raise ValueError(f"no layer-norm kernel for device {x.device}")
     return _ln_reference(x, weight, bias, eps)

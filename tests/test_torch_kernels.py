@@ -15,7 +15,11 @@ from jax.experimental.pallas import tpu as pltpu
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
+from ecamp_tpu.kernels.flash_attention import _flash_attention_ad  # noqa: E402
 from ecamp_tpu.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from ecamp_tpu.kernels.layer_norm import _ln_ad  # noqa: E402
 from ecamp_tpu.kernels.layer_norm import fused_layer_norm as jax_ln  # noqa: E402
 from ecamp_tpu_torch.kernels import (dot_product_attention,  # noqa: E402
                                      fused_layer_norm)
@@ -164,6 +168,129 @@ def test_attention_kernel_args():
     for (q, k, v), bias, msg in bad:
         with pytest.raises(ValueError, match=msg):
             fa_mod._kernel_args(q, k, v, bias)
+
+
+# -- backward passes -------------------------------------------------------
+# The JAX package differentiates its two Pallas kernels with custom VJPs
+# whose backward recomputes through the reference formula in XLA. The
+# port's backward functions are held to jax.vjp of those custom VJPs (the
+# forward in interpret mode) and to torch autograd of the plain versions.
+
+@pytest.mark.parametrize("shape,eps", [((5, 7, 64), 1e-6), ((40, 768), 1e-12)])
+def test_layer_norm_backward_matches_jax_vjp(shape, eps):
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.normal(size=shape[-1:])).astype(np.float32)
+    b = (0.1 * rng.normal(size=shape[-1:])).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda x_, w_, b_: _ln_ad(x_, w_, b_, eps),
+                         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+        want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    got = ln_mod._ln_backward(_t(x), _t(w), eps, _t(g))
+    assert [t.dtype for t in got] == [torch.float32] * 3
+    # fp32 sums over up to 40 rows of O(1) terms: 1e-5 relative to scale
+    for name, a, e in zip(("dx", "dweight", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), e, rtol=1e-5,
+                                   atol=1e-5 * np.abs(e).max(), err_msg=name)
+    xt, wt, bt = (_t(a).requires_grad_() for a in (x, w, b))
+    ln_mod._ln_reference(xt, wt, bt, eps).backward(_t(g))
+    for name, a, e in zip(("dx", "dweight", "dbias"), got,
+                          (xt.grad, wt.grad, bt.grad)):
+        np.testing.assert_allclose(a.numpy(), e.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(e.abs().max()),
+                                   err_msg=name)
+
+
+def test_layer_norm_backward_bf16_dtypes():
+    rng = np.random.default_rng(6)
+    x = _t(rng.normal(size=(6, 32)), torch.bfloat16)
+    g = _t(rng.normal(size=(6, 32)), torch.bfloat16)
+    dx, dw, db = ln_mod._ln_backward(x, torch.ones(32), 1e-6, g)
+    assert (dx.dtype, dw.dtype, db.dtype) == (torch.bfloat16, torch.float32,
+                                              torch.float32)
+    want = ln_mod._ln_backward(x.float(), torch.ones(32), 1e-6, g.float())[0]
+    # one bf16 rounding of the fp32 gradient
+    np.testing.assert_allclose(dx.float().numpy(), want.numpy(), rtol=8e-3,
+                               atol=8e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d", [(2, 3, 17, 17, 32),
+                                         (2, 2, 13, 29, 64),
+                                         (1, 2, 40, 7, 128)])
+@pytest.mark.parametrize("bias_kind", ["none", "key_padding", "full"])
+def test_attention_backward_matches_jax_vjp(b, h, nq, nk, d, bias_kind):
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, b, h, nq, nk, d)
+    bias = _bias(rng, bias_kind, b, h, nq, nk)
+    g = rng.normal(size=(b, h, nq, d)).astype(np.float32)
+    scale = d ** -0.5
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        if bias is None:
+            _, vjp = jax.vjp(lambda q_, k_, v_: _flash_attention_ad(
+                q_, k_, v_, None, scale), *jargs)
+        else:
+            _, vjp = jax.vjp(lambda q_, k_, v_, b_: _flash_attention_ad(
+                q_, k_, v_, b_, scale), *jargs, jnp.asarray(bias))
+        want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tb = None if bias is None else _t(bias)
+    got = fa_mod._attention_backward(_t(q), _t(k), _t(v), tb, scale, _t(g),
+                                     bias_grad=bias is not None)
+    names = ("dq", "dk", "dv", "dbias")
+    for name, a, e in zip(names, got, want):
+        # fp32 products of O(1) inputs: 1e-5 relative to the largest term
+        np.testing.assert_allclose(a.numpy(), e, rtol=1e-5,
+                                   atol=1e-5 * np.abs(e).max(), err_msg=name)
+    if bias is not None:
+        assert tuple(got[3].shape) == bias.shape
+        # a bias that needs no gradient (the key-padding mask) gets none
+        assert fa_mod._attention_backward(_t(q), _t(k), _t(v), tb, scale,
+                                          _t(g))[3] is None
+    # the same gradients from torch autograd of the plain version
+    ts = [_t(a).requires_grad_() for a in (q, k, v)]
+    tb = None if bias is None else _t(bias).requires_grad_(
+        bias_kind == "full")
+    fa_mod._attention_reference(*ts, tb, scale).backward(_t(g))
+    for name, a, t in zip(names, got, ts + [tb]):
+        if t is None or t.grad is None:
+            continue
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(t.grad.abs().max()),
+                                   err_msg=name)
+
+
+def test_autograd_functions_backward_equals_plain_autograd(monkeypatch):
+    """`_LayerNormFn` and `_AttentionFn` (what a CUDA tensor goes through)
+    with their kernel forwards swapped for the plain versions: the
+    Functions' outputs carry a grad_fn and their backward gives the
+    gradients of autograd through the plain versions, for every input
+    that requires one."""
+    monkeypatch.setattr(ln_mod, "_ln_cuda", ln_mod._ln_reference)
+    monkeypatch.setattr(fa_mod, "_attention_cuda",
+                        lambda q, k, v, bias, scale:
+                        fa_mod._attention_reference(q, k, v, bias, scale))
+    rng = np.random.default_rng(8)
+    x, w, b = (rng.normal(size=s).astype(np.float32)
+               for s in ((3, 5, 48), (48,), (48,)))
+    q, k, v = _qkv(rng, 2, 2, 9, 12, 32)
+    bias = _bias(rng, "full", 2, 2, 9, 12)
+    gy = rng.normal(size=(3, 5, 48)).astype(np.float32)
+    go = rng.normal(size=(2, 2, 9, 32)).astype(np.float32)
+
+    def run(ln_fn, attn_fn):
+        ins = [_t(a).requires_grad_() for a in (x, w, b, q, k, v, bias)]
+        y = ln_fn(*ins[:3], 1e-6)
+        o = attn_fn(*ins[3:], 32 ** -0.5)
+        assert y.grad_fn is not None and o.grad_fn is not None
+        torch.autograd.backward([y, o], [_t(gy), _t(go)])
+        return [t.grad for t in ins]
+
+    got = run(ln_mod._LayerNormFn.apply, fa_mod._AttentionFn.apply)
+    want = run(ln_mod._ln_reference, fa_mod._attention_reference)
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), e.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(e.abs().max()))
 
 
 # -- build and launch bookkeeping ------------------------------------------

@@ -84,6 +84,51 @@ def test_attention_kernel_on_card(cuda, dtype, bias_kind, b, h, nq, nk, d):
     _close(got, fa_mod._attention_reference(q, k, v, bias), dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_outputs_carry_grad_fn_and_right_gradients(cuda, dtype):
+    """Inputs that require grad give kernel outputs with a grad_fn, and the
+    gradients through the kernels equal autograd through the plain
+    versions (a detached output would leave every .grad None)."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def leaf(*shape, scale=1.0, dt=dtype):
+        return (scale * torch.randn(*shape, device=cuda, generator=g)).to(
+            dt).requires_grad_()
+
+    x, w, b = leaf(64, 50, 768), leaf(768, dt=torch.float32), leaf(
+        768, scale=0.1, dt=torch.float32)
+    q, k, v = leaf(4, 6, 256, 128), leaf(4, 6, 49, 128), leaf(4, 6, 49, 128)
+    bias = leaf(4, 6, 256, 49, dt=torch.float32)
+    gy = torch.randn(64, 50, 768, device=cuda, generator=g).to(dtype)
+    go = torch.randn(4, 6, 256, 128, device=cuda, generator=g).to(dtype)
+
+    def grads(ln_fn, attn_fn):
+        for t in (x, w, b, q, k, v, bias):
+            t.grad = None
+        y = ln_fn(x, w, b, 1e-6)
+        o = attn_fn(q, k, v, bias)
+        torch.autograd.backward([y, o], [gy, go])
+        return y, o, [t.grad for t in (x, w, b, q, k, v, bias)]
+
+    ln0, fa0 = ln_mod.launches.value, fa_mod.launches.value
+    y, o, got = grads(ln_mod.fused_layer_norm, fa_mod.flash_attention)
+    torch.cuda.synchronize()
+    assert ln_mod.launches.value == ln0 + 1 and fa_mod.launches.value == fa0 + 1
+    assert y.grad_fn is not None and o.grad_fn is not None
+    _, _, want = grads(ln_mod._ln_reference, fa_mod._attention_reference)
+    for name, a, e in zip(("dx", "dw", "db", "dq", "dk", "dv", "dbias"),
+                          got, want):
+        assert a is not None, name
+        assert a.dtype == e.dtype, name
+        # the same backward math on both sides; the forward outputs it
+        # starts from agree to the kernels' tolerance
+        scale = float(e.float().abs().max())
+        tol = 1e-5 if dtype == torch.float32 else BF16_TOL
+        torch.testing.assert_close(a.float(), e.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     z = torch.zeros(2, 3, 5, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
