@@ -1,11 +1,17 @@
 """Weights into the port: the JAX param tree and reference `.pth` files.
 
-`state_dict_from_flax` maps a JAX `ViTClassifier` param tree onto the
-port's state dict by the rules of `ecamp_tpu/ckpt/torch_import.py::
-_default_key_fn` and `torch_export.py::_deconvert` (reimplemented here; the
-port imports nothing of JAX): `blocks_i` -> `blocks.i`, `kernel` ->
-`weight` with 2-D (in, out) -> (out, in) and 4-D HWIO -> OIHW, and the
-`trunk.` prefix dropped.
+`state_dict_from_flax` maps a JAX `ViTClassifier` or `ECAMP` param tree
+onto the port's state dict by the rules of `ecamp_tpu/ckpt/torch_import.py
+::_default_key_fn` and `torch_export.py::_deconvert` and the namespace of
+`export_ecamp_pretrain` (reimplemented here; the port imports nothing of
+JAX): `blocks_i` -> `blocks.i` (so `decoder_blocks_i` ->
+`decoder_blocks.i`), BERT `layer_i` -> `encoder.layer.i`, the MLM head's
+`transform_*` / `decoder` -> `predictions.*`, `bert.*` ->
+`bert_encoder.model.bert.*` and `bert.cls.*` -> `bert_encoder.model.cls.*`,
+`kernel` / `embedding` / `scale` -> `weight` with 2-D (in, out) ->
+(out, in) and 4-D HWIO -> OIHW, and the `trunk.` prefix dropped. The ECAMP
+sin-cos tables are buffers in the port and constants in JAX, so neither
+side has them as keys.
 
 `load_reference_pth` reads a reference classifier checkpoint the way
 `ckpt/torch_import.py:173-179` does: unwrap `model` and `state_dict`, strip
@@ -23,7 +29,12 @@ from torch import nn
 
 from ..nn.pos_embed import interpolate_pos_embed
 
-_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight"}
+_LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight",
+                  "embedding": "weight"}
+_MLM_HEAD = (("cls.transform_dense", "cls.predictions.transform.dense"),
+             ("cls.transform_LayerNorm",
+              "cls.predictions.transform.LayerNorm"),
+             ("cls.decoder", "cls.predictions.decoder"))
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -37,10 +48,17 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 def _key(path) -> str:
     *mods, leaf = path
     joined = re.sub(r"blocks_(\d+)", r"blocks.\1", ".".join(mods))
+    joined = re.sub(r"layer_(\d+)", r"encoder.layer.\1", joined)
+    for jax_name, torch_name in _MLM_HEAD:
+        joined = joined.replace(jax_name, torch_name)
     if joined.startswith("trunk."):
         joined = joined[len("trunk."):]
     elif joined == "trunk":
         joined = ""
+    elif joined.startswith("bert.cls."):
+        joined = "bert_encoder.model." + joined[len("bert."):]
+    elif joined.startswith("bert."):
+        joined = "bert_encoder.model.bert." + joined[len("bert."):]
     leaf = _LEAF_TO_TORCH.get(leaf, leaf)
     return f"{joined}.{leaf}" if joined else leaf
 
@@ -56,8 +74,9 @@ def _value(leaf: str, v) -> np.ndarray:
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX `ViTClassifier` params (`variables["params"]`, a tree of
-    arrays) -> the port's `ViTClassifier` state dict (fp32 CPU tensors)."""
+    """JAX `ViTClassifier` or `ECAMP` params (`variables["params"]`, a
+    tree of arrays) -> the port's state dict of the same model (fp32 CPU
+    tensors). A gradient tree maps the same way."""
     return {_key(path): torch.tensor(_value(path[-1], v))
             for path, v in _flatten(params)}
 

@@ -2,7 +2,8 @@
 
 `csrc/*.cu` are compiled by `nvcc` into one shared library with a plain C
 interface, at first use, under `build/ecamp_tpu_torch/` in the checkout
-(listed in `.gitignore`). The library's name carries a hash of the
+(listed in `.gitignore`): one `nvcc -c` per source, all started together,
+then one link. The library's name carries a hash of the
 sources and flags, so an edit rebuilds and a stale library is never
 loaded. It is bound with `ctypes`, so PyTorch's headers, which make a
 CUDA build several times longer, stay out of it.
@@ -26,16 +27,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecamp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the launch wrappers in csrc/: pointers and the stream are
 # c_void_p (ctypes would pass a bare Python int as a 32-bit int)
 SIGNATURES = {
     "ecamp_attention_fwd": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P,
-                            _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+                            _I, _I, _I, _I, _I, _I, _F, _P],
+    "ecamp_sr_conv_stack_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ecamp_adamw_multi": [_P, _P, _P, _P, _P, _I, _P, _LL, _F, _F, _F, _F,
+                          _F, _P],
 }
 
 
@@ -85,21 +90,41 @@ def _digest() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is built already.
 
-    The compiler's output (ptxas registers, shared memory and spills per
-    kernel) is kept next to the library as `<lib>.log`."""
+    Each source compiles in its own `nvcc -c`, all at once; the objects
+    are then linked. The compilers' output (ptxas registers, shared memory
+    and spills per kernel) is kept next to the library as `<lib>.log`."""
     lib = BUILD_DIR / f"libecamp_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    tmp = lib.with_suffix(f".{tag}.tmp")
+    link = [nvcc, *NVCC_FLAGS[:4], "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs)
+              if proc.returncode != 0]
+    if not failed:
+        done = subprocess.run(link, capture_output=True, text=True)
+        outs.append(done.stdout + done.stderr)
+        if done.returncode != 0:
+            failed.append((link, done.returncode))
+    log = "".join(" ".join(cmd) + "\n" + out
+                  for cmd, out in zip(cmds + [link], outs))
+    lib.with_suffix(".log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}): "
+                           f"{' '.join(failed[0][0])}\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent build loads a whole file
     return lib
 

@@ -1,0 +1,223 @@
+"""Fused AdamW: the multi-tensor CUDA kernel `csrc/adamw.cu` and its plain
+version, in optax.adamw's op order.
+
+Counterpart of `ecamp_tpu/kernels/fused_adamw.py`. Per element:
+    g'  = (g / gdiv) * gmul             global-norm clip as two scalars
+    mu' = (1-b1)*g' + b1*mu
+    nu' = (1-b2)*g'^2 + b2*nu
+    u   = (mu'/bc1) / (sqrt(nu'/bc2) + eps)   bc_i = 1 - b_i^(count+1)
+    p'  = p - lr*(u + wd*p)             wd only on leaves that decay
+with lr = schedule(count) at the pre-increment count, as
+optax.scale_by_schedule reads it. The five scalars [lr, bc1, bc2, gdiv,
+gmul] are one fp32 device tensor, computed with device ops from the
+device-side count and grad norm, so a step needs no host synchronisation.
+
+`FusedAdamW.apply` runs the kernel when the parameters are CUDA tensors:
+one launch for every leaf, p, mu and nu updated in place. For CPU tensors
+it runs the plain version, `_leaf_update_plain` leaf by leaf (JAX
+`_leaf_update_jnp`); `plain = True` routes CUDA tensors there too, as the
+on-card reference. The v5e-measured opt-in (`fused_adamw` config flag,
+`ECAMP_FUSED_ADAMW`) is not carried over.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
+
+import torch
+
+from . import _build
+
+SOURCE = "ecamp_tpu_torch/csrc/adamw.cu"
+CHUNK = 65536  # elements a thread block updates; a multiple of 4
+
+launches = _build.LaunchCounter()
+
+
+def _leaf_update_plain(g, m, v, p, lr, bc1, bc2, gdiv, gmul, b1: float,
+                       b2: float, eps: float, wd: float):
+    """One leaf's update, the per-leaf PyTorch formula; returns
+    (p', mu', nu') in the dtypes of p, m and v."""
+    g = g.float() / gdiv * gmul
+    m_new = (1.0 - b1) * g + b1 * m.float()
+    v_new = (1.0 - b2) * (g * g) + b2 * v.float()
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if wd:
+        u = u + wd * p.float()
+    return ((p.float() - lr * u).to(p.dtype), m_new.to(m.dtype),
+            v_new.to(v.dtype))
+
+
+class _LeafTable:
+    """The kernel's device tables for one parameter set: per leaf the p, g,
+    mu, nu addresses, size and weight decay; per chunk its leaf and start.
+    Built once; the address table is rebuilt only when an address changes
+    (a gradient freed and allocated anew)."""
+
+    def __init__(self, params, grads, mu, nu, wd: List[float]):
+        dev = params[0].device
+        self.numel = torch.tensor([p.numel() for p in params],
+                                  dtype=torch.int64, device=dev)
+        self.wd_host = list(wd)
+        self.wd = torch.tensor(wd, dtype=torch.float32, device=dev)
+        leaf, start = [], []
+        for i, p in enumerate(params):
+            for s in range(0, max(p.numel(), 1), CHUNK):
+                leaf.append(i)
+                start.append(s)
+        self.chunk_leaf = torch.tensor(leaf, dtype=torch.int32, device=dev)
+        self.chunk_start = torch.tensor(start, dtype=torch.int64, device=dev)
+        self.n_chunks = len(leaf)
+        self.addresses: Tuple[int, ...] = ()
+        self.ptrs = None
+        self.update(params, grads, mu, nu)
+
+    def update(self, params, grads, mu, nu) -> None:
+        addresses = tuple(t.data_ptr() for leaf in zip(params, grads, mu, nu)
+                          for t in leaf)
+        if addresses != self.addresses:
+            self.ptrs = torch.tensor(addresses, dtype=torch.int64).to(
+                params[0].device)
+            self.addresses = addresses
+
+
+def _check_leaves(params, grads, mu, nu) -> None:
+    dev = params[0].device
+    for name, group in (("param", params), ("grad", grads), ("mu", mu),
+                        ("nu", nu)):
+        for i, (t, p) in enumerate(zip(group, params)):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"AdamW kernel takes fp32 tensors on one "
+                                 f"device: {name} {i} is {t.dtype} on "
+                                 f"{t.device}")
+            if t.shape != p.shape or not t.is_contiguous():
+                raise ValueError(f"AdamW kernel: {name} {i} must be "
+                                 f"contiguous with its param's shape")
+
+
+@dataclass
+class AdamWState:
+    """optax ScaleByAdamState: the update count (a device int32 scalar)
+    and the moments, keyed like the parameters."""
+
+    count: torch.Tensor
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+class FusedAdamW:
+    """AdamW with optax.adamw's semantics over a dict of fp32 parameters,
+    updated in place; `mask_fn` maps the parameters to a dict of bools
+    (True = weight decay), and `grad_clip` folds a global-norm clip into
+    the same pass. Counterpart of JAX `fused_adamw(...)`."""
+
+    def __init__(self, schedule: Callable[[torch.Tensor], torch.Tensor],
+                 b1: float, b2: float, eps: float, weight_decay: float,
+                 mask_fn: Optional[Callable] = None,
+                 grad_clip: Optional[float] = None):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.weight_decay = float(weight_decay)
+        self.mask_fn = mask_fn
+        self.grad_clip = grad_clip
+        self.plain = False  # see set_plain
+        self._table: Optional[_LeafTable] = None
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
+        dev = next(iter(params.values())).device
+        return AdamWState(
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            mu={k: torch.zeros_like(p) for k, p in params.items()},
+            nu={k: torch.zeros_like(p) for k, p in params.items()})
+
+    def scalars(self, count: torch.Tensor,
+                grads: List[torch.Tensor]) -> torch.Tensor:
+        """[lr, bc1, bc2, gdiv, gmul] as one fp32 tensor on the count's
+        device, from device ops only."""
+        # torch.full, not torch.tensor: a blocking host-to-device copy
+        # would synchronise the stream
+        def full(value):
+            return torch.full((), value, dtype=torch.float32,
+                              device=count.device)
+
+        cf = (count + 1).float()
+        b1, b2, one = full(self.b1), full(self.b2), full(1.0)
+        lr = self.schedule(count).to(torch.float32)
+        gdiv = gmul = one
+        if self.grad_clip is not None:
+            gdiv, gmul = clip_scale(grads, self.grad_clip)
+        return torch.stack([lr, 1.0 - b1 ** cf, 1.0 - b2 ** cf, gdiv, gmul])
+
+    def _decays(self, params: Mapping[str, torch.Tensor]) -> List[float]:
+        wd = self.weight_decay
+        if wd > 0 and self.mask_fn is not None:
+            mask = self.mask_fn(params)
+            return [wd if mask[k] else 0.0 for k in params]
+        return [wd] * len(params)
+
+    def apply(self, params: Mapping[str, torch.Tensor],
+              grads: Mapping[str, torch.Tensor],
+              state: AdamWState) -> AdamWState:
+        """One update: p, mu and nu in place; returns the state with the
+        count advanced."""
+        names = list(params)
+        ps = [params[k] for k in names]
+        gs = [grads[k] for k in names]
+        ms = [state.mu[k] for k in names]
+        vs = [state.nu[k] for k in names]
+        scal = self.scalars(state.count, gs)
+        wd = self._decays(params)
+        if ps[0].device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no AdamW kernel for {ps[0].device}")
+        with torch.no_grad():
+            if ps[0].is_cuda and not self.plain:
+                self._apply_cuda(ps, gs, ms, vs, wd, scal)
+            else:
+                lr, bc1, bc2, gdiv, gmul = scal.unbind()
+                for p, g, m, v, w in zip(ps, gs, ms, vs, wd):
+                    p_new, m_new, v_new = _leaf_update_plain(
+                        g, m, v, p, lr, bc1, bc2, gdiv, gmul, self.b1,
+                        self.b2, self.eps, w)
+                    p.copy_(p_new)
+                    m.copy_(m_new)
+                    v.copy_(v_new)
+        return AdamWState(count=state.count + 1, mu=state.mu, nu=state.nu)
+
+    def _apply_cuda(self, ps, gs, ms, vs, wd, scal) -> None:
+        _check_leaves(ps, gs, ms, vs)
+        table = self._table
+        if (table is None or table.wd_host != wd
+                or table.ptrs.device != ps[0].device):
+            table = self._table = _LeafTable(ps, gs, ms, vs, wd)
+        else:
+            table.update(ps, gs, ms, vs)
+        dev = ps[0].device
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _build.library().ecamp_adamw_multi(
+                table.ptrs.data_ptr(), table.numel.data_ptr(),
+                table.wd.data_ptr(), table.chunk_leaf.data_ptr(),
+                table.chunk_start.data_ptr(), table.n_chunks,
+                scal.data_ptr(), CHUNK, self.b1, 1.0 - self.b1, self.b2,
+                1.0 - self.b2, self.eps, stream)
+        _build.check(err, "ecamp_adamw_multi")
+        launches.add()
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), an
+    fp32 device scalar."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+
+
+def clip_scale(grads: List[torch.Tensor], max_norm: float):
+    """optax.clip_by_global_norm as (gdiv, gmul): updates are
+    (g / gdiv) * gmul, (1, 1) inside the bound, (gnorm, max_norm) past it
+    (NaN norms propagate, as there)."""
+    gnorm = global_norm(grads)
+    one = torch.ones_like(gnorm)
+    trigger = gnorm < max_norm
+    return (torch.where(trigger, one, gnorm),
+            torch.where(trigger, one, torch.full_like(gnorm, max_norm)))

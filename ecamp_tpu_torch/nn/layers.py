@@ -40,6 +40,14 @@ def trunc_normal_(t: torch.Tensor, std: float,
                                  generator=generator)
 
 
+def lecun_normal_(t: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's conv default, lecun_normal: a truncated normal of variance
+    1 / fan_in, for an OIHW weight (fan_in = I * H * W)."""
+    return trunc_normal_(t, math.sqrt(1.0 / t[0].numel()) / _TRUNC_STD,
+                         generator)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 statistics; its output is in
     the compute dtype. Launches the LayerNorm kernel for CUDA tensors."""
@@ -89,22 +97,51 @@ class Dense(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity at inference. The training path is not ported yet (ROADMAP
-    Queue 1); a non-zero rate in training mode raises rather than run
-    without the regulariser."""
+    """Dropout from 16-bit random integers, as the JAX `Dropout` draws it:
+    keep where bits >= round(rate * 65536), scale kept values by
+    65536 / (65536 - thresh), so E[dropout(x)] == x for the quantized
+    rate. The identity in eval mode or at rate 0.
+
+    In training mode it draws from `self.generator`, an explicit
+    `torch.Generator` on the input's device (`set_generator`); a rate > 0
+    with no generator raises. The bits are not the TPU's: tests compare
+    with dropout off, or compare distributions."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def _generator(self) -> torch.Generator:
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__} in training mode draws "
+                               f"from an explicit generator: call "
+                               f"set_generator")
+        return self.generator
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "dropout in training mode is not ported (ROADMAP Queue 1)")
-        return x
+        thresh = min(int(round(self.rate * 65536)), 65535)
+        if not self.training or thresh == 0:
+            return x
+        keep = torch.randint(0, 65536, x.shape, generator=self._generator(),
+                             device=x.device, dtype=torch.int32) >= thresh
+        return torch.where(keep, x * (65536.0 / (65536 - thresh)),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-DropPath = Dropout  # stochastic depth: the same inference identity
+class DropPath(Dropout):
+    """Stochastic depth (timm DropPath, JAX `DropPath`): drop a residual
+    branch per sample with probability `rate`, scaling kept samples by
+    1 / (1 - rate)."""
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        keep = torch.rand(shape, generator=self._generator(),
+                          device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Mlp(nn.Module):
@@ -187,10 +224,7 @@ class PatchProj(nn.Module):
         self.bias = nn.Parameter(torch.zeros(embed_dim))
 
     def reset_parameters(self, generator=None) -> None:
-        # flax nn.Conv default: lecun_normal = truncated normal, var 1/fan_in
-        fan_in = self.weight[0].numel()
-        trunc_normal_(self.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD,
-                      generator)
+        lecun_normal_(self.weight, generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
@@ -219,11 +253,22 @@ class PatchEmbed(nn.Module):
 
 
 def set_plain(module: nn.Module, plain: bool = True) -> nn.Module:
-    """Route every LayerNorm and Attention under `module` to the plain
-    versions of their kernels, called directly (plain=True), or back to
-    the kernel wrappers. The plain route is the on-card reference that the
-    kernels are held against; serving never sets it."""
+    """Route every module under `module` that launches a kernel (LayerNorm,
+    attention, the SR head: each has a `plain` flag) to the plain versions
+    of its kernels, called directly (plain=True), or back to the kernel
+    wrappers. The plain route is the on-card reference that the kernels
+    are held against; serving and training never set it."""
     for m in module.modules():
-        if isinstance(m, (LayerNorm, Attention)):
+        if hasattr(m, "plain"):
             m.plain = plain
+    return module
+
+
+def set_generator(module: nn.Module,
+                  generator: Optional[torch.Generator]) -> nn.Module:
+    """Give every Dropout and DropPath under `module` the generator they
+    draw from in training mode."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
     return module

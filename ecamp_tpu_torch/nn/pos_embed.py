@@ -1,12 +1,40 @@
-"""Position-embedding resize (counterpart of `ecamp_tpu/nn/pos_embed.py`).
+"""Position embeddings (counterpart of `ecamp_tpu/nn/pos_embed.py`).
 
-Used when a checkpoint's patch grid differs from the served `img_size`.
+`get_2d_sincos_pos_embed` builds the fixed table of the MAE encoder and
+decoder; the model holds it as a buffer, not a parameter, as the JAX
+package holds it as a trace-time constant. `interpolate_pos_embed` resizes
+a checkpoint's learned table when its patch grid differs from the served
+`img_size`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _1d_sincos(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    omega = np.arange(embed_dim // 2, dtype=np.float64)
+    omega = 1.0 / 10000 ** (omega / embed_dim / 2.0)
+    out = np.einsum("m,d->md", pos.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
+                            cls_token: bool = False) -> np.ndarray:
+    """(grid_size**2 [+1], embed_dim) float32, the reference generator
+    (util/pos_embed.py:20-67) with its frequency scale arange(d/2)/d/2 and
+    its xy meshgrid (w first); a zero row for the cls token."""
+    if embed_dim % 4:
+        raise ValueError(f"embed_dim {embed_dim} must be a multiple of 4")
+    grid = np.arange(grid_size, dtype=np.float64)
+    grid = np.stack(np.meshgrid(grid, grid), axis=0)
+    pos = np.concatenate([_1d_sincos(embed_dim // 2, grid[0]),
+                          _1d_sincos(embed_dim // 2, grid[1])], axis=1)
+    if cls_token:
+        pos = np.concatenate([np.zeros([1, embed_dim]), pos], axis=0)
+    return pos.astype(np.float32)
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, new_grid: int,

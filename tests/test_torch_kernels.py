@@ -17,13 +17,17 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from ecamp_tpu.kernels import sr_head as jax_sr  # noqa: E402
 from ecamp_tpu.kernels.flash_attention import _flash_attention_ad  # noqa: E402
+from ecamp_tpu.kernels.fused_adamw import _leaf_update_pallas  # noqa: E402
 from ecamp_tpu.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from ecamp_tpu.kernels.layer_norm import _ln_ad  # noqa: E402
 from ecamp_tpu.kernels.layer_norm import fused_layer_norm as jax_ln  # noqa: E402
 from ecamp_tpu_torch.kernels import (dot_product_attention,  # noqa: E402
                                      fused_layer_norm)
 from ecamp_tpu_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import fused_adamw as adamw_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import sr_head as sr_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import layer_norm as ln_mod  # noqa: E402
 from ecamp_tpu_torch.kernels.flash_attention import flash_attention  # noqa: E402
 
@@ -293,6 +297,99 @@ def test_autograd_functions_backward_equals_plain_autograd(monkeypatch):
                                    atol=1e-5 * float(e.abs().max()))
 
 
+# -- SR conv stack ---------------------------------------------------------
+
+def _sr_weights(rng, scale=0.2):
+    """HWIO weights for JAX, the same as OIHW for the port, and biases."""
+    w1, w2 = (rng.normal(size=(3, 3, 3, 3)).astype(np.float32) * scale
+              for _ in range(2))
+    b1, b2 = (rng.normal(size=(3,)).astype(np.float32) * 0.1
+              for _ in range(2))
+    return (w1, b1, w2, b2), (_t(w1.transpose(3, 2, 0, 1)), _t(b1),
+                              _t(w2.transpose(3, 2, 0, 1)), _t(b2))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 32, 64), (1, 3, 24, 24),
+                                   (1, 3, 70, 20)])
+def test_sr_conv_stack_matches_pallas_kernel(shape):
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=shape).astype(np.float32)
+    jw, pw = _sr_weights(rng)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_sr._sr_conv_stack_impl(
+            jnp.asarray(x), *(jnp.asarray(a) for a in jw)))
+    got = sr_mod.sr_conv_stack(_t(x), *pw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    # two 27-term fp32 sums of O(1) values
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert sr_mod.launches.value == 0  # CPU tensors never launch
+
+
+def test_sr_backward_matches_jax_vjp(monkeypatch):
+    """`_SRConvStackFn` (the CUDA route) with its kernel forward swapped
+    for the plain version: gradients equal jax.vjp of the JAX custom VJP
+    (Pallas forward in interpret mode, XLA-recompute backward)."""
+    monkeypatch.setattr(sr_mod, "_sr_cuda", sr_mod._sr_reference)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(1, 3, 16, 20)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    jw, pw = _sr_weights(rng)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_sr.sr_conv_stack, jnp.asarray(x),
+                         *(jnp.asarray(a) for a in jw))
+        want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    want[1] = want[1].transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    want[3] = want[3].transpose(3, 2, 0, 1)
+    ins = [_t(x).requires_grad_()] + [t.clone().requires_grad_() for t in pw]
+    out = sr_mod._SRConvStackFn.apply(*ins)
+    assert out.grad_fn is not None
+    out.backward(_t(g))
+    for name, t, e in zip(("dx", "dw1", "db1", "dw2", "db2"), ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), e, rtol=1e-4,
+                                   atol=1e-5 * np.abs(e).max(), err_msg=name)
+
+
+def test_sr_kernel_validation():
+    z = torch.zeros(3, 3, 3, 3)
+    b = torch.zeros(3)
+    with pytest.raises(ValueError, match=r"\(N, 3, H, W\)"):
+        sr_mod._check(torch.zeros(1, 4, 8, 8), z, b, z, b)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        sr_mod._check(torch.zeros(1, 3, 8, 8).half(), z, b, z, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr_mod._check(torch.zeros(1, 8, 8, 3).permute(0, 3, 1, 2), z, b, z, b)
+    with pytest.raises(ValueError, match="OIHW"):
+        sr_mod._check(torch.zeros(1, 3, 8, 8), torch.zeros(3, 3, 3, 2), b,
+                      z, b)
+
+
+# -- AdamW -----------------------------------------------------------------
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 0.05])
+def test_adamw_leaf_update_matches_pallas_kernel(clip, wd):
+    """The per-leaf plain update against `_leaf_update_pallas` in
+    interpret mode, on a ragged leaf (not a multiple of 128), with the
+    clip scalars active or not and weight decay on or off."""
+    rng = np.random.default_rng(11)
+    shape = (171, 133)
+    g = rng.normal(size=shape).astype(np.float32)
+    m = (rng.normal(size=shape) * 0.1).astype(np.float32)
+    v = (np.abs(rng.normal(size=shape)) * 0.01).astype(np.float32)
+    p = rng.normal(size=shape).astype(np.float32)
+    b1, b2, eps = 0.9, 0.95, 1e-8
+    scal = np.array([1e-3, 1 - b1 ** 3, 1 - b2 ** 3, 2.7 if clip else 1.0,
+                     1.0], np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = _leaf_update_pallas(*(jnp.asarray(a) for a in (g, m, v, p)),
+                                   jnp.asarray(scal), b1, b2, eps, wd)
+    got = adamw_mod._leaf_update_plain(
+        _t(g), _t(m), _t(v), _t(p), *(_t(s) for s in scal), b1, b2, eps, wd)
+    for name, a, e in zip(("p", "m", "v"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-6,
+                                   atol=1e-7, err_msg=name)
+
+
 # -- build and launch bookkeeping ------------------------------------------
 
 def test_launch_counter_counts_every_add_across_threads():
@@ -332,7 +429,13 @@ def test_build_reports_launch_errors_and_a_missing_nvcc():
     # the library's name changes with the sources and flags
     assert len(_build._digest()) == 16
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "attention.cu"]
+        "adamw.cu", "attention.cu", "sr_head.cu"]
+    # every C entry point of the sources has its ctypes signature
+    import re
+    entries = {m for src in _build.CSRC.glob("*.cu")
+               for m in re.findall(r'extern "C" int (\w+)\(',
+                                   src.read_text())}
+    assert entries == set(_build.SIGNATURES)
     lib_exists = any(_build.BUILD_DIR.glob(
         f"libecamp_kernels_{_build._digest()}.so"))
     if (shutil.which("nvcc") is None
@@ -340,3 +443,40 @@ def test_build_reports_launch_errors_and_a_missing_nvcc():
             and not lib_exists):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build()
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """build() runs one `nvcc -c` per source, all started before any is
+    waited on, then one link, and keeps every command's output in the log;
+    a stand-in nvcc records its calls here, where there is no CUDA
+    toolkit."""
+    import stat
+
+    from ecamp_tpu_torch.kernels import _build
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$@\" >> {calls}\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then touch \"$2\"; fi; shift\n"
+        "done\n"
+        "echo 'ptxas info    : Used 32 registers'\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.build()
+    assert lib.exists() and lib.name.startswith("libecamp_kernels_")
+    lines = calls.read_text().splitlines()
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert len(lines) == len(sources) + 1
+    assert sorted(line.split()[-1].rsplit("/", 1)[-1]
+                  for line in lines[:-1]) == sources
+    assert all(" -c " in line for line in lines[:-1])
+    assert "-shared" in lines[-1] and " -c " not in lines[-1]
+    log = lib.with_suffix(".log").read_text()
+    assert log.count("Used 32 registers") == len(sources) + 1
+    assert not list((tmp_path / "build").glob("*.o"))  # objects removed
+    assert _build.build() == lib  # built once
+    assert len(calls.read_text().splitlines()) == len(sources) + 1

@@ -12,7 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ecamp_tpu_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import fused_adamw as adamw_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import layer_norm as ln_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import sr_head as sr_mod  # noqa: E402
 
 FP32_TOL = 1e-5
 BF16_TOL = 1.6e-2  # about one bf16 ulp of the output, atol and rtol
@@ -114,7 +116,8 @@ def test_kernel_outputs_carry_grad_fn_and_right_gradients(cuda, dtype):
     ln0, fa0 = ln_mod.launches.value, fa_mod.launches.value
     y, o, got = grads(ln_mod.fused_layer_norm, fa_mod.flash_attention)
     torch.cuda.synchronize()
-    assert ln_mod.launches.value == ln0 + 1 and fa_mod.launches.value == fa0 + 1
+    assert ln_mod.launches.value == ln0 + 1
+    assert fa_mod.launches.value == fa0 + 1
     assert y.grad_fn is not None and o.grad_fn is not None
     _, _, want = grads(ln_mod._ln_reference, fa_mod._attention_reference)
     for name, a, e in zip(("dx", "dw", "db", "dq", "dk", "dv", "dbias"),
@@ -127,6 +130,147 @@ def test_kernel_outputs_carry_grad_fn_and_right_gradients(cuda, dtype):
         tol = 1e-5 if dtype == torch.float32 else BF16_TOL
         torch.testing.assert_close(a.float(), e.float(), rtol=tol,
                                    atol=tol * scale, msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 3, 448, 448), (1, 3, 37, 70),
+                                   (3, 3, 16, 64)])
+def test_sr_kernel_on_card(cuda, dtype, shape):
+    """The SR kernel against the plain direct convs (TF32 off), forward
+    and, through `_SRConvStackFn`, backward."""
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    w1, w2 = (0.2 * torch.randn(3, 3, 3, 3, device=cuda, generator=g)
+              for _ in range(2))
+    b1, b2 = (0.1 * torch.randn(3, device=cuda, generator=g)
+              for _ in range(2))
+    before = sr_mod.launches.value
+    got = sr_mod.sr_conv_stack(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert sr_mod.launches.value == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        _close(got, sr_mod._sr_reference(x, w1, b1, w2, b2), dtype)
+    else:  # the kernel keeps conv1's output in fp32; the plain convs round
+        _close(got, sr_mod._sr_reference(x.float(), w1, b1, w2, b2).to(
+            dtype), dtype)
+    ins = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    out = sr_mod.sr_conv_stack(*ins)
+    assert out.grad_fn is not None
+    gout = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    out.backward(gout)
+    ref = [t.detach().clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    sr_mod._sr_reference(*ref).backward(gout)
+    for a, r in zip(ins, ref):
+        # the backward is the plain recompute; a weight gradient sums
+        # N*H*W products and cuDNN picks its summation order per call, so
+        # the two agree to fp32 rounding relative to the gradient's scale
+        scale = float(r.grad.abs().max())
+        torch.testing.assert_close(a.grad, r.grad, rtol=1e-4,
+                                   atol=1e-5 * scale)
+
+
+def test_adamw_kernel_on_card(cuda):
+    """One launch updates leaves of every kind (ragged, aligned, one whose
+    addresses are not 16-byte aligned) as the per-leaf formula does, with
+    the clip active, in place."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    shapes = [(768, 3072), (30000, 768 // 16), (3,), (1, 1, 768), (7, 13)]
+
+    def tensors(scale=1.0, positive=False):
+        out = [scale * torch.randn(s, device=cuda, generator=g)
+               for s in shapes]
+        # a leaf at an odd offset inside a larger buffer: not 16-byte aligned
+        base = scale * torch.randn(1001, device=cuda, generator=g)
+        out.append(base[1:])
+        return [t.abs() if positive else t for t in out]
+
+    ps, gs = tensors(), tensors()
+    ms, vs = tensors(0.1), tensors(0.01, positive=True)
+    params = {str(i): p for i, p in enumerate(ps)}
+    grads = {str(i): t for i, t in enumerate(gs)}
+    tx = adamw_mod.FusedAdamW(lambda c: 1e-3 * (1 + c.float()), 0.9, 0.95,
+                              1e-8, 0.05,
+                              mask_fn=lambda p: {k: v.ndim > 1
+                                                 for k, v in p.items()},
+                              grad_clip=1.0)
+    count = torch.full((), 2, dtype=torch.int32, device=cuda)
+
+    def state(m, v):
+        return adamw_mod.AdamWState(
+            count=count, mu={k: t.clone() for k, t in zip(params, m)},
+            nu={k: t.clone() for k, t in zip(params, v)})
+
+    k_params = {k: p.clone() for k, p in params.items()}
+    k_params["5"] = ps[5]._base.clone()[1:]  # keep the odd offset
+    k_state = state(ms, vs)
+    ptr = k_params["0"].data_ptr()
+    before = adamw_mod.launches.value
+    new = tx.apply(k_params, grads, k_state)
+    torch.cuda.synchronize()
+    assert adamw_mod.launches.value == before + 1
+    assert int(new.count) == 3 and k_params["0"].data_ptr() == ptr
+    tx.plain = True
+    p_params = {k: p.clone() for k, p in params.items()}
+    p_state = state(ms, vs)
+    tx.apply(p_params, grads, p_state)
+    for k in params:
+        # the kernel rounds every op as the per-leaf formula does
+        torch.testing.assert_close(k_params[k], p_params[k], rtol=1e-6,
+                                   atol=1e-7)
+        torch.testing.assert_close(k_state.mu[k], p_state.mu[k], rtol=1e-6,
+                                   atol=1e-7)
+        torch.testing.assert_close(k_state.nu[k], p_state.nu[k], rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_pretrain_step_on_card_matches_plain(cuda):
+    """A tiny PretrainTask step launches every kernel the step has and
+    matches the same step through the plain versions."""
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    cfg = c.PretrainConfig(
+        vit=c.ViTConfig(img_size=64, patch_size=16, embed_dim=128, depth=2,
+                        num_heads=2),
+        decoder=c.MAEDecoderConfig(embed_dim=64, depth=1, num_heads=2),
+        bert=c.BertConfig(vocab_size=300, hidden_size=256,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=32),
+        optimizer=c.OptimizerConfig(schedule="constant", lr=1e-3),
+        data=c.DataConfig(img_size=128), max_caption_length=32, sr_window=2)
+    task = PretrainTask(cfg, device=cuda)
+    init = {k: v.clone() for k, v in task.model.state_dict().items()}
+    batch = task.fake_batch(4)
+    batch["image"] = torch.randn(4, 128, 128, 3, device=cuda)
+    batch["ids"] = torch.randint(0, 300, (4, 32), device=cuda)
+    batch["labels"] = batch["ids"]
+    batch["attention_mask"][:, 20:] = 0
+    noise = torch.rand(4, 16, device=cuda)
+    losses = {}
+    counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
+                adamw_mod.launches)
+    for plain in (False, True):
+        task.model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        for ctr in counters:
+            ctr.reset()
+        state, m = task.train_step(state, batch, noise=noise,
+                                   deterministic=True)
+        torch.cuda.synchronize()
+        n = [ctr.value for ctr in counters]
+        # LayerNorm: encoder 2*2 + 1, decoder 2 + 1, BERT embeddings 1 +
+        # fusion 3 + layers 2*2 + MLM head 1; attention: encoder 2,
+        # decoder 1, fusion self + cross 2, layers 2
+        assert n == ([0, 0, 0, 0] if plain else [5 + 3 + 9, 2 + 1 + 2 + 2,
+                                                 1, 1])
+        losses[plain] = {k: float(v) for k, v in m.items()}
+    for k in ("mim_loss", "res_loss", "mlm_loss"):
+        assert abs(losses[False][k] - losses[True][k]) <= 2e-2 * abs(
+            losses[True][k]), k
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -226,5 +226,10 @@ def test_dropout_is_inference_identity():
     x = torch.randn(3, 4)
     d = Dropout(0.1)
     assert d.eval()(x) is x
-    with pytest.raises(NotImplementedError):
+    # training mode draws only from an explicit generator
+    with pytest.raises(RuntimeError, match="generator"):
         d.train()(x)
+    d.generator = torch.Generator().manual_seed(0)
+    y = d(x)
+    kept = y != 0
+    torch.testing.assert_close(y[kept], x[kept] * (65536 / (65536 - 6554)))
