@@ -28,9 +28,18 @@
    norm within 5%), and the AdamW kernel against the per-leaf formula on
    the whole 182.6M-element parameter set; (c) the loss falls over 5
    steps; (d) exact launch counts per step; (e) step time, images/s and
-   peak device memory.
-5. Per-bucket p50 latency, a JSON line of kernels and, last, the device
-   line.
+   peak device memory; (f) the same with `fused_mlm_ce`: its first step
+   against the materialised plain step of (b), the loss falling over 5
+   steps, one fused-CE forward, dx and dW launch a step beside the others,
+   step time and peak memory beside (e)'s.
+5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
+   against their plain versions at the step's shape (B * 256, 768, 30000)
+   in bf16 and at a ragged fp32 shape.
+6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
+   --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
+   a temporary directory, 2 epochs and a resume for a third.
+7. Per-bucket p50 latency, JSON lines of the results and of the kernels
+   and, last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
 at once; it never runs on the CPU.
@@ -41,6 +50,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -60,6 +70,9 @@ PRE_STEPS = 5        # steps of (c); all but the first are timed
 LOSS_TOL = 2e-2      # kernel vs plain step, relative
 GNORM_TOL = 5e-2
 LN_V = 10.308952660644293  # ln 30000
+CLI_IMAGES = 64      # the CLI's corpus: 2 steps an epoch at PRE_B
+CLI_IMG = 512
+CLI_TIMEOUT = 400    # seconds for one CLI run
 
 
 class CheckFailed(RuntimeError):
@@ -301,13 +314,80 @@ def train_kernel_phase(card: str):
     return main
 
 
+def fused_ce_phase(card: str):
+    """The fused vocab-projection + CE kernels against their plain versions
+    on the same inputs: at the pretraining step's shape (PRE_B * 256 rows,
+    768, 30000) in bf16, checked against the plain math in fp32 on the same
+    bf16 inputs (loss within 1e-3 relative, dx / dW / db at atol = rtol =
+    1.6e-2 of their scale), and at a ragged fp32 shape (1e-5). Times the
+    forward (against the materialised `_fused_reference`), forward +
+    backward through the Function, and the two backward kernels alone."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    main = {}
+    print(f"fused vocab projection + weighted CE on {card}")
+    for (n, d, v), dtype, loss_tol in (((PRE_B * 256, 768, 30000),
+                                        torch.bfloat16, 1e-3),
+                                       ((1000, 96, 3001), torch.float32,
+                                        FP32_TOL)):
+        x = (torch.randn(n, d, device=dev, generator=gen)).to(dtype)
+        w = (0.05 * torch.randn(v, d, device=dev, generator=gen)).to(dtype)
+        b = 0.1 * torch.randn(v, device=dev, generator=gen)
+        labels = torch.randint(0, v, (n,), device=dev, generator=gen)
+        weights = 2 * torch.rand(n, device=dev, generator=gen)
+        gout = torch.full((), 1.0 / n, device=dev)  # the caller's mean
+        shape = f"({n}, {d}, {v}) {dtype}"
+
+        def fwd():
+            return mlm.fused_mlm_loss_sum(x, w, b, labels, weights)
+
+        def ref():
+            return mlm._fused_reference(x, w, b, labels, weights)
+
+        got, want = float(fwd()), float(ref())
+        rel = abs(got - want) / abs(want)
+        check(rel <= loss_tol, f"fused CE fwd {shape}: {got:.7g} vs "
+              f"{want:.7g} (rel {rel:.3e})")
+        ms, plain_ms = median_ms(fwd, 10, 3), median_ms(ref, 10, 3)
+        print(f"  {'fused CE fwd ' + shape:58s} rel err {rel:.3e}  kernel "
+              f"{ms:8.4f} ms  plain {plain_ms:8.4f} ms")
+        fwd_times = (abs(got - want), ms, plain_ms)
+
+        compare(f"fused CE fwd+bwd {shape}",
+                _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
+                    *a, labels, weights), (x, w, b), (True,) * 3, gout),
+                _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
+                    *a, labels, weights, plain=True), (x, w, b), (True,) * 3,
+                    gout), dtype, reps=5, per_pair=2)
+        lse, _ = mlm._forward_plain(x, w, b, labels)
+        wg = gout * weights
+        bwd_times = compare(
+            f"fused CE bwd (dx, dW, db) {shape}",
+            lambda: mlm._backward_cuda(x, w, b, labels, lse, wg),
+            lambda: mlm._fused_backward_plain(x, w, b, labels, lse, wg),
+            dtype, reps=5, per_pair=2)
+        if dtype == torch.bfloat16:
+            main["fused_ce_fwd"], main["fused_ce_bwd"] = fwd_times, bwd_times
+        del x, w, lse
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return main
+
+
 def pretrain_phase(card: str):
+    import dataclasses
+
     import numpy as np
     import torch
 
     from ecamp_tpu_torch.core.config import OptimizerConfig, PretrainConfig
     from ecamp_tpu_torch.kernels import flash_attention as fa
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
     from ecamp_tpu_torch.kernels import layer_norm as ln
     from ecamp_tpu_torch.kernels import sr_head as sr
     from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
@@ -333,7 +413,8 @@ def pretrain_phase(card: str):
     batch = synthetic_batch(cfg, PRE_B, gen)
     noise = torch.rand(PRE_B, c.num_patches, device=task.device,
                        generator=gen)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
+    # the initial weights wait on the host, out of the steps' peak memory
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     torch.cuda.synchronize()
     print(f"pretrain slice on {card}: ECAMP ViT-B/16 {cfg.data.img_size} -> "
           f"{c.img_size}, decoder {dc.embed_dim}/{dc.depth}/{dc.num_heads}, "
@@ -402,7 +483,8 @@ def pretrain_phase(card: str):
     adamw_times = (err, ms, plain_ms)
     del pk, sk, pp, sp, grads, opt, state
 
-    _, loss_p, gnorm_p, n_p = first_step(True)
+    pstate, loss_p, gnorm_p, n_p = first_step(True)
+    del pstate  # its moments would count in the steps' peak memory
     print(f"  (b) plain step:  {json.dumps(loss_p)} grad norm {gnorm_p:.6g} "
           f"launches {n_p}")
     check(all(v == 0 for v in n_p.values()), f"plain step launched {n_p}")
@@ -413,45 +495,94 @@ def pretrain_phase(card: str):
     check(abs(gnorm_k - gnorm_p) <= GNORM_TOL * gnorm_p,
           f"(b) grad norm {gnorm_k:.6g} vs plain {gnorm_p:.6g}")
 
-    # (c), (d), (e): PRE_STEPS training steps through the kernels
-    model.load_state_dict(init)
-    task.set_plain(False)
-    state = task.init_state()
-    del init
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for ctr in counters.values():
-        ctr.reset()
-    losses, times = [], []
-    for _ in range(PRE_STEPS):
-        t = time.perf_counter()
-        state, m = task.train_step(state, batch, noise=noise)
+    def steps(task, counters):
+        """PRE_STEPS steps (dropout on) from `init`, counters set to 0 just
+        before and read just after; returns (losses, step ms, launches,
+        peak device memory)."""
+        task.model.load_state_dict(init)
+        task.set_plain(False)
+        state = task.init_state()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        losses.append(float(m["loss"]))
-    launches = {k: ctr.value for k, ctr in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  (c) loss over {PRE_STEPS} steps (dropout on): "
-          f"{[round(x, 5) for x in losses]}")
-    check(all(np.isfinite(losses)), "(c) non-finite loss")
-    check(losses[-1] < losses[0], f"(c) loss did not fall: {losses}")
-    want = {k: v * PRE_STEPS for k, v in per_step.items()}
-    print(f"  (d) launches in {PRE_STEPS} steps {launches} (per step "
-          f"{per_step})")
-    check(launches == want, f"(d) launches {launches} != {want}")
-    step_ms = float(np.median(times[1:]))
-    result = {"step_ms_median": step_ms, "step_ms": times,
-              "images_per_s": PRE_B / step_ms * 1e3,
-              "max_memory_allocated_bytes": peak, "batch": PRE_B,
-              "loss_first_step": loss_k, "loss_plain_step": loss_p,
-              "grad_norm": gnorm_k, "grad_norm_plain": gnorm_p,
-              "losses": losses, "card": card}
-    print(f"  (e) step {step_ms:.3f} ms median of steps 2-{PRE_STEPS} "
-          f"(host clock, synchronised), {result['images_per_s']:.2f} "
-          f"images/s, peak device memory {peak / 2 ** 30:.3f} GiB on {card}")
-    del state, task, model
+        torch.cuda.reset_peak_memory_stats()
+        print(f"  allocated before the steps: "
+              f"{torch.cuda.memory_allocated()} bytes")
+        for ctr in counters.values():
+            ctr.reset()
+        losses, times = [], []
+        for _ in range(PRE_STEPS):
+            t = time.perf_counter()
+            state, m = task.train_step(state, batch, noise=noise)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = {k: ctr.value for k, ctr in counters.items()}
+        return losses, times, launches, torch.cuda.max_memory_allocated()
+
+    def report(tag, per_step, losses, times, launches, peak):
+        print(f"  ({tag}) loss over {PRE_STEPS} steps (dropout on): "
+              f"{[round(x, 5) for x in losses]}")
+        check(all(np.isfinite(losses)), f"({tag}) non-finite loss")
+        check(losses[-1] < losses[0], f"({tag}) loss did not fall: {losses}")
+        want = {k: v * PRE_STEPS for k, v in per_step.items()}
+        print(f"  ({tag}) launches in {PRE_STEPS} steps {launches} (per step "
+              f"{per_step})")
+        check(launches == want, f"({tag}) launches {launches} != {want}")
+        step_ms = float(np.median(times[1:]))
+        print(f"  ({tag}) step {step_ms:.3f} ms median of steps "
+              f"2-{PRE_STEPS} (host clock, synchronised), "
+              f"{PRE_B / step_ms * 1e3:.2f} images/s, peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB on {card}")
+        return {"step_ms_median": step_ms, "step_ms": times,
+                "images_per_s": PRE_B / step_ms * 1e3,
+                "max_memory_allocated_bytes": peak, "losses": losses}
+
+    # (c), (d), (e): PRE_STEPS training steps through the kernels
+    losses, times, launches, peak = steps(task, counters)
+    result = {"batch": PRE_B, "loss_first_step": loss_k,
+              "loss_plain_step": loss_p, "grad_norm": gnorm_k,
+              "grad_norm_plain": gnorm_p, "card": card,
+              **report("c-e", per_step, losses, times, launches, peak)}
+    del task, model
     torch.cuda.empty_cache()
-    return launches, adamw_times, result
+
+    # (f): the fused-CE configuration from the same weights, batch and
+    # noise: its first step against the materialised plain step of (b),
+    # then PRE_STEPS steps
+    fcounters = dict(counters, fused_ce_fwd=mlm.launches_fwd,
+                     fused_ce_dx=mlm.launches_dx, fused_ce_dw=mlm.launches_dw)
+    fper_step = dict(per_step, fused_ce_fwd=1, fused_ce_dx=1, fused_ce_dw=1)
+    ftask = PretrainTask(dataclasses.replace(cfg, fused_mlm_ce=True),
+                         device="cuda")
+    ftask.model.load_state_dict(init)
+    fstate = ftask.init_state()
+    for ctr in fcounters.values():
+        ctr.reset()
+    fstate, m = ftask.train_step(fstate, batch, noise=noise,
+                                 deterministic=True)
+    gnorm_f = float(adamw.global_norm([p.grad for p in
+                                       fstate.params.values()]))
+    n_f = {k: ctr.value for k, ctr in fcounters.items()}
+    loss_f = {k: float(v) for k, v in m.items()}
+    del fstate, m
+    print(f"  (f) fused-CE kernel step: {json.dumps(loss_f)} grad norm "
+          f"{gnorm_f:.6g} launches {n_f}")
+    check(n_f == fper_step, f"(f) launches {n_f} != {fper_step}")
+    for k in ("mim_loss", "res_loss", "mlm_loss"):
+        rel = abs(loss_f[k] - loss_p[k]) / abs(loss_p[k])
+        check(rel <= LOSS_TOL, f"(f) {k}: fused {loss_f[k]:.6g} vs "
+              f"materialised plain {loss_p[k]:.6g} (rel {rel:.3e})")
+    check(abs(gnorm_f - gnorm_p) <= GNORM_TOL * gnorm_p,
+          f"(f) grad norm {gnorm_f:.6g} vs plain {gnorm_p:.6g}")
+    flosses, ftimes, flaunches, fpeak = steps(ftask, fcounters)
+    result["fused_ce"] = {"loss_first_step": loss_f, "grad_norm": gnorm_f,
+                          **report("f", fper_step, flosses, ftimes, flaunches,
+                                   fpeak)}
+    print(f"  (f) against (e): step {result['fused_ce']['step_ms_median']:.3f}"
+          f" vs {result['step_ms_median']:.3f} ms, peak device memory "
+          f"{fpeak} vs {peak} bytes ({(fpeak - peak) / 2 ** 30:+.3f} GiB)")
+    del ftask, init
+    torch.cuda.empty_cache()
+    return launches, flaunches, adamw_times, result
 
 
 def _png_b64(rng, h, w) -> str:
@@ -583,6 +714,89 @@ def slice_phase(card: str):
     return {"layer_norm": n_ln, "attention": n_attn}, worst, p50
 
 
+def cli_phase(card: str, per_step):
+    """The pretraining entry point at full width: a seeded MIMIC-style
+    corpus (CLI_IMAGES gray PNGs at CLI_IMG px, reports of words of the
+    repository's 30000-word vocabulary) in a temporary directory, then
+    `python -m ecamp_tpu_torch.cli.pretrain --fused_mlm_ce` for 2 epochs
+    at B = PRE_B and a resume from its checkpoint-1.pth for a third. Each
+    epoch's log line must be finite and count `per_step` launches of every
+    kernel a step; the resume must restore the epoch and the AdamW moments
+    and step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core.config import PretrainConfig
+    from ecamp_tpu_torch.data.synthetic import write_mimic_corpus
+
+    cfg = PretrainConfig()  # the CLI's model
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ecamp_cli_")
+    try:
+        t0 = time.perf_counter()
+        data = write_mimic_corpus(
+            os.path.join(work, "mimic"),
+            os.path.join(repo, "ecamp_tpu", "assets", "mimic_wordpiece.json"),
+            CLI_IMAGES, CLI_IMG, cfg.vit.grid_size - cfg.sr_window, seed=SEED)
+        out = os.path.join(work, "out")
+        print(f"CLI on {card}: {CLI_IMAGES} images at {CLI_IMG} px written "
+              f"in {time.perf_counter() - t0:.1f} s")
+        base = [sys.executable, "-m", "ecamp_tpu_torch.cli.pretrain",
+                "--data_path", data, "--fused_mlm_ce", "--batch_size",
+                str(PRE_B), "--output_dir", out, "--seed", str(SEED),
+                "--print_freq", "1"]
+
+        def run(extra):
+            t = time.perf_counter()
+            r = subprocess.run(base + extra, cwd=repo, capture_output=True,
+                               text=True, timeout=CLI_TIMEOUT)
+            check(r.returncode == 0, f"CLI {extra} exited {r.returncode}:\n"
+                  f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            with open(os.path.join(out, "log.txt")) as f:
+                recs = [json.loads(line) for line in f]
+            print(f"  {' '.join(extra)}: {time.perf_counter() - t:.1f} s")
+            return r.stdout, recs
+
+        steps = CLI_IMAGES // PRE_B
+        want = {k: v * steps for k, v in per_step.items()}
+        _, recs = run(["--epochs", "2"])
+        printed, recs = run(["--epochs", "3", "--resume",
+                             os.path.join(out, "checkpoint-1.pth")])
+        check([r["epoch"] for r in recs] == [0, 1, 2],
+              f"epochs logged {[r['epoch'] for r in recs]}")
+        for r in recs:
+            print(f"  epoch {r['epoch']}: loss {r['loss']:.5f} (mim "
+                  f"{r['mim_loss']:.5f} res {r['res_loss']:.5f} mlm "
+                  f"{r['mlm_loss']:.5f}) lr {r['lr']:.3e}, max_mem_mb "
+                  f"{r['max_mem_mb']:.1f}, launches {r['kernel_launches']}")
+            check(all(np.isfinite(r[k]) for k in ("loss", "mim_loss",
+                                                  "res_loss", "mlm_loss")),
+                  f"epoch {r['epoch']}: non-finite loss")
+            check(r["max_mem_mb"] > 0, "no device memory reported")
+            check(r["kernel_launches"] == want,
+                  f"epoch {r['epoch']}: launches {r['kernel_launches']} != "
+                  f"{want}")
+        n_params = len(torch.load(os.path.join(out, "checkpoint-1.pth"),
+                                  weights_only=True)["optimizer"]["state"])
+        restored = (f"restored AdamW moments for {n_params} params (torch "
+                    f"step {2 * steps})")
+        check(restored in printed and "resuming at epoch 2" in printed,
+              f"resume did not report '{restored}' and epoch 2")
+        last = torch.load(os.path.join(out, "checkpoint-2.pth"),
+                          weights_only=True)
+        after = {int(st["step"]) for st in last["optimizer"]["state"].values()}
+        check(last["epoch"] == 2 and after == {3 * steps},
+              f"checkpoint-2: epoch {last['epoch']}, steps {after}")
+        print(f"  resume: {restored}, epoch 2 trained, checkpoint-2.pth at "
+              f"AdamW step {3 * steps}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -593,6 +807,7 @@ def main() -> int:
     from ecamp_tpu_torch.kernels import _build
     from ecamp_tpu_torch.kernels import flash_attention as fa
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
     from ecamp_tpu_torch.kernels import layer_norm as ln
     from ecamp_tpu_torch.kernels import sr_head as sr
 
@@ -613,9 +828,16 @@ def main() -> int:
 
     kernel_phase(card)
     main_times = train_kernel_phase(card)
+    main_times.update(fused_ce_phase(card))
     serve_launches, prob_err, p50 = slice_phase(card)
-    launches, main_times["adamw"], pretrain = pretrain_phase(card)
+    launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
+    cli = cli_phase(card, {k: v // PRE_STEPS for k, v in flaunches.items()})
 
+    # launches: the materialised step's (d) for the first four kernels, the
+    # fused-CE step's (f) for the fused CE (dx + dW for its backward)
+    launches["fused_ce_fwd"] = flaunches["fused_ce_fwd"]
+    launches["fused_ce_bwd"] = (flaunches["fused_ce_dx"]
+                                + flaunches["fused_ce_dw"])
     kernels = []
     for name, mod, route, replaces in (
             ("layer_norm", ln, "triton",
@@ -624,7 +846,11 @@ def main() -> int:
              "ecamp_tpu/kernels/flash_attention.py:106"),
             ("sr_conv_stack", sr, "cuda", "ecamp_tpu/kernels/sr_head.py:79"),
             ("adamw", adamw, "cuda",
-             "ecamp_tpu/kernels/fused_adamw.py:100")):
+             "ecamp_tpu/kernels/fused_adamw.py:100"),
+            ("fused_ce_fwd", mlm, "cuda",
+             "ecamp_tpu/kernels/fused_mlm_loss.py:85"),
+            ("fused_ce_bwd", mlm, "cuda",
+             "ecamp_tpu/kernels/fused_mlm_loss.py:194")):
         err, ms, plain_ms = main_times[name]
         entry = {"name": name, "route": route, "source": mod.SOURCE,
                  "replaces": replaces, "launches": launches[name],
@@ -635,6 +861,7 @@ def main() -> int:
     print(json.dumps({"serve_p50_ms": {str(b): v for b, v in p50.items()},
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
+    print(json.dumps({"cli_epochs": cli}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

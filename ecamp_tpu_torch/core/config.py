@@ -127,7 +127,8 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class PretrainConfig:
-    """`ecamp_tpu.core.config.PretrainConfig` without `mesh`."""
+    """`ecamp_tpu.core.config.PretrainConfig` without `mesh`, with
+    `fused_mlm_ce` in place of the JAX package's environment switch."""
 
     vit: ViTConfig = field(default_factory=vit_base)
     decoder: MAEDecoderConfig = field(default_factory=MAEDecoderConfig)
@@ -147,3 +148,6 @@ class PretrainConfig:
     resume: str = ""
     ckpt_every_mid: int = 10
     ckpt_every_late: int = 5
+    # the MLM loss through the fused vocab-projection + CE kernels, the
+    # logits never stored (the JAX package's opt-in ECAMP_FUSED_CE=1)
+    fused_mlm_ce: bool = False

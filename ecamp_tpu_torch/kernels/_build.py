@@ -41,6 +41,9 @@ SIGNATURES = {
     "ecamp_sr_conv_stack_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ecamp_adamw_multi": [_P, _P, _P, _P, _P, _I, _P, _LL, _F, _F, _F, _F,
                           _F, _P],
+    "ecamp_fused_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "ecamp_fused_ce_bwd_dx": [_P] * 7 + [_I] * 4 + [_P],
+    "ecamp_fused_ce_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -201,7 +201,10 @@ class BertEmbeddings(nn.Module):
 class MLMHead(nn.Module):
     """HF BertOnlyMLMHead: transform (dense + GELU + LayerNorm, eps 1e-12),
     then the vocab projection `predictions.decoder` as a plain matmul of
-    the true vocab width (no lane padding)."""
+    the true vocab width (no lane padding). With `return_features`, the
+    projection is left to the caller's fused CE: it returns the transform's
+    output (compute dtype), the decoder weight (V, D) cast to the compute
+    dtype and the decoder bias in fp32, which the kernel adds in fp32."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -213,15 +216,21 @@ class MLMHead(nn.Module):
             h, cfg.layer_norm_eps, dtype)
         self.predictions.decoder = Dense(h, cfg.vocab_size, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, return_features: bool = False):
         t = self.predictions.transform
-        return self.predictions.decoder(t.LayerNorm(F.gelu(t.dense(x))))
+        feats = t.LayerNorm(F.gelu(t.dense(x)))
+        decoder = self.predictions.decoder
+        if return_features:
+            return feats, decoder.weight.to(decoder.dtype), decoder.bias
+        return decoder(feats)
 
 
 class MultimodalBert(nn.Module):
     """Embeddings -> fusion -> encoder -> MLM logits
     (MultimodalBertMaskedLM, bert_modeling.py:160-227); the weighted CE is
-    `ops.losses.weighted_mlm_loss`."""
+    `ops.losses.weighted_mlm_loss`. With `return_mlm_features`, the MLM
+    head's (features, decoder weight, decoder bias) for the fused CE
+    instead of the logits."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -238,7 +247,8 @@ class MultimodalBert(nn.Module):
 
     def forward(self, latent, gap_token, input_ids,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None):
+                token_type_ids: Optional[torch.Tensor] = None,
+                return_mlm_features: bool = False):
         bias = None
         if attention_mask is not None:
             bias = extend_attention_mask(attention_mask)
@@ -246,4 +256,4 @@ class MultimodalBert(nn.Module):
         h = self.bert.context_fusion_layer(h, latent, gap_token, bias)
         for layer in self.bert.encoder.layer:
             h = layer(h, bias)
-        return self.cls(h)
+        return self.cls(h, return_features=return_mlm_features)

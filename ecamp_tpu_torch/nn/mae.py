@@ -8,7 +8,9 @@ Pre-training/module/model_ecamp.py:49-333).
     unshuffled; pixel head (:240-264)
   * SR head: bilinear x2 + two 3x3 convs + residual (:28-46)
   * losses: MIM + SR-window MSE (:276-300, quirks kept) and the
-    entity-weighted MLM through the fusion BERT (:267-273)
+    entity-weighted MLM through the fusion BERT (:267-273), from
+    materialised logits or, with `fused_mlm_ce`, through the fused
+    vocab-projection + CE kernels (the JAX package's `ECAMP_FUSED_CE=1`)
 
 The 448 -> 224 bicubic resize runs on the device at the head of the
 forward, as in the reference (:318). The state dict has the names of the
@@ -34,6 +36,7 @@ import torch
 from torch import nn
 
 from ..core.config import BertConfig, MAEDecoderConfig, ViTConfig
+from ..kernels.fused_mlm_loss import fused_mlm_loss_sum
 from ..kernels.sr_head import _sr_reference, sr_conv_stack
 from ..ops.image_ops import resize_bicubic, resize_bilinear
 from ..ops.losses import masked_pixel_losses, weighted_mlm_loss
@@ -84,7 +87,8 @@ class ECAMP(nn.Module):
     def __init__(self, vit: ViTConfig, decoder: MAEDecoderConfig,
                  bert: BertConfig, sr_window: int = 12, sr_scale: int = 2,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_mlm_ce: bool = False):
         super().__init__()
         if vit.remat or decoder.remat:
             raise NotImplementedError("remat: activation checkpointing is "
@@ -92,6 +96,8 @@ class ECAMP(nn.Module):
         c, dc = vit, decoder
         self.vit = vit
         self.sr_window, self.sr_scale, self.dtype = sr_window, sr_scale, dtype
+        self.fused_mlm_ce = fused_mlm_ce
+        self.plain = False  # see set_plain; routes the fused CE
         self.patch_embed = PatchEmbed(c.patch_size, c.in_chans, c.embed_dim,
                                       dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, c.embed_dim))
@@ -139,8 +145,9 @@ class ECAMP(nn.Module):
         Masking noise (N, grid**2) uniform is `noise`, or drawn from
         `generator`. Returns mim_loss, res_loss (if mask_ratio > 0),
         mlm_logits and mlm_loss (if labels and weights are given); with
-        features_only, gap_feature and patch_latent instead of the BERT
-        outputs."""
+        `fused_mlm_ce` and a loss to compute, mlm_loss through the fused
+        vocab-projection + CE and no mlm_logits; with features_only,
+        gap_feature and patch_latent instead of the BERT outputs."""
         c = self.vit
         big = batch["image"].to(self.dtype)
         if big.shape[1] == c.img_size and big.shape[2] == c.img_size:
@@ -170,14 +177,25 @@ class ECAMP(nn.Module):
             outputs["gap_feature"] = gap_token[:, 0]
             outputs["patch_latent"] = patch_latent
             return outputs
-        logits = self.bert_encoder.model(
+        has_loss = "labels" in batch and "weights" in batch
+        use_fused = self.fused_mlm_ce and has_loss
+        bert_out = self.bert_encoder.model(
             patch_latent, gap_token, batch["ids"],
             attention_mask=batch.get("attention_mask"),
-            token_type_ids=batch.get("type_ids"))
-        outputs["mlm_logits"] = logits
-        if "labels" in batch and "weights" in batch:
-            outputs["mlm_loss"] = weighted_mlm_loss(logits, batch["labels"],
-                                                    batch["weights"])
+            token_type_ids=batch.get("type_ids"),
+            return_mlm_features=use_fused)
+        if use_fused:
+            feats, kernel, bias = bert_out
+            n, L, d = feats.shape
+            outputs["mlm_loss"] = fused_mlm_loss_sum(
+                feats.reshape(n * L, d), kernel, bias,
+                batch["labels"].reshape(-1), batch["weights"].reshape(-1),
+                plain=self.plain) / (n * L)
+            return outputs
+        outputs["mlm_logits"] = bert_out
+        if has_loss:
+            outputs["mlm_loss"] = weighted_mlm_loss(
+                bert_out, batch["labels"], batch["weights"])
         return outputs
 
     def image_encoder(self, x, mask_ratio: float,

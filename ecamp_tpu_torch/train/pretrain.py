@@ -4,11 +4,13 @@
 One step: u8 normalize (if the batch is u8) -> 448 -> 224 bicubic ->
 MAE encoder with 75% token drop -> decoder -> SR head -> MIM and SR losses
 -> bert_mlp bridge -> multimodal BERT -> 30000-way MLM head and weighted
-CE -> loss = mim + res + mlm -> backward -> AdamW, with the lr the step
-applies reported beside the losses. Parameters and optimizer state are
-fp32; activations and matmuls bf16 under the default policy
-(`core/dtypes.py`). PyTorch runs it eagerly on one device: the JAX
-package's jit, mesh, ZeRO and scan-of-steps have no counterpart here.
+CE (materialised logits, or the fused CE kernels with
+`PretrainConfig.fused_mlm_ce`) -> loss = mim + res + mlm -> backward ->
+AdamW, with the lr the step applies reported beside the losses.
+Parameters and optimizer state are fp32; activations and matmuls bf16
+under the default policy (`core/dtypes.py`). PyTorch runs it eagerly on
+one device: the JAX package's jit, mesh, ZeRO and scan-of-steps have no
+counterpart here.
 
 Randomness comes from explicit generators on the task's device, seeded
 from `cfg.seed`: `masking_generator` for the MAE noise (or noise injected
@@ -98,6 +100,7 @@ class PretrainTask:
             self.model = ECAMP(
                 cfg.vit, cfg.decoder, cfg.bert, sr_window=cfg.sr_window,
                 sr_scale=cfg.sr_scale, dtype=policy(cfg.bf16).compute_dtype,
+                fused_mlm_ce=cfg.fused_mlm_ce,
                 generator=torch.Generator(self.device).manual_seed(cfg.seed)
             ).to(self.device)  # the sin-cos buffers are made on the host
         set_generator(self.model, self.dropout_generator)
@@ -115,8 +118,9 @@ class PretrainTask:
         return TrainState.create(self.model, self.tx)
 
     def set_plain(self, plain: bool = True) -> None:
-        """Route every kernel of the step (LayerNorm, attention, SR, AdamW)
-        to its plain version (the on-card reference), or back."""
+        """Route every kernel of the step (LayerNorm, attention, SR, the
+        fused CE, AdamW) to its plain version (the on-card reference), or
+        back."""
         set_plain(self.model, plain)
         if hasattr(self.tx, "plain"):
             self.tx.plain = plain

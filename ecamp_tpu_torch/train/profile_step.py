@@ -1,12 +1,14 @@
 """Where one pretraining step spends the card's time.
 
     python -m ecamp_tpu_torch.train.profile_step [--batch 32] [--out FILE]
+        [--fused_mlm_ce]
 
 Builds the full-width `PretrainTask` (the ECAMP of `PretrainConfig()`,
-bf16 compute, AdamW at a constant lr) with seeded weights and a seeded
-`synthetic_batch`, runs two warm-up steps, times five steps on the host
-clock, then runs one step under `torch.profiler`, and prints the device
-time of that step by kernel group (the port's four kernels, GEMMs,
+bf16 compute, AdamW at a constant lr; with `--fused_mlm_ce`, the MLM loss
+through the fused vocab-projection + CE kernels) with seeded weights and a
+seeded `synthetic_batch`, runs two warm-up steps, times five steps on the
+host clock, then runs one step under `torch.profiler`, and prints the
+device time of that step by kernel group (the port's kernels, GEMMs,
 convolutions, copies, other elementwise), the top kernels by name, and the
 device's idle share of the median unprofiled step (the profiler itself
 lengthens the host's side of a step). `--out` also writes the numbers as
@@ -27,6 +29,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("layer_norm kernel", ("ln_fwd",)),
     ("sr_conv_stack kernel", ("sr_conv_stack_kernel",)),
     ("adamw kernel", ("adamw_multi_kernel",)),
+    ("fused CE kernels", ("fused_ce_fwd_kernel", "fused_ce_bwd_kernel")),
     # cuDNN's convolutions (the SR backward) are implicit GEMMs: test first
     ("convolution", ("cudnn", "fprop", "dgrad", "wgrad", "conv")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),
@@ -54,6 +57,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
+    ap.add_argument("--fused_mlm_ce", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -69,7 +73,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
     cfg = PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
-                                                   lr=1.5e-4), seed=args.seed)
+                                                   lr=1.5e-4), seed=args.seed,
+                         fused_mlm_ce=args.fused_mlm_ce)
     task = PretrainTask(cfg, device="cuda")
     b = args.batch
     batch = synthetic_batch(cfg, b, torch.Generator(device="cuda")
@@ -104,7 +109,8 @@ def main(argv=None) -> int:
         by_group[g] = by_group.get(g, 0.0) + us / 1e3
     busy = sum(by_group.values())
     kernels.sort(reverse=True)
-    print(f"one pretraining step, B = {b}, on {card}: {step_ms:.3f} ms "
+    mlm = "fused CE" if args.fused_mlm_ce else "materialised logits"
+    print(f"one pretraining step ({mlm}), B = {b}, on {card}: {step_ms:.3f} ms "
           f"median of 5 on the host clock ({wall_ms:.3f} ms profiled), "
           f"device busy {busy:.3f} ms, idle share {1 - busy / step_ms:.3f}; "
           f"loss {float(m['loss']):.5f}")
@@ -115,7 +121,8 @@ def main(argv=None) -> int:
         print(f"  {ms:9.3f} {n:5d}  {name[:110]}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "batch": b, "step_ms": times,
+            json.dump({"card": card, "batch": b, "mlm_loss": mlm,
+                       "step_ms": times,
                        "profiled_step_ms": wall_ms,
                        "device_busy_ms": busy, "groups_ms": by_group,
                        "kernels": [{"ms": ms, "launches": n, "name": name}

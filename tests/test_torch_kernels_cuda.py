@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from ecamp_tpu_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import fused_adamw as adamw_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import layer_norm as ln_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import sr_head as sr_mod  # noqa: E402
 
@@ -226,9 +227,11 @@ def test_adamw_kernel_on_card(cuda):
                                    atol=1e-9)
 
 
-def test_pretrain_step_on_card_matches_plain(cuda):
+@pytest.mark.parametrize("fused", [False, True], ids=["logits", "fused_ce"])
+def test_pretrain_step_on_card_matches_plain(cuda, fused):
     """A tiny PretrainTask step launches every kernel the step has and
-    matches the same step through the plain versions."""
+    matches the same step through the plain versions; with `fused_mlm_ce`
+    the MLM loss goes through the fused-CE kernels, once each."""
     from ecamp_tpu_torch.core import config as c
     from ecamp_tpu_torch.train.pretrain import PretrainTask
 
@@ -240,7 +243,8 @@ def test_pretrain_step_on_card_matches_plain(cuda):
                           num_hidden_layers=2, num_attention_heads=2,
                           intermediate_size=512, max_position_embeddings=32),
         optimizer=c.OptimizerConfig(schedule="constant", lr=1e-3),
-        data=c.DataConfig(img_size=128), max_caption_length=32, sr_window=2)
+        data=c.DataConfig(img_size=128), max_caption_length=32, sr_window=2,
+        fused_mlm_ce=fused)
     task = PretrainTask(cfg, device=cuda)
     init = {k: v.clone() for k, v in task.model.state_dict().items()}
     batch = task.fake_batch(4)
@@ -251,7 +255,8 @@ def test_pretrain_step_on_card_matches_plain(cuda):
     noise = torch.rand(4, 16, device=cuda)
     losses = {}
     counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
-                adamw_mod.launches)
+                adamw_mod.launches, mlm_mod.launches_fwd, mlm_mod.launches_dx,
+                mlm_mod.launches_dw)
     for plain in (False, True):
         task.model.load_state_dict(init)
         task.set_plain(plain)
@@ -265,12 +270,70 @@ def test_pretrain_step_on_card_matches_plain(cuda):
         # LayerNorm: encoder 2*2 + 1, decoder 2 + 1, BERT embeddings 1 +
         # fusion 3 + layers 2*2 + MLM head 1; attention: encoder 2,
         # decoder 1, fusion self + cross 2, layers 2
-        assert n == ([0, 0, 0, 0] if plain else [5 + 3 + 9, 2 + 1 + 2 + 2,
-                                                 1, 1])
+        assert n == ([0] * 7 if plain else [5 + 3 + 9, 2 + 1 + 2 + 2, 1, 1]
+                     + [int(fused)] * 3)
         losses[plain] = {k: float(v) for k, v in m.items()}
     for k in ("mim_loss", "res_loss", "mlm_loss"):
         assert abs(losses[False][k] - losses[True][k]) <= 2e-2 * abs(
             losses[True][k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,v", [(1000, 96, 3001), (70, 768, 300),
+                                   (129, 40, 257), (33, 36, 100)])
+def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
+    """The three fused-CE kernels against their plain versions on the same
+    inputs (the plain math in fp32 on the bf16 inputs): lse and gold, then
+    dx, dW and db from the same lse and wg, then the autograd Function,
+    whose loss carries a grad_fn and whose backward launches dx and dW.
+    bf16 at D % 8 == 0 runs the tensor-core path, D = 36 the FMA one."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (0.5 * torch.randn(n, d, device=cuda, generator=g)).to(dtype)
+    w = (0.1 * torch.randn(v, d, device=cuda, generator=g)).to(dtype)
+    b = 0.1 * torch.randn(v, device=cuda, generator=g)
+    labels = torch.randint(0, v, (n,), device=cuda, generator=g)
+    weights = torch.rand(n, device=cuda, generator=g)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+
+    def close(got, want, scaled=True):
+        scale = float(want.float().abs().max()) if scaled else 1.0
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * scale)
+
+    counters = (mlm_mod.launches_fwd, mlm_mod.launches_dx,
+                mlm_mod.launches_dw)
+    before = [c.value for c in counters]
+    lse, gold = mlm_mod._forward_cuda(x, w, b, labels)
+    want_lse, want_gold = mlm_mod._forward_plain(x, w, b, labels)
+    close(lse, want_lse)
+    close(gold, want_gold)
+    wg = 0.3 * weights
+    got = mlm_mod._backward_cuda(x, w, b, labels, want_lse, wg)
+    want = mlm_mod._fused_backward_plain(x, w, b, labels, want_lse, wg)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        close(a, e)
+    torch.cuda.synchronize()
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == [1, 1, 1]
+
+    def run(plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        loss = mlm_mod.fused_mlm_loss_sum(*leaves, labels.int(), weights,
+                                          plain=plain)
+        assert loss.grad_fn is not None
+        loss.backward(torch.full((), 0.3, device=cuda))
+        return loss.detach(), [t.grad for t in leaves]
+
+    loss_k, grads_k = run(False)
+    loss_p, grads_p = run(True)
+    torch.cuda.synchronize()
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == [2, 2, 2]
+    assert abs(float(loss_k) - float(loss_p)) <= (
+        1e-5 if dtype == torch.float32 else 1e-3) * abs(float(loss_p))
+    for a, e in zip(grads_k, grads_p):
+        assert a.dtype == e.dtype
+        close(a, e)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -281,6 +344,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ln_mod.fused_layer_norm(torch.zeros(4, 8, device=cuda).half(),
                                 torch.ones(8, device=cuda),
                                 torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="D <= 768"):
+        mlm_mod.fused_mlm_loss_sum(
+            torch.zeros(4, 1024, device=cuda), torch.zeros(9, 1024, device=cuda),
+            torch.zeros(9, device=cuda), torch.zeros(4, dtype=torch.long,
+                                                     device=cuda),
+            torch.ones(4, device=cuda))
 
 
 def test_served_classifier_matches_plain_forward(cuda):

@@ -283,15 +283,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every ecamp_tpu_torch module imports with jax, flax and the JAX
-    package blocked."""
+    """Every ecamp_tpu_torch module imports with jax, flax, the JAX package
+    and pandas (not among the card machine's packages) blocked."""
     code = r"""
 import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "optax", "orbax", "ecamp_tpu"):
+        if top in ("jax", "jaxlib", "flax", "optax", "orbax", "ecamp_tpu",
+                   "pandas"):
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, Block())
@@ -301,7 +302,7 @@ names = [m.name for m in pkgutil.walk_packages(ecamp_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "ecamp_tpu")]
+       if m.split(".")[0] in ("jax", "flax", "ecamp_tpu", "pandas")]
 assert not bad, bad
 print(len(names))
 """
