@@ -114,6 +114,96 @@ def median_ms(fn, reps: int = TIMING_REPS, per_pair: int = 10) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, match: str = "", calls: int = 20) -> float:
+    """Device time per call of `fn`: the time of the kernels whose name
+    holds `match` (every kernel if empty), summed by torch.profiler over
+    `calls` calls. Unlike `median_ms` it does not see the host's launch
+    rate."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    warnings.filterwarnings("ignore", "Profiler clears events")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if match in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    check(us > 0, f"the profiler saw no device time in kernels named "
+          f"'{match}'")
+    return us / calls / 1e3
+
+
+# -- the least time the card could take -------------------------------------
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 on the
+# tensor cores, fp32 on the FMA pipe, and device memory. A kernel's bound is
+# the larger of its operations over the peak for their type (the inputs')
+# and its bytes over the memory rate, counting each input read once and
+# each output written once.
+PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(work) -> tuple:
+    """(bound_ms, "operations" or "bytes") of work = (flops, bytes, type)."""
+    flops, nbytes, kind = work
+    ops_ms = flops / PEAK_OPS[kind] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def _kind(itemsize: int) -> str:
+    return "bf16" if itemsize == 2 else "fp32"
+
+
+def attention_work(b, h, nq, nk, d, itemsize, bias_elems=0):
+    """Q K^T and P V (2 flops a multiply-add); q, k, v read, o written, the
+    fp32 bias read once at its stored size."""
+    return (4 * b * h * nq * nk * d,
+            itemsize * b * h * d * 2 * (nq + nk) + 4 * bias_elems,
+            _kind(itemsize))
+
+
+def layer_norm_work(rows, d, itemsize):
+    """About 8 flops an element; x read, y written, fp32 weight and bias."""
+    return 8 * rows * d, 2 * itemsize * rows * d + 2 * 4 * d, _kind(itemsize)
+
+
+def sr_work(b, h, w, itemsize):
+    """Two 3x3 convs of 3 -> 3 channels (81 multiply-adds a pixel each) with
+    their biases, then the residual; the 3-channel image read and written."""
+    px = b * h * w
+    return (px * (2 * (2 * 81 + 3) + 3), 2 * itemsize * 3 * px,
+            _kind(itemsize))
+
+
+def adamw_work(n):
+    """About 15 flops a parameter; p, g, m, v read and p, m, v written, fp32."""
+    return 15 * n, 28 * n, "fp32"
+
+
+def fused_ce_fwd_work(n, d, v, itemsize):
+    """The (n, v) logits' product; x, w, fp32 bias and int64 labels read,
+    fp32 lse and gold written."""
+    return (2 * n * d * v, itemsize * (n + v) * d + 4 * v + 8 * n + 8 * n,
+            _kind(itemsize))
+
+
+def fused_ce_bwd_work(n, d, v, itemsize):
+    """The logits once more and the dx and dW products; the forward's inputs
+    plus fp32 lse and weights read, dx, dW and the fp32 db written."""
+    return (3 * 2 * n * d * v,
+            2 * itemsize * (n + v) * d + 2 * 4 * v + 8 * n + 8 * n,
+            _kind(itemsize))
+
+
 def _within(label, got, want, dtype, scaled: bool = False) -> float:
     """Check one output against its plain value at the tolerance of
     `dtype` (fp32 relative to the output's largest value if `scaled`);
@@ -138,12 +228,17 @@ def _within(label, got, want, dtype, scaled: bool = False) -> float:
 
 
 def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
-            per_pair: int = 10, oracle_fn=None):
+            per_pair: int = 10, oracle_fn=None, library_fn=None, match=None,
+            work=None) -> dict:
     """Run a kernel wrapper and its plain version on the same inputs; check
     every output at the tolerance of `dtype` (a tuple of outputs are
     gradients, checked relative to their scale) against `oracle_fn` if
-    given, else the plain version; time both; return (max_abs_err, ms,
-    plain_ms)."""
+    given, else the plain version; time both. `library_fn`, one PyTorch
+    call that computes the same function (a yardstick the port never
+    calls), is timed beside them; `match`, the kernel's name, adds the
+    profiler's device time of the kernel (and of the library call);
+    `work`, its (flops, bytes, type), adds its bound. Returns what was
+    measured: max_abs_err, ms, plain_ms and those."""
     import torch
 
     got, want = kernel_fn(), (oracle_fn or plain_fn)()
@@ -153,34 +248,92 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
                       for i, (a, b) in enumerate(zip(got, want)))
     else:
         max_err = _within(label, got, want, dtype)
-    ms = median_ms(kernel_fn, reps, per_pair)
-    plain_ms = median_ms(plain_fn, reps, per_pair)
-    print(f"  {label:58s} max|err| {max_err:.3e}  kernel {ms:8.4f} ms  "
-          f"plain {plain_ms:8.4f} ms")
-    return max_err, ms, plain_ms
+    r = {"max_abs_err": max_err, "ms": median_ms(kernel_fn, reps, per_pair),
+         "plain_ms": median_ms(plain_fn, reps, per_pair)}
+    line = (f"  {label:58s} max|err| {max_err:.3e}  kernel {r['ms']:8.4f} ms"
+            f"  plain {r['plain_ms']:8.4f} ms")
+    if library_fn is not None:
+        r["library_ms"] = median_ms(library_fn, reps, per_pair)
+        line += f"  library {r['library_ms']:8.4f} ms"
+    if match is not None:
+        r["device_ms"] = device_ms(kernel_fn, match)
+        line += f"  device {r['device_ms']:8.4f} ms"
+        if library_fn is not None:
+            r["library_device_ms"] = device_ms(library_fn)
+            line += f" (library {r['library_device_ms']:8.4f} ms)"
+    if work is not None:
+        r["bound_ms"], r["bound_by"] = bound(work)
+        line += f"  bound {r['bound_ms']:8.4f} ms ({r['bound_by']})"
+    print(line)
+    return r
 
 
-def kernel_phase(card: str) -> None:
-    """LayerNorm and attention forward at the serving slice's shapes."""
-    import torch
+def _sdpa(q, k, v, bias):
+    """The library yardstick for the attention kernel: one call of
+    `F.scaled_dot_product_attention` on the same q, k, v and bias."""
+    import torch.nn.functional as F
 
+    mask = None if bias is None else bias.to(q.dtype)
+    scale = q.shape[-1] ** -0.5
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+
+
+def _layer_norm_lib(x, w, b, eps):
+    """The library yardstick for the LayerNorm kernel: `F.layer_norm`, whose
+    weight and bias must have x's dtype (cast once, outside the call)."""
+    import torch.nn.functional as F
+
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    return lambda: F.layer_norm(x, (x.shape[-1],), w, b, eps)
+
+
+def _attention_fwd(rows, label, q, k, v, bias, dtype):
+    """The attention forward at one shape: kernel against plain, with the
+    library call, device time and bound; its row joins `rows`."""
     from ecamp_tpu_torch.kernels import flash_attention as fa
+
+    b, h, nq, d = q.shape
+    r = compare(label, lambda: fa.flash_attention(q, k, v, bias),
+                lambda: fa._attention_reference(q, k, v, bias), dtype,
+                library_fn=_sdpa(q, k, v, bias), match="attention_fwd",
+                work=attention_work(b, h, nq, k.shape[2], d, q.element_size(),
+                                    0 if bias is None else bias.numel()))
+    rows.append({"kernel": "attention", "shape": label, **r})
+    return r
+
+
+def _layer_norm_fwd(rows, label, x, w, b, eps, dtype):
+    """The LayerNorm forward at one shape, as `_attention_fwd`."""
     from ecamp_tpu_torch.kernels import layer_norm as ln
+
+    r = compare(label, lambda: ln.fused_layer_norm(x, w, b, eps),
+                lambda: ln._ln_reference(x, w, b, eps), dtype,
+                library_fn=_layer_norm_lib(x, w, b, eps), match="ln_fwd",
+                work=layer_norm_work(x.shape[0], x.shape[1],
+                                     x.element_size()))
+    rows.append({"kernel": "layer_norm", "shape": label, **r})
+    return r
+
+
+def kernel_phase(card: str, rows: list) -> None:
+    """LayerNorm and attention forward at the serving slice's shapes, each
+    beside its library call and bound; their rows join `rows`."""
+    import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     print(f"kernels vs plain versions on {card} (median of {TIMING_REPS} "
-          f"CUDA-event pairs around 10 calls each)")
+          f"CUDA-event pairs around 10 calls each; device: the profiler's "
+          f"time a call)")
 
-    for rows, d, eps in ((64 * 197, 768, 1e-6), (8 * 256, 768, 1e-12)):
-        x32 = torch.randn(rows, d, device=dev, generator=gen) * 2 + 0.5
+    for n, d, eps in ((64 * 197, 768, 1e-6), (8 * 256, 768, 1e-12)):
+        x32 = torch.randn(n, d, device=dev, generator=gen) * 2 + 0.5
         w = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         b = 0.1 * torch.randn(d, device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            compare(f"layer_norm ({rows}, {d}) eps {eps:g} {dtype}",
-                    lambda: ln.fused_layer_norm(x, w, b, eps),
-                    lambda: ln._ln_reference(x, w, b, eps), dtype)
+            _layer_norm_fwd(rows, f"layer_norm ({n}, {d}) eps {eps:g} "
+                            f"{dtype}", x32.to(dtype), w, b, eps, dtype)
 
     def attention_cases():
         for shape in ((64, 12, 197, 64), (8, 12, 785, 64)):
@@ -203,10 +356,8 @@ def kernel_phase(card: str) -> None:
             bias = torch.randn(bsz, h, n, n, device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-            compare(f"attention ({bsz}, {h}, {n}, {d}) bias {bias_kind} "
-                    f"{dtype}",
-                    lambda: fa.flash_attention(q, k, v, bias),
-                    lambda: fa._attention_reference(q, k, v, bias), dtype)
+            _attention_fwd(rows, f"attention ({bsz}, {h}, {n}, {d}) bias "
+                           f"{bias_kind} {dtype}", q, k, v, bias, dtype)
     torch.cuda.synchronize()
 
 
@@ -225,10 +376,11 @@ def _grads_of(fwd, inputs, need, gout):
     return run
 
 
-def train_kernel_phase(card: str):
+def train_kernel_phase(card: str, rows: list):
     """The kernels at the pretraining step's shapes (B = PRE_B): LayerNorm
-    and attention forward + backward through their autograd Functions
-    against autograd of the plain versions, and the SR conv stack."""
+    and attention forward (beside their library calls and bounds) and
+    forward + backward through their autograd Functions against autograd
+    of the plain versions, and the SR conv stack."""
     import torch
 
     from ecamp_tpu_torch.kernels import flash_attention as fa
@@ -242,20 +394,19 @@ def train_kernel_phase(card: str):
     print(f"kernels at the pretraining step's shapes (B = {b}) on {card}; "
           f"fwd+bwd = forward and backward through the Function")
 
-    for rows, d, eps in ((b * 50, 768, 1e-6), (b * 197, 512, 1e-6),
-                         (b * 256, 768, 1e-12)):
-        x32 = torch.randn(rows, d, device=dev, generator=gen) * 2 + 0.5
+    for n, d, eps in ((b * 50, 768, 1e-6), (b * 197, 512, 1e-6),
+                      (b * 256, 768, 1e-12)):
+        x32 = torch.randn(n, d, device=dev, generator=gen) * 2 + 0.5
         w = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
         bias = 0.1 * torch.randn(d, device=dev, generator=gen)
-        g32 = torch.randn(rows, d, device=dev, generator=gen)
+        g32 = torch.randn(n, d, device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             x, g = x32.to(dtype), g32.to(dtype)
-            if (rows, dtype) == (b * 256, torch.bfloat16):
-                main["layer_norm"] = compare(
-                    f"layer_norm fwd ({rows}, {d}) eps {eps:g} {dtype}",
-                    lambda: ln.fused_layer_norm(x, w, bias, eps),
-                    lambda: ln._ln_reference(x, w, bias, eps), dtype)
-            compare(f"layer_norm fwd+bwd ({rows}, {d}) {dtype}",
+            r = _layer_norm_fwd(rows, f"layer_norm fwd ({n}, {d}) eps {eps:g} "
+                                f"{dtype}", x, w, bias, eps, dtype)
+            if (n, dtype) == (b * 256, torch.bfloat16):
+                main["layer_norm"] = r
+            compare(f"layer_norm fwd+bwd ({n}, {d}) {dtype}",
                     _grads_of(lambda *a: ln.fused_layer_norm(*a, eps),
                               (x, w, bias), (True,) * 3, g),
                     _grads_of(lambda *a: ln._ln_reference(*a, eps),
@@ -279,11 +430,9 @@ def train_kernel_phase(card: str):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
             label = f"attention {kind} ({b}, {h}, {nq}->{nk}, {d}) {dtype}"
+            r = _attention_fwd(rows, f"{label} fwd", q, k, v, bias, dtype)
             if kind == "bert self" and dtype == torch.bfloat16:
-                main["attention"] = compare(
-                    f"{label} fwd",
-                    lambda: fa.flash_attention(q, k, v, bias),
-                    lambda: fa._attention_reference(q, k, v, bias), dtype)
+                main["attention"] = r
             compare(f"{label} fwd+bwd",
                     _grads_of(lambda q_, k_, v_: fa.flash_attention(
                         q_, k_, v_, bias), (q, k, v), (True,) * 3, g),
@@ -307,7 +456,9 @@ def train_kernel_phase(card: str):
                     lambda: sr.sr_conv_stack(x, w1, b1, w2, b2),
                     lambda: sr._sr_reference(x, w1, b1, w2, b2), dtype,
                     oracle_fn=lambda: sr._sr_reference(
-                        x.float(), w1, b1, w2, b2).to(dtype))
+                        x.float(), w1, b1, w2, b2).to(dtype),
+                    match="sr_conv_stack",
+                    work=sr_work(b, 448, 448, x.element_size()))
         if dtype == torch.bfloat16:
             main["sr_conv_stack"] = r
     torch.cuda.synchronize()
@@ -352,10 +503,16 @@ def fused_ce_phase(card: str):
         rel = abs(got - want) / abs(want)
         check(rel <= loss_tol, f"fused CE fwd {shape}: {got:.7g} vs "
               f"{want:.7g} (rel {rel:.3e})")
-        ms, plain_ms = median_ms(fwd, 10, 3), median_ms(ref, 10, 3)
+        fwd_times = {"max_abs_err": abs(got - want),
+                     "ms": median_ms(fwd, 10, 3),
+                     "plain_ms": median_ms(ref, 10, 3),
+                     "device_ms": device_ms(fwd, "fused_ce_fwd", 5)}
+        fwd_times["bound_ms"], fwd_times["bound_by"] = bound(
+            fused_ce_fwd_work(n, d, v, x.element_size()))
         print(f"  {'fused CE fwd ' + shape:58s} rel err {rel:.3e}  kernel "
-              f"{ms:8.4f} ms  plain {plain_ms:8.4f} ms")
-        fwd_times = (abs(got - want), ms, plain_ms)
+              f"{fwd_times['ms']:8.4f} ms  plain {fwd_times['plain_ms']:8.4f}"
+              f" ms  device {fwd_times['device_ms']:8.4f} ms  bound "
+              f"{fwd_times['bound_ms']:8.4f} ms ({fwd_times['bound_by']})")
 
         compare(f"fused CE fwd+bwd {shape}",
                 _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
@@ -369,7 +526,8 @@ def fused_ce_phase(card: str):
             f"fused CE bwd (dx, dW, db) {shape}",
             lambda: mlm._backward_cuda(x, w, b, labels, lse, wg),
             lambda: mlm._fused_backward_plain(x, w, b, labels, lse, wg),
-            dtype, reps=5, per_pair=2)
+            dtype, reps=5, per_pair=2, match="fused_ce_bwd",
+            work=fused_ce_bwd_work(n, d, v, x.element_size()))
         if dtype == torch.bfloat16:
             main["fused_ce_fwd"], main["fused_ce_bwd"] = fwd_times, bwd_times
         del x, w, lse
@@ -474,13 +632,23 @@ def pretrain_phase(card: str):
                   f"adamw {k}: max |err| {float(d.max()):.3e}")
         err = max(err, float((pk[k] - pp[k]).abs().max()))
     task.tx.plain = False
-    ms = median_ms(lambda: task.tx.apply(pk, grads, sk), 10, 2)
+    adamw_times = {"max_abs_err": err,
+                   "ms": median_ms(lambda: task.tx.apply(pk, grads, sk), 10,
+                                   2),
+                   "device_ms": device_ms(lambda: task.tx.apply(pk, grads,
+                                                                sk),
+                                          "adamw_multi", 5)}
     task.tx.plain = True
-    plain_ms = median_ms(lambda: task.tx.apply(pp, grads, sp), 10, 2)
+    adamw_times["plain_ms"] = median_ms(lambda: task.tx.apply(pp, grads, sp),
+                                        10, 2)
     task.tx.plain = False
+    adamw_times["bound_ms"], adamw_times["bound_by"] = bound(
+        adamw_work(n_params))
     print(f"  {'adamw update, ' + str(n_params) + ' fp32 parameters':58s} "
-          f"max|err| {err:.3e}  kernel {ms:8.4f} ms  plain {plain_ms:8.4f} ms")
-    adamw_times = (err, ms, plain_ms)
+          f"max|err| {err:.3e}  kernel {adamw_times['ms']:8.4f} ms  plain "
+          f"{adamw_times['plain_ms']:8.4f} ms  device "
+          f"{adamw_times['device_ms']:8.4f} ms  bound "
+          f"{adamw_times['bound_ms']:8.4f} ms ({adamw_times['bound_by']})")
     del pk, sk, pp, sp, grads, opt, state
 
     pstate, loss_p, gnorm_p, n_p = first_step(True)
@@ -826,8 +994,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
-    kernel_phase(card)
-    main_times = train_kernel_phase(card)
+    shape_rows = []
+    kernel_phase(card, shape_rows)
+    main_times = train_kernel_phase(card, shape_rows)
     main_times.update(fused_ce_phase(card))
     serve_launches, prob_err, p50 = slice_phase(card)
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
@@ -838,6 +1007,15 @@ def main() -> int:
     launches["fused_ce_fwd"] = flaunches["fused_ce_fwd"]
     launches["fused_ce_bwd"] = (flaunches["fused_ce_dx"]
                                 + flaunches["fused_ce_dw"])
+    no_library = {
+        "sr_conv_stack": "no single PyTorch call: two convolutions with "
+                         "biases and relus, then the residual",
+        "adamw": "no single PyTorch call: torch's fused AdamW has neither "
+                 "the weight-decay mask nor the folded clip",
+        "fused_ce_fwd": "no single PyTorch call: the vocab product, then "
+                        "logsumexp and the gold logit",
+        "fused_ce_bwd": "no single PyTorch call: softmax minus one-hot, "
+                        "then the dx, dW and db products"}
     kernels = []
     for name, mod, route, replaces in (
             ("layer_norm", ln, "triton",
@@ -851,13 +1029,20 @@ def main() -> int:
              "ecamp_tpu/kernels/fused_mlm_loss.py:85"),
             ("fused_ce_bwd", mlm, "cuda",
              "ecamp_tpu/kernels/fused_mlm_loss.py:194")):
-        err, ms, plain_ms = main_times[name]
+        t = main_times[name]
         entry = {"name": name, "route": route, "source": mod.SOURCE,
                  "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                 **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "device_ms", "bound_ms", "bound_by")},
+                 "library_ms": t.get("library_ms")}
+        if name in no_library:
+            entry["library_note"] = no_library[name]
+        else:
+            entry["library_device_ms"] = t["library_device_ms"]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name]
         kernels.append(entry)
+    print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"serve_p50_ms": {str(b): v for b, v in p50.items()},
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))

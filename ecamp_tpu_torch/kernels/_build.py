@@ -38,6 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "ecamp_attention_fwd": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P,
                             _I, _I, _I, _I, _I, _I, _F, _P],
+    "ecamp_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ecamp_sr_conv_stack_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ecamp_adamw_multi": [_P, _P, _P, _P, _P, _I, _P, _LL, _F, _F, _F, _F,
                           _F, _P],

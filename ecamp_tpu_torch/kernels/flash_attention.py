@@ -1,9 +1,18 @@
 """Fused attention: the CUDA kernel `csrc/attention.cu` and its plain version.
 
-Counterpart of `ecamp_tpu/kernels/flash_attention.py`. The TPU kernel ran
-one fused softmax-attention per (batch*head) grid step; the Hopper kernel
-runs one thread block per (batch*head, 64-query tile) and loops over
-64-key tiles with an online softmax (see the note in the source).
+Counterpart of `ecamp_tpu/kernels/flash_attention.py`; the kernel replaces
+its `_attn_kernel`. The TPU kernel ran one fused softmax-attention per
+(batch*head) grid step with the whole logits tile in VMEM; the Hopper
+kernel runs one block per (batch*head, 64-query tile) and loops over
+64-key tiles with an online softmax, so the logits never reach device
+memory. It has two paths, picked by the C entry point from the dtype:
+bf16 (the model's) on the tensor cores (`mma.sync`, FlashAttention-2
+style: Q held as register fragments, K/V tiles double-buffered by
+cp.async, P handed from the logits' accumulators to the PV product in
+registers), and fp32 on the FMA pipe. At every shape of the pretraining
+step and of 224-px serving (N <= 256) device-memory bytes bound it; at
+N = 785 (448-px serving) the tensor cores do (see the note in the
+source).
 
 `flash_attention` launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors. It never falls back: a shape, dtype or

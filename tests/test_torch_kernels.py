@@ -429,7 +429,8 @@ def test_build_reports_launch_errors_and_a_missing_nvcc():
     # the library's name changes with the sources and flags
     assert len(_build._digest()) == 16
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "adamw.cu", "attention.cu", "fused_mlm_loss.cu", "sr_head.cu"]
+        "adamw.cu", "attention.cu", "fused_mlm_loss.cu", "layer_norm.cu",
+        "sr_head.cu"]
     # every C entry point of the sources has its ctypes signature
     import re
     entries = {m for src in _build.CSRC.glob("*.cu")

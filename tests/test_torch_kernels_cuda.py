@@ -41,7 +41,9 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d,eps", [(8 * 197, 768, 1e-6),
-                                        (37, 512, 1e-12), (5, 100, 1e-6)])
+                                        (37, 512, 1e-12), (5, 100, 1e-6),
+                                        (1, 768, 1e-12), (1003, 512, 1e-6),
+                                        (3, 2048, 1e-6), (9, 1024, 1e-6)])
 def test_layer_norm_kernel_on_card(cuda, dtype, rows, d, eps):
     dtype = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -59,6 +61,10 @@ def test_layer_norm_kernel_on_card(cuda, dtype, rows, d, eps):
 def _bias(kind, b, h, nq, nk, g, dev):
     if kind == "none":
         return None
+    if kind == "blank_tile":  # finfo.min over the whole first 64-key tile
+        keep = torch.arange(nk, device=dev) >= min(64, nk // 2)
+        return torch.where(keep, 0.0, torch.finfo(torch.float32).min
+                           ).reshape(1, 1, 1, nk).expand(b, 1, 1, nk)
     if kind == "key_padding":
         keep = torch.arange(nk, device=dev)[None, :] < torch.randint(
             nk // 2, nk + 1, (b, 1), device=dev, generator=g)
@@ -68,11 +74,18 @@ def _bias(kind, b, h, nq, nk, g, dev):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bias_kind", ["none", "key_padding", "full"])
+@pytest.mark.parametrize("bias_kind", ["none", "key_padding", "full",
+                                       "blank_tile"])
 @pytest.mark.parametrize("b,h,nq,nk,d", [(4, 12, 197, 197, 64),
                                          (2, 3, 70, 29, 32),
-                                         (2, 2, 130, 257, 128)])
+                                         (2, 2, 130, 257, 128),
+                                         (2, 12, 50, 50, 64),
+                                         (2, 6, 256, 49, 128),
+                                         (3, 2, 1, 5, 64)])
 def test_attention_kernel_on_card(cuda, dtype, bias_kind, b, h, nq, nk, d):
+    """bf16 runs the tensor-core kernel, fp32 the FMA one: ragged Nq (not a
+    multiple of 16) and Nk (not a multiple of 64), the encoder and cross
+    shapes, and a mask that blanks a whole key tile."""
     dtype = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(b, h, nq, d, device=cuda, generator=g).to(dtype)
@@ -85,6 +98,22 @@ def test_attention_kernel_on_card(cuda, dtype, bias_kind, b, h, nq, nk, d):
     assert fa_mod.launches.value == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, h, nq, d)
     _close(got, fa_mod._attention_reference(q, k, v, bias), dtype)
+
+
+def test_attention_kernel_on_card_unaligned_bf16(cuda):
+    """bf16 q, k, v, o whose addresses are not 16-byte aligned take the FMA
+    kernel and match the plain version as the tensor-core path does."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    shape = (2, 3, 77, 64)
+
+    def unaligned():  # a contiguous view one element into its buffer
+        t = torch.randn(1 + 2 * 3 * 77 * 64, device=cuda, generator=g)
+        return t.to(torch.bfloat16)[1:].view(shape)
+
+    q, k, v = unaligned(), unaligned(), unaligned()
+    assert q.data_ptr() % 16 != 0
+    got = fa_mod.flash_attention(q, k, v)
+    _close(got, fa_mod._attention_reference(q, k, v), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
