@@ -5,12 +5,17 @@
 
 1. Setup: print the card's `nvidia-smi` name and power limit, turn TF32
    off for the comparisons, build the CUDA library (one nvcc per source, in
-   parallel) and import Triton.
+   parallel).
 2. Kernels against their plain PyTorch versions on the card, in fp32
    (|err| <= 1e-5, relative to the output's scale for a gradient) and bf16
    (atol = rtol = 1.6e-2, about one bf16 ulp of the output), with median
-   CUDA-event times: LayerNorm and attention forward at the serving
-   shapes; at the pretraining step's shapes (B = 32) LayerNorm and
+   CUDA-event times, the profiler's device time a call, the kernel's bound
+   (the least time the card could take: its operations over the H100's
+   peak for their type or its bytes over the memory rate, whichever is
+   longer) and, where one PyTorch call computes the same function
+   (`F.scaled_dot_product_attention`, `F.layer_norm`), that call's times
+   as a yardstick: LayerNorm and attention forward at the serving shapes
+   and at the pretraining step's shapes (B = 32); there LayerNorm and
    attention forward + backward through their autograd Functions against
    autograd of the plain versions, and the SR conv stack forward.
 3. The serving slice: a full-width ViT-B/16 classifier (224 px, 14
@@ -38,7 +43,8 @@
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
    a temporary directory, 2 epochs and a resume for a third.
-7. Per-bucket p50 latency, JSON lines of the results and of the kernels
+7. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
+   lines of the results, of every kernel shape timed and of the kernels
    and, last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
@@ -538,6 +544,7 @@ def fused_ce_phase(card: str):
 
 def pretrain_phase(card: str):
     import dataclasses
+    import gc
 
     import numpy as np
     import torch
@@ -552,6 +559,10 @@ def pretrain_phase(card: str):
 
     counters = {"layer_norm": ln.launches, "attention": fa.launches,
                 "sr_conv_stack": sr.launches, "adamw": adamw.launches}
+    # what earlier phases left in reference cycles (the serving model, held
+    # by the profiler's frames) stays out of the steps' device memory
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
                                                    lr=1.5e-4), seed=SEED)
     t0 = time.perf_counter()
@@ -878,8 +889,15 @@ def slice_phase(card: str):
         p50[b] = float(np.median(lat))
         print(f"  bucket {b:2d}: p50 {p50[b]:.3f} ms  "
               f"({b / p50[b] * 1e3:.1f} img/s)")
+    # where the card's time goes in a call of the largest bucket
+    busy = {name: device_ms(lambda: engine(xs), match, 5)
+            for name, match in (("busy", ""), ("attention", "attention_fwd"),
+                                ("layer_norm", "ln_fwd"))}
+    print(f"  bucket {b:2d}: device busy {busy['busy']:.3f} ms a call, "
+          f"attention {busy['attention']:.3f} ms, layer_norm "
+          f"{busy['layer_norm']:.3f} ms (profiler, 5 calls)")
     torch.cuda.synchronize()
-    return {"layer_norm": n_ln, "attention": n_attn}, worst, p50
+    return {"layer_norm": n_ln, "attention": n_attn}, worst, p50, busy
 
 
 def cli_phase(card: str, per_step):
@@ -987,9 +1005,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
-    ln._triton_kernel()
-    print(f"built {lib.name} and imported triton in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
@@ -998,7 +1014,7 @@ def main() -> int:
     kernel_phase(card, shape_rows)
     main_times = train_kernel_phase(card, shape_rows)
     main_times.update(fused_ce_phase(card))
-    serve_launches, prob_err, p50 = slice_phase(card)
+    serve_launches, prob_err, p50, serve_busy = slice_phase(card)
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
     cli = cli_phase(card, {k: v // PRE_STEPS for k, v in flaunches.items()})
 
@@ -1018,7 +1034,7 @@ def main() -> int:
                         "then the dx, dW and db products"}
     kernels = []
     for name, mod, route, replaces in (
-            ("layer_norm", ln, "triton",
+            ("layer_norm", ln, "cuda",
              "ecamp_tpu/kernels/layer_norm.py:46"),
             ("attention", fa, "cuda",
              "ecamp_tpu/kernels/flash_attention.py:106"),
@@ -1044,6 +1060,7 @@ def main() -> int:
         kernels.append(entry)
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"serve_p50_ms": {str(b): v for b, v in p50.items()},
+                      f"serve_device_ms_b{BUCKETS[-1]}": serve_busy,
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))

@@ -1,8 +1,7 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 Importing this package builds nothing: the CUDA library is compiled at
-the first launch (`_build.py`) and Triton is imported inside the launching
-function, so the CPU tests import every module.
+the first launch (`_build.py`), so the CPU tests import every module.
 """
 
 from .attention import dot_product_attention

@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecamp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,6 +152,31 @@ def library() -> ctypes.CDLL:
     """Build (first use only) and load the kernel library."""
     with _LOAD_LOCK:
         return _load()
+
+
+def launch_stream(t) -> int:
+    """The raw handle of the current CUDA stream of t's device, which the
+    caller has made the current device: where PyTorch's own work there
+    goes, so a kernel launched on it needs no synchronisation. The private
+    call is the one torch's compiled kernels launch with;
+    `torch.cuda.current_stream().cuda_stream` gives the same handle at
+    several times the host cost, which a short kernel launched 51 times a
+    step pays each time."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_current_device(t) -> bool:
+    """Whether t lies on the current CUDA device (a wrapper switches to its
+    tensors' device only when it does not)."""
+    return t.get_device() == torch.cuda.current_device()
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd has to see a kernel's call: a wrapper that does not
+    goes straight to its launch and skips the `autograd.Function`'s host
+    cost (inference, the serving path)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def check(err: int, what: str) -> None:

@@ -98,15 +98,17 @@ def _attention_cuda(q, k, v, bias, scale: float):
     for t in (k, v) + (() if bias is None else (bias,)):
         if t.device != q.device:
             raise ValueError("q, k, v and bias must be on one device")
+    if not _build.on_current_device(q):
+        with torch.cuda.device(q.device):
+            return _attention_cuda(q, k, v, bias, scale)
     b, h, nq, d = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _build.library().ecamp_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            sb_b, sb_h, sb_q, sb_k, out.data_ptr(),
-            b, h, nq, k.shape[2], d, code, scale, stream)
+    err = _build.library().ecamp_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        sb_b, sb_h, sb_q, sb_k, out.data_ptr(),
+        b, h, nq, k.shape[2], d, code, scale,
+        _build.launch_stream(q))
     _build.check(err, "ecamp_attention_fwd")
     launches.add()
     return out
@@ -172,7 +174,9 @@ def flash_attention(q, k, v, bias=None, scale: Optional[float] = None):
     d = q.shape[-1]
     scale = float((d ** -0.5) if scale is None else scale)
     if q.is_cuda:
-        return _AttentionFn.apply(q, k, v, bias, scale)
+        if _build.needs_grad(q, k, v, bias):
+            return _AttentionFn.apply(q, k, v, bias, scale)
+        return _attention_cuda(q, k, v, bias, scale)
     if q.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {q.device}")
     return _attention_reference(q, k, v, bias, scale)

@@ -1,4 +1,5 @@
-"""Fused LayerNorm: a Triton kernel and its plain version.
+"""Fused LayerNorm: the CUDA kernel `csrc/layer_norm.cu` and its plain
+version.
 
 Replaces the TPU kernel `ecamp_tpu/kernels/layer_norm.py::_ln_kernel`
 (launched by `_ln_pallas`): LayerNorm over the last axis with fp32 mean and
@@ -6,11 +7,15 @@ variance, `rsqrt(var + eps)`, fp32 affine, output in the input dtype.
 
 What bounds it on the H100: it is a row reduction plus an elementwise
 affine with no matmul (a few flops per element read), so device-memory
-bytes bound it. What the design does about it: one program
-reads a block of whole rows once, keeps them in registers for the fp32
-mean/var reduction and the affine, and writes each output once; weight and
-bias are read once per program. The eps is a runtime argument, so 1e-6
-(ViT) and 1e-12 (BERT) share one compiled kernel.
+bytes bound it: 7.5 us for (8192, 768) bf16. At that size the launch
+matters as much: the pretraining step launches it 51 times, and a Triton
+kernel's Python launcher took longer than the kernel ran. What the design
+does about it: one ctypes call launches a kernel that gives each row a
+warp, reads the row once with 16-byte loads, keeps it in registers for
+the fp32 mean/var reduction and the affine, and writes it once; weight and
+bias stay in registers across a warp's rows (see the note in the source).
+The eps is a runtime argument, so 1e-6 (ViT) and 1e-12 (BERT) share one
+kernel.
 
 `fused_layer_norm` launches the kernel for CUDA tensors and runs the plain
 version only for CPU tensors; it never falls back. On a CUDA tensor it is
@@ -23,15 +28,13 @@ either.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
 
-SOURCE = "ecamp_tpu_torch/kernels/layer_norm.py"
-MAX_D = 8192  # one program keeps whole rows in registers
-_ROW_ELEMS = 4096  # elements per program: rows = max(1, 4096 // BLOCK_D)
+SOURCE = "ecamp_tpu_torch/csrc/layer_norm.cu"
+MAX_D = 8192  # the widest row taken; above 1024 the kernel strides
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = _build.LaunchCounter()
 
@@ -46,37 +49,11 @@ def _ln_reference(x, weight, bias, eps):
     return y.to(x.dtype)
 
 
-@functools.cache
-def _triton_kernel():
-    import triton  # noqa: PLC0415 — the card's machine only
-    import triton.language as tl  # noqa: PLC0415
-
-    @triton.jit
-    def ln_fwd(x_ptr, w_ptr, b_ptr, y_ptr, rows, d, eps,
-               BLOCK_D: tl.constexpr, ROWS: tl.constexpr):
-        row = (tl.program_id(0) * ROWS + tl.arange(0, ROWS))[:, None]
-        col = tl.arange(0, BLOCK_D)[None, :]
-        cmask = col < d
-        mask = (row < rows) & cmask
-        offs = row.to(tl.int64) * d + col
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=1) / d
-        xc = tl.where(mask, x - mean[:, None], 0.0)
-        var = tl.sum(xc * xc, axis=1) / d
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(w_ptr + col, mask=cmask, other=0.0).to(tl.float32)
-        b = tl.load(b_ptr + col, mask=cmask, other=0.0).to(tl.float32)
-        y = xc * rstd[:, None] * w + b
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    return triton, ln_fwd
-
-
 def _ln_cuda(x, weight, bias, eps: float):
     d = x.shape[-1]
     if not x.is_contiguous():
         raise ValueError("layer-norm kernel takes a contiguous input")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"layer-norm kernel takes fp32 or bf16, got "
                          f"{x.dtype}")
     if d > MAX_D:
@@ -85,18 +62,23 @@ def _ln_cuda(x, weight, bias, eps: float):
         raise ValueError(f"weight/bias must be ({d},)")
     if weight.device != x.device or bias.device != x.device:
         raise ValueError("x, weight and bias must be on one device")
-    weight, bias = weight.contiguous(), bias.contiguous()
     rows = x.numel() // d
+    if rows >= 2 ** 31:
+        raise ValueError(f"layer-norm kernel takes < 2**31 rows, got {rows}")
+    if not _build.on_current_device(x):
+        with torch.cuda.device(x.device):
+            return _ln_cuda(x, weight, bias, eps)
+    # the kernel reads fp32 weight and bias (the model's parameters are)
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        weight, bias = weight.float(), bias.float()
+    weight, bias = weight.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
     if rows == 0:
         return y
-    triton, kernel = _triton_kernel()
-    block_d = triton.next_power_of_2(d)
-    block_rows = max(1, _ROW_ELEMS // block_d)
-    grid = (triton.cdiv(rows, block_rows),)
-    with torch.cuda.device(x.device):
-        kernel[grid](x, weight, bias, y, rows, d, eps,
-                     BLOCK_D=block_d, ROWS=block_rows, num_warps=4)
+    err = _build.library().ecamp_layer_norm_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
+        _DTYPE_CODES[x.dtype], eps, _build.launch_stream(x))
+    _build.check(err, "ecamp_layer_norm_fwd")
     launches.add()
     return y
 
@@ -141,7 +123,9 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-6):
     """LayerNorm over the last axis. weight/bias: (d,). Differentiable in
     x, weight and bias."""
     if x.is_cuda:
-        return _LayerNormFn.apply(x, weight, bias, float(eps))
+        if _build.needs_grad(x, weight, bias):
+            return _LayerNormFn.apply(x, weight, bias, float(eps))
+        return _ln_cuda(x, weight, bias, float(eps))
     if x.device.type != "cpu":
         raise ValueError(f"no layer-norm kernel for device {x.device}")
     return _ln_reference(x, weight, bias, eps)

@@ -60,8 +60,8 @@ class InferenceEngine:
         return self.buckets[-1]
 
     def warmup(self, example: np.ndarray) -> None:
-        """Run every bucket once up front (kernel builds, Triton autotune
-        and library handles off the request path)."""
+        """Run every bucket once up front (the kernel build and library
+        handles off the request path)."""
         for b in self.buckets:
             x = np.broadcast_to(example[:1], (b,) + example.shape[1:])
             self._run_padded(np.ascontiguousarray(x), b)

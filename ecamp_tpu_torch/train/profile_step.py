@@ -25,7 +25,7 @@ import time
 from typing import Dict
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("attention kernel", ("attention_fwd_kernel",)),
+    ("attention kernel", ("attention_fwd",)),
     ("layer_norm kernel", ("ln_fwd",)),
     ("sr_conv_stack kernel", ("sr_conv_stack_kernel",)),
     ("adamw kernel", ("adamw_multi_kernel",)),

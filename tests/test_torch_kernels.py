@@ -4,8 +4,8 @@ tests/test_sr_kernel.py runs them.
 
 On the CPU the port's wrappers run their plain PyTorch versions (the
 kernels' oracles on the card), so these tests pin the plain versions to the
-TPU kernels' semantics; tests/test_torch_kernels_cuda.py holds the CUDA and
-Triton kernels to the plain versions on a card.
+TPU kernels' semantics; tests/test_torch_kernels_cuda.py holds the CUDA
+kernels to the plain versions on a card.
 """
 
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels against their plain PyTorch versions
+"""The port's CUDA kernels against their plain PyTorch versions
 on an NVIDIA card. Every test here needs the card (marker `cuda`) and skips
 without one. The file imports only torch and the port, so it runs on a
 machine without JAX:
