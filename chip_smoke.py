@@ -130,6 +130,8 @@ def device_ms(fn, match: str = "", calls: int = 20) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ecamp_tpu_torch.train.profile_step import _device_us
+
     fn()
     torch.cuda.synchronize()
     warnings.filterwarnings("ignore", "Profiler clears events")
@@ -137,11 +139,7 @@ def device_ms(fn, match: str = "", calls: int = 20) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if match in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
+    us = sum(_device_us(e) for e in prof.key_averages() if match in e.key)
     check(us > 0, f"the profiler saw no device time in kernels named "
           f"'{match}'")
     return us / calls / 1e3

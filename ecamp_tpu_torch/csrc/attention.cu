@@ -168,7 +168,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kPadH = 8;  // bf16 row padding: 16 bytes, ldmatrix rows on distinct banks
+constexpr int kMQ = 16 * kMmaWarps;  // query rows a block, 16 a warp
+constexpr int kMK = 64;              // keys a tile
+constexpr int kPadH = 8;             // bf16 row padding: 16 bytes, ldmatrix rows on distinct banks
 constexpr float kLog2e = 1.4426950408889634f;
 
 // the bias a launch takes: none, one that does not vary over the query
@@ -176,8 +178,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // memory), or any other, read through its strides
 enum BiasKind { kNoBias = 0, kKeyBias = 1, kFullBias = 2 };
 
-// kMQ query rows a block, kMK keys a tile
-template <int D, int kMQ, int kMK>
+template <int D>
 struct MmaSmem {
   bf16 q[kMQ][D + kPadH];     // the Q tile; at the end each warp's output rows
   bf16 k[2][kMK][D + kPadH];  // double-buffered key tiles
@@ -247,12 +248,10 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// One block of 4 warps per (batch*head, kMQ = 64 kMT query rows),
-// numbered with the query tiles of a batch*head next to each other, so they
-// run together and share its K and V in L2. Warp w owns kMT 16-row m-tiles
-// of the block's rows (each B fragment of K or V then feeds kMT products);
-// in m-tile mt a lane holds rows g = lane/4 and g + 8 of it. Keys come in
-// tiles of kMK.
+// One block of 4 warps per (batch*head, 64-query tile), numbered with the
+// query tiles of a batch*head next to each other, so they run together and
+// share its K and V in L2. Warp w owns query rows 16 w..16 w+15 of the
+// tile; a lane holds rows g = lane/4 and g + 8 of them.
 //
 // The logits S' are S * scale + bias, or without a bias S itself with the
 // scale folded into f = scale * log2(e), so that p = 2^((S' - m) f) is one
@@ -260,18 +259,17 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // difference is taken first: a finfo.min mask times log2(e) would
 // overflow. Only the last key tile, when Nk is ragged, takes the bounds
 // mask.
-template <int D, int kBias, int kMT, int kMK>
+template <int D, int kBias>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
                          long long sb_b, long long sb_h, long long sb_q, long long sb_k,
                          bf16* __restrict__ o, int H, int Nq, int Nk, float scale) {
-  constexpr int kMQ = 16 * kMT * kMmaWarps;
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
   constexpr int kKD = D / 16;     // k-steps of Q K^T
   constexpr int kNB = kMK / 8;    // n-blocks of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  MmaSmem<D, kMQ, kMK>& sm = *reinterpret_cast<MmaSmem<D, kMQ, kMK>*>(smem_raw);
+  MmaSmem<D>& sm = *reinterpret_cast<MmaSmem<D>*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -279,22 +277,20 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_qt = (Nq + kMQ - 1) / kMQ;
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * kMQ;
-  const int w0 = warp * 16 * kMT;  // the warp's first row in the tile
   const bf16* qb = q + (long long)bh * Nq * D;
   const bf16* kb = k + (long long)bh * Nk * D;
   const bf16* vb = v + (long long)bh * Nk * D;
   const float f = kBias == kNoBias ? scale * kLog2e : kLog2e;
   const float* bb = nullptr;
-  const float* brow[kMT][2] = {};  // rows g, g + 8 of each m-tile, clamped inside Nq
+  const float* brow[2] = {nullptr, nullptr};  // rows g, g + 8, clamped inside Nq
   if (kBias != kNoBias) {
     bb = bias + (long long)(bh / H) * sb_b + (long long)(bh % H) * sb_h;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        brow[mt][r] = bb + (long long)min(q0 + w0 + mt * 16 + g + 8 * r, Nq - 1) * sb_q;
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bb + (long long)min(q0 + warp * 16 + g + 8 * r, Nq - 1) * sb_q;
   }
 
+  // key tile k0.. into buffer buf (zeros past Nk), then one commit
   auto load_kv = [&](int buf, int k0) {
     for (int e = tid; e < kMK * kChunks; e += kMmaThreads) {
       const int r = e / kChunks, c = (e % kChunks) * 8;
@@ -315,22 +311,14 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   load_kv(0, 0);
 
-  unsigned qf[kMT][kKD][4];  // the warp's query rows as A fragments
-  float acc[kMT][D / 8][4];  // O: n-block nb's C fragment
+  unsigned qf[kKD][4];  // the warp's 16 query rows as A fragments
+  float acc[D / 8][4];  // O: n-block nb's C fragment
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+  for (int nb = 0; nb < D / 8; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nb][c] = 0.f;
-  float m[kMT][2], l[kMT][2];  // running max of S' and denominator (this lane's columns)
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m[mt][r] = -CUDART_INF_F;
-      l[mt][r] = 0.f;
-    }
+    for (int c = 0; c < 4; ++c) acc[nb][c] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of S', rows g and g + 8
+  float l[2] = {0.f, 0.f};  // running denominator, this lane's columns only
 
   const int nt = (Nk + kMK - 1) / kMK;
   for (int t = 0; t < nt; ++t) {
@@ -343,24 +331,19 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile t (and at t = 0 the Q tile) has landed for every thread
     if (t == 0) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < kKD; ++kk)
-          ldsm_x4(&sm.q[w0 + mt * 16 + ((lane / 8) % 2) * 8 + lane % 8]
-                       [kk * 16 + (lane / 16) * 8],
-                  qf[mt][kk]);
+      for (int kk = 0; kk < kKD; ++kk)
+        ldsm_x4(&sm.q[warp * 16 + ((lane / 8) % 2) * 8 + lane % 8][kk * 16 + (lane / 16) * 8],
+                qf[kk]);
     }
     const int buf = t % 2, k0 = t * kMK;
 
     // S = Q K^T: K's rows are the columns n; matrices (n, k), (n, k+8),
     // (n+8, k), (n+8, k+8) give b0 b1 of n-block n and b0 b1 of n + 8
-    float s[kMT][kNB][4];
+    float s[kNB][4];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[mt][nb][c] = 0.f;
+      for (int c = 0; c < 4; ++c) s[nb][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKD; ++kk) {
 #pragma unroll
@@ -368,11 +351,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         unsigned b[4];
         ldsm_x4(&sm.k[buf][np * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8],
                 b);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(s[mt][2 * np], qf[mt][kk], b[0], b[1]);
-          mma_bf16(s[mt][2 * np + 1], qf[mt][kk], b[2], b[3]);
-        }
+        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
       }
     }
 
@@ -380,69 +360,62 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // nb * 8 + 2 t4 + c % 2), then the bounds mask on a ragged last tile
     if (kBias != kNoBias) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-        for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = nb * 8 + 2 * t4 + c % 2;
-            const float b = kBias == kKeyBias ? sm.bias[buf][col]
-                            : k0 + col < Nk  ? brow[mt][c / 2][(long long)(k0 + col) * sb_k]
-                                             : 0.f;
-            s[mt][nb][c] = fmaf(s[mt][nb][c], scale, b);
-          }
+        for (int c = 0; c < 4; ++c) {
+          const int col = nb * 8 + 2 * t4 + c % 2;
+          const float b = kBias == kKeyBias ? sm.bias[buf][col]
+                          : k0 + col < Nk  ? brow[c / 2][(long long)(k0 + col) * sb_k]
+                                           : 0.f;
+          s[nb][c] = fmaf(s[nb][c], scale, b);
+        }
     }
     if (k0 + kMK > Nk) {
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
-        for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (k0 + nb * 8 + 2 * t4 + c % 2 >= Nk) s[mt][nb][c] = -CUDART_INF_F;
+        for (int c = 0; c < 4; ++c)
+          if (k0 + nb * 8 + 2 * t4 + c % 2 >= Nk) s[nb][c] = -CUDART_INF_F;
     }
 
-    unsigned pf[kMT][kMK / 16][4];  // P as the A fragments of P V
+    // online softmax: the tile's row max over the 4 lanes of a row
+    float m_use[2];
+    auto p_of = [&](float x, int r) {  // 2^((x - m_use) f)
+      return exp2_approx(kBias == kNoBias ? fmaf(x, f, -m_use[r] * f) : (x - m_use[r]) * f);
+    };
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      // online softmax: the tile's row max over the 4 lanes of a row
-      float m_use[2];
-      auto p_of = [&](float x, int r) {  // 2^((x - m_use) f)
-        return exp2_approx(kBias == kNoBias ? fmaf(x, f, -m_use[r] * f) : (x - m_use[r]) * f);
-      };
+    for (int r = 0; r < 2; ++r) {
+      float tmax = -CUDART_INF_F;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tmax = -CUDART_INF_F;
+      for (int nb = 0; nb < kNB; ++nb) tmax = fmaxf(tmax, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[r], tmax);
+      // a row whose logits so far are all -inf keeps exponents finite
+      m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = p_of(m[r], r);
+      l[r] *= alpha;
 #pragma unroll
-        for (int nb = 0; nb < kNB; ++nb)
-          tmax = fmaxf(tmax, fmaxf(s[mt][nb][2 * r], s[mt][nb][2 * r + 1]));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        const float m_new = fmaxf(m[mt][r], tmax);
-        // a row whose logits so far are all -inf keeps exponents finite
-        m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-        const float alpha = p_of(m[mt][r], r);
-        l[mt][r] *= alpha;
-#pragma unroll
-        for (int nb = 0; nb < D / 8; ++nb) {
-          acc[mt][nb][2 * r] *= alpha;
-          acc[mt][nb][2 * r + 1] *= alpha;
-        }
-        m[mt][r] = m_new;
+      for (int nb = 0; nb < D / 8; ++nb) {
+        acc[nb][2 * r] *= alpha;
+        acc[nb][2 * r + 1] *= alpha;
       }
-      // P = 2^((S' - m) f) in fp32 into the denominator, rounded to bf16
-      // (Pallas: p.astype(v.dtype)): k-step kk of P V spans n-blocks 2 kk
-      // (a0, a1) and 2 kk + 1 (a2, a3)
+      m[r] = m_new;
+    }
+
+    // P = 2^((S' - m) f) in fp32 into the denominator, rounded to bf16
+    // (Pallas: p.astype(v.dtype)) as A fragments: k-step kk spans n-blocks
+    // 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
+    unsigned pf[kMK / 16][4];
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) {
-        float p[4];
+    for (int nb = 0; nb < kNB; ++nb) {
+      float p[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) p[c] = p_of(s[mt][nb][c], c / 2);
-        l[mt][0] += p[0] + p[1];
-        l[mt][1] += p[2] + p[3];
-        pf[mt][nb / 2][(nb % 2) * 2] = pack_bf16(p[0], p[1]);
-        pf[mt][nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
+      for (int c = 0; c < 4; ++c) p[c] = p_of(s[nb][c], c / 2);
+      l[0] += p[0] + p[1];
+      l[1] += p[2] + p[3];
+      pf[nb / 2][(nb % 2) * 2] = pack_bf16(p[0], p[1]);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
 
     // O += P V: V is row-major (key, d), read transposed: matrices (k, n),
@@ -454,11 +427,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         unsigned b[4];
         ldsm_x4_trans(
             &sm.v[buf][kk * 16 + ((lane / 8) % 2) * 8 + lane % 8][np * 16 + (lane / 16) * 8], b);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][2 * np], pf[mt][kk], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], pf[mt][kk], b[2], b[3]);
-        }
+        mma_bf16(acc[2 * np], pf[kk], b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], pf[kk], b[2], b[3]);
       }
     }
     __syncthreads();  // every warp is done with buffer `buf` before it refills
@@ -467,29 +437,26 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // O / l in fp32, rounded once, through the warp's own rows of sm.q
   // (only this warp read them) to 16-byte stores
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
-      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
-    }
-#pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
-      const int col = nb * 8 + 2 * t4;
-      *reinterpret_cast<unsigned*>(&sm.q[w0 + mt * 16 + g][col]) =
-          pack_bf16(acc[mt][nb][0] / l[mt][0], acc[mt][nb][1] / l[mt][0]);
-      *reinterpret_cast<unsigned*>(&sm.q[w0 + mt * 16 + g + 8][col]) =
-          pack_bf16(acc[mt][nb][2] / l[mt][1], acc[mt][nb][3] / l[mt][1]);
-    }
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = nb * 8 + 2 * t4;
+    *reinterpret_cast<unsigned*>(&sm.q[warp * 16 + g][col]) =
+        pack_bf16(acc[nb][0] / l[0], acc[nb][1] / l[0]);
+    *reinterpret_cast<unsigned*>(&sm.q[warp * 16 + g + 8][col]) =
+        pack_bf16(acc[nb][2] / l[1], acc[nb][3] / l[1]);
   }
   __syncwarp();
   bf16* ob = o + (long long)bh * Nq * D;
-  for (int e = lane; e < 16 * kMT * kChunks; e += 32) {
+  for (int e = lane; e < 16 * kChunks; e += 32) {
     const int r = e / kChunks, c = (e % kChunks) * 8;
-    const int qi = q0 + w0 + r;
+    const int qi = q0 + warp * 16 + r;
     if (qi < Nq)
       *reinterpret_cast<uint4*>(ob + (long long)qi * D + c) =
-          *reinterpret_cast<const uint4*>(&sm.q[w0 + r][c]);
+          *reinterpret_cast<const uint4*>(&sm.q[warp * 16 + r][c]);
   }
 }
 
@@ -519,13 +486,12 @@ int launch_fma(const void* q, const void* k, const void* v, const void* bias, lo
   return (int)cudaGetLastError();
 }
 
-template <int D, int kBias, int kMT, int kMK>
+template <int D, int kBias>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias, long long sb_b,
                long long sb_h, long long sb_q, long long sb_k, void* o, int B, int H, int Nq,
                int Nk, float scale, cudaStream_t stream) {
-  constexpr int kMQ = 16 * kMT * kMmaWarps;
-  const size_t smem = sizeof(MmaSmem<D, kMQ, kMK>);
-  auto kernel = attention_fwd_mma_kernel<D, kBias, kMT, kMK>;
+  const size_t smem = sizeof(MmaSmem<D>);
+  auto kernel = attention_fwd_mma_kernel<D, kBias>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((Nq + kMQ - 1) / kMQ);
@@ -554,12 +520,12 @@ Launch pick(int dtype, int D, bool mma, int bias_kind) {
   const int i = D == 32 ? 0 : D == 64 ? 1 : D == 128 ? 2 : -1;
   if (i < 0) return nullptr;
   static const Launch kMma[3][3] = {
-      {launch_mma<32, kNoBias, 1, 64>, launch_mma<32, kKeyBias, 1, 64>,
-       launch_mma<32, kFullBias, 1, 64>},
-      {launch_mma<64, kNoBias, 1, 64>, launch_mma<64, kKeyBias, 1, 64>,
-       launch_mma<64, kFullBias, 1, 64>},
-      {launch_mma<128, kNoBias, 1, 64>, launch_mma<128, kKeyBias, 1, 64>,
-       launch_mma<128, kFullBias, 1, 64>}};
+      {launch_mma<32, kNoBias>, launch_mma<32, kKeyBias>,
+       launch_mma<32, kFullBias>},
+      {launch_mma<64, kNoBias>, launch_mma<64, kKeyBias>,
+       launch_mma<64, kFullBias>},
+      {launch_mma<128, kNoBias>, launch_mma<128, kKeyBias>,
+       launch_mma<128, kFullBias>}};
   static const Launch kF32[3] = {launch_fma<float, 32>, launch_fma<float, 64>,
                                  launch_fma<float, 128>};
   static const Launch kB16[3] = {launch_fma<bf16, 32>, launch_fma<bf16, 64>,
