@@ -9,7 +9,9 @@
 2. Kernels against their plain PyTorch versions on the card, in fp32
    (|err| <= 1e-5, relative to the output's scale for a gradient) and bf16
    (atol = rtol = 1.6e-2, about one bf16 ulp of the output), with median
-   CUDA-event times, the profiler's device time a call, the kernel's bound
+   CUDA-event times, the profiler's device time a call (where the profiler
+   records nothing, CUDA events around calls queued behind a held
+   stream; the `device_ms_by_events` line lists those), the kernel's bound
    (the least time the card could take: its operations over the H100's
    peak for their type or its bytes over the memory rate, whichever is
    longer) and, where one PyTorch call computes the same function
@@ -120,11 +122,45 @@ def median_ms(fn, reps: int = TIMING_REPS, per_pair: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, match: str = "", calls: int = 20) -> float:
+PROFILER_TRIES = 3
+BY_EVENTS = []  # what device_ms timed by queued CUDA events instead
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device time per call of `fn` by CUDA events around `calls` calls
+    queued while a spin kernel (`torch.cuda._sleep`) holds the stream, so
+    that they run back to back whatever the host's launch rate. The hold
+    grows until the queueing ends before it does."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22  # about 2 ms at the H100's clock
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        held = not a.query()  # every call was queued before the first ran
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / calls
+        cycles *= 4
+    raise CheckFailed("the calls outlasted every hold of the stream")
+
+
+def device_ms(fn, match: str = "", calls: int = 20, label: str = "",
+              alone: bool = True):
     """Device time per call of `fn`: the time of the kernels whose name
     holds `match` (every kernel if empty), summed by torch.profiler over
     `calls` calls. Unlike `median_ms` it does not see the host's launch
-    rate."""
+    rate. The profiler now and then records no kernel at all: after
+    PROFILER_TRIES such tries, a function that launches nothing on the
+    card but what is measured (`alone`) is timed by `queued_ms` (and
+    `label` joins BY_EVENTS); any other reads None, not measured."""
     import warnings
 
     import torch
@@ -135,14 +171,28 @@ def device_ms(fn, match: str = "", calls: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     warnings.filterwarnings("ignore", "Profiler clears events")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if match in e.key)
-    check(us > 0, f"the profiler saw no device time in kernels named "
-          f"'{match}'")
-    return us / calls / 1e3
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if match in e.key)
+        if us > 0:
+            return us / calls / 1e3
+    what = f"'{label or match}': the profiler saw no kernel in " \
+        f"{PROFILER_TRIES} tries"
+    if not alone:
+        print(f"  {what}; device time not measured")
+        return None
+    ms = queued_ms(fn, calls)
+    BY_EVENTS.append(label or match)
+    print(f"  {what}; {ms:.4f} ms a call by queued CUDA events")
+    return ms
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.3f} ms"
 
 
 # -- the least time the card could take -------------------------------------
@@ -260,10 +310,11 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
         r["library_ms"] = median_ms(library_fn, reps, per_pair)
         line += f"  library {r['library_ms']:8.4f} ms"
     if match is not None:
-        r["device_ms"] = device_ms(kernel_fn, match)
+        r["device_ms"] = device_ms(kernel_fn, match, label=label)
         line += f"  device {r['device_ms']:8.4f} ms"
         if library_fn is not None:
-            r["library_device_ms"] = device_ms(library_fn)
+            r["library_device_ms"] = device_ms(library_fn,
+                                               label=f"library {label}")
             line += f" (library {r['library_device_ms']:8.4f} ms)"
     if work is not None:
         r["bound_ms"], r["bound_by"] = bound(work)
@@ -510,7 +561,8 @@ def fused_ce_phase(card: str):
         fwd_times = {"max_abs_err": abs(got - want),
                      "ms": median_ms(fwd, 10, 3),
                      "plain_ms": median_ms(ref, 10, 3),
-                     "device_ms": device_ms(fwd, "fused_ce_fwd", 5)}
+                     "device_ms": device_ms(fwd, "fused_ce_fwd", 5,
+                                            f"fused CE fwd {shape}")}
         fwd_times["bound_ms"], fwd_times["bound_by"] = bound(
             fused_ce_fwd_work(n, d, v, x.element_size()))
         print(f"  {'fused CE fwd ' + shape:58s} rel err {rel:.3e}  kernel "
@@ -646,7 +698,7 @@ def pretrain_phase(card: str):
                                    2),
                    "device_ms": device_ms(lambda: task.tx.apply(pk, grads,
                                                                 sk),
-                                          "adamw_multi", 5)}
+                                          "adamw_multi", 5, "adamw")}
     task.tx.plain = True
     adamw_times["plain_ms"] = median_ms(lambda: task.tx.apply(pp, grads, sp),
                                         10, 2)
@@ -888,12 +940,14 @@ def slice_phase(card: str):
         print(f"  bucket {b:2d}: p50 {p50[b]:.3f} ms  "
               f"({b / p50[b] * 1e3:.1f} img/s)")
     # where the card's time goes in a call of the largest bucket
-    busy = {name: device_ms(lambda: engine(xs), match, 5)
+    # (the engine copies to the host, so only the profiler can read it)
+    busy = {name: device_ms(lambda: engine(xs), match, 5,
+                            f"serve bucket {b} {name}", alone=False)
             for name, match in (("busy", ""), ("attention", "attention_fwd"),
                                 ("layer_norm", "ln_fwd"))}
-    print(f"  bucket {b:2d}: device busy {busy['busy']:.3f} ms a call, "
-          f"attention {busy['attention']:.3f} ms, layer_norm "
-          f"{busy['layer_norm']:.3f} ms (profiler, 5 calls)")
+    print(f"  bucket {b:2d}: device busy {_ms(busy['busy'])} a call, "
+          f"attention {_ms(busy['attention'])}, layer_norm "
+          f"{_ms(busy['layer_norm'])} (profiler, 5 calls)")
     torch.cuda.synchronize()
     return {"layer_norm": n_ln, "attention": n_attn}, worst, p50, busy
 
@@ -1062,6 +1116,7 @@ def main() -> int:
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
+    print(json.dumps({"device_ms_by_events": BY_EVENTS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
