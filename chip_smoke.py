@@ -37,11 +37,14 @@
    steps; (d) exact launch counts per step; (e) step time, images/s and
    peak device memory; (f) the same with `fused_mlm_ce`: its first step
    against the materialised plain step of (b), the loss falling over 5
-   steps, one fused-CE forward, dx and dW launch a step beside the others,
-   step time and peak memory beside (e)'s.
+   steps, one fused-CE forward and a dl, dx and dW launch for each of the
+   8 vocab chunks a step beside the others, step time, peak memory and
+   device busy time (profiler) beside (e)'s.
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
-   in bf16 and at a ragged fp32 shape.
+   in bf16, at a ragged fp32 shape, and at a ragged bf16 shape over three
+   lowered vocab chunks; each tensor-core backward kernel (dl, dx, dW)
+   also alone against its plain version, timed by name at the main shape.
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
    a temporary directory, 2 epochs and a resume for a third.
@@ -520,14 +523,127 @@ def train_kernel_phase(card: str, rows: list):
     return main
 
 
+def _lib_call(name, *args) -> None:
+    """One C entry point of the kernel library on the current stream."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import _build
+
+    _build.check(getattr(_build.library(), name)(
+        *args, torch.cuda.current_stream().cuda_stream), name)
+
+
+def chunk_kernels(x, w, b, labels, lse, wg, chunk, shape, timed):
+    """Each kernel of the tensor-core backward alone, on the first vocab
+    chunk, against its plain version on the same inputs: dl (dl' and the
+    partial column sums), then dx and dW + db fed the plain dl' and
+    partials. With `timed`, each one's times, device time and bound too.
+    Returns {"dl" | "dx" | "dw": what compare() measured}."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+
+    n, d = x.shape
+    v = w.shape[0]
+    width = min(chunk, v)
+    ld = -(-width // 8) * 8
+    dev, size = x.device, x.element_size()
+    lab = labels.to(torch.int64).contiguous()
+    dl = torch.empty(n, ld, dtype=x.dtype, device=dev)
+    partials = torch.empty(-(-n // mlm.TILE_M), ld, device=dev)
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(w)
+    db = torch.zeros(v, device=dev)
+    want_dl, want_partials = mlm._dl_chunk_plain(x, w, b, labels, lse, wg, 0,
+                                                 width)
+    dlc = torch.zeros_like(dl)
+    dlc[:, :width] = want_dl
+    pc = torch.zeros_like(partials)
+    pc[:, :width] = want_partials
+
+    def dl_kernel():
+        _lib_call("ecamp_fused_ce_bwd_dl", x.data_ptr(), w.data_ptr(),
+                  b.data_ptr(), lab.data_ptr(), lse.data_ptr(), wg.data_ptr(),
+                  dl.data_ptr(), partials.data_ptr(), n, v, d, 0, width, ld)
+        return dl[:, :width], partials[:, :width]
+
+    def dx_kernel():  # one chunk, first and last: dx in bf16 at once
+        _lib_call("ecamp_fused_ce_bwd_dx_chunk", dlc.data_ptr(), w.data_ptr(),
+                  dx.data_ptr(), dx.data_ptr(), n, v, d, 0, width, ld, 1, 1)
+        return (dx,)
+
+    def dw_kernel():
+        _lib_call("ecamp_fused_ce_bwd_dw_chunk", dlc.data_ptr(), x.data_ptr(),
+                  pc.data_ptr(), dw.data_ptr(), db.data_ptr(), n, v, d, 0,
+                  width, ld)
+        return dw[:width], db[:width]
+
+    product = 2 * n * d * width
+    parts = (
+        ("dl", dl_kernel,
+         lambda: mlm._dl_chunk_plain(x, w, b, labels, lse, wg, 0, width),
+         (product, size * (n * d + width * d + n * width) + 16 * n
+          + 4 * width * (1 + partials.shape[0]), "bf16")),
+        ("dx", dx_kernel,
+         lambda: (mlm._dx_chunk_plain(want_dl, w, 0).to(x.dtype),),
+         (product, size * (n * width + width * d + n * d), "bf16")),
+        ("dw", dw_kernel,
+         lambda: mlm._dw_chunk_plain(want_dl, x, want_partials),
+         (product, size * (n * width + n * d + width * d)
+          + 4 * width * (1 + partials.shape[0]), "bf16")))
+    out = {}
+    for name, kernel_fn, plain_fn, work in parts:
+        label = f"fused CE bwd {name} kernel, chunk 0 of {width}, {shape}"
+        out[name] = compare(label, kernel_fn, plain_fn, x.dtype, reps=5,
+                            per_pair=2,
+                            match=f"fused_ce_bwd_{name}" if timed else None,
+                            work=work if timed else None)
+    return out
+
+
+def mainloop_rows(n, d, chunk, gen):
+    """The tensor-core backward's mainloop alone (`wgmma_gemm`, fp32 out)
+    at the shapes of one chunk's three products, beside `torch.matmul` of
+    the same bf16 operands (a yardstick the port never calls): device ms
+    a call and TFLOP/s of each."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+
+    rows = []
+    for layout, (m, nn, k) in (("dl", (n, chunk, d)), ("dx", (n, d, chunk)),
+                               ("dw", (chunk, d, n))):
+        a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        b = torch.randn(k, nn, device="cuda", generator=gen).bfloat16()
+        code = ("dl", "dx", "dw").index(layout)
+        ka, kb = {0: (a, b.T.contiguous()), 1: (a, b),
+                  2: (a.T.contiguous(), b)}[code]
+        ms = device_ms(lambda: mlm.wgmma_gemm(ka, kb, code), "wgmma_gemm", 10,
+                       f"mainloop {layout}")
+        lib = device_ms(lambda: a @ b, "", 10, f"matmul {layout}")
+        flops = 2 * m * nn * k
+        rows.append({"layout": layout, "m": m, "n": nn, "k": k,
+                     "device_ms": ms, "tflops": flops / ms / 1e9,
+                     "matmul_device_ms": lib,
+                     "matmul_tflops": flops / lib / 1e9})
+        print(f"  mainloop {layout} ({m} x {nn} over {k}): {ms:.4f} ms "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; torch.matmul bf16 {lib:.4f} "
+              f"ms {flops / lib / 1e9:.1f} TFLOP/s")
+        del a, b, ka, kb
+    return rows
+
+
 def fused_ce_phase(card: str):
     """The fused vocab-projection + CE kernels against their plain versions
     on the same inputs: at the pretraining step's shape (PRE_B * 256 rows,
     768, 30000) in bf16, checked against the plain math in fp32 on the same
     bf16 inputs (loss within 1e-3 relative, dx / dW / db at atol = rtol =
-    1.6e-2 of their scale), and at a ragged fp32 shape (1e-5). Times the
+    1.6e-2 of their scale), at a ragged fp32 shape (1e-5; the FMA
+    backward), and at a ragged bf16 shape with the vocab chunk lowered to
+    1024 (three chunks, the last ragged, a label in each). Times the
     forward (against the materialised `_fused_reference`), forward +
-    backward through the Function, and the two backward kernels alone."""
+    backward through the Function, the backward alone, and at the main
+    shape each of the tensor-core backward's three kernels by name."""
     import torch
 
     from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
@@ -536,59 +652,111 @@ def fused_ce_phase(card: str):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     main = {}
     print(f"fused vocab projection + weighted CE on {card}")
-    for (n, d, v), dtype, loss_tol in (((PRE_B * 256, 768, 30000),
-                                        torch.bfloat16, 1e-3),
-                                       ((1000, 96, 3001), torch.float32,
-                                        FP32_TOL)):
-        x = (torch.randn(n, d, device=dev, generator=gen)).to(dtype)
-        w = (0.05 * torch.randn(v, d, device=dev, generator=gen)).to(dtype)
-        b = 0.1 * torch.randn(v, device=dev, generator=gen)
-        labels = torch.randint(0, v, (n,), device=dev, generator=gen)
-        weights = 2 * torch.rand(n, device=dev, generator=gen)
-        gout = torch.full((), 1.0 / n, device=dev)  # the caller's mean
-        shape = f"({n}, {d}, {v}) {dtype}"
-
-        def fwd():
-            return mlm.fused_mlm_loss_sum(x, w, b, labels, weights)
-
-        def ref():
-            return mlm._fused_reference(x, w, b, labels, weights)
-
-        got, want = float(fwd()), float(ref())
-        rel = abs(got - want) / abs(want)
-        check(rel <= loss_tol, f"fused CE fwd {shape}: {got:.7g} vs "
-              f"{want:.7g} (rel {rel:.3e})")
-        fwd_times = {"max_abs_err": abs(got - want),
-                     "ms": median_ms(fwd, 10, 3),
-                     "plain_ms": median_ms(ref, 10, 3),
-                     "device_ms": device_ms(fwd, "fused_ce_fwd", 5,
-                                            f"fused CE fwd {shape}")}
-        fwd_times["bound_ms"], fwd_times["bound_by"] = bound(
-            fused_ce_fwd_work(n, d, v, x.element_size()))
-        print(f"  {'fused CE fwd ' + shape:58s} rel err {rel:.3e}  kernel "
-              f"{fwd_times['ms']:8.4f} ms  plain {fwd_times['plain_ms']:8.4f}"
-              f" ms  device {fwd_times['device_ms']:8.4f} ms  bound "
-              f"{fwd_times['bound_ms']:8.4f} ms ({fwd_times['bound_by']})")
-
-        compare(f"fused CE fwd+bwd {shape}",
-                _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
-                    *a, labels, weights), (x, w, b), (True,) * 3, gout),
-                _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
-                    *a, labels, weights, plain=True), (x, w, b), (True,) * 3,
-                    gout), dtype, reps=5, per_pair=2)
-        lse, _ = mlm._forward_plain(x, w, b, labels)
-        wg = gout * weights
-        bwd_times = compare(
-            f"fused CE bwd (dx, dW, db) {shape}",
-            lambda: mlm._backward_cuda(x, w, b, labels, lse, wg),
-            lambda: mlm._fused_backward_plain(x, w, b, labels, lse, wg),
-            dtype, reps=5, per_pair=2, match="fused_ce_bwd",
-            work=fused_ce_bwd_work(n, d, v, x.element_size()))
-        if dtype == torch.bfloat16:
-            main["fused_ce_fwd"], main["fused_ce_bwd"] = fwd_times, bwd_times
-        del x, w, lse
+    default_chunk = mlm.CHUNK_V
+    try:
+        for case in (((PRE_B * 256, 768, 30000), torch.bfloat16, 1e-3,
+                      default_chunk),
+                     ((1000, 96, 3001), torch.float32, FP32_TOL,
+                      default_chunk),
+                     ((1000, 96, 3001), torch.bfloat16, 1e-3, 1024)):
+            mlm.CHUNK_V = case[3]  # lowered for the last case only
+            main.update(_fused_ce_case(card, gen, *case,
+                                       main_shape=case[3] == default_chunk
+                                       and case[1] == torch.bfloat16))
+    finally:
+        mlm.CHUNK_V = default_chunk
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return main
+
+
+def _fused_ce_case(card, gen, nvd, dtype, loss_tol, chunk, main_shape):
+    """One shape of `fused_ce_phase`, with mlm.CHUNK_V set to `chunk`;
+    returns the main shape's forward and backward times by kernel name."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+
+    dev = torch.device("cuda")
+    main = {}
+    n, d, v = nvd
+    x = (torch.randn(n, d, device=dev, generator=gen)).to(dtype)
+    w = (0.05 * torch.randn(v, d, device=dev, generator=gen)).to(dtype)
+    b = 0.1 * torch.randn(v, device=dev, generator=gen)
+    labels = torch.randint(0, v, (n,), device=dev, generator=gen)
+    chunks = mlm._chunks(v, chunk)
+    for i, (v0, width) in enumerate(chunks):
+        labels[i] = v0 + width - 1  # a label in every chunk, the last too
+    weights = 2 * torch.rand(n, device=dev, generator=gen)
+    gout = torch.full((), 1.0 / n, device=dev)  # the caller's mean
+    shape = f"({n}, {d}, {v}) {dtype}"
+    if not main_shape and dtype == torch.bfloat16:
+        shape += f" chunk {chunk}"
+    tensor_cores = mlm._tensor_core_path(x, w)
+
+    def fwd():
+        return mlm.fused_mlm_loss_sum(x, w, b, labels, weights)
+
+    def ref():
+        return mlm._fused_reference(x, w, b, labels, weights)
+
+    got, want = float(fwd()), float(ref())
+    rel = abs(got - want) / abs(want)
+    check(rel <= loss_tol, f"fused CE fwd {shape}: {got:.7g} vs "
+          f"{want:.7g} (rel {rel:.3e})")
+    fwd_times = {"max_abs_err": abs(got - want),
+                 "ms": median_ms(fwd, 10, 3),
+                 "plain_ms": median_ms(ref, 10, 3),
+                 "device_ms": device_ms(fwd, "fused_ce_fwd", 5,
+                                        f"fused CE fwd {shape}")}
+    fwd_times["bound_ms"], fwd_times["bound_by"] = bound(
+        fused_ce_fwd_work(n, d, v, x.element_size()))
+    print(f"  {'fused CE fwd ' + shape:58s} rel err {rel:.3e}  kernel "
+          f"{fwd_times['ms']:8.4f} ms  plain {fwd_times['plain_ms']:8.4f}"
+          f" ms  device {fwd_times['device_ms']:8.4f} ms  bound "
+          f"{fwd_times['bound_ms']:8.4f} ms ({fwd_times['bound_by']})")
+
+    compare(f"fused CE fwd+bwd {shape}",
+            _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
+                *a, labels, weights), (x, w, b), (True,) * 3, gout),
+            _grads_of(lambda *a: mlm.fused_mlm_loss_sum(
+                *a, labels, weights, plain=True), (x, w, b), (True,) * 3,
+                gout), dtype, reps=5, per_pair=2)
+    lse, _ = mlm._forward_plain(x, w, b, labels)
+    wg = gout * weights
+    if main_shape or dtype == torch.float32:
+        plain_bwd = lambda: mlm._fused_backward_plain(  # noqa: E731
+            x, w, b, labels, lse, wg)
+    else:
+        plain_bwd = lambda: mlm._backward_chunked_plain(  # noqa: E731
+            x, w, b, labels, lse, wg)
+    before = mlm.launches_dl.value
+    bwd_times = compare(
+        f"fused CE bwd (dx, dW, db) {shape}",
+        lambda: mlm._backward_cuda(x, w, b, labels, lse, wg),
+        plain_bwd, dtype, reps=5, per_pair=2, match="fused_ce_bwd",
+        work=fused_ce_bwd_work(n, d, v, x.element_size()))
+    check(tensor_cores == (dtype == torch.bfloat16), f"{shape}: "
+          f"tensor-core backward {tensor_cores}")
+    if tensor_cores:
+        check(mlm.launches_dl.value > before,
+              f"{shape}: the dl kernel did not run")
+        parts = chunk_kernels(x, w, b, labels, lse, wg, chunk, shape,
+                              timed=main_shape)
+    if main_shape:
+        total = sum(parts[k]["device_ms"] or 0.0 for k in parts)
+        print(f"  fused CE bwd at {shape}: dl {_ms(parts['dl']['device_ms'])}"
+              f" + dx {_ms(parts['dx']['device_ms'])} + dW "
+              f"{_ms(parts['dw']['device_ms'])} on one {chunk}-row chunk "
+              f"= {total:.4f} ms; {len(chunks)} chunks a call; the whole "
+              f"backward {_ms(bwd_times['device_ms'])} device, bound "
+              f"{bwd_times['bound_ms']:.4f} ms")
+        bwd_times.update(chunk=chunk, chunks=len(chunks),
+                         parts_first_chunk=parts,
+                         parts_first_chunk_device_ms=total,
+                         mainloop=mainloop_rows(n, d, chunk, gen))
+        main["fused_ce_fwd"], main["fused_ce_bwd"] = fwd_times, bwd_times
+    del x, w, lse
     return main
 
 
@@ -745,9 +913,19 @@ def pretrain_phase(card: str):
             times.append((time.perf_counter() - t) * 1e3)
             losses.append(float(m["loss"]))
         launches = {k: ctr.value for k, ctr in counters.items()}
-        return losses, times, launches, torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        # the device's busy time in a step, and the fused CE's part of it
+        # (the profiler over 3 more steps; outside the counts above)
+        box = [state]
 
-    def report(tag, per_step, losses, times, launches, peak):
+        def one_step():
+            box[0], _ = task.train_step(box[0], batch, noise=noise)
+
+        busy = {k: device_ms(one_step, match, 3, f"step {k}", alone=False)
+                for k, match in (("busy", ""), ("fused_ce", "fused_ce"))}
+        return losses, times, launches, peak, busy
+
+    def report(tag, per_step, losses, times, launches, peak, busy):
         print(f"  ({tag}) loss over {PRE_STEPS} steps (dropout on): "
               f"{[round(x, 5) for x in losses]}")
         check(all(np.isfinite(losses)), f"({tag}) non-finite loss")
@@ -761,25 +939,33 @@ def pretrain_phase(card: str):
               f"2-{PRE_STEPS} (host clock, synchronised), "
               f"{PRE_B / step_ms * 1e3:.2f} images/s, peak device memory "
               f"{peak / 2 ** 30:.3f} GiB on {card}")
+        print(f"  ({tag}) device busy {_ms(busy['busy'])} a step, fused CE "
+              f"kernels {_ms(busy['fused_ce'])} (profiler, 3 steps)")
         return {"step_ms_median": step_ms, "step_ms": times,
                 "images_per_s": PRE_B / step_ms * 1e3,
-                "max_memory_allocated_bytes": peak, "losses": losses}
+                "max_memory_allocated_bytes": peak, "losses": losses,
+                "device_busy_ms": busy["busy"],
+                "fused_ce_device_ms": busy["fused_ce"]}
 
     # (c), (d), (e): PRE_STEPS training steps through the kernels
-    losses, times, launches, peak = steps(task, counters)
+    losses, times, launches, peak, busy = steps(task, counters)
     result = {"batch": PRE_B, "loss_first_step": loss_k,
               "loss_plain_step": loss_p, "grad_norm": gnorm_k,
               "grad_norm_plain": gnorm_p, "card": card,
-              **report("c-e", per_step, losses, times, launches, peak)}
+              **report("c-e", per_step, losses, times, launches, peak, busy)}
     del task, model
     torch.cuda.empty_cache()
 
     # (f): the fused-CE configuration from the same weights, batch and
     # noise: its first step against the materialised plain step of (b),
     # then PRE_STEPS steps
+    # the bf16 backward runs dl, dx and dW once a vocab chunk
+    n_chunks = len(mlm._chunks(cfg.bert.vocab_size, mlm.CHUNK_V))
     fcounters = dict(counters, fused_ce_fwd=mlm.launches_fwd,
-                     fused_ce_dx=mlm.launches_dx, fused_ce_dw=mlm.launches_dw)
-    fper_step = dict(per_step, fused_ce_fwd=1, fused_ce_dx=1, fused_ce_dw=1)
+                     fused_ce_dl=mlm.launches_dl, fused_ce_dx=mlm.launches_dx,
+                     fused_ce_dw=mlm.launches_dw)
+    fper_step = dict(per_step, fused_ce_fwd=1, fused_ce_dl=n_chunks,
+                     fused_ce_dx=n_chunks, fused_ce_dw=n_chunks)
     ftask = PretrainTask(dataclasses.replace(cfg, fused_mlm_ce=True),
                          device="cuda")
     ftask.model.load_state_dict(init)
@@ -802,13 +988,14 @@ def pretrain_phase(card: str):
               f"materialised plain {loss_p[k]:.6g} (rel {rel:.3e})")
     check(abs(gnorm_f - gnorm_p) <= GNORM_TOL * gnorm_p,
           f"(f) grad norm {gnorm_f:.6g} vs plain {gnorm_p:.6g}")
-    flosses, ftimes, flaunches, fpeak = steps(ftask, fcounters)
+    flosses, ftimes, flaunches, fpeak, fbusy = steps(ftask, fcounters)
     result["fused_ce"] = {"loss_first_step": loss_f, "grad_norm": gnorm_f,
                           **report("f", fper_step, flosses, ftimes, flaunches,
-                                   fpeak)}
+                                   fpeak, fbusy)}
     print(f"  (f) against (e): step {result['fused_ce']['step_ms_median']:.3f}"
           f" vs {result['step_ms_median']:.3f} ms, peak device memory "
-          f"{fpeak} vs {peak} bytes ({(fpeak - peak) / 2 ** 30:+.3f} GiB)")
+          f"{fpeak} vs {peak} bytes ({(fpeak - peak) / 2 ** 30:+.3f} GiB), "
+          f"device busy {_ms(fbusy['busy'])} vs {_ms(busy['busy'])}")
     del ftask, init
     torch.cuda.empty_cache()
     return launches, flaunches, adamw_times, result
@@ -1073,7 +1260,8 @@ def main() -> int:
     # launches: the materialised step's (d) for the first four kernels, the
     # fused-CE step's (f) for the fused CE (dx + dW for its backward)
     launches["fused_ce_fwd"] = flaunches["fused_ce_fwd"]
-    launches["fused_ce_bwd"] = (flaunches["fused_ce_dx"]
+    launches["fused_ce_bwd"] = (flaunches["fused_ce_dl"]
+                                + flaunches["fused_ce_dx"]
                                 + flaunches["fused_ce_dw"])
     no_library = {
         "sr_conv_stack": "no single PyTorch call: two convolutions with "
@@ -1109,6 +1297,15 @@ def main() -> int:
             entry["library_device_ms"] = t["library_device_ms"]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name]
+        if name == "fused_ce_bwd":  # three kernels a vocab chunk
+            entry["chunk"] = t["chunk"]
+            entry["launches_a_step"] = {
+                k: flaunches[f"fused_ce_{k}"] // PRE_STEPS
+                for k in ("dl", "dx", "dw")}
+            entry["parts_first_chunk"] = {
+                k: {f: t["parts_first_chunk"][k][f] for f in (
+                    "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms")}
+                for k in ("dl", "dx", "dw")}
         kernels.append(entry)
     print(json.dumps({"kernel_shapes": shape_rows}))
     print(json.dumps({"serve_p50_ms": {str(b): v for b, v in p50.items()},
@@ -1116,6 +1313,8 @@ def main() -> int:
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
+    print(json.dumps({"fused_ce_mainloop":
+                      main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

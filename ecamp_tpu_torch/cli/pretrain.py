@@ -41,6 +41,7 @@ _COUNTERS = {"layer_norm": layer_norm.launches,
              "sr_conv_stack": sr_head.launches,
              "adamw": fused_adamw.launches,
              "fused_ce_fwd": fused_mlm_loss.launches_fwd,
+             "fused_ce_dl": fused_mlm_loss.launches_dl,
              "fused_ce_dx": fused_mlm_loss.launches_dx,
              "fused_ce_dw": fused_mlm_loss.launches_dw}
 
@@ -164,6 +165,7 @@ def main(argv=None):
                 start_epoch = int(ckpt["epoch"]) + 1
                 state.step = torch.full_like(state.step,
                                              start_epoch * steps_per_epoch)
+                task.step = start_epoch * steps_per_epoch  # the RNG fold
                 print(f"resuming at epoch {start_epoch}")
 
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))

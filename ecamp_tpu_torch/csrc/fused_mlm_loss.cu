@@ -1,47 +1,52 @@
 // Fused vocab projection + weighted cross-entropy for Hopper (sm_90a),
-// plain C interface: a forward kernel and two backward kernels (dx, dW/db).
+// plain C interface.
 //
 // Replaces the TPU kernels of ecamp_tpu/kernels/fused_mlm_loss.py:
 //   _fwd_kernel (launched by _fused_fwd):      lse, gold per row
 //   _bwd_dx_kernel, _bwd_dw_kernel (launched by _fused_bwd_impl)
 // over x (N, D), the decoder weight w (V, D) row-major (the port's Linear
-// layout: both operands of x w^T are contiguous along D, so no transpose is
-// made), the fp32 bias b (V,) and labels (N,):
-//   logits = x w^T + b (fp32), never stored in device memory
+// layout), the fp32 bias b (V,) and labels (N,):
+//   logits = x w^T + b (fp32)
 //   fwd:  lse = logsumexp(logits), gold = logits[label]        (fp32)
 //   bwd:  dl = (softmax(logits) - onehot(label)) * wg   (wg = weights * g)
 //         dx = dl' w,  dW = dl'^T x  with dl' = dl rounded to x's dtype,
 //         db = colsum(dl) in fp32.
 //
 // What bounds it on the H100: at the pretraining shape (N = 8192, D = 768,
-// V = 30000) the forward is 2NDV = 0.38 TFLOP and each backward kernel
-// recomputes its logit tiles, 0.75 TFLOP each, on 59 MB of operands: far
-// above the ridge point, so it is compute-bound, and what it saves is the
-// (N, V) logits and their CE intermediates in device memory.
-// What the design does about it: every kernel is a tile GEMM over shared
-// memory. A block owns kOwn = 32 rows of one operand and streams the other
-// in tiles of kStr = 128 rows; each 32 x 128 logit tile is computed over D
-// in shared-memory stages and handed to the epilogue in one layout (warp
-// `ty` holds rows 4 ty..4 ty+3, lane `tx` columns 4 tx..4 tx+3). The
-// forward folds each tile into a running (max, sum-exp, gold) of its rows.
-// The backward kernels turn the tile into dl' in shared memory and
-// accumulate the owned rows' (32 x D) output in registers (96 a thread at
-// D = 768) from the streamed rows, so no reduction crosses blocks and
-// nothing is atomic:
-//   dx:  owned = rows of x,             streamed = vocab rows of w
-//   dW:  owned = vocab rows of w (+db), streamed = rows of x.
-// Two ways through the two products:
-//   * bf16 with D % 8 == 0 and 16-byte aligned rows: tensor cores,
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate) on ldmatrix fragments;
-//     the operands go into double-buffered shared-memory stages with
-//     cp.async, 16 bytes at a time, in their row-major layout (the dW/dx
-//     product reads its streamed operand transposed with ldmatrix.trans);
-//   * otherwise (fp32, odd widths): the FMA pipe, 4 x 4 products a thread
-//     from k-major fp32 stages.
-// Ragged N, V and D are masked by bounds (no padding copies); a row or
-// column outside the bounds contributes dl = 0, so a padded row's
-// exp(logit - lse) never reaches dx, dW or db.
+// V = 30000) the logits are 2NDV = 0.38 TFLOP and each of the backward's
+// two products as much again, on 59 MB of operands: far above the ridge
+// point, so it is compute-bound.
+//
+// Forward: a block owns kOwn = 32 rows of x and streams the vocab in tiles
+// of kStr = 128 rows; each 32 x 128 logit tile is computed over D in
+// shared-memory stages (bf16 with D % 8 == 0: mma.sync m16n8k16 on
+// double-buffered cp.async stages; else the FMA pipe) and folded into a
+// running (max, sum-exp, gold) per row. The logits never reach device
+// memory.
+//
+// Backward, bf16 with D % 8 == 0 and 16-byte aligned bases (the wrapper's
+// shape rule): the vocabulary in chunks of Vc rows, three kernels a chunk,
+// each one GEMM of one mainloop (tc::gemm_body: TMA loads into a ring of
+// 128-byte-swizzled tiles behind mbarriers, one producer thread, two
+// consumer warpgroups running wgmma on 128 x BN tiles, a persistent grid)
+// with its own epilogue:
+//   dl:  S = x W_c^T (N x Vc over D); dl' into an (N, Vc) scratch and one
+//        fp32 column sum of dl per 128 rows into a partials buffer; its K
+//        is only D, so two blocks share an SM and one's epilogue runs
+//        under the other's products
+//   dx:  dx32 (+)= dl'_c W_c (N x D over Vc) in fp32; the last chunk
+//        writes dx
+//   dW:  dW_c = dl'_c^T x (Vc x D over N); db_c = the partials summed in
+//        tile order (no atomics)
+// Each logit is computed once (3 x 2NDV in all, the bound's count), no
+// accumulator spans D, and the price is the scratch: dl' is written once
+// and read twice. TMA's zero fill takes the ragged N, Vc, V and D edges.
+// fp32, and bf16 of other widths or alignments, run the FMA backward: a
+// block owns 32 rows of one operand (x for dx, w for dW + db), recomputes
+// each 32 x 128 logit tile against the streamed operand and accumulates
+// its (32 x D) output in registers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -64,7 +69,6 @@ constexpr int kBK2 = 8;        // streamed rows of one accumulation stage
 constexpr int kNJ = kDMax / 128;
 // tensor-core path
 constexpr int kBKm = 64;       // depth of one logit-tile stage
-constexpr int kBK2m = 16;      // streamed rows of one accumulation stage
 constexpr int kPadH = 8;       // bf16 rows: 16-byte ldmatrix rows, no conflicts
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -111,24 +115,16 @@ struct MmaTile {  // tensor cores: one stage of the logit tile, row-major bf16
   bf16 str[kStr][kBKm + kPadH];
 };
 
-struct MmaAcc {  // tensor cores: kBK2m streamed rows, the whole of D
-  bf16 str[kBK2m][kDMax + kPadH];
-};
-
 struct MmaSmem {
   union {  // each is handed on only after a block-wide barrier
     MmaTile tile[2];             // double-buffered: one fills while one is read
     float s[kOwn][kStr + kPad];  // the fp32 logit tile, for the epilogue
-    MmaAcc acc[2];
   } st;
-  bf16 dl[kOwn][kStr + kPadH];  // dl' of the tile, [own][str], bf16
 };
 
-// every kernel takes its stages as dynamic shared memory of this type
+// the forward takes its stages as dynamic shared memory of this type
 template <bool kMma>
 using FwdSmem = typename std::conditional<kMma, MmaSmem, TileStage>::type;
-template <bool kMma>
-using BwdSmem = typename std::conditional<kMma, MmaSmem, FmaSmem>::type;
 
 // ---------------------------------------------------------------------------
 // the 32 x 128 logit tile, FMA pipe
@@ -189,12 +185,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
@@ -487,82 +477,18 @@ __device__ __forceinline__ void fma_store(const float (&acc)[kNJ * 16], long lon
   }
 }
 
-// out[own] += dl' . str over kStr streamed rows, tensor cores: warp w owns
-// rows 16 (w % 2).. and columns 192 (w / 2).. of the 32 x D output;
-// acc[nb * 4 + c] is element c of n-block nb's C fragment. The kBK2m-row
-// stages are double-buffered. D % 8 == 0.
-__device__ __forceinline__ void mma_accumulate(const bf16* __restrict__ str, int t0, int n_str,
-                                               int D, MmaSmem& sm, float (&acc)[kNJ * 16]) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wo = warp % 2, wd = warp / 2;
-  const int dchunks = (D + 15) / 16 * 2;  // zero-filled to whole n-block pairs
-  auto fill = [&](MmaAcc& s, int k0) {
-    for (int e = threadIdx.x; e < kBK2m * dchunks; e += kThreads) {
-      const int r = e / dchunks, dc = (e % dchunks) * 8;
-      const long long t = (long long)t0 + k0 + r;
-      cp_async16(&s.str[r][dc], str + t * D + dc, str, t < n_str && dc < D);
-    }
-    cp_async_commit();
-  };
-  constexpr int nk = kStr / kBK2m;
-  __syncthreads();  // the dl tile is stored; the stages' readers are done
-  fill(sm.st.acc[0], 0);
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      fill(sm.st.acc[(kc + 1) % 2], (kc + 1) * kBK2m);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // stage kc has landed for every thread
-    MmaAcc& s = sm.st.acc[kc % 2];
-    unsigned a[4];
-    frag_a(sm.dl, wo * 16, kc * kBK2m, a);
-#pragma unroll
-    for (int np = 0; np < 12; ++np) {
-      const int n0 = wd * 192 + np * 16;
-      if (n0 >= D) break;
-      // B = str[k][n], n contiguous: transposed matrices (k, n), (k+8, n),
-      // (k, n+8), (k+8, n+8) give b0b1, b2b3 of n-blocks n and n+8
-      unsigned bb[4];
-      ldsm_x4_trans(&s.str[((lane / 8) % 2) * 8 + lane % 8][n0 + (lane / 16) * 8], bb);
-      const int c = np * 8;  // n-blocks 2 np and 2 np + 1
-      mma_bf16(acc[c], acc[c + 1], acc[c + 2], acc[c + 3], a, bb[0], bb[1]);
-      mma_bf16(acc[c + 4], acc[c + 5], acc[c + 6], acc[c + 7], a, bb[2], bb[3]);
-    }
-    __syncthreads();  // every warp is done with the stage before it refills
-  }
-}
-
-__device__ __forceinline__ void mma_store(const float (&acc)[kNJ * 16], long long o0, int n_own,
-                                          int D, bf16* __restrict__ out) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wo = warp % 2, wd = warp / 2;
-  const long long row = o0 + wo * 16 + lane / 4;
-#pragma unroll
-  for (int nb = 0; nb < 24; ++nb) {
-    const int d = wd * 192 + nb * 8 + (lane % 4) * 2;
-    if (d >= D) break;
-    if (row < n_own)
-      *reinterpret_cast<__nv_bfloat162*>(&out[row * D + d]) =
-          __floats2bfloat162_rn(acc[nb * 4], acc[nb * 4 + 1]);
-    if (row + 8 < n_own)
-      *reinterpret_cast<__nv_bfloat162*>(&out[(row + 8) * D + d]) =
-          __floats2bfloat162_rn(acc[nb * 4 + 2], acc[nb * 4 + 3]);
-  }
-}
-
-// dx (kVocabOwned = false) or dW + db (true). A block owns 32 rows of one
-// operand and streams the other; for each streamed tile it recomputes the
-// 32 x 128 logits, forms dl, and accumulates out[own] += dl' . str.
-template <typename T, bool kVocabOwned, bool kMma>
+// The FMA backward: dx (kVocabOwned = false) or dW + db (true). A block
+// owns 32 rows of one operand and streams the other; for each streamed
+// tile it recomputes the 32 x 128 logits, forms dl, and accumulates
+// out[own] += dl' . str.
+template <typename T, bool kVocabOwned>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_ce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ b, const long long* __restrict__ labels,
                     const float* __restrict__ lse, const float* __restrict__ wg,
                     T* __restrict__ out, float* __restrict__ db, int N, int V, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
-  BwdSmem<kMma>& sm = *reinterpret_cast<BwdSmem<kMma>*>(smem);
+  FmaSmem& sm = *reinterpret_cast<FmaSmem*>(smem);
   const int ty = threadIdx.x / 32;
   const int tx = threadIdx.x % 32;
   const T* own = kVocabOwned ? w : x;
@@ -578,31 +504,14 @@ fused_ce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int t0 = 0; t0 < n_str; t0 += kStr) {
     float z[4][4], dl[4][4];
-    if constexpr (kMma)
-      mma_logit_tile(own, o0, n_own, str, t0, n_str, D, sm, z);
-    else
-      logit_tile(own, o0, n_own, str, t0, n_str, D, sm.st.tile, z);
+    logit_tile(own, o0, n_own, str, t0, n_str, D, sm.st.tile, z);
     tile_dl<kVocabOwned>(z, o0, t0, N, V, b, labels, lse, wg, dl, dbsum);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (kMma) {  // dx and dW take dl in x's dtype
-        __nv_bfloat162 lo = __floats2bfloat162_rn(dl[i][0], dl[i][1]);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(dl[i][2], dl[i][3]);
-        uint2 v;
-        v.x = *reinterpret_cast<unsigned*>(&lo);
-        v.y = *reinterpret_cast<unsigned*>(&hi);
-        *reinterpret_cast<uint2*>(&sm.dl[ty * 4 + i][tx * 4]) = v;
-      } else {
-        *reinterpret_cast<float4*>(&sm.dl[ty * 4 + i][tx * 4]) =
-            make_float4(to_f(from_f<T>(dl[i][0])), to_f(from_f<T>(dl[i][1])),
-                        to_f(from_f<T>(dl[i][2])), to_f(from_f<T>(dl[i][3])));
-      }
-    }
-    if constexpr (kMma) {
-      mma_accumulate(str, t0, n_str, D, sm, acc);
-    } else {
-      fma_accumulate(str, t0, n_str, D, sm, acc);
-    }
+    for (int i = 0; i < 4; ++i)  // dx and dW take dl in x's dtype
+      *reinterpret_cast<float4*>(&sm.dl[ty * 4 + i][tx * 4]) =
+          make_float4(to_f(from_f<T>(dl[i][0])), to_f(from_f<T>(dl[i][1])),
+                      to_f(from_f<T>(dl[i][2])), to_f(from_f<T>(dl[i][3])));
+    fma_accumulate(str, t0, n_str, D, sm, acc);
   }
 
   if (kVocabOwned) {
@@ -613,10 +522,7 @@ fused_ce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (tx == 0 && o < n_own) db[o] = s;
     }
   }
-  if constexpr (kMma)
-    mma_store(acc, o0, n_own, D, out);
-  else
-    fma_store(acc, o0, n_own, D, out);
+  fma_store(acc, o0, n_own, D, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -652,15 +558,15 @@ int launch_fwd(const void* x, const void* w, const void* b, const void* labels, 
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kVocabOwned, bool kMma>
+template <typename T, bool kVocabOwned>
 int launch_bwd(const void* x, const void* w, const void* b, const void* labels,
                const void* lse, const void* wg, void* out, void* db, int N, int V, int D,
                cudaStream_t stream) {
   const int blocks = ((kVocabOwned ? V : N) + kOwn - 1) / kOwn;
-  const size_t smem = sizeof(BwdSmem<kMma>);
-  const cudaError_t err = allow_smem(fused_ce_bwd_kernel<T, kVocabOwned, kMma>, smem);
+  const size_t smem = sizeof(FmaSmem);
+  const cudaError_t err = allow_smem(fused_ce_bwd_kernel<T, kVocabOwned>, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_ce_bwd_kernel<T, kVocabOwned, kMma><<<blocks, kThreads, smem, stream>>>(
+  fused_ce_bwd_kernel<T, kVocabOwned><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
       static_cast<const long long*>(labels), static_cast<const float*>(lse),
       static_cast<const float*>(wg), static_cast<T*>(out), static_cast<float*>(db), N, V, D);
@@ -672,13 +578,556 @@ int dispatch_bwd(const void* x, const void* w, const void* b, const void* labels
                  const void* lse, const void* wg, void* out, void* db, int N, int V, int D,
                  int dtype, cudaStream_t s) {
   if (bad_shape(N, V, D)) return (int)cudaErrorInvalidValue;
-  if (use_mma(dtype, D, x, w, out))
-    return launch_bwd<bf16, kVocabOwned, true>(x, w, b, labels, lse, wg, out, db, N, V, D, s);
   if (dtype == 1)
-    return launch_bwd<bf16, kVocabOwned, false>(x, w, b, labels, lse, wg, out, db, N, V, D, s);
+    return launch_bwd<bf16, kVocabOwned>(x, w, b, labels, lse, wg, out, db, N, V, D, s);
   if (dtype == 0)
-    return launch_bwd<float, kVocabOwned, false>(x, w, b, labels, lse, wg, out, db, N, V, D, s);
+    return launch_bwd<float, kVocabOwned>(x, w, b, labels, lse, wg, out, db, N, V, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core backward: TMA + wgmma GEMMs over vocab chunks
+
+namespace tc {
+
+constexpr int kBM = 128;        // output rows a tile: 64 per consumer warpgroup
+constexpr int kBK = 64;         // depth of one stage: 128 bytes of bf16, one swizzle row
+// shared-memory ring: 3 stages of 32 KB for the 128-wide logit tiles (two
+// blocks an SM), 4 of 40 KB for the 192-wide products (one)
+template <int BN>
+constexpr int kStagesOf = BN == 128 ? 3 : 4;
+// The logit tiles are 128 wide and their K is only D, so an epilogue (exp,
+// dl' stores, column sums) follows every 12 k-steps: two blocks share an SM
+// so that one's epilogue overlaps the other's products.
+constexpr int kDlBN = 128;
+template <int BN>
+constexpr int kCtasOf = BN == 128 ? 2 : 1;
+// threads a block: two consumer warpgroups and a producer warpgroup whose
+// registers move to the consumers (setmaxnreg), or, at two blocks an SM,
+// a lone producer warp and at most 112 registers a thread throughout
+template <int BN>
+constexpr int kThreadsOf = kCtasOf<BN> == 1 ? 384 : 288;
+constexpr int kConsumers = 256; // two consumer warpgroups
+constexpr int kABytes = kBM * kBK * 2;
+constexpr int kBox = 64 * kBK * 2;  // one 64 x 64 bf16 TMA box, 8 KB
+
+enum Epi { kEpiDl, kEpiDx, kEpiDw, kEpiGemm };
+
+// What the epilogues read. C is M x N over K; B's map starts at row b_row0.
+struct Args {
+  int M, N, K, b_row0;
+  int v0, ld;                    // chunk start in V; row stride of dl' and partials
+  const float* bias;             // dl: fp32 (V,)
+  const long long* labels;       // dl: (N,)
+  const float* lse;              // dl: fp32 (N,)
+  const float* wg;               // dl: fp32 (N,)
+  bf16* dl;                      // dl: dl' (N, ld)
+  float* partials;               // dl writes, dW reads: (ceil(N / kBM), ld)
+  int n_mtiles;                  // dW: rows of partials
+  float* acc32;                  // dx: fp32 (N, D) across chunks
+  bf16* out;                     // dx: dx (N, D); dW: dW (V, D)
+  int first, last;               // dx: the chunk's place
+  float* db;                     // dW: fp32 (V,)
+  float* c;                      // the bare GEMM: fp32 (M, N)
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one 2-D box of the map at (c0 = column, c1 = row) into shared memory;
+// the barrier counts its bytes (out-of-bounds elements arrive as zeros)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (SW128)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo, unsigned sbo) {
+  const unsigned a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's fence and wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the two consumer warpgroups' own barrier (the producer never joins)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// d (64 x 128, fp32, the warpgroup's accumulator fragments) += A B of one
+// 16-deep step, A and B read from shared memory through their descriptors;
+// kTA / kTB: 0 = K-major, 1 = MN-major
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// d (64 x 192, fp32, the warpgroup's accumulator fragments) += A B of one
+// 16-deep step, A and B read from shared memory through their descriptors;
+// kTA / kTB: 0 = K-major, 1 = MN-major
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+template <int BN, int kTA, int kTB>
+__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  static_assert(BN == 128 || BN == 192, "tile widths of the three products");
+  if constexpr (BN == 128)
+    wgmma_m64n128<kTA, kTB>(d, da, db);
+  else
+    wgmma_m64n192<kTA, kTB>(d, da, db);
+}
+
+// Accumulator fragment i of a thread of a warpgroup: row 16 warp + lane/4
+// + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2 of its 64 x BN.
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dl' = ((exp(S + b - lse) - onehot) * wg) rounded to bf16, and the tile's
+// fp32 column sums of dl (rows n >= N and columns past the chunk are 0).
+// exp is one FMA and one ex2 an element, the bias and lse folded in base 2;
+// each column pair is summed over the warp's 16 rows as soon as it is done,
+// so no array of sums stays live beside the accumulators.
+template <int BN>
+__device__ __forceinline__ void epilogue_dl(const float (&acc)[BN / 2], int m0, int n0, int wgi,
+                                            const Args& p) {
+  __shared__ float red[8][BN];  // column sums of each consumer warp's 16 rows
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32, q = lane % 4;
+  bool rok[2];
+  float l2[2], wgt[2];
+  long long lab[2];
+  bf16* row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+    rok[h] = n < p.M;
+    l2[h] = rok[h] ? p.lse[n] * kLog2e : 0.f;
+    wgt[h] = rok[h] ? p.wg[n] : 0.f;
+    lab[h] = rok[h] ? p.labels[n] - p.v0 : -1;
+    row[h] = p.dl + (size_t)n * p.ld;
+  }
+  consumers_sync();  // the previous tile's sums are read
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * q;
+    float b2[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) b2[e] = c + e < p.N ? p.bias[p.v0 + c + e] * kLog2e : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        d[e] = 0.f;
+        if (rok[h] && c + e < p.N) {
+          const float pr = ex2(fmaf(acc[4 * j + 2 * h + e], kLog2e, b2[e] - l2[h]));
+          d[e] = (pr - (lab[h] == c + e ? 1.f : 0.f)) * wgt[h];
+        }
+        sum[e] += d[e];
+      }
+      if (rok[h] && c + 1 < p.N)
+        *reinterpret_cast<__nv_bfloat162*>(row[h] + c) = __floats2bfloat162_rn(d[0], d[1]);
+      else if (rok[h] && c < p.N)
+        row[h][c] = __float2bfloat16(d[0]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = sum[e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[wgi * 4 + warp][8 * j + 2 * q + e] = v;
+    }
+  }
+  consumers_sync();
+  if (tid < BN && n0 + tid < p.N) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) s += red[r][tid];  // a fixed order
+    p.partials[(size_t)(m0 / kBM) * p.ld + n0 + tid] = s;
+  }
+}
+
+// dx: the first chunk stores its product, the others add theirs; the last
+// writes dx in bf16. D % 8 == 0, so a column pair is whole.
+template <int BN>
+__device__ __forceinline__ void epilogue_dx(const float (&acc)[BN / 2], int m0, int n0, int wgi,
+                                            const Args& p) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+    if (n >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane % 4);
+      if (c >= p.N) continue;
+      const size_t o = (size_t)n * p.N + c;
+      float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (!p.first) {
+        const float2 old = *reinterpret_cast<const float2*>(p.acc32 + o);
+        v.x += old.x;
+        v.y += old.y;
+      }
+      if (p.last)
+        *reinterpret_cast<__nv_bfloat162*>(p.out + o) = __floats2bfloat162_rn(v.x, v.y);
+      else
+        *reinterpret_cast<float2*>(p.acc32 + o) = v;
+    }
+  }
+}
+
+// dW rows v0 + m in bf16; the tiles of the first column tile also write db
+// of their rows, the partial sums added in tile order.
+template <int BN>
+__device__ __forceinline__ void epilogue_dw(const float (&acc)[BN / 2], int m0, int n0, int wgi,
+                                            const Args& p) {
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+    if (m >= p.M) continue;
+    bf16* row = p.out + (size_t)(p.v0 + m) * p.N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane % 4);
+      if (c < p.N)
+        *reinterpret_cast<__nv_bfloat162*>(row + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  if (n0 == 0 && tid < kBM && m0 + tid < p.M) {
+    float s = 0.f;
+    for (int i = 0; i < p.n_mtiles; ++i) s += p.partials[(size_t)i * p.ld + m0 + tid];
+    p.db[p.v0 + m0 + tid] = s;
+  }
+}
+
+// the bare GEMM's fp32 C (M, N), N % 8 == 0
+template <int BN>
+__device__ __forceinline__ void epilogue_gemm(const float (&acc)[BN / 2], int m0, int n0, int wgi,
+                                              const Args& p) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane % 4);
+      if (c < p.N)
+        *reinterpret_cast<float2*>(p.c + (size_t)m * p.N + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// One mainloop for the three products: C (M x N) = A (M x K) B (K x N) in
+// 128 x BN tiles, a persistent grid walking the tiles. Warpgroups 0 and 1
+// each own 64 rows of a tile and run wgmma from the ring; one thread of
+// warpgroup 2 (a lone warp at two blocks an SM) keeps the ring full with
+// TMA loads, running ahead into the next tile while the consumers run an
+// epilogue.
+//   A K-major (kAMN false): one box of 128 rows x 64 k.
+//   A MN-major: two boxes of 64 k rows x 64 m (one per warpgroup).
+//   B K-major: one box of BN rows x 64 k.  B MN-major: BN / 64 boxes of
+//   64 k rows x 64 n.
+// Every box is 128-byte swizzled with 128-byte rows: a K-major operand
+// steps 16 k by 32 bytes inside the swizzle atom; an MN-major one by two
+// 8-row atoms (2048 bytes), its 64-wide MN blocks 8 KB apart (LBO).
+template <int BN, bool kAMN, bool kBMN, int kEpi>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorMap& tb,
+                                          const Args& p) {
+  constexpr int kStage = kABytes + BN * kBK * 2;
+  constexpr int kStages = kStagesOf<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  // the swizzle pattern repeats every 1024 bytes: stages start on it
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int wgi = threadIdx.x / 128;
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int tiles = (p.M + kBM - 1) / kBM * tiles_n;
+  const int nk = (p.K + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {  // producer
+    if constexpr (kCtasOf<BN> == 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int s = 0;
+      unsigned ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * kBM, n0 = t % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(&empty[s], ph ^ 1);
+          mbar_expect_tx(&full[s], kStage);
+          unsigned char* a = smem + s * kStage;
+          unsigned char* b = a + kABytes;
+          const int k0 = kt * kBK;
+          if (kAMN) {
+            tma_load(a, &ta, &full[s], m0, k0);
+            tma_load(a + kBox, &ta, &full[s], m0 + 64, k0);
+          } else {
+            tma_load(a, &ta, &full[s], k0, m0);
+          }
+          if (kBMN) {
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(b + j * kBox, &tb, &full[s], n0 + 64 * j, p.b_row0 + k0);
+          } else {
+            tma_load(b, &tb, &full[s], k0, p.b_row0 + n0);
+          }
+          if (++s == kStages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumers
+    if constexpr (kCtasOf<BN> == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[BN / 2];
+    int s = 0, prev = 0;
+    unsigned ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * kBM, n0 = t % tiles_n * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[s], ph);
+        const unsigned char* a = smem + s * kStage;
+        const unsigned char* b = a + kABytes;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t da = kAMN ? sw128_desc(a + wgi * kBox + kk * 2048, kBox, 1024)
+                                   : sw128_desc(a + wgi * kBox + kk * 32, 16, 1024);
+          const uint64_t db = kBMN ? sw128_desc(b + kk * 2048, kBox, 1024)
+                                   : sw128_desc(b + kk * 32, 16, 1024);
+          wgmma_step<BN, kAMN ? 1 : 0, kBMN ? 1 : 0>(acc, da, db);
+        }
+        wg_commit();
+        wg_wait<1>();  // the previous stage's products are done: free it
+        if (kt > 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == kStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[prev]);
+      if constexpr (kEpi == kEpiDl)
+        epilogue_dl<BN>(acc, m0, n0, wgi, p);
+      else if constexpr (kEpi == kEpiDx)
+        epilogue_dx<BN>(acc, m0, n0, wgi, p);
+      else if constexpr (kEpi == kEpiDw)
+        epilogue_dw<BN>(acc, m0, n0, wgi, p);
+      else
+        epilogue_gemm<BN>(acc, m0, n0, wgi, p);
+    }
+  }
+}
+
+}  // namespace tc
+
+// S = x W_c^T (K-major both), epilogue dl' and partial column sums
+__global__ void __launch_bounds__(tc::kThreadsOf<tc::kDlBN>, tc::kCtasOf<tc::kDlBN>)
+fused_ce_bwd_dl_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, const tc::Args p) {
+  tc::gemm_body<tc::kDlBN, false, false, tc::kEpiDl>(ta, tb, p);
+}
+
+// dx (+)= dl'_c W_c: A K-major, B (W rows, D contiguous) MN-major
+__global__ void __launch_bounds__(tc::kThreadsOf<192>, tc::kCtasOf<192>)
+fused_ce_bwd_dx_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, const tc::Args p) {
+  tc::gemm_body<192, false, true, tc::kEpiDx>(ta, tb, p);
+}
+
+// dW_c = dl'_c^T x: both MN-major; db_c from the partials
+__global__ void __launch_bounds__(tc::kThreadsOf<192>, tc::kCtasOf<192>)
+fused_ce_bwd_dw_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb, const tc::Args p) {
+  tc::gemm_body<192, true, true, tc::kEpiDw>(ta, tb, p);
+}
+
+// the mainloop alone in one of the three operand layouts, for the tests
+template <int kLayout>
+__global__ void __launch_bounds__(kLayout == 0 ? tc::kThreadsOf<tc::kDlBN> : 384,
+                                  kLayout == 0 ? tc::kCtasOf<tc::kDlBN> : 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb, const tc::Args p) {
+  tc::gemm_body<kLayout == 0 ? tc::kDlBN : 192, kLayout == 2, kLayout != 0, tc::kEpiGemm>(ta, tb,
+                                                                                      p);
+}
+
+// host side: tensor maps by cuTensorMapEncodeTiled, fetched at run time (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// a bf16 (rows, cols) matrix with row stride ld elements, read in boxes of
+// box_rows x 64, 128-byte swizzled; out-of-bounds boxes fill with zeros
+bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
+  const EncodeTiledFn enc = encode_fn();
+  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) || ld % 8) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// one persistent launch: kCtasOf<BN> blocks for each SM, or one for each
+// tile if fewer
+template <int BN, typename Kernel>
+int launch_tc(Kernel kernel, const CUtensorMap& ta, const CUtensorMap& tb, const tc::Args& p,
+              cudaStream_t stream) {
+  const int smem = tc::kStagesOf<BN> * (tc::kABytes + BN * tc::kBK * 2) + 1024;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (p.M + tc::kBM - 1) / tc::kBM * ((p.N + BN - 1) / BN);
+  const int slots = sm_count() * tc::kCtasOf<BN>;
+  if (slots <= 0) return (int)cudaErrorInvalidDevice;
+  kernel<<<tiles < slots ? tiles : slots, tc::kThreadsOf<BN>, smem, stream>>>(ta, tb, p);
+  return (int)cudaGetLastError();
+}
+
+bool chunk_ok(int N, int V, int D, int v0, int width, int ld) {
+  return N > 0 && D > 0 && D % 8 == 0 && width > 0 && v0 >= 0 && v0 + width <= V &&
+         ld >= width && ld % 8 == 0;
 }
 
 }  // namespace
@@ -714,4 +1163,95 @@ extern "C" int ecamp_fused_ce_bwd_dw(const void* x, const void* w, const void* b
                                      void* stream) {
   return dispatch_bwd<true>(x, w, b, labels, lse, wg, dw, db, N, V, D, dtype,
                             static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// the tensor-core backward, one chunk of vocab rows [v0, v0 + width) a call.
+// bf16, D % 8 == 0, 16-byte aligned bases; the scratch dl' (N, ld) and the
+// partials (ceil(N / 128), ld) have ld >= width, ld % 8 == 0.
+
+// dl' of the chunk and its partial column sums. x (N, D), w (V, D), b (V,)
+// fp32, labels (N,) int64, lse and wg (N,) fp32.
+extern "C" int ecamp_fused_ce_bwd_dl(const void* x, const void* w, const void* b,
+                                     const void* labels, const void* lse, const void* wg,
+                                     void* dl, void* partials, int N, int V, int D, int v0,
+                                     int width, int ld, void* stream) {
+  if (!chunk_ok(N, V, D, v0, width, ld)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!bf16_map(&ta, x, N, D, D, tc::kBM) || !bf16_map(&tb, w, V, D, D, tc::kDlBN))
+    return (int)cudaErrorInvalidValue;
+  tc::Args p = {};
+  p.M = N, p.N = width, p.K = D, p.b_row0 = v0, p.v0 = v0, p.ld = ld;
+  p.bias = static_cast<const float*>(b);
+  p.labels = static_cast<const long long*>(labels);
+  p.lse = static_cast<const float*>(lse);
+  p.wg = static_cast<const float*>(wg);
+  p.dl = static_cast<bf16*>(dl);
+  p.partials = static_cast<float*>(partials);
+  return launch_tc<tc::kDlBN>(fused_ce_bwd_dl_kernel, ta, tb, p, static_cast<cudaStream_t>(stream));
+}
+
+// dx32 (N, D) fp32 (+)= dl'_c w_c; with `last`, dx (N, D) bf16 instead
+// (`first` and `last`: dx32 is not read or written).
+extern "C" int ecamp_fused_ce_bwd_dx_chunk(const void* dl, const void* w, void* dx32, void* dx,
+                                           int N, int V, int D, int v0, int width, int ld,
+                                           int first, int last, void* stream) {
+  if (!chunk_ok(N, V, D, v0, width, ld)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!bf16_map(&ta, dl, N, width, ld, tc::kBM) || !bf16_map(&tb, w, V, D, D, tc::kBK))
+    return (int)cudaErrorInvalidValue;
+  tc::Args p = {};
+  p.M = N, p.N = D, p.K = width, p.b_row0 = v0, p.v0 = v0, p.ld = ld;
+  p.acc32 = static_cast<float*>(dx32);
+  p.out = static_cast<bf16*>(dx);
+  p.first = first, p.last = last;
+  return launch_tc<192>(fused_ce_bwd_dx_kernel, ta, tb, p, static_cast<cudaStream_t>(stream));
+}
+
+// dW rows [v0, v0 + width) of dW (V, D) bf16 = dl'_c^T x, and db (V,) fp32
+// of those rows from the partials.
+extern "C" int ecamp_fused_ce_bwd_dw_chunk(const void* dl, const void* x, const void* partials,
+                                           void* dw, void* db, int N, int V, int D, int v0,
+                                           int width, int ld, void* stream) {
+  if (!chunk_ok(N, V, D, v0, width, ld)) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!bf16_map(&ta, dl, N, width, ld, tc::kBK) || !bf16_map(&tb, x, N, D, D, tc::kBK))
+    return (int)cudaErrorInvalidValue;
+  tc::Args p = {};
+  p.M = width, p.N = D, p.K = N, p.b_row0 = 0, p.v0 = v0, p.ld = ld;
+  p.partials = const_cast<float*>(static_cast<const float*>(partials));
+  p.n_mtiles = (N + tc::kBM - 1) / tc::kBM;
+  p.out = static_cast<bf16*>(dw);
+  p.db = static_cast<float*>(db);
+  return launch_tc<192>(fused_ce_bwd_dw_kernel, ta, tb, p, static_cast<cudaStream_t>(stream));
+}
+
+// c (M, N) fp32 = the mainloop's product of bf16 a and b in one layout:
+// 0: a (M, K), b (N, K), c = a b^T; 1: a (M, K), b (K, N), c = a b;
+// 2: a (K, M), b (K, N), c = a^T b. Contiguous; K and N multiples of 8 (and
+// M for layout 2).
+extern "C" int ecamp_wgmma_gemm(const void* a, const void* b, void* c, int M, int N, int K,
+                                int layout, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  tc::Args p = {};
+  p.M = M, p.N = N, p.K = K;
+  p.c = static_cast<float*>(c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == 0) {
+    if (!bf16_map(&ta, a, M, K, K, tc::kBM) || !bf16_map(&tb, b, N, K, K, tc::kDlBN))
+      return (int)cudaErrorInvalidValue;
+    return launch_tc<tc::kDlBN>(wgmma_gemm_kernel<0>, ta, tb, p, s);
+  }
+  if (layout == 1) {
+    if (!bf16_map(&ta, a, M, K, K, tc::kBM) || !bf16_map(&tb, b, K, N, N, tc::kBK))
+      return (int)cudaErrorInvalidValue;
+    return launch_tc<192>(wgmma_gemm_kernel<1>, ta, tb, p, s);
+  }
+  if (layout == 2) {
+    if (!bf16_map(&ta, a, K, M, M, tc::kBK) || !bf16_map(&tb, b, K, N, N, tc::kBK))
+      return (int)cudaErrorInvalidValue;
+    return launch_tc<192>(wgmma_gemm_kernel<2>, ta, tb, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,25 +2,41 @@
 `csrc/fused_mlm_loss.cu` and their plain versions.
 
 Counterpart of `ecamp_tpu/kernels/fused_mlm_loss.py`. The MLM head's
-30000-way projection feeds a per-position weighted CE; the kernels never
-store the (N, V) logits:
+30000-way projection feeds a per-position weighted CE:
 
-  fwd  (`_fused_fwd`)        lse, gold per row, fp32
-  dx   (`_fused_bwd_impl`)   dl = (softmax - onehot) * w * g; dx = dl' W
-  dW   (`_fused_bwd_impl`)   dW = dl'^T x; db = colsum(dl) in fp32
+  fwd  (`_fused_fwd`)        lse, gold per row, fp32; logits never stored
+  bwd  (`_fused_bwd_impl`)   dl = (softmax - onehot) * w * g;
+                             dx = dl' W; dW = dl'^T x; db = colsum(dl) fp32
 
 with dl' = dl rounded to x's dtype, as the Pallas kernels round it. The
 weight is the port's Linear layout, (V, D) row-major, where JAX's is
-(D, V). bf16 inputs with D % 8 == 0 run the products on the tensor cores
-(`mma.sync`), fp32 and other widths on the FMA pipe; the kernel picks.
-`fused_mlm_loss_sum` returns sum_i weights_i * CE_i; the caller divides
-by N for the reference's mean over every position.
+(D, V).
 
-On a CUDA tensor it always launches the kernels (three launches for a
-forward and backward) and raises on what they do not take. On a CPU tensor,
-or with `plain=True` (the on-card reference), the same autograd Function
-runs `_fused_reference`'s forward and `_fused_backward_plain`, the plain
-versions with the kernels' dtype rules. The v5e-measured opt-in gate
+The backward of bf16 inputs with D % 8 == 0 and 16-byte aligned x and w
+runs over vocab chunks of CHUNK_V rows, three kernels a chunk (TMA +
+`wgmma` GEMMs with different epilogues):
+
+  dl   S = x W_c^T; dl' of the chunk into an (N, CHUNK_V) scratch, and one
+       fp32 column sum of dl per 128-row tile into a partials buffer
+  dx   dx32 (+)= dl'_c W_c into an fp32 (N, D) scratch; the last chunk
+       writes dx in x's dtype
+  dW   dW_c = dl'_c^T x in w's dtype; db_c = the partials summed in order
+
+so each logit is computed once. The (N, V) logits never reach device
+memory, but the scratch does: dl' (N x CHUNK_V in x's dtype, 67 MB at
+N = 8192), dx32 (N x D fp32, 25 MB) and the partials (1 MB). fp32, and
+bf16 of other widths or alignments, run the forward's tile code on the
+FMA pipe: one dx and one dW + db kernel that each recompute the logits.
+The shape rule is `_tensor_core_path`.
+
+`fused_mlm_loss_sum` returns sum_i weights_i * CE_i; the caller divides
+by N for the reference's mean over every position. On a CUDA tensor it
+always launches the kernels and raises on what they do not take. On a CPU
+tensor, or with `plain=True` (the on-card reference), the same autograd
+Function runs `_fused_reference`'s forward and `_fused_backward_plain`.
+`_backward_chunked_plain` composes the chunk kernels' plain versions
+(`_dl_chunk_plain`, `_dx_chunk_plain`, `_dw_chunk_plain`); the tests and
+`chip_smoke.py` hold the kernels to them. The v5e-measured opt-in gate
 `fused_supported` (`ECAMP_FUSED_CE`) is not carried over: the caller asks
 for the fused CE with `ECAMP(fused_mlm_ce=True)`.
 """
@@ -34,11 +50,16 @@ import torch
 from . import _build
 
 SOURCE = "ecamp_tpu_torch/csrc/fused_mlm_loss.cu"
-MAX_D = 768  # the backward kernels hold a (32, D) accumulator in registers
+MAX_D = 768  # the FMA backward holds a (32, D) accumulator in registers
+CHUNK_V = 4096  # vocab rows a chunk of the tensor-core backward; tests lower it
+TILE_M = 128    # rows of x a partial column sum of dl covers (csrc's tc::kBM)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# one counter per kernel: the forward and the two backward launches
+# one counter per kernel: the forward, and the backward's dl, dx and dW
+# (the FMA backward launches dx and dW once a call, the tensor-core one
+# each of the three once a chunk)
 launches_fwd = _build.LaunchCounter()
+launches_dl = _build.LaunchCounter()
 launches_dx = _build.LaunchCounter()
 launches_dw = _build.LaunchCounter()
 
@@ -74,6 +95,56 @@ def _fused_backward_plain(x, w, b, labels, lse, wg):
     dlc = dl.to(x.dtype).float()
     return ((dlc @ w.float()).to(x.dtype), (dlc.T @ x.float()).to(w.dtype),
             dl.sum(dim=0))
+
+
+def _chunks(v: int, chunk: int):
+    """(v0, width) of each vocab chunk; the last one is ragged."""
+    return [(v0, min(chunk, v - v0)) for v0 in range(0, v, chunk)]
+
+
+def _dl_chunk_plain(x, w, b, labels, lse, wg, v0, width):
+    """The dl kernel's outputs for vocab rows [v0, v0 + width): dl' (N,
+    width) in x's dtype, and the fp32 column sums of dl over each TILE_M
+    rows of x, (ceil(N / TILE_M), width)."""
+    n = x.shape[0]
+    z = x.float() @ w[v0:v0 + width].float().T + b[v0:v0 + width].float()
+    dl = torch.exp(z - lse.float()[:, None])
+    lab = labels.long() - v0
+    rows = torch.nonzero((lab >= 0) & (lab < width))[:, 0]
+    dl[rows, lab[rows]] -= 1.0
+    dl *= wg.float()[:, None]
+    pad = -n % TILE_M
+    partials = torch.nn.functional.pad(dl, (0, 0, 0, pad)).view(
+        -1, TILE_M, width).sum(dim=1)
+    return dl.to(x.dtype), partials
+
+
+def _dx_chunk_plain(dlc, w, v0, acc=None):
+    """The dx kernel's product for one chunk: acc + dl'_c W_c in fp32
+    (acc None on the first chunk)."""
+    prod = dlc.float() @ w[v0:v0 + dlc.shape[1]].float()
+    return prod if acc is None else acc + prod
+
+
+def _dw_chunk_plain(dlc, x, partials):
+    """The dW kernel's outputs for one chunk: dW_c = dl'_c^T x in x's dtype
+    and db_c, the partial column sums added in tile order, fp32."""
+    return (dlc.float().T @ x.float()).to(x.dtype), partials.sum(dim=0)
+
+
+def _backward_chunked_plain(x, w, b, labels, lse, wg):
+    """The tensor-core backward's math chunk by chunk (CHUNK_V rows), from
+    the three kernels' plain versions: (dx in x's dtype, dW in w's, db
+    fp32)."""
+    dw = torch.empty_like(w)
+    db = torch.empty(w.shape[0], dtype=torch.float32, device=x.device)
+    acc = None
+    for v0, width in _chunks(w.shape[0], CHUNK_V):
+        dlc, partials = _dl_chunk_plain(x, w, b, labels, lse, wg, v0, width)
+        acc = _dx_chunk_plain(dlc, w, v0, acc)
+        dw[v0:v0 + width], db[v0:v0 + width] = _dw_chunk_plain(
+            dlc, x, partials)
+    return acc.to(x.dtype), dw, db
 
 
 def _check(x, w, b, labels) -> int:
@@ -120,6 +191,14 @@ def _forward_cuda(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     return lse, gold
 
 
+def _tensor_core_path(x, w) -> bool:
+    """The shape rule of the backward: bf16 with D % 8 == 0 and 16-byte
+    aligned x and w (what TMA takes) runs the chunked tensor-core kernels;
+    anything else the FMA kernels."""
+    return (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
 def _backward_cuda(x, w, b, labels, lse, wg):
     code = _check(x, w, b, labels)
     n, d = x.shape
@@ -133,19 +212,69 @@ def _backward_cuda(x, w, b, labels, lse, wg):
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ecamp_fused_ce_bwd_dx(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), wg.data_ptr(), dx.data_ptr(), n, v, d, code,
-            stream)
-        _build.check(err, "ecamp_fused_ce_bwd_dx")
-        launches_dx.add()
-        err = lib.ecamp_fused_ce_bwd_dw(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), wg.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
-            v, d, code, stream)
-        _build.check(err, "ecamp_fused_ce_bwd_dw")
-        launches_dw.add()
+        if not _tensor_core_path(x, w):
+            err = lib.ecamp_fused_ce_bwd_dx(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), wg.data_ptr(), dx.data_ptr(), n, v, d, code,
+                stream)
+            _build.check(err, "ecamp_fused_ce_bwd_dx")
+            launches_dx.add()
+            err = lib.ecamp_fused_ce_bwd_dw(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), wg.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                n, v, d, code, stream)
+            _build.check(err, "ecamp_fused_ce_bwd_dw")
+            launches_dw.add()
+            return dx, dw, db
+        chunks = _chunks(v, CHUNK_V)
+        # scratch rows padded to 8 elements: TMA takes 16-byte row strides
+        ld = -(-chunks[0][1] // 8) * 8
+        dl = torch.empty(n, ld, dtype=x.dtype, device=x.device)
+        partials = torch.empty(-(-n // TILE_M), ld, dtype=torch.float32,
+                               device=x.device)
+        dx32 = (torch.empty(n, d, dtype=torch.float32, device=x.device)
+                if len(chunks) > 1 else dx)  # one chunk writes dx at once
+        for i, (v0, width) in enumerate(chunks):
+            err = lib.ecamp_fused_ce_bwd_dl(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), wg.data_ptr(), dl.data_ptr(),
+                partials.data_ptr(), n, v, d, v0, width, ld, stream)
+            _build.check(err, "ecamp_fused_ce_bwd_dl")
+            launches_dl.add()
+            err = lib.ecamp_fused_ce_bwd_dx_chunk(
+                dl.data_ptr(), w.data_ptr(), dx32.data_ptr(), dx.data_ptr(),
+                n, v, d, v0, width, ld, int(i == 0),
+                int(i == len(chunks) - 1), stream)
+            _build.check(err, "ecamp_fused_ce_bwd_dx_chunk")
+            launches_dx.add()
+            err = lib.ecamp_fused_ce_bwd_dw_chunk(
+                dl.data_ptr(), x.data_ptr(), partials.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), n, v, d, v0, width, ld, stream)
+            _build.check(err, "ecamp_fused_ce_bwd_dw_chunk")
+            launches_dw.add()
     return dx, dw, db
+
+
+def wgmma_gemm(a, b, layout: int):
+    """The tensor-core backward's GEMM mainloop alone, for the card tests:
+    C = A B in fp32 from bf16 operands as the three kernels lay them out.
+    layout 0: a (M, K), b (N, K), both K-major, C = a b^T (the dl product);
+    1: a (M, K) K-major, b (K, N) N-major, C = a b (dx); 2: a (K, M) and b
+    (K, N), both MN-major, C = a^T b (dW). Contiguous, 16-byte aligned, K
+    and the contiguous extents multiples of 8."""
+    if layout == 0:
+        (m, k), n = a.shape, b.shape[0]
+    elif layout == 1:
+        (m, k), n = a.shape, b.shape[1]
+    else:
+        (k, m), n = a.shape, b.shape[1]
+    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _build.library().ecamp_wgmma_gemm(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, layout, stream)
+    _build.check(err, "ecamp_wgmma_gemm")
+    return c
 
 
 class _FusedMLMLossFn(torch.autograd.Function):

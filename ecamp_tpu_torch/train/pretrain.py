@@ -12,9 +12,13 @@ under the default policy (`core/dtypes.py`). PyTorch runs it eagerly on
 one device: the JAX package's jit, mesh, ZeRO and scan-of-steps have no
 counterpart here.
 
-Randomness comes from explicit generators on the task's device, seeded
-from `cfg.seed`: `masking_generator` for the MAE noise (or noise injected
-by the caller) and `dropout_generator` for every dropout site.
+Randomness comes from explicit generators on the task's device:
+`masking_generator` for the MAE noise (or noise injected by the caller)
+and `dropout_generator` for every dropout site. Each step reseeds both in
+place from (`cfg.seed`, step) (`fold_seed`), as the JAX package folds its
+key by step, so a run resumed at a step draws what the uninterrupted run
+drew there. The step is a host int (`PretrainTask.step`): reading the
+device step would synchronise every step.
 """
 
 from __future__ import annotations
@@ -76,6 +80,20 @@ def synthetic_batch(cfg: PretrainConfig, batch_size: int,
         "row": torch.randint(0, last, (b,), device=dev, generator=generator)}
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, step: int, stream: int) -> int:
+    """A 64-bit generator seed from (seed, step, stream): splitmix64's
+    finaliser over one odd-multiplier mix of the three, so nearby steps and
+    the two streams (0 masking, 1 dropout) give unrelated seeds."""
+    z = (seed * 0x9E3779B97F4A7C15 + (step + 1) * 0xD1B54A32D192ED03
+         + (stream + 1) * 0x8CB92BA72F3D8DD7) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 class PretrainTask:
     def __init__(self, cfg: PretrainConfig, device="cuda",
                  steps_per_epoch: int = 1):
@@ -92,10 +110,12 @@ class PretrainTask:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PretrainTask on cuda needs a CUDA card")
         self.steps_per_epoch = steps_per_epoch
-        self.masking_generator = torch.Generator(self.device).manual_seed(
-            cfg.seed)
-        self.dropout_generator = torch.Generator(self.device).manual_seed(
-            cfg.seed + 1)
+        # reseeded in place every step (`fold_rng`): the dropout generator
+        # stays the object `set_generator` hands to the model
+        self.step = 0
+        self.masking_generator = torch.Generator(self.device)
+        self.dropout_generator = torch.Generator(self.device)
+        self.fold_rng(0)
         with torch.device(self.device):
             self.model = ECAMP(
                 cfg.vit, cfg.decoder, cfg.bert, sr_window=cfg.sr_window,
@@ -109,12 +129,19 @@ class PretrainTask:
         self.tx = make_optimizer(cfg.optimizer, steps_per_epoch,
                                  max_epoch=cfg.max_epoch)
 
+    def fold_rng(self, step: int) -> None:
+        """Reseed the masking and dropout generators from (seed, step)."""
+        seed = self.cfg.seed
+        self.masking_generator.manual_seed(fold_seed(seed, step, 0))
+        self.dropout_generator.manual_seed(fold_seed(seed, step, 1))
+
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> TrainState:
-        """A fresh train state; with `generator`, the parameters are drawn
-        anew from it first."""
+        """A fresh train state at step 0; with `generator`, the parameters
+        are drawn anew from it first."""
         if generator is not None:
             self.model.reset_parameters(generator)
+        self.step = 0
         return TrainState.create(self.model, self.tx)
 
     def set_plain(self, plain: bool = True) -> None:
@@ -152,6 +179,7 @@ class PretrainTask:
         (B, grid**2) injects the masking noise; `deterministic` turns
         dropout off. Returns the new state and device-scalar metrics
         (loss, mim_loss, res_loss, mlm_loss, lr)."""
+        self.fold_rng(self.step)
         batch = device_normalize(batch, self.cfg.data.mean, self.cfg.data.std)
         self.model.train(not deterministic)
         # zero the grads in place: their addresses stay fixed, so the AdamW
@@ -166,6 +194,7 @@ class PretrainTask:
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule((state.step // accum) * accum)
         new_state = state.apply_gradients(self.tx)
+        self.step += 1
         metrics = {"loss": loss.detach(), "lr": lr}
         for k in ("mim_loss", "res_loss", "mlm_loss"):
             metrics[k] = out[k].detach()

@@ -116,6 +116,68 @@ def cli_run(tmp_path_factory):
     return out, first, buf.getvalue()
 
 
+def test_cli_resume_repeats_the_uninterrupted_run(tmp_path):
+    """2 epochs in one directory, and 1 epoch then a resume from its
+    checkpoint-0.pth for the second in another, with BERT dropout on: the
+    second epoch's losses are equal bit for bit, since both generators are
+    reseeded from (seed, step) every step. A step's masking draws differ
+    from step 0's."""
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    vocab = tmp_path / "tiny_wordpiece.json"
+    _make_tokenizer_json(vocab)
+    root = write_mimic_corpus(str(tmp_path / "mimic"), str(vocab),
+                              n_images=8, img_size=96, max_window_start=1,
+                              seed=0)
+    orig = pcfg.PretrainConfig
+
+    def tiny_config(**kw):
+        return orig(**dict(kw, **_tiny_kw(pcfg)))
+
+    assert tiny_config().bert.hidden_dropout_prob > 0  # dropout on
+
+    def base(out):
+        return ["--data_path", root, "--batch_size", "4", "--max_epoch", "4",
+                "--warmup_epochs", "1", "--input_size", "64",
+                "--max_caption_length", "16", "--num_workers", "2",
+                "--output_dir", str(out), "--no_bf16", "--print_freq", "1",
+                "--device", "cpu"]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli.cfg, "PretrainConfig", tiny_config)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(base(tmp_path / "whole") + ["--epochs", "2"])
+            cli.main(base(tmp_path / "split") + ["--epochs", "1"])
+            cli.main(base(tmp_path / "split") + [
+                "--epochs", "2", "--resume",
+                str(tmp_path / "split" / "checkpoint-0.pth")])
+    logs = {}
+    for name in ("whole", "split"):
+        recs = [json.loads(line) for line in
+                (tmp_path / name / "log.txt").read_text().splitlines()]
+        assert [r["epoch"] for r in recs] == [0, 1]
+        logs[name] = recs
+    for k in ("loss", "mim_loss", "res_loss", "mlm_loss"):
+        for e in (0, 1):
+            assert logs["split"][e][k] == logs["whole"][e][k], (k, e)
+
+    task = PretrainTask(tiny_config(data=pcfg.DataConfig(img_size=64)),
+                        device="cpu")
+
+    def draw(step):
+        task.fold_rng(step)
+        return (torch.rand(64, generator=task.masking_generator),
+                torch.rand(64, generator=task.dropout_generator))
+
+    first = draw(0)
+    assert all(torch.equal(a, b) for a, b in zip(first, draw(0)))
+    for step in (1, 2, 7):
+        mask, drop = draw(step)
+        assert not torch.equal(mask, first[0])
+        assert not torch.equal(drop, first[1])
+    assert not torch.equal(first[0], first[1])  # the two streams differ
+
+
 def test_cli_trains_checkpoints_and_resumes(cli_run):
     out, first, printed = cli_run
     recs = [json.loads(line) for line in first.splitlines()]

@@ -57,19 +57,67 @@ def test_plain_fused_ce_matches_pallas_kernel(n, d, v, small_blocks):
 
     xt, wt, bt = (torch.tensor(a, requires_grad=True)
                   for a in (x, np.ascontiguousarray(w.T), b))
-    before = (PF.launches_fwd.value, PF.launches_dx.value,
-              PF.launches_dw.value)
+    before = (PF.launches_fwd.value, PF.launches_dl.value,
+              PF.launches_dx.value, PF.launches_dw.value)
     got = PF.fused_mlm_loss_sum(xt, wt, bt, torch.from_numpy(labels),
                                 torch.from_numpy(weights))
     got.backward()
-    assert (PF.launches_fwd.value, PF.launches_dx.value,
-            PF.launches_dw.value) == before  # CPU tensors: no kernel
+    assert (PF.launches_fwd.value, PF.launches_dl.value,
+            PF.launches_dx.value, PF.launches_dw.value) == before  # no kernel
     assert abs(float(got.detach()) - float(want)) / abs(float(want)) < 1e-5
     for name, a, e in (("dx", xt.grad, want_grads[0]),
                        ("dW", wt.grad.T, want_grads[1]),
                        ("db", bt.grad, want_grads[2])):
         np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("inputs", ["fp32", "bf16_values"])
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("v", [300, 257])
+def test_chunked_plain_backward_matches_pallas_kernel(v, chunk, inputs,
+                                                      small_blocks,
+                                                      monkeypatch):
+    """`_backward_chunked_plain` over vocab chunks (a ragged last chunk, a
+    label in every chunk) against JAX `_fused_bwd_impl` in interpret mode
+    and the unchunked `_fused_backward_plain`: dx, dW and db within 1e-5 of
+    each output's largest value, in fp32 math (`bf16_values`: x and w
+    rounded to bf16 first). With bf16 tensors it keeps the kernels' dtypes
+    and agrees with the unchunked plain backward to a bf16 ulp."""
+    monkeypatch.setattr(PF, "CHUNK_V", chunk)
+    n, d = 130, 32
+    x, w, b, labels, weights = _inputs(n, d, v, seed=2)
+    if inputs == "bf16_values":
+        x, w = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, w))
+    chunks = PF._chunks(v, chunk)
+    assert chunks[-1][1] < chunk  # ragged last chunk
+    for i, (v0, width) in enumerate(chunks):
+        labels[i] = v0 + width - 1  # a label in every chunk
+    xt, wt, bt = (torch.from_numpy(np.ascontiguousarray(a))
+                  for a in (x, w.T, b))
+    lab = torch.from_numpy(labels)
+    lse, _ = PF._forward_plain(xt, wt, bt, lab)
+    wg = 0.75 * torch.from_numpy(weights)
+    got = PF._backward_chunked_plain(xt, wt, bt, lab, lse, wg)
+    with pltpu.force_tpu_interpret_mode():
+        jdx, jdw, jdb = JF._fused_bwd_impl(
+            *(jnp.asarray(a) for a in (x, w, b, labels, lse.numpy(),
+                                       wg.numpy())))
+    want = (np.asarray(jdx), np.asarray(jdw).T, np.asarray(jdb))
+    unchunked = PF._fused_backward_plain(xt, wt, bt, lab, lse, wg)
+    for name, a, e, u in zip(("dx", "dW", "db"), got, want, unchunked):
+        scale = float(np.abs(e).max())
+        np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=1e-5 * scale,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), u.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+    xb, wb = xt.bfloat16(), wt.bfloat16()
+    got = PF._backward_chunked_plain(xb, wb, bt, lab, lse, wg)
+    want = PF._fused_backward_plain(xb, wb, bt, lab, lse, wg)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        torch.testing.assert_close(a.float(), e.float(), rtol=1.6e-2,
+                                   atol=1.6e-2 * float(e.float().abs().max()))
 
 
 def test_plain_pieces_agree_with_the_reference_formula():

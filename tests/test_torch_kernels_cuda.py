@@ -284,8 +284,8 @@ def test_pretrain_step_on_card_matches_plain(cuda, fused):
     noise = torch.rand(4, 16, device=cuda)
     losses = {}
     counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
-                adamw_mod.launches, mlm_mod.launches_fwd, mlm_mod.launches_dx,
-                mlm_mod.launches_dw)
+                adamw_mod.launches, mlm_mod.launches_fwd, mlm_mod.launches_dl,
+                mlm_mod.launches_dx, mlm_mod.launches_dw)
     for plain in (False, True):
         task.model.load_state_dict(init)
         task.set_plain(plain)
@@ -298,40 +298,133 @@ def test_pretrain_step_on_card_matches_plain(cuda, fused):
         n = [ctr.value for ctr in counters]
         # LayerNorm: encoder 2*2 + 1, decoder 2 + 1, BERT embeddings 1 +
         # fusion 3 + layers 2*2 + MLM head 1; attention: encoder 2,
-        # decoder 1, fusion self + cross 2, layers 2
-        assert n == ([0] * 7 if plain else [5 + 3 + 9, 2 + 1 + 2 + 2, 1, 1]
-                     + [int(fused)] * 3)
+        # decoder 1, fusion self + cross 2, layers 2; the fused CE's
+        # forward, and its bf16 backward in one vocab chunk (dl, dx, dW)
+        assert n == ([0] * 8 if plain else [5 + 3 + 9, 2 + 1 + 2 + 2, 1, 1]
+                     + [int(fused)] * 4)
         losses[plain] = {k: float(v) for k, v in m.items()}
     for k in ("mim_loss", "res_loss", "mlm_loss"):
         assert abs(losses[False][k] - losses[True][k]) <= 2e-2 * abs(
             losses[True][k]), k
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,d,v", [(1000, 96, 3001), (70, 768, 300),
-                                   (129, 40, 257), (33, 36, 100)])
-def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
-    """The three fused-CE kernels against their plain versions on the same
-    inputs (the plain math in fp32 on the bf16 inputs): lse and gold, then
-    dx, dW and db from the same lse and wg, then the autograd Function,
-    whose loss carries a grad_fn and whose backward launches dx and dW.
-    bf16 at D % 8 == 0 runs the tensor-core path, D = 36 the FMA one."""
-    dtype = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(5)
+@pytest.mark.parametrize("layout", [0, 1, 2], ids=["dl", "dx", "dw"])
+@pytest.mark.parametrize("m,n,k", [(200, 136, 72), (1000, 776, 520),
+                                   (8, 8, 8), (264, 200, 4104)])
+def test_wgmma_gemm_on_card(cuda, layout, m, n, k):
+    """The tensor-core backward's TMA + wgmma mainloop alone, in each of
+    its three operand layouts, at ragged shapes (edges past the 128-row,
+    128/192-column and 64-deep tiles), against `torch.matmul` of the same
+    bf16 values in fp32 (TF32 off): both sum exact bf16 products in fp32,
+    in other orders."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    b = torch.randn(k, n, device=cuda, generator=g).bfloat16()
+    want = a.float() @ b.float()
+    if layout == 0:
+        got = mlm_mod.wgmma_gemm(a, b.T.contiguous(), 0)
+    elif layout == 1:
+        got = mlm_mod.wgmma_gemm(a, b, 1)
+    else:
+        got = mlm_mod.wgmma_gemm(a.T.contiguous(), b, 2)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def _fused_ce_inputs(cuda, n, d, v, dtype, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = (0.5 * torch.randn(n, d, device=cuda, generator=g)).to(dtype)
     w = (0.1 * torch.randn(v, d, device=cuda, generator=g)).to(dtype)
     b = 0.1 * torch.randn(v, device=cuda, generator=g)
     labels = torch.randint(0, v, (n,), device=cuda, generator=g)
     weights = torch.rand(n, device=cuda, generator=g)
+    return x, w, b, labels, weights
+
+
+def _close_scaled(got, want, tol):
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("n,d,v,chunk", [(1000, 96, 3001, 1024),
+                                         (70, 768, 300, 128),
+                                         (129, 40, 257, 64),
+                                         (300, 768, 9000, 4096)])
+def test_fused_ce_chunk_kernels_on_card(cuda, n, d, v, chunk, monkeypatch):
+    """The three tensor-core backward kernels, each against its plain
+    version on the same inputs (bf16: atol = rtol = 1.6e-2 of the output's
+    scale), over vocab chunks with a ragged last chunk and a label in every
+    chunk: dl' and the partial column sums of the first chunk, then the
+    whole chunked backward (dx, dW, db), 3 launches a chunk."""
+    monkeypatch.setattr(mlm_mod, "CHUNK_V", chunk)
+    x, w, b, labels, weights = _fused_ce_inputs(cuda, n, d, v, torch.bfloat16)
+    chunks = mlm_mod._chunks(v, chunk)
+    assert len(chunks) > 1 and chunks[-1][1] < chunk
+    for i, (v0, width) in enumerate(chunks):
+        labels[i] = v0 + width - 1
+    lse, _ = mlm_mod._forward_plain(x, w, b, labels)
+    wg = 0.3 * weights
+    assert mlm_mod._tensor_core_path(x, w)
+
+    # the dl kernel alone on the first chunk
+    width = chunks[0][1]
+    dl = torch.empty(n, width, dtype=x.dtype, device=cuda)
+    partials = torch.empty(-(-n // mlm_mod.TILE_M), width, device=cuda)
+    lab = labels.contiguous()
+    with torch.cuda.device(cuda):
+        err = mlm_mod._build.library().ecamp_fused_ce_bwd_dl(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), lab.data_ptr(),
+            lse.data_ptr(), wg.data_ptr(), dl.data_ptr(), partials.data_ptr(),
+            n, v, d, 0, width, width,
+            torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 0
+    want_dl, want_partials = mlm_mod._dl_chunk_plain(x, w, b, labels, lse,
+                                                     wg, 0, width)
+    torch.cuda.synchronize()
+    _close_scaled(dl, want_dl, BF16_TOL)
+    _close_scaled(partials, want_partials, BF16_TOL)
+
+    counters = (mlm_mod.launches_dl, mlm_mod.launches_dx,
+                mlm_mod.launches_dw)
+    before = [c.value for c in counters]
+    got = mlm_mod._backward_cuda(x, w, b, labels, lse, wg)
+    want = mlm_mod._backward_chunked_plain(x, w, b, labels, lse, wg)
+    torch.cuda.synchronize()
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == \
+        [len(chunks)] * 3
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        _close_scaled(a, e, BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,v", [(1000, 96, 3001), (70, 768, 300),
+                                   (129, 40, 257), (33, 36, 100),
+                                   (300, 64, 9000)])
+def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
+    """The fused-CE kernels against their plain versions on the same
+    inputs (the plain math in fp32 on the bf16 inputs): lse and gold, then
+    dx, dW and db from the same lse and wg, then the autograd Function,
+    whose loss carries a grad_fn. bf16 at D % 8 == 0 runs the tensor-core
+    backward (dl, dx, dW a vocab chunk; V = 9000 is three chunks), fp32
+    and D = 36 the FMA one (dx, dW)."""
+    dtype = getattr(torch, dtype)
+    x, w, b, labels, weights = _fused_ce_inputs(cuda, n, d, v, dtype)
     tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
 
-    def close(got, want, scaled=True):
-        scale = float(want.float().abs().max()) if scaled else 1.0
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol * scale)
+    def close(got, want):
+        _close_scaled(got, want, tol)
 
-    counters = (mlm_mod.launches_fwd, mlm_mod.launches_dx,
-                mlm_mod.launches_dw)
+    tensor_cores = mlm_mod._tensor_core_path(x, w)
+    assert tensor_cores == (dtype == torch.bfloat16 and d % 8 == 0)
+    chunks = len(mlm_mod._chunks(v, mlm_mod.CHUNK_V)) if tensor_cores else 0
+    per_call = [1, chunks] + [chunks or 1] * 2  # fwd, dl, dx, dW
+    counters = (mlm_mod.launches_fwd, mlm_mod.launches_dl,
+                mlm_mod.launches_dx, mlm_mod.launches_dw)
     before = [c.value for c in counters]
     lse, gold = mlm_mod._forward_cuda(x, w, b, labels)
     want_lse, want_gold = mlm_mod._forward_plain(x, w, b, labels)
@@ -344,7 +437,7 @@ def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
         assert a.dtype == e.dtype and a.shape == e.shape
         close(a, e)
     torch.cuda.synchronize()
-    assert [c.value - v0 for c, v0 in zip(counters, before)] == [1, 1, 1]
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == per_call
 
     def run(plain):
         leaves = [t.clone().requires_grad_() for t in (x, w, b)]
@@ -357,7 +450,8 @@ def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
     loss_k, grads_k = run(False)
     loss_p, grads_p = run(True)
     torch.cuda.synchronize()
-    assert [c.value - v0 for c, v0 in zip(counters, before)] == [2, 2, 2]
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == [
+        2 * k for k in per_call]
     assert abs(float(loss_k) - float(loss_p)) <= (
         1e-5 if dtype == torch.float32 else 1e-3) * abs(float(loss_p))
     for a, e in zip(grads_k, grads_p):
