@@ -16,10 +16,15 @@
    peak for their type or its bytes over the memory rate, whichever is
    longer) and, where one PyTorch call computes the same function
    (`F.scaled_dot_product_attention`, `F.layer_norm`), that call's times
-   as a yardstick: LayerNorm and attention forward at the serving shapes
-   and at the pretraining step's shapes (B = 32); there LayerNorm and
-   attention forward + backward through their autograd Functions against
-   autograd of the plain versions, and the SR conv stack forward.
+   and the ratio of the two device times as a yardstick: LayerNorm and
+   attention forward at the serving shapes and at the pretraining step's
+   shapes (B = 32); there LayerNorm and attention forward + backward
+   through their autograd Functions against autograd of the plain
+   versions, and the SR conv stack forward. A kernel and its library
+   call are timed on `rotated` copies of their inputs, twice the L2
+   together, so neither finds its inputs in the L2. bf16 attention also
+   runs with every odd batch*head's K and V NaN at a ragged Nk, each head
+   dim and bias kind (the even heads must match).
 3. The serving slice: a full-width ViT-B/16 classifier (224 px, 14
    classes, multilabel, buckets 8/32/64) with seeded random weights behind
    `classifier_engine` + `PredictionService` + the HTTP server. Three
@@ -37,14 +42,17 @@
    steps; (d) exact launch counts per step; (e) step time, images/s and
    peak device memory; (f) the same with `fused_mlm_ce`: its first step
    against the materialised plain step of (b), the loss falling over 5
-   steps, one fused-CE forward and a dl, dx and dW launch for each of the
-   8 vocab chunks a step beside the others, step time, peak memory and
-   device busy time (profiler) beside (e)'s.
+   steps, the fused-CE forward's tile and merge kernels once each and a
+   dl, dx and dW launch for each of the 8 vocab chunks a step beside the
+   others, step time, peak memory and device busy time (profiler) beside
+   (e)'s.
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
-   in bf16, at a ragged fp32 shape, and at a ragged bf16 shape over three
-   lowered vocab chunks; each tensor-core backward kernel (dl, dx, dW)
-   also alone against its plain version, timed by name at the main shape.
+   in bf16, at a ragged fp32 shape, and at a ragged bf16 shape (V = 3001:
+   a 57-wide last vocab tile) over three lowered vocab chunks; each
+   tensor-core kernel (the forward's tiles and merge, the backward's dl,
+   dx, dW) also alone against its plain version, timed by name at the
+   main shape.
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
    a temporary directory, 2 epochs and a resume for a third.
@@ -127,6 +135,36 @@ def median_ms(fn, reps: int = TIMING_REPS, per_pair: int = 10) -> float:
 
 PROFILER_TRIES = 3
 BY_EVENTS = []  # what device_ms timed by queued CUDA events instead
+# The H100's L2 holds 50 MB: a kernel called again on the same inputs
+# finds them there. Timed calls rotate over copies of their inputs that
+# together reach twice that, so each reads its inputs from device memory,
+# as a step does.
+L2_BYTES = 50 * 2 ** 20
+ROTATE_BYTES = 2 * L2_BYTES
+
+
+def rotated(fn, inputs, floor: int = ROTATE_BYTES):
+    """A function of no arguments that calls fn(*copy), each time on the
+    next of enough copies of `inputs` (tensors cloned, anything else
+    shared) that the copies' tensors together hold `floor` bytes; the
+    first copy is `inputs` itself. Its `copies` attribute counts them."""
+    import torch
+
+    nbytes = sum(t.numel() * t.element_size() for t in inputs
+                 if isinstance(t, torch.Tensor))
+    n = max(1, -(-floor // max(nbytes, 1)))
+    copies = [tuple(inputs)] + [
+        tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in inputs)
+        for _ in range(n - 1)]
+    turn = [0]
+
+    def call():
+        i = turn[0]
+        turn[0] = (i + 1) % n
+        return fn(*copies[i])
+
+    call.copies = n
+    return call
 
 
 def queued_ms(fn, calls: int = 20) -> float:
@@ -253,6 +291,21 @@ def fused_ce_fwd_work(n, d, v, itemsize):
             _kind(itemsize))
 
 
+def fused_ce_fwd_tiles_work(n, d, v, itemsize, tiles):
+    """The forward's tile kernel: the logits' product; x, w, fp32 bias and
+    int64 labels read, the fp32 (max, sum-exp) of each tile and row and the
+    fp32 gold written."""
+    return (2 * n * d * v,
+            itemsize * (n + v) * d + 4 * v + 8 * n + 8 * tiles * n + 4 * n,
+            _kind(itemsize))
+
+
+def fused_ce_fwd_merge_work(n, tiles):
+    """The forward's merge: about 4 fp32 flops a tile and row (max, exp,
+    multiply-add); the tile stats and labels read, lse and gold written."""
+    return 4 * tiles * n, 8 * tiles * n + 8 * n + 4 * n + 4 * n, "fp32"
+
+
 def fused_ce_bwd_work(n, d, v, itemsize):
     """The logits once more and the dx and dW products; the forward's inputs
     plus fp32 lse and weights read, dx, dW and the fp32 db written."""
@@ -286,7 +339,7 @@ def _within(label, got, want, dtype, scaled: bool = False) -> float:
 
 def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
             per_pair: int = 10, oracle_fn=None, library_fn=None, match=None,
-            work=None) -> dict:
+            work=None, inputs=None, library_inputs=None) -> dict:
     """Run a kernel wrapper and its plain version on the same inputs; check
     every output at the tolerance of `dtype` (a tuple of outputs are
     gradients, checked relative to their scale) against `oracle_fn` if
@@ -294,10 +347,22 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
     call that computes the same function (a yardstick the port never
     calls), is timed beside them; `match`, the kernel's name, adds the
     profiler's device time of the kernel (and of the library call);
-    `work`, its (flops, bytes, type), adds its bound. Returns what was
-    measured: max_abs_err, ms, plain_ms and those."""
+    `work`, its (flops, bytes, type), adds its bound. With `inputs`, every
+    function is one of those tensors (the library call's of
+    `library_inputs` if given), and the kernel and the library call are
+    timed on `rotated` copies of them. Returns what was measured:
+    max_abs_err, ms, plain_ms and those."""
     import torch
 
+    if inputs is not None:
+        fns = (kernel_fn, plain_fn, oracle_fn)
+        kernel_fn, plain_fn, oracle_fn = (
+            None if f is None else (lambda f=f: f(*inputs)) for f in fns)
+        timed_kernel = rotated(fns[0], inputs)
+        if library_fn is not None:
+            library_fn = rotated(library_fn, library_inputs or inputs)
+    else:
+        timed_kernel = kernel_fn
     got, want = kernel_fn(), (oracle_fn or plain_fn)()
     torch.cuda.synchronize()
     if isinstance(got, tuple):
@@ -305,7 +370,8 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
                       for i, (a, b) in enumerate(zip(got, want)))
     else:
         max_err = _within(label, got, want, dtype)
-    r = {"max_abs_err": max_err, "ms": median_ms(kernel_fn, reps, per_pair),
+    r = {"max_abs_err": max_err,
+         "ms": median_ms(timed_kernel, reps, per_pair),
          "plain_ms": median_ms(plain_fn, reps, per_pair)}
     line = (f"  {label:58s} max|err| {max_err:.3e}  kernel {r['ms']:8.4f} ms"
             f"  plain {r['plain_ms']:8.4f} ms")
@@ -313,12 +379,14 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
         r["library_ms"] = median_ms(library_fn, reps, per_pair)
         line += f"  library {r['library_ms']:8.4f} ms"
     if match is not None:
-        r["device_ms"] = device_ms(kernel_fn, match, label=label)
+        r["device_ms"] = device_ms(timed_kernel, match, label=label)
         line += f"  device {r['device_ms']:8.4f} ms"
         if library_fn is not None:
             r["library_device_ms"] = device_ms(library_fn,
                                                label=f"library {label}")
-            line += f" (library {r['library_device_ms']:8.4f} ms)"
+            r["vs_library"] = r["device_ms"] / r["library_device_ms"]
+            line += (f" (library {r['library_device_ms']:8.4f} ms, "
+                     f"{r['vs_library']:.2f}x)")
     if work is not None:
         r["bound_ms"], r["bound_by"] = bound(work)
         line += f"  bound {r['bound_ms']:8.4f} ms ({r['bound_by']})"
@@ -326,24 +394,14 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
     return r
 
 
-def _sdpa(q, k, v, bias):
+def _sdpa(q, k, v, mask):
     """The library yardstick for the attention kernel: one call of
-    `F.scaled_dot_product_attention` on the same q, k, v and bias."""
+    `F.scaled_dot_product_attention` on the same q, k, v and the bias as
+    a mask of q's dtype (cast once, outside the call)."""
     import torch.nn.functional as F
 
-    mask = None if bias is None else bias.to(q.dtype)
-    scale = q.shape[-1] ** -0.5
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  scale=scale)
-
-
-def _layer_norm_lib(x, w, b, eps):
-    """The library yardstick for the LayerNorm kernel: `F.layer_norm`, whose
-    weight and bias must have x's dtype (cast once, outside the call)."""
-    import torch.nn.functional as F
-
-    w, b = w.to(x.dtype), b.to(x.dtype)
-    return lambda: F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          scale=q.shape[-1] ** -0.5)
 
 
 def _attention_fwd(rows, label, q, k, v, bias, dtype):
@@ -352,26 +410,69 @@ def _attention_fwd(rows, label, q, k, v, bias, dtype):
     from ecamp_tpu_torch.kernels import flash_attention as fa
 
     b, h, nq, d = q.shape
-    r = compare(label, lambda: fa.flash_attention(q, k, v, bias),
-                lambda: fa._attention_reference(q, k, v, bias), dtype,
-                library_fn=_sdpa(q, k, v, bias), match="attention_fwd",
+    mask = None if bias is None else bias.to(q.dtype)
+    r = compare(label, fa.flash_attention, fa._attention_reference, dtype,
+                library_fn=_sdpa, match="attention_fwd",
                 work=attention_work(b, h, nq, k.shape[2], d, q.element_size(),
-                                    0 if bias is None else bias.numel()))
+                                    0 if bias is None else bias.numel()),
+                inputs=(q, k, v, bias), library_inputs=(q, k, v, mask))
     rows.append({"kernel": "attention", "shape": label, **r})
     return r
 
 
 def _layer_norm_fwd(rows, label, x, w, b, eps, dtype):
-    """The LayerNorm forward at one shape, as `_attention_fwd`."""
+    """The LayerNorm forward at one shape, as `_attention_fwd`; the
+    library call, `F.layer_norm`, takes its weight and bias in x's dtype
+    (cast once, outside the call)."""
+    import torch.nn.functional as F
+
     from ecamp_tpu_torch.kernels import layer_norm as ln
 
-    r = compare(label, lambda: ln.fused_layer_norm(x, w, b, eps),
-                lambda: ln._ln_reference(x, w, b, eps), dtype,
-                library_fn=_layer_norm_lib(x, w, b, eps), match="ln_fwd",
+    r = compare(label, ln.fused_layer_norm, ln._ln_reference, dtype,
+                library_fn=lambda x_, w_, b_, eps_: F.layer_norm(
+                    x_, (x_.shape[-1],), w_, b_, eps_),
+                match="ln_fwd",
                 work=layer_norm_work(x.shape[0], x.shape[1],
-                                     x.element_size()))
+                                     x.element_size()),
+                inputs=(x, w, b, eps),
+                library_inputs=(x, w.to(x.dtype), b.to(x.dtype), eps))
     rows.append({"kernel": "layer_norm", "shape": label, **r})
     return r
+
+
+def _attention_next_head(card, dev, gen):
+    """The bf16 attention kernel at Nq = Nk = 70 (ragged last query and key
+    tiles) with every odd batch*head's K and V NaN, at each head dim and
+    bias kind: the even heads, whose last key tile would reach into the
+    next head's rows if a box crossed heads, against the plain version."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+
+    worst = 0.0
+    for d in (32, 64, 128):
+        for kind in ("none", "key_padding", "full"):
+            b, h, n = 2, 4, 70
+            q, k, v = (torch.randn(b, h, n, d, device=dev, generator=gen)
+                       .bfloat16() for _ in range(3))
+            k[:, 1::2] = float("nan")
+            v[:, 1::2] = float("nan")
+            bias = None
+            if kind == "key_padding":
+                keep = torch.arange(n, device=dev)[None, :] < torch.tensor(
+                    [[n - 3], [n // 2]], device=dev)
+                bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min
+                                   ).reshape(b, 1, 1, n)
+            elif kind == "full":
+                bias = torch.randn(b, h, n, n, device=dev, generator=gen)
+            got = fa.flash_attention(q, k, v, bias)[:, ::2]
+            even = bias if bias is None or bias.shape[1] == 1 else bias[:, ::2]
+            worst = max(worst, _within(
+                f"attention next head NaN d {d} bias {kind}", got,
+                fa._attention_reference(q[:, ::2], k[:, ::2], v[:, ::2],
+                                        even), torch.bfloat16))
+    print(f"  attention, odd heads' K and V NaN, ragged Nk = 70, d 32/64/128,"
+          f" every bias kind: even heads max|err| {worst:.3e} on {card}")
 
 
 def kernel_phase(card: str, rows: list) -> None:
@@ -416,6 +517,7 @@ def kernel_phase(card: str, rows: list) -> None:
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             _attention_fwd(rows, f"attention ({bsz}, {h}, {n}, {d}) bias "
                            f"{bias_kind} {dtype}", q, k, v, bias, dtype)
+    _attention_next_head(card, dev, gen)
     torch.cuda.synchronize()
 
 
@@ -511,12 +613,12 @@ def train_kernel_phase(card: str, rows: list):
         # version in fp32 on the same bf16 inputs, rounded once; the time is
         # the plain bf16 version's, which the model would run.
         r = compare(f"sr_conv_stack fwd ({b}, 3, 448, 448) {dtype}",
-                    lambda: sr.sr_conv_stack(x, w1, b1, w2, b2),
-                    lambda: sr._sr_reference(x, w1, b1, w2, b2), dtype,
-                    oracle_fn=lambda: sr._sr_reference(
-                        x.float(), w1, b1, w2, b2).to(dtype),
+                    sr.sr_conv_stack, sr._sr_reference, dtype,
+                    oracle_fn=lambda x_, *w: sr._sr_reference(
+                        x_.float(), *w).to(x_.dtype),
                     match="sr_conv_stack",
-                    work=sr_work(b, 448, 448, x.element_size()))
+                    work=sr_work(b, 448, 448, x.element_size()),
+                    inputs=(x, w1, b1, w2, b2))
         if dtype == torch.bfloat16:
             main["sr_conv_stack"] = r
     torch.cuda.synchronize()
@@ -598,6 +700,58 @@ def chunk_kernels(x, w, b, labels, lse, wg, chunk, shape, timed):
                             per_pair=2,
                             match=f"fused_ce_bwd_{name}" if timed else None,
                             work=work if timed else None)
+    return out
+
+
+def fwd_kernels(x, w, b, labels, shape, timed):
+    """The tensor-core forward's two kernels, each alone against its plain
+    version on the same inputs: the tile kernel (every row's (max,
+    sum-exp) of every 128-wide vocab tile, and the gold logits of the rows
+    whose label is in range), then the merge fed the plain stats. With
+    `timed`, each one's times (on rotated copies of its inputs), device
+    time and bound too. Returns {"tiles" | "merge": what compare()
+    measured}."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+
+    n, d = x.shape
+    v = w.shape[0]
+    tiles = -(-v // mlm.TILE_V)
+    lab = labels.to(torch.int64).contiguous()
+    want_stats, want_gold = mlm._fwd_tiles_plain(x, w, b, lab)
+
+    def tiles_kernel(x_, w_, b_, lab_):
+        # gold of a label out of range is the merge's: 0 here as there
+        stats = torch.empty(tiles, n, 2, device=x_.device)
+        gold = torch.zeros(n, device=x_.device)
+        _lib_call("ecamp_fused_ce_fwd_tiles", x_.data_ptr(), w_.data_ptr(),
+                  b_.data_ptr(), lab_.data_ptr(), stats.data_ptr(),
+                  gold.data_ptr(), n, v, d, tiles)
+        return stats, gold
+
+    def merge_kernel(stats, lab_, gold):
+        lse = torch.empty(n, device=stats.device)
+        gold = gold.clone()
+        _lib_call("ecamp_fused_ce_fwd_merge", stats.data_ptr(),
+                  lab_.data_ptr(), lse.data_ptr(), gold.data_ptr(), n, v,
+                  tiles)
+        return lse, gold
+
+    def merge_plain(stats, lab_, gold):
+        return mlm._fwd_merge_plain(stats, lab_, gold, v)
+
+    parts = (("tiles", tiles_kernel, mlm._fwd_tiles_plain, (x, w, b, lab),
+              fused_ce_fwd_tiles_work(n, d, v, x.element_size(), tiles)),
+             ("merge", merge_kernel, merge_plain, (want_stats, lab, want_gold),
+              fused_ce_fwd_merge_work(n, tiles)))
+    out = {}
+    for name, kernel_fn, plain_fn, inputs, work in parts:
+        # outputs of fp32 math, held at the fp32 tolerance of their scale
+        out[name] = compare(f"fused CE fwd {name} kernel, {shape}", kernel_fn,
+                            plain_fn, torch.float32, reps=5, per_pair=2,
+                            match=f"fused_ce_fwd_{name}" if timed else None,
+                            work=work if timed else None, inputs=inputs)
     return out
 
 
@@ -687,6 +841,7 @@ def _fused_ce_case(card, gen, nvd, dtype, loss_tol, chunk, main_shape):
     chunks = mlm._chunks(v, chunk)
     for i, (v0, width) in enumerate(chunks):
         labels[i] = v0 + width - 1  # a label in every chunk, the last too
+    labels[len(chunks)] = v - 1  # in the last, ragged vocab tile
     weights = 2 * torch.rand(n, device=dev, generator=gen)
     gout = torch.full((), 1.0 / n, device=dev)  # the caller's mean
     shape = f"({n}, {d}, {v}) {dtype}"
@@ -694,17 +849,16 @@ def _fused_ce_case(card, gen, nvd, dtype, loss_tol, chunk, main_shape):
         shape += f" chunk {chunk}"
     tensor_cores = mlm._tensor_core_path(x, w)
 
-    def fwd():
-        return mlm.fused_mlm_loss_sum(x, w, b, labels, weights)
-
     def ref():
         return mlm._fused_reference(x, w, b, labels, weights)
 
-    got, want = float(fwd()), float(ref())
+    fwd = rotated(mlm.fused_mlm_loss_sum, (x, w, b, labels, weights))
+    got, want = float(mlm.fused_mlm_loss_sum(x, w, b, labels, weights)), \
+        float(ref())
     rel = abs(got - want) / abs(want)
     check(rel <= loss_tol, f"fused CE fwd {shape}: {got:.7g} vs "
           f"{want:.7g} (rel {rel:.3e})")
-    fwd_times = {"max_abs_err": abs(got - want),
+    fwd_times = {"max_abs_err": abs(got - want), "rel_err": rel,
                  "ms": median_ms(fwd, 10, 3),
                  "plain_ms": median_ms(ref, 10, 3),
                  "device_ms": device_ms(fwd, "fused_ce_fwd", 5,
@@ -732,15 +886,17 @@ def _fused_ce_case(card, gen, nvd, dtype, loss_tol, chunk, main_shape):
             x, w, b, labels, lse, wg)
     before = mlm.launches_dl.value
     bwd_times = compare(
-        f"fused CE bwd (dx, dW, db) {shape}",
-        lambda: mlm._backward_cuda(x, w, b, labels, lse, wg),
-        plain_bwd, dtype, reps=5, per_pair=2, match="fused_ce_bwd",
-        work=fused_ce_bwd_work(n, d, v, x.element_size()))
+        f"fused CE bwd (dx, dW, db) {shape}", mlm._backward_cuda,
+        lambda *a: plain_bwd(), dtype, reps=5, per_pair=2,
+        match="fused_ce_bwd",
+        work=fused_ce_bwd_work(n, d, v, x.element_size()),
+        inputs=(x, w, b, labels, lse, wg))
     check(tensor_cores == (dtype == torch.bfloat16), f"{shape}: "
-          f"tensor-core backward {tensor_cores}")
+          f"tensor-core path {tensor_cores}")
     if tensor_cores:
         check(mlm.launches_dl.value > before,
               f"{shape}: the dl kernel did not run")
+        fparts = fwd_kernels(x, w, b, labels, shape, timed=main_shape)
         parts = chunk_kernels(x, w, b, labels, lse, wg, chunk, shape,
                               timed=main_shape)
     if main_shape:
@@ -755,6 +911,13 @@ def _fused_ce_case(card, gen, nvd, dtype, loss_tol, chunk, main_shape):
                          parts_first_chunk=parts,
                          parts_first_chunk_device_ms=total,
                          mainloop=mainloop_rows(n, d, chunk, gen))
+        print(f"  fused CE fwd at {shape}: tiles "
+              f"{_ms(fparts['tiles']['device_ms'])} (bound "
+              f"{fparts['tiles']['bound_ms']:.4f} ms) + merge "
+              f"{_ms(fparts['merge']['device_ms'])} (bound "
+              f"{fparts['merge']['bound_ms']:.4f} ms); the whole forward "
+              f"{_ms(fwd_times['device_ms'])} device")
+        fwd_times["parts"] = fparts
         main["fused_ce_fwd"], main["fused_ce_bwd"] = fwd_times, bwd_times
     del x, w, lse
     return main
@@ -914,15 +1077,17 @@ def pretrain_phase(card: str):
             losses.append(float(m["loss"]))
         launches = {k: ctr.value for k, ctr in counters.items()}
         peak = torch.cuda.max_memory_allocated()
-        # the device's busy time in a step, and the fused CE's part of it
-        # (the profiler over 3 more steps; outside the counts above)
+        # the device's busy time in a step, and the fused CE's and
+        # attention's parts of it (the profiler over 3 more steps; outside
+        # the counts above)
         box = [state]
 
         def one_step():
             box[0], _ = task.train_step(box[0], batch, noise=noise)
 
         busy = {k: device_ms(one_step, match, 3, f"step {k}", alone=False)
-                for k, match in (("busy", ""), ("fused_ce", "fused_ce"))}
+                for k, match in (("busy", ""), ("fused_ce", "fused_ce"),
+                                 ("attention", "attention_fwd"))}
         return losses, times, launches, peak, busy
 
     def report(tag, per_step, losses, times, launches, peak, busy):
@@ -940,12 +1105,14 @@ def pretrain_phase(card: str):
               f"{PRE_B / step_ms * 1e3:.2f} images/s, peak device memory "
               f"{peak / 2 ** 30:.3f} GiB on {card}")
         print(f"  ({tag}) device busy {_ms(busy['busy'])} a step, fused CE "
-              f"kernels {_ms(busy['fused_ce'])} (profiler, 3 steps)")
+              f"kernels {_ms(busy['fused_ce'])}, attention kernel "
+              f"{_ms(busy['attention'])} (profiler, 3 steps)")
         return {"step_ms_median": step_ms, "step_ms": times,
                 "images_per_s": PRE_B / step_ms * 1e3,
                 "max_memory_allocated_bytes": peak, "losses": losses,
                 "device_busy_ms": busy["busy"],
-                "fused_ce_device_ms": busy["fused_ce"]}
+                "fused_ce_device_ms": busy["fused_ce"],
+                "attention_device_ms": busy["attention"]}
 
     # (c), (d), (e): PRE_STEPS training steps through the kernels
     losses, times, launches, peak, busy = steps(task, counters)
@@ -962,10 +1129,13 @@ def pretrain_phase(card: str):
     # the bf16 backward runs dl, dx and dW once a vocab chunk
     n_chunks = len(mlm._chunks(cfg.bert.vocab_size, mlm.CHUNK_V))
     fcounters = dict(counters, fused_ce_fwd=mlm.launches_fwd,
+                     fused_ce_merge=mlm.launches_merge,
                      fused_ce_dl=mlm.launches_dl, fused_ce_dx=mlm.launches_dx,
                      fused_ce_dw=mlm.launches_dw)
-    fper_step = dict(per_step, fused_ce_fwd=1, fused_ce_dl=n_chunks,
-                     fused_ce_dx=n_chunks, fused_ce_dw=n_chunks)
+    # the bf16 forward: its tile kernel and its merge once each
+    fper_step = dict(per_step, fused_ce_fwd=1, fused_ce_merge=1,
+                     fused_ce_dl=n_chunks, fused_ce_dx=n_chunks,
+                     fused_ce_dw=n_chunks)
     ftask = PretrainTask(dataclasses.replace(cfg, fused_mlm_ce=True),
                          device="cuda")
     ftask.model.load_state_dict(init)
@@ -1259,7 +1429,8 @@ def main() -> int:
 
     # launches: the materialised step's (d) for the first four kernels, the
     # fused-CE step's (f) for the fused CE (dx + dW for its backward)
-    launches["fused_ce_fwd"] = flaunches["fused_ce_fwd"]
+    launches["fused_ce_fwd"] = (flaunches["fused_ce_fwd"]
+                                + flaunches["fused_ce_merge"])
     launches["fused_ce_bwd"] = (flaunches["fused_ce_dl"]
                                 + flaunches["fused_ce_dx"]
                                 + flaunches["fused_ce_dw"])
@@ -1295,8 +1466,18 @@ def main() -> int:
             entry["library_note"] = no_library[name]
         else:
             entry["library_device_ms"] = t["library_device_ms"]
+            entry["vs_library"] = t["vs_library"]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name]
+        if name == "fused_ce_fwd":  # the tile kernel and the merge
+            entry["parts"] = {
+                k: {"launches_a_step": flaunches[
+                        "fused_ce_fwd" if k == "tiles" else "fused_ce_merge"]
+                    // PRE_STEPS,
+                    **{f: t["parts"][k][f] for f in (
+                        "max_abs_err", "ms", "plain_ms", "device_ms",
+                        "bound_ms", "bound_by")}}
+                for k in ("tiles", "merge")}
         if name == "fused_ce_bwd":  # three kernels a vocab chunk
             entry["chunk"] = t["chunk"]
             entry["launches_a_step"] = {

@@ -41,6 +41,7 @@ _COUNTERS = {"layer_norm": layer_norm.launches,
              "sr_conv_stack": sr_head.launches,
              "adamw": fused_adamw.launches,
              "fused_ce_fwd": fused_mlm_loss.launches_fwd,
+             "fused_ce_merge": fused_mlm_loss.launches_merge,
              "fused_ce_dl": fused_mlm_loss.launches_dl,
              "fused_ce_dx": fused_mlm_loss.launches_dx,
              "fused_ce_dw": fused_mlm_loss.launches_dw}

@@ -14,25 +14,20 @@
 // byte), so device-memory bytes bound those; at N = 785 (448-px serving)
 // it is about 390, so the tensor cores bound it.
 // What the design does about it:
-//   * bf16 (the model's compute dtype): a FlashAttention-2 style kernel on
-//     the tensor cores, mma.sync m16n8k16 (bf16 in, fp32 accumulate). One
-//     block of 4 warps per (batch*head, 64-query tile); each warp owns 16
-//     query rows. The Q tile arrives by cp.async and stays in registers as
-//     ldmatrix A fragments for the whole key loop. K and V arrive in
-//     64-key tiles, double-buffered in shared memory by cp.async, so tile
-//     t + 1 is in flight while tile t is used; rows are padded by 16 bytes
-//     so ldmatrix reads hit distinct banks, and V's B fragments come from
-//     ldmatrix.trans. S = Q K^T (16 x 64 a warp, fp32) takes the scale, the
-//     bias and the bounds mask, the online softmax keeps each row's
-//     running max and denominator in registers (reduced over the 4 lanes
-//     of a row by shuffles), and P is converted from S's accumulator
-//     layout straight into bf16 A fragments for O += P V, with no trip
-//     through shared memory. So q, k, v are read once from device memory
-//     (K and V once a 64-query tile, from L2 after the first), the logits
-//     never leave the SM, and o is written once, as 16-byte rows staged
-//     through shared memory. For the memory-bound shapes what matters is
-//     bytes moved once with enough blocks in flight (768 blocks at the
-//     BERT shape); for N = 785 the products run on the tensor cores.
+//   * bf16 (the model's compute dtype): a FlashAttention-3 style kernel on
+//     TMA and wgmma (bf16 in, fp32 accumulate), on a persistent grid of
+//     (batch*head, 64-query tile) items: one producer warp keeps two Q
+//     buffers and two rings of 64-key K and V tiles filled by TMA behind
+//     mbarriers and stores each O by TMA, and one consumer warpgroup runs
+//     S = Q K^T from shared memory and O += P V with P in registers, the
+//     next tile's S issued before this tile's softmax. So q, k, v are read
+//     once from device memory (K and V once a 64-query tile, from L2 after
+//     the first), the loads and stores take no instructions of the
+//     consumers, one item's loads and store run under another's products,
+//     the logits never leave the SM, and o is written once. Two or three
+//     blocks an SM keep the memory-bound shapes' bytes in flight; at
+//     N = 785 the products run on the tensor cores while the exponentials
+//     of the next tile are computed.
 //   * fp32 (and bf16 whose pointers are not 16-byte aligned): the FMA pipe,
 //     one block per (batch*head, 64-query tile), four threads per query
 //     row, K/V tiles staged in shared memory. TF32 would miss the fp32
@@ -41,17 +36,21 @@
 // logits past Nk), with no padding copies. The optional fp32 bias is read
 // through four element strides (0 on a broadcast dim), which covers the
 // (B,1,1,Nk) key-padding and the full (B,H,Nq,Nk) layouts; a bias that
-// does not vary over the query rows is staged once a key tile in shared
-// memory. A row whose logits so far are all -inf keeps its exponents
-// finite (the BERT mask is finfo(fp32).min, not -inf).
+// does not vary over the query rows is read once a key tile. A row whose
+// logits so far are all -inf keeps its exponents finite (the BERT mask is
+// finfo(fp32).min, not -inf).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -164,77 +163,75 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// tensor cores (bf16)
+// tensor cores (bf16): TMA + wgmma
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMQ = 16 * kMmaWarps;  // query rows a block, 16 a warp
-constexpr int kMK = 64;              // keys a tile
-constexpr int kPadH = 8;             // bf16 row padding: 16 bytes, ldmatrix rows on distinct banks
+namespace wg {
+
+constexpr int kBM = 64;                   // query rows an item: one consumer warpgroup
+constexpr int kBN = 64;                   // keys a tile
+constexpr int kConsumers = 128;           // the consumer warpgroup
+constexpr int kThreads = kConsumers + 32; // and the producer warp
+constexpr int kStages = 2;                // K tiles (and V tiles) in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the bias a launch takes: none, one that does not vary over the query
-// rows (the key-padding mask, staged a key tile at a time in shared
-// memory), or any other, read through its strides
-enum BiasKind { kNoBias = 0, kKeyBias = 1, kFullBias = 2 };
-
+// The shared-memory tiles of head dim D, as TMA writes them: rows of one
+// swizzle width (64 bf16 = 128 bytes, or at D = 32 32 bf16 = 64 bytes),
+// D / width such boxes side by side, each of all the tile's rows.
 template <int D>
-struct MmaSmem {
-  bf16 q[kMQ][D + kPadH];     // the Q tile; at the end each warp's output rows
-  bf16 k[2][kMK][D + kPadH];  // double-buffered key tiles
-  bf16 v[2][kMK][D + kPadH];  // and value tiles
-  float bias[2][kMK];         // a kKeyBias bias's values for the tile
+struct Tile {
+  // blocks an SM: at D = 128 the shared memory (97 KB a block) and the
+  // registers of O allow two, else three
+  static constexpr int kBlocks = D == 128 ? 2 : 3;
+  static constexpr int kBoxCols = D == 32 ? 32 : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kAtom = 8 * kRowBytes;  // 8 rows: the descriptors' SBO
+  static constexpr unsigned kLayout = D == 32 ? 2 : 1;  // 64- or 128-byte swizzle
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBytes = kBN * D * 2;  // one K or V tile
+  static constexpr int kSmem = 2 * kQBytes + 2 * kStages * kKVBytes + 1024;
+
+  // byte offset of element (row, col) in a tile of `rows` rows: the TMA
+  // swizzle moves 16-byte chunk c of row r to c ^ (r % 8) (128-byte rows)
+  // or c ^ ((r / 2) % 4) (64-byte rows)
+  __device__ static int offset(int rows, int row, int col) {
+    const int c = col % kBoxCols;
+    const int chunk = c / 8 ^ (kRowBytes == 128 ? row % 8 : row / 2 % 4);
+    return col / kBoxCols * rows * kRowBytes + row * kRowBytes + chunk * 16 + c % 8 * 2;
+  }
+
+  // K-major operand (Q or K, D deep) of `rows` rows at k-step kk: 16
+  // columns are 32 bytes inside a swizzle row
+  __device__ static uint64_t k_desc(const unsigned char* tile, int rows, int kk) {
+    const int col = 16 * kk;
+    return smem_desc(tile + col / kBoxCols * rows * kRowBytes + col % kBoxCols * 2, 16, kAtom,
+                     kLayout);
+  }
+
+  // V as the MN-major B of P V at k-step kk: 16 keys are two 8-row groups,
+  // the column boxes kBN rows apart (LBO)
+  __device__ static uint64_t v_desc(const unsigned char* tile, int kk) {
+    return smem_desc(tile + 16 * kk * kRowBytes, kBN * kRowBytes, kAtom, kLayout);
+  }
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+// O (64 x D) += P V for one 16-key step, P from registers, V MN-major
+template <int D>
+__device__ __forceinline__ void pv_step(float (&o)[D / 2], const unsigned (&p)[4], uint64_t dv) {
+  if constexpr (D == 32)
+    wgmma_m64n32_rs<1>(o, p, dv);
+  else if constexpr (D == 64)
+    wgmma_m64n64_rs<1>(o, p, dv);
+  else
+    wgmma_m64n128_rs<1>(o, p, dv);
 }
 
-// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
+}  // namespace wg
 
-__device__ __forceinline__ void ldsm_x4_trans(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, row-major bf16) * b (16 x 8, col-major
-// bf16); d[0], d[1] are row lane/4, columns 2 (lane%4) + {0, 1}; d[2], d[3]
-// the same columns of row lane/4 + 8
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 (or 4) bytes from device memory into shared memory without the
-// registers, asynchronously; where !ok, zeros and no read (src is then
-// `base`, a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, const void* base, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(ok ? src : base), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, const void* base, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(ok ? src : base), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// the bias a launch takes: none, one that does not vary over the query
+// rows (the key-padding mask, read a key tile at a time into registers),
+// or any other, read through its strides
+enum BiasKind { kNoBias = 0, kKeyBias = 1, kFullBias = 2 };
 
 // 2^x on the special-function unit (relative error about 2^-22; 2^-inf = 0)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -248,215 +245,304 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// One block of 4 warps per (batch*head, 64-query tile), numbered with the
-// query tiles of a batch*head next to each other, so they run together and
-// share its K and V in L2. Warp w owns query rows 16 w..16 w+15 of the
-// tile; a lane holds rows g = lane/4 and g + 8 of them.
+// A persistent grid: block b takes the work items (batch*head, 64-query
+// tile) b, b + grid, b + 2 grid, ..., numbered with the query tiles of a
+// batch*head next to each other, so the blocks at work at one time share
+// K and V in L2. The producer warp's one thread loads each item's Q tile
+// into one of two Q buffers and the K and V tiles into two rings of
+// kStages behind mbarriers, by TMA through 3-D tensor maps (D, N, B*H): a
+// box past a ragged Nk reads zeros, never the next batch*head's rows. It
+// runs ahead into the next item while the consumers finish one, and it
+// stores each item's O by TMA from that item's Q buffer (rows past Nq are
+// not written) before loading the buffer again. The consumer warpgroup
+// owns an item's 64 query rows; a thread holds rows g = lane/4 and g + 8
+// of its warp's 16 (hopper.cuh gives the fragment layout).
 //
-// The logits S' are S * scale + bias, or without a bias S itself with the
-// scale folded into f = scale * log2(e), so that p = 2^((S' - m) f) is one
-// FMA and one ex2 an element, as in FlashAttention-2. With a bias the
-// difference is taken first: a finfo.min mask times log2(e) would
-// overflow. Only the last key tile, when Nk is ragged, takes the bounds
-// mask.
+// Tile t: S_t = Q K_t^T by wgmma from shared memory is issued, then
+// O += P_{t-1} V_{t-1} with P_{t-1} in registers, so the products of one
+// tile run while the softmax of the next is computed. The logits S' are S
+// * scale + bias, or without a bias S itself with the scale folded into
+// f = scale * log2(e), so that p = 2^((S' - m) f) is one FMA and one ex2 an
+// element. With a bias the difference is taken first: a finfo.min mask
+// times log2(e) would overflow. Only a ragged last tile takes the bounds
+// mask. P is rounded to bf16 straight from S's accumulators into A
+// fragments (the m64nN accumulator layout of two adjacent 8-column blocks
+// is the A fragment of one 16-deep step). O is divided by the denominator
+// once, after the last P V, and written into the item's Q buffer in the
+// TMA store's swizzled layout.
 template <int D, int kBias>
-__global__ void __launch_bounds__(kMmaThreads)
-attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                         long long sb_b, long long sb_h, long long sb_q, long long sb_k,
-                         bf16* __restrict__ o, int H, int Nq, int Nk, float scale) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int kKD = D / 16;     // k-steps of Q K^T
-  constexpr int kNB = kMK / 8;    // n-blocks of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  MmaSmem<D>& sm = *reinterpret_cast<MmaSmem<D>*>(smem_raw);
+__global__ void __launch_bounds__(wg::kThreads, wg::Tile<D>::kBlocks)
+attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to, const float* __restrict__ bias,
+                           long long sb_b, long long sb_h, long long sb_q, long long sb_k, int H,
+                           int Nq, int Nk, int items, float scale) {
+  using T = wg::Tile<D>;
+  using wg::kBM;
+  using wg::kBN;
+  using wg::kStages;
+  constexpr int kNB = kBN / 8;  // 8-column blocks of S
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  // qfull: an item's Q has landed; ofull: its O is in the Q buffer
+  __shared__ __align__(8) uint64_t qfull[2], ofull[2], kfull[kStages], kempty[kStages],
+      vfull[kStages], vempty[kStages];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on it
+  unsigned char* qs = smem_tc + ((1024 - (smem_addr(smem_tc) & 1023)) & 1023);  // 2 Q tiles
+  unsigned char* ks = qs + 2 * T::kQBytes;         // kStages K tiles
+  unsigned char* vs = ks + kStages * T::kKVBytes;  // kStages V tiles
+  const int n_qt = (Nq + kBM - 1) / kBM;
+  const int nt = (Nk + kBN - 1) / kBN;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&ofull[b], wg::kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], wg::kConsumers);
+      mbar_init(&vempty[s], wg::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
+  if (threadIdx.x >= wg::kConsumers) {  // the producer warp
+    if (threadIdx.x == wg::kConsumers) {
+      // item j's O, from Q buffer j % 2, once the consumers have written it
+      auto store_o = [&](int j) {
+        const int item = blockIdx.x + j * gridDim.x;
+        mbar_wait(&ofull[j % 2], j / 2 % 2);
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_store_3d(&to, qs + j % 2 * T::kQBytes + b * kBM * T::kRowBytes, b * T::kBoxCols,
+                       item % n_qt * kBM, item / n_qt);
+        tma_store_wait();
+      };
+      int c = 0;  // K and V tiles loaded so far
+      int j = 0;  // items begun
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+        const int bh = item / n_qt, q0 = item % n_qt * kBM;
+        if (j >= 2) store_o(j - 2);  // the buffer's last O, then its next Q
+        mbar_expect_tx(&qfull[j % 2], T::kQBytes);
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_load_3d(qs + j % 2 * T::kQBytes + b * kBM * T::kRowBytes, &tq, &qfull[j % 2],
+                      b * T::kBoxCols, q0, bh);
+        for (int t = 0; t < nt; ++t, ++c) {
+          const int s = c % kStages;
+          const unsigned ph = c / kStages % 2;
+          mbar_wait(&kempty[s], ph ^ 1);
+          mbar_expect_tx(&kfull[s], T::kKVBytes);
+          for (int b = 0; b < T::kBoxes; ++b)
+            tma_load_3d(ks + s * T::kKVBytes + b * kBN * T::kRowBytes, &tk, &kfull[s],
+                        b * T::kBoxCols, t * kBN, bh);
+          mbar_wait(&vempty[s], ph ^ 1);
+          mbar_expect_tx(&vfull[s], T::kKVBytes);
+          for (int b = 0; b < T::kBoxes; ++b)
+            tma_load_3d(vs + s * T::kKVBytes + b * kBN * T::kRowBytes, &tv, &vfull[s],
+                        b * T::kBoxCols, t * kBN, bh);
+        }
+      }
+      for (int jj = j < 2 ? 0 : j - 2; jj < j; ++jj) store_o(jj);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int n_qt = (Nq + kMQ - 1) / kMQ;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * kMQ;
-  const bf16* qb = q + (long long)bh * Nq * D;
-  const bf16* kb = k + (long long)bh * Nk * D;
-  const bf16* vb = v + (long long)bh * Nk * D;
-  const float f = kBias == kNoBias ? scale * kLog2e : kLog2e;
+  const int row0 = warp * 16 + g;  // rows row0 and row0 + 8 of the item
+  const float f = kBias == kNoBias ? scale * wg::kLog2e : wg::kLog2e;
   const float* bb = nullptr;
   const float* brow[2] = {nullptr, nullptr};  // rows g, g + 8, clamped inside Nq
-  if (kBias != kNoBias) {
-    bb = bias + (long long)(bh / H) * sb_b + (long long)(bh % H) * sb_h;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      brow[r] = bb + (long long)min(q0 + warp * 16 + g + 8 * r, Nq - 1) * sb_q;
-  }
-
-  // key tile k0.. into buffer buf (zeros past Nk), then one commit
-  auto load_kv = [&](int buf, int k0) {
-    for (int e = tid; e < kMK * kChunks; e += kMmaThreads) {
-      const int r = e / kChunks, c = (e % kChunks) * 8;
-      const bool ok = k0 + r < Nk;
-      const long long off = (long long)(k0 + r) * D + c;
-      cp_async16(&sm.k[buf][r][c], kb + off, kb, ok);
-      cp_async16(&sm.v[buf][r][c], vb + off, vb, ok);
-    }
-    if (kBias == kKeyBias && tid < kMK)
-      cp_async4(&sm.bias[buf][tid], bb + (long long)(k0 + tid) * sb_k, bb, k0 + tid < Nk);
-    cp_async_commit();
+  float o[D / 2];   // O, accumulator fragments
+  float sc[kBN / 2];  // S of the tile
+  unsigned pp[kBN / 16][4];  // P of the previous tile, A fragments of its 16-key steps
+  float m[2], l[2];  // running max of S' and denominator (this thread's columns), rows g, g + 8
+  auto p_of = [&](float x, float mu) {  // 2^((x - mu) f)
+    return exp2_approx(kBias == kNoBias ? fmaf(x, f, -mu * f) : (x - mu) * f);
   };
+  const unsigned char* q = qs;  // the item's Q tile
+  int c = 0;                    // K and V tiles used so far
 
-  // the Q tile and key tile 0 form the first group
-  for (int e = tid; e < kMQ * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    cp_async16(&sm.q[r][c], qb + (long long)(q0 + r) * D + c, qb, q0 + r < Nq);
-  }
-  load_kv(0, 0);
-
-  unsigned qf[kKD][4];  // the warp's 16 query rows as A fragments
-  float acc[D / 8][4];  // O: n-block nb's C fragment
+  // the item's K tile t, and V tile t, in shared memory
+  auto wait_k = [&](int t) { mbar_wait(&kfull[(c + t) % kStages], (c + t) / kStages % 2); };
+  auto wait_v = [&](int t) { mbar_wait(&vfull[(c + t) % kStages], (c + t) / kStages % 2); };
+  // S = Q K^T of the item's tile t issued. Its tile and P V's are waited
+  // for before the warpgroup's fence: a wgmma after a spin on a barrier
+  // would need a fence of its own, which ptxas places itself and then
+  // serialises the wgmmas.
+  auto issue_s = [&](int t) {
+    const int s = (c + t) % kStages;
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64<0, 0>(sc, T::k_desc(q, kBM, kk), T::k_desc(ks + s * T::kKVBytes, kBN, kk),
+                         kk > 0);
+    wg_commit();
+  };
+  // O += P V of the item's tile t issued
+  auto issue_pv = [&](int t) {
+    const int s = (c + t) % kStages;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nb][c] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of S', rows g and g + 8
-  float l[2] = {0.f, 0.f};  // running denominator, this lane's columns only
-
-  const int nt = (Nk + kMK - 1) / kMK;
-  for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) {
-      load_kv((t + 1) % 2, (t + 1) * kMK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile t (and at t = 0 the Q tile) has landed for every thread
-    if (t == 0) {
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wg::pv_step<D>(o, pp[kk], T::v_desc(vs + s * T::kKVBytes, kk));
+    wg_commit();
+  };
+  // the key-padding bias of this thread's columns of tile t (none past
+  // Nk), loaded a tile ahead of its use
+  auto load_key_bias = [&](int t, float (&kb)[kNB][2]) {
+    if (kBias == kKeyBias) {
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk)
-        ldsm_x4(&sm.q[warp * 16 + ((lane / 8) % 2) * 8 + lane % 8][kk * 16 + (lane / 16) * 8],
-                qf[kk]);
-    }
-    const int buf = t % 2, k0 = t * kMK;
-
-    // S = Q K^T: K's rows are the columns n; matrices (n, k), (n, k+8),
-    // (n+8, k), (n+8, k+8) give b0 b1 of n-block n and b0 b1 of n + 8
-    float s[kNB][4];
+      for (int j = 0; j < kNB; ++j)
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nb][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kNB / 2; ++np) {
-        unsigned b[4];
-        ldsm_x4(&sm.k[buf][np * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8],
-                b);
-        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // S' (element c of n-block nb is row g + 8 (c / 2), column
-    // nb * 8 + 2 t4 + c % 2), then the bounds mask on a ragged last tile
-    if (kBias != kNoBias) {
-#pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = nb * 8 + 2 * t4 + c % 2;
-          const float b = kBias == kKeyBias ? sm.bias[buf][col]
-                          : k0 + col < Nk  ? brow[c / 2][(long long)(k0 + col) * sb_k]
-                                           : 0.f;
-          s[nb][c] = fmaf(s[nb][c], scale, b);
+        for (int e = 0; e < 2; ++e) {
+          const int col = t * kBN + 8 * j + 2 * t4 + e;
+          kb[j][e] = col < Nk ? bb[(long long)col * sb_k] : 0.f;
         }
     }
-    if (k0 + kMK > Nk) {
+  };
+  // the online softmax of S_t, done: P_t as A fragments into pc (16-key
+  // step kk takes column blocks 2 kk, registers 0 and 1, and 2 kk + 1, 2
+  // and 3), the factor of the running O and denominator into alpha
+  auto softmax = [&](int t, const float (&kb)[kNB][2], unsigned (&pc)[kBN / 16][4],
+                     float (&alpha)[2]) {
+    const int k0 = t * kBN;
+    // S' (fragment i is row g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t4
+    // + i % 2), then the bounds mask on a ragged last tile
+    if (kBias != kNoBias) {
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb)
+      for (int j = 0; j < kNB; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (k0 + nb * 8 + 2 * t4 + c % 2 >= Nk) s[nb][c] = -CUDART_INF_F;
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * t4 + e;
+            const float b = kBias == kKeyBias ? kb[j][e]
+                            : col < Nk        ? brow[r][(long long)col * sb_k]
+                                              : 0.f;
+            sc[4 * j + 2 * r + e] = fmaf(sc[4 * j + 2 * r + e], scale, b);
+          }
     }
-
-    // online softmax: the tile's row max over the 4 lanes of a row
-    float m_use[2];
-    auto p_of = [&](float x, int r) {  // 2^((x - m_use) f)
-      return exp2_approx(kBias == kNoBias ? fmaf(x, f, -m_use[r] * f) : (x - m_use[r]) * f);
-    };
+    if (k0 + kBN > Nk) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        if (k0 + 8 * (i / 4) + 2 * t4 + i % 2 >= Nk) sc[i] = -CUDART_INF_F;
+    }
+    // the tile's row max over the 4 threads of a row
+    float mu[2];  // the max in use, finite
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float tmax = -CUDART_INF_F;
 #pragma unroll
-      for (int nb = 0; nb < kNB; ++nb) tmax = fmaxf(tmax, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+      for (int j = 0; j < kNB; ++j)
+        tmax = fmaxf(tmax, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
       const float m_new = fmaxf(m[r], tmax);
       // a row whose logits so far are all -inf keeps exponents finite
-      m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = p_of(m[r], r);
-      l[r] *= alpha;
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        acc[nb][2 * r] *= alpha;
-        acc[nb][2 * r + 1] *= alpha;
-      }
+      mu[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = p_of(m[r], mu[r]);
+      l[r] *= alpha[r];
       m[r] = m_new;
     }
-
     // P = 2^((S' - m) f) in fp32 into the denominator, rounded to bf16
-    // (Pallas: p.astype(v.dtype)) as A fragments: k-step kk spans n-blocks
-    // 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
-    unsigned pf[kMK / 16][4];
+    // (Pallas: p.astype(v.dtype))
 #pragma unroll
-    for (int nb = 0; nb < kNB; ++nb) {
-      float p[4];
+    for (int j = 0; j < kNB; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) p[c] = p_of(s[nb][c], c / 2);
-      l[0] += p[0] + p[1];
-      l[1] += p[2] + p[3];
-      pf[nb / 2][(nb % 2) * 2] = pack_bf16(p[0], p[1]);
-      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-
-    // O += P V: V is row-major (key, d), read transposed: matrices (k, n),
-    // (k+8, n), (k, n+8), (k+8, n+8) give b0 b1 of n-block n and of n + 8
-#pragma unroll
-    for (int kk = 0; kk < kMK / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4_trans(
-            &sm.v[buf][kk * 16 + ((lane / 8) % 2) * 8 + lane % 8][np * 16 + (lane / 16) * 8], b);
-        mma_bf16(acc[2 * np], pf[kk], b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], pf[kk], b[2], b[3]);
+      for (int r = 0; r < 2; ++r) {
+        const float p0 = p_of(sc[4 * j + 2 * r], mu[r]);
+        const float p1 = p_of(sc[4 * j + 2 * r + 1], mu[r]);
+        l[r] += p0 + p1;
+        pc[j / 2][2 * (j % 2) + r] = pack_bf16(p0, p1);
       }
-    }
-    __syncthreads();  // every warp is done with buffer `buf` before it refills
-  }
+  };
 
-  // O / l in fp32, rounded once, through the warp's own rows of sm.q
-  // (only this warp read them) to 16-byte stores
+  int j = 0;  // items begun
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++j, c += nt) {
+    const int bh = item / n_qt, q0 = item % n_qt * kBM;
+    q = qs + j % 2 * T::kQBytes;
+    if (kBias != kNoBias) {
+      bb = bias + (long long)(bh / H) * sb_b + (long long)(bh % H) * sb_h;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+      for (int r = 0; r < 2; ++r)
+        brow[r] = bb + (long long)min(q0 + row0 + 8 * r, Nq - 1) * sb_q;
+    }
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
-    const int col = nb * 8 + 2 * t4;
-    *reinterpret_cast<unsigned*>(&sm.q[warp * 16 + g][col]) =
-        pack_bf16(acc[nb][0] / l[0], acc[nb][1] / l[0]);
-    *reinterpret_cast<unsigned*>(&sm.q[warp * 16 + g + 8][col]) =
-        pack_bf16(acc[nb][2] / l[1], acc[nb][3] / l[1]);
-  }
-  __syncwarp();
-  bf16* ob = o + (long long)bh * Nq * D;
-  for (int e = lane; e < 16 * kChunks; e += 32) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const int qi = q0 + warp * 16 + r;
-    if (qi < Nq)
-      *reinterpret_cast<uint4*>(ob + (long long)qi * D + c) =
-          *reinterpret_cast<const uint4*>(&sm.q[warp * 16 + r][c]);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -CUDART_INF_F;
+      l[r] = 0.f;
+    }
+    float alpha[2];
+    float kb[kNB][2], kb_next[kNB][2];  // the key-padding bias of tiles t and t + 1
+    load_key_bias(0, kb);
+    mbar_wait(&qfull[j % 2], j / 2 % 2);
+    {  // tile 0: O is still zero, nothing to rescale
+      wait_k(0);
+      wg_fence();
+      issue_s(0);
+      load_key_bias(1, kb_next);
+      wg_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&kempty[c % kStages]);
+      softmax(0, kb, pp, alpha);
+    }
+    for (int t = 1; t < nt; ++t) {
+      wait_k(t);
+      wait_v(t - 1);
+      wg_fence();
+      issue_s(t);
+      issue_pv(t - 1);
+#pragma unroll
+      for (int jj = 0; jj < kNB; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) kb[jj][e] = kb_next[jj][e];
+      load_key_bias(t + 1, kb_next);
+      wg_wait<1>();  // S_t is done: K_t is free
+      fence_regs(sc);
+      mbar_arrive(&kempty[(c + t) % kStages]);
+      unsigned pc[kBN / 16][4];
+      softmax(t, kb, pc, alpha);
+      wg_wait<0>();  // P_{t-1} V_{t-1} is done: O may change, V_{t-1} is free
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(pp[kk]);
+      mbar_arrive(&vempty[(c + t - 1) % kStages]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[i / 2 % 2];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pp[kk][e] = pc[kk][e];
+    }
+    // the last tile's P V
+    wait_v(nt - 1);
+    wg_fence();
+    issue_pv(nt - 1);
+    wg_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(pp[kk]);
+    mbar_arrive(&vempty[(c + nt - 1) % kStages]);
+
+    // O / l in fp32, rounded once, into the Q buffer (the item's last S
+    // read it before the waits above) in the TMA store's layout; the
+    // producer stores it
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    unsigned char* out = qs + j % 2 * T::kQBytes;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<unsigned*>(out + T::offset(kBM, row0 + 8 * r, 8 * jj + 2 * t4)) =
+            pack_bf16(o[4 * jj + 2 * r] / l[r], o[4 * jj + 2 * r + 1] / l[r]);
+    async_proxy_fence();
+    mbar_arrive(&ofull[j % 2]);
   }
 }
 
@@ -487,25 +573,33 @@ int launch_fma(const void* q, const void* k, const void* v, const void* bias, lo
 }
 
 template <int D, int kBias>
-int launch_mma(const void* q, const void* k, const void* v, const void* bias, long long sb_b,
-               long long sb_h, long long sb_q, long long sb_k, void* o, int B, int H, int Nq,
-               int Nk, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(MmaSmem<D>);
-  auto kernel = attention_fwd_mma_kernel<D, kBias>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * H * ((Nq + kMQ - 1) / kMQ);
+int launch_wgmma(const void* q, const void* k, const void* v, const void* bias, long long sb_b,
+                 long long sb_h, long long sb_q, long long sb_k, void* o, int B, int H, int Nq,
+                 int Nk, float scale, cudaStream_t stream) {
+  using T = wg::Tile<D>;
+  const long long blocks = (long long)B * H * ((Nq + wg::kBM - 1) / wg::kBM);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), sb_b, sb_h, sb_q, sb_k, static_cast<bf16*>(o), H, Nq,
-      Nk, scale);
+  CUtensorMap tq, tk, tv, to;
+  if (!bf16_map_3d(&tq, q, B * H, Nq, D, wg::kBM, T::kBoxCols) ||
+      !bf16_map_3d(&tk, k, B * H, Nk, D, wg::kBN, T::kBoxCols) ||
+      !bf16_map_3d(&tv, v, B * H, Nk, D, wg::kBN, T::kBoxCols) ||
+      !bf16_map_3d(&to, o, B * H, Nq, D, wg::kBM, T::kBoxCols))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = attention_fwd_wgmma_kernel<D, kBias>;
+  const cudaError_t err = allow_smem(kernel, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: T::kBlocks blocks for each SM, or one for each item if fewer
+  const long long slots = (long long)sm_count() * T::kBlocks;
+  if (slots <= 0) return (int)cudaErrorInvalidDevice;
+  kernel<<<(unsigned)(blocks < slots ? blocks : slots), wg::kThreads, T::kSmem, stream>>>(
+      tq, tk, tv, to, static_cast<const float*>(bias), sb_b, sb_h, sb_q, sb_k, H, Nq, Nk,
+      (int)blocks, scale);
   return (int)cudaGetLastError();
 }
 
-// the tensor-core path: bf16 with 16-byte aligned q, k, v, o (D is a
-// multiple of 8, so every row is then aligned too)
-bool use_mma(int dtype, const void* q, const void* k, const void* v, const void* o) {
+// the tensor-core path: bf16 with 16-byte aligned q, k, v, o (what TMA
+// takes; D is a multiple of 8, so every row is then aligned too)
+bool use_tensor_cores(int dtype, const void* q, const void* k, const void* v, const void* o) {
   const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   return dtype == 1 && (bits & 15) == 0;
@@ -516,21 +610,18 @@ using Launch = int (*)(const void*, const void*, const void*, const void*, long 
 
 // the launch for a dtype, head dim, path and bias kind; null for what no
 // kernel takes
-Launch pick(int dtype, int D, bool mma, int bias_kind) {
+Launch pick(int dtype, int D, bool tensor_cores, int bias_kind) {
   const int i = D == 32 ? 0 : D == 64 ? 1 : D == 128 ? 2 : -1;
   if (i < 0) return nullptr;
-  static const Launch kMma[3][3] = {
-      {launch_mma<32, kNoBias>, launch_mma<32, kKeyBias>,
-       launch_mma<32, kFullBias>},
-      {launch_mma<64, kNoBias>, launch_mma<64, kKeyBias>,
-       launch_mma<64, kFullBias>},
-      {launch_mma<128, kNoBias>, launch_mma<128, kKeyBias>,
-       launch_mma<128, kFullBias>}};
+  static const Launch kTc[3][3] = {
+      {launch_wgmma<32, kNoBias>, launch_wgmma<32, kKeyBias>, launch_wgmma<32, kFullBias>},
+      {launch_wgmma<64, kNoBias>, launch_wgmma<64, kKeyBias>, launch_wgmma<64, kFullBias>},
+      {launch_wgmma<128, kNoBias>, launch_wgmma<128, kKeyBias>, launch_wgmma<128, kFullBias>}};
   static const Launch kF32[3] = {launch_fma<float, 32>, launch_fma<float, 64>,
                                  launch_fma<float, 128>};
   static const Launch kB16[3] = {launch_fma<bf16, 32>, launch_fma<bf16, 64>,
                                  launch_fma<bf16, 128>};
-  if (mma) return kMma[i][bias_kind];
+  if (tensor_cores) return kTc[i][bias_kind];
   if (dtype == 0) return kF32[i];
   if (dtype == 1) return kB16[i];
   return nullptr;
@@ -549,7 +640,7 @@ extern "C" int ecamp_attention_fwd(const void* q, const void* k, const void* v,
                                    int Nq, int Nk, int D, int dtype, float scale,
                                    void* stream) {
   const int bias_kind = bias == nullptr ? kNoBias : sb_q == 0 ? kKeyBias : kFullBias;
-  const Launch launch = pick(dtype, D, use_mma(dtype, q, k, v, o), bias_kind);
+  const Launch launch = pick(dtype, D, use_tensor_cores(dtype, q, k, v, o), bias_kind);
   if (launch == nullptr || B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0)
     return (int)cudaErrorInvalidValue;
   return launch(q, k, v, bias, sb_b, sb_h, sb_q, sb_k, o, B, H, Nq, Nk, scale,

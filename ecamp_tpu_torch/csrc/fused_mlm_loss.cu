@@ -17,19 +17,26 @@
 // two products as much again, on 59 MB of operands: far above the ridge
 // point, so it is compute-bound.
 //
-// Forward: a block owns kOwn = 32 rows of x and streams the vocab in tiles
-// of kStr = 128 rows; each 32 x 128 logit tile is computed over D in
-// shared-memory stages (bf16 with D % 8 == 0: mma.sync m16n8k16 on
-// double-buffered cp.async stages; else the FMA pipe) and folded into a
-// running (max, sum-exp, gold) per row. The logits never reach device
-// memory.
+// bf16 with D % 8 == 0 and 16-byte aligned bases (the wrapper's shape
+// rule) runs on the tensor cores: every kernel below is one GEMM of one
+// mainloop (tc::gemm_body: TMA loads into a ring of 128-byte-swizzled
+// tiles behind mbarriers, one producer thread, two consumer warpgroups
+// running wgmma on 128 x BN tiles, a persistent grid) with its own
+// epilogue, and hopper.cuh holds the primitives.
 //
-// Backward, bf16 with D % 8 == 0 and 16-byte aligned bases (the wrapper's
-// shape rule): the vocabulary in chunks of Vc rows, three kernels a chunk,
-// each one GEMM of one mainloop (tc::gemm_body: TMA loads into a ring of
-// 128-byte-swizzled tiles behind mbarriers, one producer thread, two
-// consumer warpgroups running wgmma on 128 x BN tiles, a persistent grid)
-// with its own epilogue:
+// Forward, two kernels:
+//   tiles: S = x W^T over the whole vocabulary in 128 x 128 tiles; from the
+//          accumulators, each row's tile max m and sum of exp(logit - m)
+//          (base-2 exp, the bias folded in) into an fp32 partials buffer
+//          (ceil(V / 128), N) x 2, and the gold logit from the one tile that
+//          holds the row's label (no atomics); two blocks an SM, the vocab
+//          tiles walked in the outer loop so that x stays in L2
+//   merge: each row's partials folded in a fixed order into lse = m +
+//          log(l) (blocks run in no order, so the Pallas kernel's online
+//          fold across the grid does not carry over; a fixed order keeps
+//          the result deterministic), and gold 0 for a label outside
+//          [0, V)
+// Backward: the vocabulary in chunks of Vc rows, three kernels a chunk:
 //   dl:  S = x W_c^T (N x Vc over D); dl' into an (N, Vc) scratch and one
 //        fp32 column sum of dl per 128 rows into a partials buffer; its K
 //        is only D, so two blocks share an SM and one's epilogue runs
@@ -41,10 +48,14 @@
 // Each logit is computed once (3 x 2NDV in all, the bound's count), no
 // accumulator spans D, and the price is the scratch: dl' is written once
 // and read twice. TMA's zero fill takes the ragged N, Vc, V and D edges.
-// fp32, and bf16 of other widths or alignments, run the FMA backward: a
-// block owns 32 rows of one operand (x for dx, w for dW + db), recomputes
-// each 32 x 128 logit tile against the streamed operand and accumulates
-// its (32 x D) output in registers.
+// fp32, and bf16 of other widths or alignments, run on the FMA pipe. The
+// forward: a block owns kOwn = 32 rows of x and streams the vocab in tiles
+// of kStr = 128 rows, each 32 x 128 logit tile computed over D in
+// shared-memory stages and folded into a running (max, sum-exp, gold) per
+// row. The backward: a block owns 32 rows of one operand (x for dx, w for
+// dW + db), recomputes each 32 x 128 logit tile against the streamed
+// operand and accumulates its (32 x D) output in registers. The logits
+// never reach device memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -52,10 +63,11 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // 8 warps
@@ -63,13 +75,9 @@ constexpr int kOwn = 32;       // owned rows a block
 constexpr int kStr = 128;      // streamed rows a tile
 constexpr int kDMax = 768;     // widest D the register accumulators hold
 constexpr int kPad = 4;        // fp32 rows: keeps 16 bytes, spreads banks
-// FMA path
 constexpr int kBK = 32;        // depth of one logit-tile stage
 constexpr int kBK2 = 8;        // streamed rows of one accumulation stage
 constexpr int kNJ = kDMax / 128;
-// tensor-core path
-constexpr int kBKm = 64;       // depth of one logit-tile stage
-constexpr int kPadH = 8;       // bf16 rows: 16-byte ldmatrix rows, no conflicts
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -109,22 +117,6 @@ struct FmaSmem {
   } st;
   float dl[kOwn][kStr + kPad];  // dl' of the tile, [own][str], fp32
 };
-
-struct MmaTile {  // tensor cores: one stage of the logit tile, row-major bf16
-  bf16 own[kOwn][kBKm + kPadH];
-  bf16 str[kStr][kBKm + kPadH];
-};
-
-struct MmaSmem {
-  union {  // each is handed on only after a block-wide barrier
-    MmaTile tile[2];             // double-buffered: one fills while one is read
-    float s[kOwn][kStr + kPad];  // the fp32 logit tile, for the epilogue
-  } st;
-};
-
-// the forward takes its stages as dynamic shared memory of this type
-template <bool kMma>
-using FwdSmem = typename std::conditional<kMma, MmaSmem, TileStage>::type;
 
 // ---------------------------------------------------------------------------
 // the 32 x 128 logit tile, FMA pipe
@@ -176,137 +168,7 @@ __device__ __forceinline__ void logit_tile(const T* __restrict__ own, long long 
 }
 
 // ---------------------------------------------------------------------------
-// the 32 x 128 logit tile, tensor cores
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, row-major bf16) * b (16 x 8, col-major
-// bf16); d0, d1 are row lane/4, columns 2 (lane%4) + {0, 1}; d2, d3 the
-// same columns of row lane/4 + 8
-__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2, float& d3,
-                                         const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from device memory into shared memory without the registers,
-// asynchronously (cp.async, L2 only); where !ok, zeros and no read (src is
-// then `base`, a valid address)
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, const bf16* base,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(ok ? src : base), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A fragment of rows m0..m0+15, k0..k0+15 of a row-major [m][k] array
-template <int kLd>
-__device__ __forceinline__ void frag_a(bf16 (*a)[kLd], int m0, int k0, unsigned (&r)[4]) {
-  const int lane = threadIdx.x % 32;
-  ldsm_x4(&a[m0 + ((lane / 8) % 2) * 8 + lane % 8][k0 + (lane / 16) * 8], r);
-}
-
-// logit_tile's result through bf16 tensor cores: warp w computes rows
-// 16 (w % 2).. and columns 32 (w / 2).. of the tile, the fp32 tile goes
-// through shared memory into the epilogue's layout. The kBKm-deep stages
-// are double-buffered: stage k + 1 is in flight while stage k is read.
-// D % 8 == 0.
-__device__ __forceinline__ void mma_logit_tile(const bf16* __restrict__ own, long long o0,
-                                               int n_own, const bf16* __restrict__ str,
-                                               long long t0, int n_str, int D, MmaSmem& sm,
-                                               float (&acc)[4][4]) {
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int wo = warp % 2, wt = warp / 2;
-  float c[4][4] = {};  // n-block nb of the warp's 16 x 32: its C fragment
-  constexpr int kChunks = kBKm / 8;  // 16-byte chunks a row of a stage
-  auto fill = [&](MmaTile& s, int k0) {
-    for (int e = tid; e < (kOwn + kStr) * kChunks; e += kThreads) {
-      const int r = e / kChunks, kc = (e % kChunks) * 8;
-      if (r < kOwn) {
-        cp_async16(&s.own[r][kc], own + (o0 + r) * D + k0 + kc, own,
-                   o0 + r < n_own && k0 + kc < D);
-      } else {
-        const int q = r - kOwn;
-        cp_async16(&s.str[q][kc], str + (t0 + q) * D + k0 + kc, str,
-                   t0 + q < n_str && k0 + kc < D);
-      }
-    }
-    cp_async_commit();
-  };
-  const int nk = (D + kBKm - 1) / kBKm;
-  __syncthreads();  // the stages' previous readers are done
-  fill(sm.st.tile[0], 0);
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      fill(sm.st.tile[(kc + 1) % 2], (kc + 1) * kBKm);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // stage kc has landed for every thread
-    MmaTile& s = sm.st.tile[kc % 2];
-#pragma unroll
-    for (int ks = 0; ks < kBKm; ks += 16) {
-      unsigned a[4];
-      frag_a(s.own, wo * 16, ks, a);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // B = str^T: rows of str are the columns n; matrices (n, k), (n, k+8),
-        // (n+8, k), (n+8, k+8) give b0b1, b2b3 of n-blocks n and n+8
-        unsigned b[4];
-        ldsm_x4(&s.str[wt * 32 + np * 16 + (lane / 16) * 8 + lane % 8][ks + ((lane / 8) % 2) * 8],
-                b);
-        const int n = np * 2;
-        mma_bf16(c[n][0], c[n][1], c[n][2], c[n][3], a, b[0], b[1]);
-        mma_bf16(c[n + 1][0], c[n + 1][1], c[n + 1][2], c[n + 1][3], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with the stage before it refills
-  }
-  const int g = lane / 4, q = lane % 4;
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int col = wt * 32 + nb * 8 + q * 2;
-    sm.st.s[wo * 16 + g][col] = c[nb][0];
-    sm.st.s[wo * 16 + g][col + 1] = c[nb][1];
-    sm.st.s[wo * 16 + g + 8][col] = c[nb][2];
-    sm.st.s[wo * 16 + g + 8][col + 1] = c[nb][3];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = *reinterpret_cast<const float4*>(&sm.st.s[warp * 4 + i][lane * 4]);
-    acc[i][0] = v.x;
-    acc[i][1] = v.y;
-    acc[i][2] = v.z;
-    acc[i][3] = v.w;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// epilogues shared by both paths (the (ty, tx) 4 x 4 layout)
+// epilogues of the FMA tiles (the (ty, tx) 4 x 4 layout)
 
 // Fold a logit tile (bias not yet added) into each row's running max m,
 // sum-exp l and gold logit g (one lane's share of the gold).
@@ -379,13 +241,13 @@ __device__ __forceinline__ void tile_dl(const float (&z)[4][4], long long o0, lo
 
 // One block per 32 rows of x streams every vocab tile and keeps a running
 // (max, sum-exp, gold) per row.
-template <typename T, bool kMma>
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ b, const long long* __restrict__ labels,
                     float* __restrict__ lse, float* __restrict__ gold, int N, int V, int D) {
   extern __shared__ __align__(16) unsigned char smem[];
-  FwdSmem<kMma>& s = *reinterpret_cast<FwdSmem<kMma>*>(smem);
+  TileStage& s = *reinterpret_cast<TileStage*>(smem);
   const int ty = threadIdx.x / 32;
   const int tx = threadIdx.x % 32;
   const long long r0 = (long long)blockIdx.x * kOwn;
@@ -402,10 +264,7 @@ fused_ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   for (int v0 = 0; v0 < V; v0 += kStr) {
     float acc[4][4];
-    if constexpr (kMma)
-      mma_logit_tile(x, r0, N, w, v0, V, D, s, acc);
-    else
-      logit_tile(x, r0, N, w, v0, V, D, s, acc);
+    logit_tile(x, r0, N, w, v0, V, D, s, acc);
     fwd_fold(acc, v0, V, b, lab, m, l, g);
   }
 #pragma unroll
@@ -530,13 +389,6 @@ fused_ce_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 bool bad_shape(int N, int V, int D) { return N <= 0 || V <= 0 || D <= 0 || D > kDMax; }
 
-// the tensor-core path: bf16, whole 16-byte row chunks, aligned bases
-bool use_mma(int dtype, int D, const void* x, const void* w, const void* out) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(out);
-  return dtype == 1 && D % 8 == 0 && (bits & 15) == 0;
-}
-
 // a launch's dynamic shared memory; above 48 KB only once allowed
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -544,14 +396,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, bool kMma>
+template <typename T>
 int launch_fwd(const void* x, const void* w, const void* b, const void* labels, void* lse,
                void* gold, int N, int V, int D, cudaStream_t stream) {
   const int blocks = (N + kOwn - 1) / kOwn;
-  const size_t smem = sizeof(FwdSmem<kMma>);
-  const cudaError_t err = allow_smem(fused_ce_fwd_kernel<T, kMma>, smem);
+  const size_t smem = sizeof(TileStage);
+  const cudaError_t err = allow_smem(fused_ce_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_ce_fwd_kernel<T, kMma><<<blocks, kThreads, smem, stream>>>(
+  fused_ce_fwd_kernel<T><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(b),
       static_cast<const long long*>(labels), static_cast<float*>(lse),
       static_cast<float*>(gold), N, V, D);
@@ -586,7 +438,8 @@ int dispatch_bwd(const void* x, const void* w, const void* b, const void* labels
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core backward: TMA + wgmma GEMMs over vocab chunks
+// the tensor-core path: TMA + wgmma GEMMs (the forward over the whole
+// vocabulary, the backward over vocab chunks)
 
 namespace tc {
 
@@ -611,14 +464,16 @@ constexpr int kConsumers = 256; // two consumer warpgroups
 constexpr int kABytes = kBM * kBK * 2;
 constexpr int kBox = 64 * kBK * 2;  // one 64 x 64 bf16 TMA box, 8 KB
 
-enum Epi { kEpiDl, kEpiDx, kEpiDw, kEpiGemm };
+enum Epi { kEpiFwd, kEpiDl, kEpiDx, kEpiDw, kEpiGemm };
 
 // What the epilogues read. C is M x N over K; B's map starts at row b_row0.
 struct Args {
   int M, N, K, b_row0;
   int v0, ld;                    // chunk start in V; row stride of dl' and partials
-  const float* bias;             // dl: fp32 (V,)
-  const long long* labels;       // dl: (N,)
+  const float* bias;             // fwd, dl: fp32 (V,)
+  const long long* labels;       // fwd, dl: (N,)
+  float2* tile_stats;            // fwd: (ceil(V / 128), N) of (max, sum-exp)
+  float* gold;                   // fwd: fp32 (N,)
   const float* lse;              // dl: fp32 (N,)
   const float* wg;               // dl: fp32 (N,)
   bf16* dl;                      // dl: dl' (N, ld)
@@ -631,129 +486,8 @@ struct Args {
   float* c;                      // the bare GEMM: fp32 (M, N)
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one 2-D box of the map at (c0 = column, c1 = row) into shared memory;
-// the barrier counts its bytes (out-of-bounds elements arrive as zeros)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (16-byte units), layout 1 (SW128)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo, unsigned sbo) {
-  const unsigned a = smem_addr(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma's fence and wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // the two consumer warpgroups' own barrier (the producer never joins)
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
-
-// d (64 x 128, fp32, the warpgroup's accumulator fragments) += A B of one
-// 16-deep step, A and B read from shared memory through their descriptors;
-// kTA / kTB: 0 = K-major, 1 = MN-major
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
-
-// d (64 x 192, fp32, the warpgroup's accumulator fragments) += A B of one
-// 16-deep step, A and B read from shared memory through their descriptors;
-// kTA / kTB: 0 = K-major, 1 = MN-major
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, %99, %100;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
-}
 
 template <int BN, int kTA, int kTB>
 __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da, uint64_t db) {
@@ -774,6 +508,59 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The forward's tile of logits S (bias not yet added): each row's max m
+// and sum of exp(logit - m) over the tile's columns inside V, in natural
+// units, into tile_stats[n0 / BN][row] (rows n >= M are not written), and
+// the gold logit of a row whose label lies in the tile. exp is one FMA and
+// one ex2 an element, the bias folded in base 2 (m then converted); the
+// logits are rewritten in place in base 2 for the second pass.
+template <int BN>
+__device__ __forceinline__ void epilogue_fwd(float (&acc)[BN / 2], int m0, int n0, int wgi,
+                                             const Args& p) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, q = lane % 4;
+  int n[2];
+  long long lab[2];
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    n[h] = m0 + 64 * wgi + 16 * warp + lane / 4 + 8 * h;
+    lab[h] = n[h] < p.M ? p.labels[n[h]] - n0 : -1;  // the label's column in the tile
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * q + e;
+      const bool ok = n0 + c < p.N;
+      const float b = ok ? p.bias[n0 + c] : 0.f;
+      const float b2 = b * kLog2e;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        if (ok && lab[h] == c) p.gold[n[h]] = acc[i] + b;
+        acc[i] = ok ? fmaf(acc[i], kLog2e, b2) : -CUDART_INF_F;
+        mx[h] = fmaxf(mx[h], acc[i]);
+      }
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // column n0 is always inside V, so the row's tile max is finite
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sum[h] += ex2(acc[4 * j + 2 * h + e] - mx[h]);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    if (q == 0 && n[h] < p.M)
+      p.tile_stats[(size_t)(n0 / BN) * p.M + n[h]] = make_float2(mx[h] * kLn2, sum[h]);
+  }
+}
 
 // dl' = ((exp(S + b - lse) - onehot) * wg) rounded to bf16, and the tile's
 // fp32 column sums of dl (rows n >= N and columns past the chunk are 0).
@@ -937,15 +724,27 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
   // the swizzle pattern repeats every 1024 bytes: stages start on it
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int wgi = threadIdx.x / 128;
-  const int tiles_n = (p.N + BN - 1) / BN;
-  const int tiles = (p.M + kBM - 1) / kBM * tiles_n;
+  const int tiles_m = (p.M + kBM - 1) / kBM, tiles_n = (p.N + BN - 1) / BN;
+  const int tiles = tiles_m * tiles_n;
+  // tile t's origin: row tiles in the outer loop, or, for the forward (its
+  // N is the whole vocabulary, its A only N x D), the column tiles, so
+  // that a B tile is loaded from device memory once and A stays in L2
+  auto origin = [&](int t, int& m0, int& n0) {
+    if (kEpi == kEpiFwd) {
+      m0 = t % tiles_m * kBM;
+      n0 = t / tiles_m * BN;
+    } else {
+      m0 = t / tiles_n * kBM;
+      n0 = t % tiles_n * BN;
+    }
+  };
   const int nk = (p.K + kBK - 1) / kBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -955,7 +754,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
       int s = 0;
       unsigned ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = t / tiles_n * kBM, n0 = t % tiles_n * BN;
+        int m0, n0;
+        origin(t, m0, n0);
         for (int kt = 0; kt < nk; ++kt) {
           mbar_wait(&empty[s], ph ^ 1);
           mbar_expect_tx(&full[s], kStage);
@@ -988,7 +788,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
     int s = 0, prev = 0;
     unsigned ph = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = t / tiles_n * kBM, n0 = t % tiles_n * BN;
+      int m0, n0;
+      origin(t, m0, n0);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       fence_regs(acc);
@@ -1017,7 +818,9 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
       wg_wait<0>();
       fence_regs(acc);
       mbar_arrive(&empty[prev]);
-      if constexpr (kEpi == kEpiDl)
+      if constexpr (kEpi == kEpiFwd)
+        epilogue_fwd<BN>(acc, m0, n0, wgi, p);
+      else if constexpr (kEpi == kEpiDl)
         epilogue_dl<BN>(acc, m0, n0, wgi, p);
       else if constexpr (kEpi == kEpiDx)
         epilogue_dx<BN>(acc, m0, n0, wgi, p);
@@ -1030,6 +833,64 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& ta, const CUtensorM
 }
 
 }  // namespace tc
+
+// S = x W^T (K-major both) over the whole vocabulary, epilogue tile stats
+// and gold
+__global__ void __launch_bounds__(tc::kThreadsOf<tc::kDlBN>, tc::kCtasOf<tc::kDlBN>)
+fused_ce_fwd_tiles_kernel(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, const tc::Args p) {
+  tc::gemm_body<tc::kDlBN, false, false, tc::kEpiFwd>(ta, tb, p);
+}
+
+// (m, l) <- the fold of (m, l) and a tile's (max, sum-exp) s; a tile of
+// none (s.y = 0) leaves it as it is
+__device__ __forceinline__ void fold_stats(float& m, float& l, float2 s) {
+  if (s.x > m) {
+    l = l * expf(m - s.x) + s.y;
+    m = s.x;
+  } else if (s.y > 0.f) {
+    l += s.y * expf(s.x - m);
+  }
+}
+
+constexpr int kMergeRows = 32;   // rows a block: a warp's lanes
+constexpr int kMergeGroups = 8;  // warps a block, each a share of the tiles
+constexpr int kMergeLoads = 4;   // loads in flight a thread
+
+// lse of each row from its tiles' (max, sum-exp); gold 0 for a label
+// outside [0, V). Warp g of a block folds tiles g, g + 8, g + 16, ... of
+// its 32 rows in that order (lanes on consecutive rows: coalesced loads,
+// kMergeLoads in flight), then the 8 warps' results are folded in warp
+// order: a fixed order, so the result is deterministic.
+__global__ void __launch_bounds__(kMergeRows * kMergeGroups)
+fused_ce_fwd_merge_kernel(const float2* __restrict__ tile_stats,
+                          const long long* __restrict__ labels, float* __restrict__ lse,
+                          float* __restrict__ gold, int N, int V, int tiles) {
+  __shared__ float2 part[kMergeGroups][kMergeRows];
+  const int r = threadIdx.x % kMergeRows, grp = threadIdx.x / kMergeRows;
+  const int n = blockIdx.x * kMergeRows + r;
+  float m = -CUDART_INF_F, l = 0.f;
+  if (n < N) {
+    for (int t0 = grp; t0 < tiles; t0 += kMergeLoads * kMergeGroups) {
+      float2 s[kMergeLoads];
+#pragma unroll
+      for (int i = 0; i < kMergeLoads; ++i) {
+        const int t = t0 + i * kMergeGroups;
+        s[i] = t < tiles ? tile_stats[(size_t)t * N + n] : make_float2(-CUDART_INF_F, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < kMergeLoads; ++i) fold_stats(m, l, s[i]);
+    }
+  }
+  part[grp][r] = make_float2(m, l);
+  __syncthreads();
+  if (grp != 0 || n >= N) return;
+#pragma unroll
+  for (int g = 1; g < kMergeGroups; ++g) fold_stats(m, l, part[g][r]);
+  lse[n] = m + logf(l);
+  const long long lab = labels[n];
+  if (lab < 0 || lab >= V) gold[n] = 0.f;
+}
 
 // S = x W_c^T (K-major both), epilogue dl' and partial column sums
 __global__ void __launch_bounds__(tc::kThreadsOf<tc::kDlBN>, tc::kCtasOf<tc::kDlBN>)
@@ -1062,53 +923,6 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta,
                                                                                       p);
 }
 
-// host side: tensor maps by cuTensorMapEncodeTiled, fetched at run time (no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// a bf16 (rows, cols) matrix with row stride ld elements, read in boxes of
-// box_rows x 64, 128-byte swizzled; out-of-bounds boxes fill with zeros
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
-  const EncodeTiledFn enc = encode_fn();
-  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) || ld % 8) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return n;
-}
-
 // one persistent launch: kCtasOf<BN> blocks for each SM, or one for each
 // tile if fewer
 template <int BN, typename Kernel>
@@ -1132,19 +946,52 @@ bool chunk_ok(int N, int V, int D, int v0, int width, int ld) {
 
 }  // namespace
 
-// x (N, D), w (V, D): contiguous, of `dtype` (0 = fp32, 1 = bf16); b (V,)
-// fp32; labels (N,) int64; lse, gold (N,) fp32 outputs. D <= 768.
-// Returns cudaGetLastError() after the launch (0 on success).
+// The FMA forward. x (N, D), w (V, D): contiguous, of `dtype` (0 = fp32,
+// 1 = bf16); b (V,) fp32; labels (N,) int64; lse, gold (N,) fp32 outputs.
+// D <= 768. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int ecamp_fused_ce_fwd(const void* x, const void* w, const void* b,
                                   const void* labels, void* lse, void* gold, int N, int V,
                                   int D, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(N, V, D)) return (int)cudaErrorInvalidValue;
-  if (use_mma(dtype, D, x, w, x))
-    return launch_fwd<bf16, true>(x, w, b, labels, lse, gold, N, V, D, s);
-  if (dtype == 1) return launch_fwd<bf16, false>(x, w, b, labels, lse, gold, N, V, D, s);
-  if (dtype == 0) return launch_fwd<float, false>(x, w, b, labels, lse, gold, N, V, D, s);
+  if (dtype == 1) return launch_fwd<bf16>(x, w, b, labels, lse, gold, N, V, D, s);
+  if (dtype == 0) return launch_fwd<float>(x, w, b, labels, lse, gold, N, V, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core forward, bf16, D % 8 == 0, 16-byte aligned x and w.
+// Tiles: tile_stats (tiles, N) of fp32 (max, sum-exp) pairs for each
+// 128-wide vocab tile, tiles = ceil(V / 128), and gold (N,) fp32 of the
+// rows whose label lies in [0, V) (other rows are not written).
+extern "C" int ecamp_fused_ce_fwd_tiles(const void* x, const void* w, const void* b,
+                                        const void* labels, void* tile_stats, void* gold, int N,
+                                        int V, int D, int tiles, void* stream) {
+  if (N <= 0 || V <= 0 || D <= 0 || D % 8 || tiles != (V + tc::kDlBN - 1) / tc::kDlBN)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!bf16_map(&ta, x, N, D, D, tc::kBM) || !bf16_map(&tb, w, V, D, D, tc::kDlBN))
+    return (int)cudaErrorInvalidValue;
+  tc::Args p = {};
+  p.M = N, p.N = V, p.K = D;
+  p.bias = static_cast<const float*>(b);
+  p.labels = static_cast<const long long*>(labels);
+  p.tile_stats = static_cast<float2*>(tile_stats);
+  p.gold = static_cast<float*>(gold);
+  return launch_tc<tc::kDlBN>(fused_ce_fwd_tiles_kernel, ta, tb, p,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Merge: lse (N,) fp32 from the tiles' stats, gold 0 where the label lies
+// outside [0, V).
+extern "C" int ecamp_fused_ce_fwd_merge(const void* tile_stats, const void* labels, void* lse,
+                                        void* gold, int N, int V, int tiles, void* stream) {
+  if (N <= 0 || V <= 0 || tiles != (V + tc::kDlBN - 1) / tc::kDlBN)
+    return (int)cudaErrorInvalidValue;
+  fused_ce_fwd_merge_kernel<<<(N + kMergeRows - 1) / kMergeRows, kMergeRows * kMergeGroups, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(tile_stats), static_cast<const long long*>(labels),
+      static_cast<float*>(lse), static_cast<float*>(gold), N, V, tiles);
+  return (int)cudaGetLastError();
 }
 
 // As the forward, plus lse and wg (= weights * upstream gradient) (N,)

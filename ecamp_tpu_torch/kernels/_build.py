@@ -45,6 +45,8 @@ SIGNATURES = {
     "ecamp_adamw_multi": [_P, _P, _P, _P, _P, _I, _P, _LL, _F, _F, _F, _F,
                           _F, _P],
     "ecamp_fused_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "ecamp_fused_ce_fwd_tiles": [_P] * 6 + [_I] * 4 + [_P],
+    "ecamp_fused_ce_fwd_merge": [_P] * 4 + [_I] * 3 + [_P],
     "ecamp_fused_ce_bwd_dx": [_P] * 7 + [_I] * 4 + [_P],
     "ecamp_fused_ce_bwd_dw": [_P] * 8 + [_I] * 4 + [_P],
     "ecamp_fused_ce_bwd_dl": [_P] * 8 + [_I] * 6 + [_P],

@@ -12,9 +12,18 @@ with dl' = dl rounded to x's dtype, as the Pallas kernels round it. The
 weight is the port's Linear layout, (V, D) row-major, where JAX's is
 (D, V).
 
-The backward of bf16 inputs with D % 8 == 0 and 16-byte aligned x and w
-runs over vocab chunks of CHUNK_V rows, three kernels a chunk (TMA +
-`wgmma` GEMMs with different epilogues):
+bf16 inputs with D % 8 == 0 and 16-byte aligned x and w (the shape rule
+`_tensor_core_path`) run TMA + `wgmma` GEMMs with different epilogues. The
+forward is two kernels:
+
+  tiles  S = x W^T in TILE_V-wide vocab tiles; each row's tile max and
+         sum-exp into an fp32 (ceil(V / TILE_V), N, 2) buffer, and the gold
+         logit from the tile that holds the label
+  merge  each row's tiles folded in a fixed order into lse; gold 0 for a
+         label outside [0, V)
+
+(`_fwd_tiles_plain`, `_fwd_merge_plain`). The backward runs over vocab
+chunks of CHUNK_V rows, three kernels a chunk:
 
   dl   S = x W_c^T; dl' of the chunk into an (N, CHUNK_V) scratch, and one
        fp32 column sum of dl per 128-row tile into a partials buffer
@@ -22,12 +31,12 @@ runs over vocab chunks of CHUNK_V rows, three kernels a chunk (TMA +
        writes dx in x's dtype
   dW   dW_c = dl'_c^T x in w's dtype; db_c = the partials summed in order
 
-so each logit is computed once. The (N, V) logits never reach device
-memory, but the scratch does: dl' (N x CHUNK_V in x's dtype, 67 MB at
-N = 8192), dx32 (N x D fp32, 25 MB) and the partials (1 MB). fp32, and
-bf16 of other widths or alignments, run the forward's tile code on the
-FMA pipe: one dx and one dW + db kernel that each recompute the logits.
-The shape rule is `_tensor_core_path`.
+so each logit is computed once a pass. The (N, V) logits never reach
+device memory, but the scratch does: the forward's tile stats (15.4 MB at
+N = 8192, V = 30000), dl' (N x CHUNK_V in x's dtype, 67 MB at N = 8192),
+dx32 (N x D fp32, 25 MB) and the partials (1 MB). fp32, and bf16 of other
+widths or alignments, run on the FMA pipe: one forward kernel, and one dx
+and one dW + db kernel that each recompute the logits.
 
 `fused_mlm_loss_sum` returns sum_i weights_i * CE_i; the caller divides
 by N for the reference's mean over every position. On a CUDA tensor it
@@ -53,12 +62,17 @@ SOURCE = "ecamp_tpu_torch/csrc/fused_mlm_loss.cu"
 MAX_D = 768  # the FMA backward holds a (32, D) accumulator in registers
 CHUNK_V = 4096  # vocab rows a chunk of the tensor-core backward; tests lower it
 TILE_M = 128    # rows of x a partial column sum of dl covers (csrc's tc::kBM)
+# vocab columns a tile of the tensor-core forward (csrc's tc::kDlBN; the
+# kernel takes no other, the plain version's tests lower it)
+TILE_V = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# one counter per kernel: the forward, and the backward's dl, dx and dW
-# (the FMA backward launches dx and dW once a call, the tensor-core one
-# each of the three once a chunk)
+# one counter per kernel: the forward (the FMA kernel, or the tensor-core
+# tile kernel) and the tensor-core forward's merge, and the backward's dl,
+# dx and dW (the FMA backward launches dx and dW once a call, the
+# tensor-core one each of the three once a chunk)
 launches_fwd = _build.LaunchCounter()
+launches_merge = _build.LaunchCounter()
 launches_dl = _build.LaunchCounter()
 launches_dx = _build.LaunchCounter()
 launches_dw = _build.LaunchCounter()
@@ -83,6 +97,51 @@ def _forward_plain(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     logits = _logits(x, w, b)
     return (torch.logsumexp(logits, dim=-1),
             torch.gather(logits, -1, labels.long()[:, None])[:, 0])
+
+
+def _fwd_tiles_plain(x, w, b, labels):
+    """The forward tile kernel's outputs: for each TILE_V-wide vocab tile
+    (the last one ragged) and each row, the max logit m of the tile and the
+    sum of exp(logit - m) over it, fp32 (ceil(V / TILE_V), N, 2); and each
+    row's gold logit, fp32 (N,), 0 for a label outside [0, V) (the kernel
+    leaves those rows to the merge)."""
+    logits = _logits(x, w, b)
+    n, v = logits.shape
+    tiles = torch.nn.functional.pad(logits, (0, -v % TILE_V),
+                                    value=-float("inf")).view(n, -1, TILE_V)
+    m = tiles.amax(dim=-1)
+    stats = torch.stack((m, torch.exp(tiles - m[..., None]).sum(dim=-1)),
+                        dim=-1)
+    lab = labels.long()
+    inside = (lab >= 0) & (lab < v)
+    gold = torch.gather(logits, -1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    return stats.transpose(0, 1).contiguous(), torch.where(inside, gold, 0.0)
+
+
+def _fwd_merge_plain(stats, labels, gold, v: int):
+    """The merge kernel: each row's (m, l) pairs folded, m <- max(m, m_t),
+    l <- l exp(m_old - m) + l_t exp(m_t - m), into lse = m + log(l); gold
+    with 0 where the label lies outside [0, v). Returns (lse, gold), fp32
+    (N,). Folded here in tile order; the kernel folds in another fixed
+    order (eight interleaved shares of the tiles, then the shares), equal
+    up to fp32 rounding."""
+    m = torch.full_like(stats[0, :, 0], -float("inf"))
+    l = torch.zeros_like(m)
+    for t in range(stats.shape[0]):
+        m_t, l_t = stats[t, :, 0], stats[t, :, 1]
+        m_new = torch.maximum(m, m_t)
+        l = l * torch.exp(m - m_new) + l_t * torch.exp(m_t - m_new)
+        m = m_new
+    lab = labels.long()
+    inside = (lab >= 0) & (lab < v)
+    return m + torch.log(l), torch.where(inside, gold, 0.0)
+
+
+def _forward_tiled_plain(x, w, b, labels):
+    """The tensor-core forward's math from its two kernels' plain
+    versions: (lse, gold), fp32 (N,)."""
+    stats, gold = _fwd_tiles_plain(x, w, b, labels)
+    return _fwd_merge_plain(stats, labels, gold, w.shape[0])
 
 
 def _fused_backward_plain(x, w, b, labels, lse, wg):
@@ -178,23 +237,40 @@ def _check(x, w, b, labels) -> int:
 def _forward_cuda(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     code = _check(x, w, b, labels)
     n, d = x.shape
+    v = w.shape[0]
     labels = labels.to(torch.int64).contiguous()
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
     gold = torch.empty_like(lse)
+    lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _build.library().ecamp_fused_ce_fwd(
+        if not _tensor_core_path(x, w):
+            err = lib.ecamp_fused_ce_fwd(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), gold.data_ptr(), n, v, d, code, stream)
+            _build.check(err, "ecamp_fused_ce_fwd")
+            launches_fwd.add()
+            return lse, gold
+        tiles = -(-v // TILE_V)
+        stats = torch.empty(tiles, n, 2, dtype=torch.float32, device=x.device)
+        err = lib.ecamp_fused_ce_fwd_tiles(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            lse.data_ptr(), gold.data_ptr(), n, w.shape[0], d, code, stream)
-    _build.check(err, "ecamp_fused_ce_fwd")
-    launches_fwd.add()
+            stats.data_ptr(), gold.data_ptr(), n, v, d, tiles, stream)
+        _build.check(err, "ecamp_fused_ce_fwd_tiles")
+        launches_fwd.add()
+        err = lib.ecamp_fused_ce_fwd_merge(
+            stats.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            gold.data_ptr(), n, v, tiles, stream)
+        _build.check(err, "ecamp_fused_ce_fwd_merge")
+        launches_merge.add()
     return lse, gold
 
 
 def _tensor_core_path(x, w) -> bool:
-    """The shape rule of the backward: bf16 with D % 8 == 0 and 16-byte
-    aligned x and w (what TMA takes) runs the chunked tensor-core kernels;
-    anything else the FMA kernels."""
+    """The shape rule of both passes: bf16 with D % 8 == 0 and 16-byte
+    aligned x and w (what TMA takes) runs the tensor-core kernels (the
+    two-kernel forward, the chunked backward); anything else the FMA
+    kernels."""
     return (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 

@@ -29,7 +29,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("layer_norm kernel", ("ln_fwd",)),
     ("sr_conv_stack kernel", ("sr_conv_stack_kernel",)),
     ("adamw kernel", ("adamw_multi_kernel",)),
-    ("fused CE kernels", ("fused_ce_fwd_kernel", "fused_ce_bwd")),
+    ("fused CE kernels", ("fused_ce_fwd", "fused_ce_bwd")),
     # cuDNN's convolutions (the SR backward) are implicit GEMMs: test first
     ("convolution", ("cudnn", "fprop", "dgrad", "wgrad", "conv")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),

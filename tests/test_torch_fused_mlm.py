@@ -1,6 +1,6 @@
 """The port's fused vocab-projection + weighted CE
 (`ecamp_tpu_torch/kernels/fused_mlm_loss.py`) against the JAX package's
-`fused_mlm_loss_sum`, run in Pallas interpret mode as
+`fused_mlm_loss_sum` and `_fused_fwd`, run in Pallas interpret mode as
 tests/test_fused_mlm_kernel.py runs it (BLOCK_N 32, BLOCK_V 128), and the
 tiny ECAMP with `fused_mlm_ce=True` against the JAX ECAMP with the fused
 CE switched on (`fused_supported` patched to True, interpret mode).
@@ -57,19 +57,67 @@ def test_plain_fused_ce_matches_pallas_kernel(n, d, v, small_blocks):
 
     xt, wt, bt = (torch.tensor(a, requires_grad=True)
                   for a in (x, np.ascontiguousarray(w.T), b))
-    before = (PF.launches_fwd.value, PF.launches_dl.value,
-              PF.launches_dx.value, PF.launches_dw.value)
+    counters = (PF.launches_fwd, PF.launches_merge, PF.launches_dl,
+                PF.launches_dx, PF.launches_dw)
+    before = [c.value for c in counters]
     got = PF.fused_mlm_loss_sum(xt, wt, bt, torch.from_numpy(labels),
                                 torch.from_numpy(weights))
     got.backward()
-    assert (PF.launches_fwd.value, PF.launches_dl.value,
-            PF.launches_dx.value, PF.launches_dw.value) == before  # no kernel
+    assert [c.value for c in counters] == before  # no kernel
     assert abs(float(got.detach()) - float(want)) / abs(float(want)) < 1e-5
     for name, a, e in (("dx", xt.grad, want_grads[0]),
                        ("dW", wt.grad.T, want_grads[1]),
                        ("db", bt.grad, want_grads[2])):
         np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("tile", [32, 64, 128])
+@pytest.mark.parametrize("n,d,v", [(70, 64, 300), (130, 32, 257)])
+def test_tiled_plain_forward_matches_pallas_kernel(n, d, v, tile,
+                                                   small_blocks, monkeypatch):
+    """The tensor-core forward's two plain versions over vocab tiles
+    lowered to `tile` columns (a ragged last tile holding a label, one label
+    out of range): `_fwd_tiles_plain`'s stats are each tile's max logit and
+    sum of exp(logit - max); `_fwd_merge_plain` folds them into lse and
+    gold within 1e-5 of JAX `_fused_fwd` in interpret mode (label -100:
+    gold 0 on both sides) and of `_forward_plain` (rows with a label in
+    range)."""
+    monkeypatch.setattr(PF, "TILE_V", tile)
+    x, w, b, labels, _ = _inputs(n, d, v, seed=3)
+    labels[0] = v - 1  # in the last, ragged tile
+    labels[1] = -100
+    xt, wt, bt = (torch.from_numpy(np.ascontiguousarray(a))
+                  for a in (x, w.T, b))
+    lab = torch.from_numpy(labels)
+    stats, gold = PF._fwd_tiles_plain(xt, wt, bt, lab)
+    tiles = -(-v // tile)
+    assert stats.shape == (tiles, n, 2) and gold.shape == (n,)
+    logits = PF._logits(xt, wt, bt)
+    for t in (0, tiles - 1):
+        block = logits[:, t * tile:(t + 1) * tile]
+        m = block.amax(dim=1)
+        torch.testing.assert_close(stats[t, :, 0], m)
+        torch.testing.assert_close(stats[t, :, 1],
+                                   torch.exp(block - m[:, None]).sum(dim=1))
+    lse, gold = PF._fwd_merge_plain(stats, lab, gold, v)
+    assert float(gold[1]) == 0.0
+    with pltpu.force_tpu_interpret_mode():
+        jlse, jgold = JF._fused_fwd(*(jnp.asarray(a) for a in (x, w, b,
+                                                               labels)))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(gold.numpy(), np.asarray(jgold), rtol=1e-5,
+                               atol=1e-5)
+    inside = lab.clone()
+    inside[1] = 0
+    plse, pgold = PF._forward_plain(xt, wt, bt, inside)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    keep = torch.arange(n) != 1
+    torch.testing.assert_close(gold[keep], pgold[keep], rtol=1e-5, atol=1e-5)
+    tiled = PF._forward_tiled_plain(xt, wt, bt, lab)
+    for a, e in zip(tiled, (lse, gold)):
+        assert torch.equal(a, e)
 
 
 @pytest.mark.parametrize("inputs", ["fp32", "bf16_values"])

@@ -100,6 +100,31 @@ def test_attention_kernel_on_card(cuda, dtype, bias_kind, b, h, nq, nk, d):
     _close(got, fa_mod._attention_reference(q, k, v, bias), dtype)
 
 
+@pytest.mark.parametrize("bias_kind", ["none", "key_padding", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_kernel_reads_no_row_of_the_next_head(cuda, bias_kind, d):
+    """bf16 (the TMA + wgmma kernel) at Nq = Nk = 70, so the last key tile
+    holds 6 keys and the last query tile 6 rows: every odd batch*head's K
+    and V are NaN. A key tile read past an even head's Nk into the next
+    head's rows would put NaN into the even head's output (a masked P of 0
+    times NaN); the kernel's boxes stop at each head's Nk, and the even
+    heads match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, h, n = 2, 4, 70
+    q, k, v = (torch.randn(b, h, n, d, device=cuda, generator=g).bfloat16()
+               for _ in range(3))
+    k[:, 1::2] = float("nan")
+    v[:, 1::2] = float("nan")
+    bias = _bias(bias_kind, b, h, n, n, g, cuda)
+    got = fa_mod.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    even = None if bias is None or bias.shape[1] == 1 else bias[:, ::2]
+    want = fa_mod._attention_reference(q[:, ::2], k[:, ::2], v[:, ::2],
+                                       bias if even is None else even)
+    assert bool(torch.isfinite(got[:, ::2]).all())
+    _close(got[:, ::2], want, torch.bfloat16)
+
+
 def test_attention_kernel_on_card_unaligned_bf16(cuda):
     """bf16 q, k, v, o whose addresses are not 16-byte aligned take the FMA
     kernel and match the plain version as the tensor-core path does."""
@@ -284,7 +309,8 @@ def test_pretrain_step_on_card_matches_plain(cuda, fused):
     noise = torch.rand(4, 16, device=cuda)
     losses = {}
     counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
-                adamw_mod.launches, mlm_mod.launches_fwd, mlm_mod.launches_dl,
+                adamw_mod.launches, mlm_mod.launches_fwd,
+                mlm_mod.launches_merge, mlm_mod.launches_dl,
                 mlm_mod.launches_dx, mlm_mod.launches_dw)
     for plain in (False, True):
         task.model.load_state_dict(init)
@@ -298,10 +324,11 @@ def test_pretrain_step_on_card_matches_plain(cuda, fused):
         n = [ctr.value for ctr in counters]
         # LayerNorm: encoder 2*2 + 1, decoder 2 + 1, BERT embeddings 1 +
         # fusion 3 + layers 2*2 + MLM head 1; attention: encoder 2,
-        # decoder 1, fusion self + cross 2, layers 2; the fused CE's
-        # forward, and its bf16 backward in one vocab chunk (dl, dx, dW)
-        assert n == ([0] * 8 if plain else [5 + 3 + 9, 2 + 1 + 2 + 2, 1, 1]
-                     + [int(fused)] * 4)
+        # decoder 1, fusion self + cross 2, layers 2; the fused CE's bf16
+        # forward (tiles, merge) and backward in one vocab chunk (dl, dx,
+        # dW)
+        assert n == ([0] * 9 if plain else [5 + 3 + 9, 2 + 1 + 2 + 2, 1, 1]
+                     + [int(fused)] * 5)
         losses[plain] = {k: float(v) for k, v in m.items()}
     for k in ("mim_loss", "res_loss", "mlm_loss"):
         assert abs(losses[False][k] - losses[True][k]) <= 2e-2 * abs(
@@ -348,6 +375,69 @@ def _close_scaled(got, want, tol):
     scale = float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * scale)
+
+
+def _lib(name, *args):
+    with torch.cuda.device(args[0].device):
+        err = getattr(mlm_mod._build.library(), name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, name
+
+
+@pytest.mark.parametrize("n,d,v", [(1000, 96, 3001), (129, 40, 257),
+                                   (70, 768, 300)])
+def test_fused_ce_forward_kernels_on_card(cuda, n, d, v):
+    """The tensor-core forward's two kernels, each alone against its plain
+    version on the same inputs, at N not a multiple of 128: the tile
+    kernel's (max, sum-exp) of every 128-wide vocab tile (V = 3001: the
+    last tile is 57 wide and holds a label) and the gold logits of the rows
+    whose label is in range (the others untouched); then the merge, fed the
+    plain stats, with labels out of range (gold 0); then both through the
+    wrapper, two launches. fp32 math on bf16 inputs: 1e-5 of each output's
+    scale."""
+    x, w, b, labels, _ = _fused_ce_inputs(cuda, n, d, v, torch.bfloat16)
+    labels[0] = v - 1   # in the last, ragged tile
+    labels[1] = v + 7   # out of range
+    labels[2] = -100
+    inside = (labels >= 0) & (labels < v)
+    tiles = -(-v // mlm_mod.TILE_V)
+    want_stats, want_gold = mlm_mod._fwd_tiles_plain(x, w, b, labels)
+    stats = torch.empty(tiles, n, 2, device=cuda)
+    gold = torch.full((n,), 123.0, device=cuda)
+    _lib("ecamp_fused_ce_fwd_tiles", x, w, b, labels, stats, gold, n, v, d,
+         tiles)
+    torch.cuda.synchronize()
+    assert want_stats.shape == stats.shape
+    _close_scaled(stats[..., 0], want_stats[..., 0], FP32_TOL)
+    _close_scaled(stats[..., 1], want_stats[..., 1], FP32_TOL)
+    _close_scaled(gold[inside], want_gold[inside], FP32_TOL)
+    assert bool((gold[~inside] == 123.0).all())
+
+    lse = torch.empty(n, device=cuda)
+    want_lse, want_gold = mlm_mod._fwd_merge_plain(want_stats, labels,
+                                                   gold.clone(), v)
+    _lib("ecamp_fused_ce_fwd_merge", want_stats, labels, lse, gold, n, v,
+         tiles)
+    torch.cuda.synchronize()
+    _close_scaled(lse, want_lse, FP32_TOL)
+    assert torch.equal(gold, want_gold)
+    assert bool((gold[~inside] == 0).all())
+
+    counters = (mlm_mod.launches_fwd, mlm_mod.launches_merge)
+    before = [c.value for c in counters]
+    lse, gold = mlm_mod._forward_cuda(x, w, b, labels)
+    want_lse, want_gold = mlm_mod._forward_tiled_plain(x, w, b, labels)
+    torch.cuda.synchronize()
+    assert [c.value - v0 for c, v0 in zip(counters, before)] == [1, 1]
+    _close_scaled(lse, want_lse, FP32_TOL)
+    _close_scaled(gold, want_gold, FP32_TOL)
+    with pytest.raises(RuntimeError, match="ecamp_fused_ce_fwd_tiles"):
+        mlm_mod._build.check(mlm_mod._build.library().ecamp_fused_ce_fwd_tiles(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            stats.data_ptr(), gold.data_ptr(), n, v, d, tiles + 1,
+            torch.cuda.current_stream().cuda_stream),
+            "ecamp_fused_ce_fwd_tiles")
 
 
 @pytest.mark.parametrize("n,d,v,chunk", [(1000, 96, 3001, 1024),
@@ -410,8 +500,8 @@ def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
     inputs (the plain math in fp32 on the bf16 inputs): lse and gold, then
     dx, dW and db from the same lse and wg, then the autograd Function,
     whose loss carries a grad_fn. bf16 at D % 8 == 0 runs the tensor-core
-    backward (dl, dx, dW a vocab chunk; V = 9000 is three chunks), fp32
-    and D = 36 the FMA one (dx, dW)."""
+    forward (tiles, merge) and backward (dl, dx, dW a vocab chunk; V = 9000
+    is three chunks), fp32 and D = 36 the FMA ones (fwd; dx, dW)."""
     dtype = getattr(torch, dtype)
     x, w, b, labels, weights = _fused_ce_inputs(cuda, n, d, v, dtype)
     tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
@@ -422,9 +512,10 @@ def test_fused_ce_kernels_on_card(cuda, dtype, n, d, v):
     tensor_cores = mlm_mod._tensor_core_path(x, w)
     assert tensor_cores == (dtype == torch.bfloat16 and d % 8 == 0)
     chunks = len(mlm_mod._chunks(v, mlm_mod.CHUNK_V)) if tensor_cores else 0
-    per_call = [1, chunks] + [chunks or 1] * 2  # fwd, dl, dx, dW
-    counters = (mlm_mod.launches_fwd, mlm_mod.launches_dl,
-                mlm_mod.launches_dx, mlm_mod.launches_dw)
+    # fwd, merge, dl, dx, dW
+    per_call = [1, int(tensor_cores), chunks] + [chunks or 1] * 2
+    counters = (mlm_mod.launches_fwd, mlm_mod.launches_merge,
+                mlm_mod.launches_dl, mlm_mod.launches_dx, mlm_mod.launches_dw)
     before = [c.value for c in counters]
     lse, gold = mlm_mod._forward_cuda(x, w, b, labels)
     want_lse, want_gold = mlm_mod._forward_plain(x, w, b, labels)

@@ -1,7 +1,8 @@
 """The bound helper of `chip_smoke.py`: a kernel's shape -> its operations
 and bytes -> the least time an H100 SXM could take for them, and which of
 the two bounds it. Held against hand counts at the port's main shapes;
-runs on the CPU (importing `chip_smoke` does no CUDA work)."""
+runs on the CPU (importing `chip_smoke` does no CUDA work). Also the input
+rotation its timings use, and the kernel groups of the step profile."""
 
 import sys
 from pathlib import Path
@@ -40,6 +41,15 @@ CASES = {
     # fused CE forward (8192, 768, 30000) bf16: 0.377 TFLOP of logits
     "fused_ce_fwd": (chip_smoke.fused_ce_fwd_work(8192, 768, 30000, 2),
                      377_487_360_000, 58_913_984, 0.381686, "operations"),
+    # its tile kernel: the same product, and the fp32 (max, sum-exp) of
+    # 235 tiles x 8192 rows (15.4 MB) and the gold written
+    "fused_ce_fwd_tiles": (chip_smoke.fused_ce_fwd_tiles_work(
+        8192, 768, 30000, 2, 235), 377_487_360_000, 74_282_176, 0.381686,
+        "operations"),
+    # its merge: the 15.4 MB of stats and the labels read, lse and gold
+    # written; about 4 fp32 flops a tile and row
+    "fused_ce_fwd_merge": (chip_smoke.fused_ce_fwd_merge_work(8192, 235),
+                           7_700_480, 15_532_032, 0.0046364, "bytes"),
     # fused CE backward: one logit recompute plus the dx and dW products
     "fused_ce_bwd": (chip_smoke.fused_ce_bwd_work(8192, 768, 30000, 2),
                      1_132_462_080_000, 117_696_896, 1.145058, "operations"),
@@ -69,3 +79,44 @@ def test_bound_takes_the_larger_time_and_the_peak_of_the_type():
     with_bias = chip_smoke.attention_work(2, 3, 10, 20, 32, 2, 2 * 20)
     without = chip_smoke.attention_work(2, 3, 10, 20, 32, 2)
     assert with_bias[1] - without[1] == 4 * 2 * 20
+
+
+def test_rotated_copies_hold_twice_the_l2_and_take_turns():
+    """A timed call's inputs rotate over copies (twice the 50 MB L2
+    together; the first copy is the inputs themselves, non-tensors are
+    shared), one copy a call, in turn."""
+    import torch
+
+    x = torch.zeros(10 * 2 ** 20)  # 40 MiB of fp32
+    seen = []
+    call = chip_smoke.rotated(lambda t, eps: seen.append((t.data_ptr(), eps)),
+                              (x, 1e-6))
+    assert call.copies == 3  # 120 MiB >= 100 MiB
+    for _ in range(2 * call.copies):
+        call()
+    ptrs = [p for p, _ in seen]
+    assert ptrs[0] == x.data_ptr() and len(set(ptrs)) == 3
+    assert ptrs[:3] == ptrs[3:] and {e for _, e in seen} == {1e-6}
+    big = torch.zeros(30 * 2 ** 20)  # 120 MiB: no copy needed
+    assert chip_smoke.rotated(lambda t: None, (big,)).copies == 1
+
+
+def test_profile_groups_hold_every_kernel_of_the_port():
+    """`train/profile_step.py` puts each of the port's kernels in its
+    group by name, the two-kernel fused-CE forward and the TMA + wgmma
+    attention included."""
+    from ecamp_tpu_torch.train.profile_step import group_of
+
+    for name, group in (
+            ("void attention_fwd_wgmma_kernel<64, 1>(CUtensorMap_st, ...)",
+             "attention kernel"),
+            ("void attention_fwd_kernel<float, 64>(...)", "attention kernel"),
+            ("ln_fwd_kernel", "layer_norm kernel"),
+            ("fused_ce_fwd_tiles_kernel(CUtensorMap_st, ...)",
+             "fused CE kernels"),
+            ("fused_ce_fwd_merge_kernel(float2 const*, ...)",
+             "fused CE kernels"),
+            ("void fused_ce_fwd_kernel<float>(...)", "fused CE kernels"),
+            ("fused_ce_bwd_dl_kernel", "fused CE kernels"),
+            ("sm90_xmma_gemm_bf16bf16", "gemm")):
+        assert group_of(name) == group, name
