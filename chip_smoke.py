@@ -20,7 +20,8 @@
    attention forward at the serving shapes and at the pretraining step's
    shapes (B = 32); there LayerNorm and attention forward + backward
    through their autograd Functions against autograd of the plain
-   versions, and the SR conv stack forward. A kernel and its library
+   versions, and the SR conv stack forward (also at ragged, small and
+   unaligned shapes, on both of its kernels). A kernel and its library
    call are timed on `rotated` copies of their inputs, twice the L2
    together, so neither finds its inputs in the L2. bf16 attention also
    runs with every odd batch*head's K and V NaN at a ragged Nk, each head
@@ -612,7 +613,10 @@ def train_kernel_phase(card: str, rows: list):
         # to bf16 (up to 2 ulps off). So the check is against the plain
         # version in fp32 on the same bf16 inputs, rounded once; the time is
         # the plain bf16 version's, which the model would run.
-        r = compare(f"sr_conv_stack fwd ({b}, 3, 448, 448) {dtype}",
+        check(sr.sr_path(x) == "tma", "the 448^2 SR stack is not on the "
+              "TMA kernel")
+        r = compare(f"sr_conv_stack fwd ({b}, 3, 448, 448) {dtype} "
+                    f"[{sr.sr_path(x)}]",
                     sr.sr_conv_stack, sr._sr_reference, dtype,
                     oracle_fn=lambda x_, *w: sr._sr_reference(
                         x_.float(), *w).to(x_.dtype),
@@ -621,8 +625,42 @@ def train_kernel_phase(card: str, rows: list):
                     inputs=(x, w1, b1, w2, b2))
         if dtype == torch.bfloat16:
             main["sr_conv_stack"] = r
+    _sr_edges(card, dev, gen, (w1, b1, w2, b2))
     torch.cuda.synchronize()
     return main
+
+
+def _sr_edges(card, dev, gen, weights):
+    """The SR kernels where a tile's edges can break: ragged last row and
+    column tiles, an image smaller than a tile (both on the TMA kernel),
+    and the generic kernel's shapes: W * itemsize not a multiple of 16, and
+    an input whose data starts one element (2 or 4 bytes) past a 16-byte
+    boundary; each in fp32 and bf16, against the plain version in fp32
+    rounded once, with the path each took."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import sr_head as sr
+
+    cases = (((2, 3, 33, 136), False, "tma"), ((1, 3, 8, 8), False, "tma"),
+             ((2, 3, 33, 129), False, "generic"),
+             ((2, 3, 33, 136), True, "generic"))
+    for shape, offset, path in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            n = torch.Size(shape).numel()
+            base = torch.randn(n + 1, device=dev, generator=gen).to(dtype)
+            x = (base[1:] if offset else base[:n]).view(shape)
+            label = (f"sr_conv_stack fwd {shape}"
+                     f"{' at storage offset 1' if offset else ''} {dtype}")
+            check(sr.sr_path(x) == path, f"{label}: path {sr.sr_path(x)}, "
+                  f"not {path}")
+            before = sr.launches_tma.value
+            got = sr.sr_conv_stack(x, *weights)
+            torch.cuda.synchronize()
+            check(sr.launches_tma.value - before == (path == "tma"),
+                  f"{label}: the TMA kernel's launches")
+            err = _within(label, got, sr._sr_reference(
+                x.float(), *weights).to(dtype), dtype)
+            print(f"  {label:58s} [{path}] max|err| {err:.3e} on {card}")
 
 
 def _lib_call(name, *args) -> None:
@@ -939,7 +977,8 @@ def pretrain_phase(card: str):
     from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
 
     counters = {"layer_norm": ln.launches, "attention": fa.launches,
-                "sr_conv_stack": sr.launches, "adamw": adamw.launches}
+                "sr_conv_stack": sr.launches,
+                "sr_conv_stack_tma": sr.launches_tma, "adamw": adamw.launches}
     # what earlier phases left in reference cycles (the serving model, held
     # by the profiler's frames) stays out of the steps' device memory
     gc.collect()
@@ -954,11 +993,12 @@ def pretrain_phase(card: str):
     # launches a step, from the module tree: two LayerNorms a block plus the
     # final norm (encoder, decoder); BERT embeddings 1 + fusion layer 3 + 2 a
     # layer + MLM head 1; one attention a block, fusion self + cross, one a
-    # BERT layer; one SR conv stack; one AdamW update
+    # BERT layer; one SR conv stack, by the TMA kernel (448^2 bf16 images);
+    # one AdamW update
     per_step = {"layer_norm": (2 * c.depth + 1) + (2 * dc.depth + 1)
                 + (1 + 3 + 2 * bc.num_hidden_layers + 1),
                 "attention": c.depth + dc.depth + 2 + bc.num_hidden_layers,
-                "sr_conv_stack": 1, "adamw": 1}
+                "sr_conv_stack": 1, "sr_conv_stack_tma": 1, "adamw": 1}
     gen = torch.Generator(device=task.device).manual_seed(SEED + 3)
     batch = synthetic_batch(cfg, PRE_B, gen)
     noise = torch.rand(PRE_B, c.num_patches, device=task.device,

@@ -39,6 +39,7 @@ from .common import add_common_args, pretrain_ckpt_epochs, setup_output
 _COUNTERS = {"layer_norm": layer_norm.launches,
              "attention": flash_attention.launches,
              "sr_conv_stack": sr_head.launches,
+             "sr_conv_stack_tma": sr_head.launches_tma,
              "adamw": fused_adamw.launches,
              "fused_ce_fwd": fused_mlm_loss.launches_fwd,
              "fused_ce_merge": fused_mlm_loss.launches_merge,

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) primitives of the port's TMA + wgmma kernels
-// (fused_mlm_loss.cu, attention.cu): mbarriers, TMA loads and stores,
+// Hopper (sm_90a) primitives of the port's TMA kernels (fused_mlm_loss.cu,
+// attention.cu, sr_head.cu): mbarriers, TMA loads and stores,
 // wgmma shared-memory descriptors and instructions, and on the host the
 // tensor maps. Each .cu is compiled alone and includes this header, so
 // every function here is inline.
@@ -339,6 +339,31 @@ inline bool bf16_map_3d(CUtensorMap* map, const void* base, int depth, int rows,
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a contiguous (depth, rows, cols) array of `type` (elem_bytes each) read
+// in unswizzled boxes of box_depth x box_rows x box_cols, which land in
+// shared memory densely in that order; a box's elements past the array's
+// end read as zeros. Needs a 16-byte aligned base, 16-byte rows and box
+// rows. Load it from non-negative coordinates with the column at a 16-byte
+// boundary: on the H100 a load from (-5, -2) stopped the kernel with an
+// illegal instruction.
+inline bool plain_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                         int elem_bytes, long long depth, int rows, int cols, int box_depth,
+                         int box_rows, int box_cols) {
+  const EncodeTiledFn enc = encode_fn();
+  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) ||
+      ((long long)cols * elem_bytes) % 16 || (box_cols * elem_bytes) % 16)
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, (cuuint32_t)box_depth};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

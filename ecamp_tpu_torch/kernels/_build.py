@@ -42,6 +42,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _F, _P],
     "ecamp_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "ecamp_sr_conv_stack_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ecamp_sr_conv_stack_fwd_tma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ecamp_adamw_multi": [_P, _P, _P, _P, _P, _I, _P, _LL, _F, _F, _F, _F,
                           _F, _P],
     "ecamp_fused_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],

@@ -5,8 +5,11 @@ Counterpart of `ecamp_tpu/kernels/sr_head.py`: relu(conv2(relu(conv1(x) +
 b1)) + b2 + x), two 3x3 convs on C = 3 channels, zero padding,
 channels-first (N, 3, H, W). Weights are the port's OIHW conv parameters.
 
-`sr_conv_stack` launches the kernel for CUDA tensors and runs the plain
-version only for CPU tensors; it never falls back. On a CUDA tensor it is
+`sr_conv_stack` launches a kernel for CUDA tensors and runs the plain
+version only for CPU tensors; it never falls back. Of the two kernels,
+`sr_path` picks by the input's layout alone: the TMA kernel where its
+tensor map takes x (16-byte aligned data, rows a multiple of 16 bytes:
+the model's 448^2 images), the generic kernel elsewhere. On a CUDA tensor it is
 differentiable through `_SRConvStackFn`: the forward is the kernel, the
 backward recomputes through the plain direct formulation (`F.conv2d`), as
 the JAX package's `_sr_bwd` recomputes through `_xla_reference`. The
@@ -25,7 +28,16 @@ SOURCE = "ecamp_tpu_torch/csrc/sr_head.cu"
 CHANNELS = 3
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter()      # either kernel
+launches_tma = _build.LaunchCounter()  # the TMA kernel alone
+
+
+def sr_path(x) -> str:
+    """"tma" where the TMA kernel takes x (fp32 or bf16, data 16-byte
+    aligned, W * itemsize a multiple of 16), else "generic"."""
+    aligned = (x.data_ptr() % 16 == 0
+               and x.shape[-1] * x.element_size() % 16 == 0)
+    return "tma" if x.dtype in _DTYPE_CODES and aligned else "generic"
 
 
 def _sr_reference(x, w1, b1, w2, b2):
@@ -66,13 +78,17 @@ def _sr_cuda(x, w1, b1, w2, b2):
     n, _, h, w = x.shape
     params = torch.cat([w1.reshape(-1), b1, w2.reshape(-1), b2]).float()
     out = torch.empty_like(x)
+    tma = sr_path(x) == "tma"
+    name = "ecamp_sr_conv_stack_fwd_tma" if tma else "ecamp_sr_conv_stack_fwd"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _build.library().ecamp_sr_conv_stack_fwd(
+        err = getattr(_build.library(), name)(
             x.data_ptr(), params.data_ptr(), out.data_ptr(), n, h, w,
             _DTYPE_CODES[x.dtype], stream)
-    _build.check(err, "ecamp_sr_conv_stack_fwd")
+    _build.check(err, name)
     launches.add()
+    if tma:
+        launches_tma.add()
     return out
 
 

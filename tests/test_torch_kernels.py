@@ -310,7 +310,8 @@ def _sr_weights(rng, scale=0.2):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 32, 64), (1, 3, 24, 24),
-                                   (1, 3, 70, 20)])
+                                   (1, 3, 70, 20), (1, 3, 33, 129),
+                                   (1, 3, 8, 8)])
 def test_sr_conv_stack_matches_pallas_kernel(shape):
     rng = np.random.default_rng(9)
     x = rng.normal(size=shape).astype(np.float32)
@@ -347,6 +348,31 @@ def test_sr_backward_matches_jax_vjp(monkeypatch):
     for name, t, e in zip(("dx", "dw1", "db1", "dw2", "db2"), ins, want):
         np.testing.assert_allclose(t.grad.numpy(), e, rtol=1e-4,
                                    atol=1e-5 * np.abs(e).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,width,offset,path", [
+    (torch.bfloat16, 448, 0, "tma"),      # the model's images
+    (torch.bfloat16, 136, 0, "tma"),      # 272-byte rows
+    (torch.bfloat16, 8, 0, "tma"),        # one 16-byte row
+    (torch.bfloat16, 129, 0, "generic"),  # rows not a multiple of 16 bytes
+    (torch.bfloat16, 132, 0, "generic"),
+    (torch.bfloat16, 136, 1, "generic"),  # data 2 bytes past a boundary
+    (torch.bfloat16, 136, 8, "tma"),      # 16 bytes past one
+    (torch.float32, 132, 0, "tma"),
+    (torch.float32, 130, 0, "generic"),
+    (torch.float32, 136, 1, "generic"),   # 4 bytes past a boundary
+    (torch.float32, 136, 4, "tma"),
+])
+def test_sr_path_picks_the_kernel_by_layout(dtype, width, offset, path):
+    """`sr_path` on CPU tensors: the TMA kernel exactly where its tensor
+    map takes x (16-byte aligned data, rows a multiple of 16 bytes)."""
+    shape = (2, 3, 5, width)
+    n = torch.Size(shape).numel()
+    base = torch.zeros(n + 16, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    x = base[offset:offset + n].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    assert sr_mod.sr_path(x) == path
 
 
 def test_sr_kernel_validation():

@@ -188,15 +188,26 @@ def test_kernel_outputs_carry_grad_fn_and_right_gradients(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 3, 448, 448), (1, 3, 37, 70),
-                                   (3, 3, 16, 64)])
-def test_sr_kernel_on_card(cuda, dtype, shape):
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 3, 448, 448), 0), ((1, 3, 37, 70), 0), ((3, 3, 16, 64), 0),
+    ((2, 3, 33, 136), 0),  # ragged last row and column tiles (TMA kernel)
+    ((1, 3, 8, 8), 0),     # an image smaller than a tile (TMA kernel)
+    ((2, 3, 33, 129), 0),  # rows not a multiple of 16 bytes (generic)
+    ((2, 3, 33, 136), 1),  # data one element past 16 bytes (generic)
+])
+def test_sr_kernel_on_card(cuda, dtype, shape, offset):
     """The SR kernel against the plain direct convs (TF32 off), forward
-    and, through `_SRConvStackFn`, backward."""
+    and, through `_SRConvStackFn`, backward, on the kernel `sr_path`
+    picks."""
     torch.backends.cudnn.allow_tf32 = False
     dtype = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    n = torch.Size(shape).numel()
+    x = torch.randn(n + 1, device=cuda, generator=g).to(dtype)
+    x = x[offset:offset + n].view(shape)
+    tma = sr_mod.sr_path(x) == "tma"
+    assert tma == (offset == 0 and shape[-1] * x.element_size() % 16 == 0)
+    before_tma = sr_mod.launches_tma.value
     w1, w2 = (0.2 * torch.randn(3, 3, 3, 3, device=cuda, generator=g)
               for _ in range(2))
     b1, b2 = (0.1 * torch.randn(3, device=cuda, generator=g)
@@ -205,6 +216,7 @@ def test_sr_kernel_on_card(cuda, dtype, shape):
     got = sr_mod.sr_conv_stack(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert sr_mod.launches.value == before + 1
+    assert sr_mod.launches_tma.value == before_tma + tma
     assert got.dtype == dtype and got.shape == x.shape
     if dtype == torch.float32:
         _close(got, sr_mod._sr_reference(x, w1, b1, w2, b2), dtype)
