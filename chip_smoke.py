@@ -57,7 +57,22 @@
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
    a temporary directory, 2 epochs and a resume for a third.
-7. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
+7. The classification fine-tune at full width (ViT-B/16 at 224, 14
+   multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
+   momentum 0.9, lr 3e-2, warmup 50, clip 1.0, drop-path 0.1), after the
+   CLI: LayerNorm and attention against their plain versions at its shapes
+   ((96 * 197, 768), (96, 768), (96, 12, 197, 64)); (a) the first step
+   through the kernels against the same step through the plain versions
+   (loss 2e-2, grad norm 5%), 5 steps on a fixed batch (the eval-mode loss
+   falls), 25 LayerNorm and 12 attention launches a step, step time, device
+   busy and peak memory; (b) a linear probe of 3 steps: trunk and fc_norm
+   bit-unchanged, the head changed, the same launches; (c) `python -m
+   ecamp_tpu_torch.cli.finetune_cls` from the pretrain CLI's checkpoint on
+   a seeded 192/70/70 list corpus (eval batch 32, ragged), 2 epochs of
+   updates, patience 1: validation and test lines, the best `.pth`; (d)
+   `classifier_engine` on that `.pth` against `ClassificationTask.eval_step`
+   plus a sigmoid (2e-2).
+8. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
    lines of the results, of every kernel shape timed and of the kernels
    and, last, the device line.
 
@@ -71,8 +86,11 @@ import base64
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -93,6 +111,15 @@ LN_V = 10.308952660644293  # ln 30000
 CLI_IMAGES = 64      # the CLI's corpus: 2 steps an epoch at PRE_B
 CLI_IMG = 512
 CLI_TIMEOUT = 400    # seconds for one CLI run
+# the fine-tune: recipe cls_ft_ChestX-ray14_1 (ecamp_tpu/core/presets.py:
+# 32-48): batch 96, SGD momentum 0.9, lr 3e-2, warmup 50 of 3000 steps,
+# clip 1.0, drop-path 0.1, ViT-B/16 at 224, 14 multilabel findings
+FT_B = 96
+FT_STEPS = 5         # steps of (a); all but the first are timed
+FT_PROBE_STEPS = 3
+FT_SPLITS = (192, 70, 70)  # the CLI's corpus: 2 updates an epoch at FT_B
+FT_EVAL_B = 32       # 70 = 2 * 32 + 6: a ragged last eval batch
+FT_IMG = 512         # the corpus's JPEG size
 
 
 class CheckFailed(RuntimeError):
@@ -1349,18 +1376,16 @@ def slice_phase(card: str):
     return {"layer_norm": n_ln, "attention": n_attn}, worst, p50, busy
 
 
-def cli_phase(card: str, per_step):
+def cli_phase(card: str, per_step, work: str):
     """The pretraining entry point at full width: a seeded MIMIC-style
     corpus (CLI_IMAGES gray PNGs at CLI_IMG px, reports of words of the
-    repository's 30000-word vocabulary) in a temporary directory, then
-    `python -m ecamp_tpu_torch.cli.pretrain --fused_mlm_ce` for 2 epochs
-    at B = PRE_B and a resume from its checkpoint-1.pth for a third. Each
-    epoch's log line must be finite and count `per_step` launches of every
-    kernel a step; the resume must restore the epoch and the AdamW moments
-    and step."""
-    import shutil
-    import tempfile
-
+    repository's 30000-word vocabulary) in `work`, then `python -m
+    ecamp_tpu_torch.cli.pretrain --fused_mlm_ce` for 2 epochs at B = PRE_B
+    and a resume from its checkpoint-1.pth for a third. Each epoch's log
+    line must be finite and count `per_step` launches of every kernel a
+    step; the resume must restore the epoch and the AdamW moments and
+    step. Returns the epochs' log lines and the path of the last
+    checkpoint, which the fine-tune starts from."""
     import numpy as np
     import torch
 
@@ -1369,67 +1394,350 @@ def cli_phase(card: str, per_step):
 
     cfg = PretrainConfig()  # the CLI's model
     repo = os.path.dirname(os.path.abspath(__file__))
-    work = tempfile.mkdtemp(prefix="ecamp_cli_")
-    try:
-        t0 = time.perf_counter()
-        data = write_mimic_corpus(
-            os.path.join(work, "mimic"),
-            os.path.join(repo, "ecamp_tpu", "assets", "mimic_wordpiece.json"),
-            CLI_IMAGES, CLI_IMG, cfg.vit.grid_size - cfg.sr_window, seed=SEED)
-        out = os.path.join(work, "out")
-        print(f"CLI on {card}: {CLI_IMAGES} images at {CLI_IMG} px written "
-              f"in {time.perf_counter() - t0:.1f} s")
-        base = [sys.executable, "-m", "ecamp_tpu_torch.cli.pretrain",
-                "--data_path", data, "--fused_mlm_ce", "--batch_size",
-                str(PRE_B), "--output_dir", out, "--seed", str(SEED),
-                "--print_freq", "1"]
+    t0 = time.perf_counter()
+    data = write_mimic_corpus(
+        os.path.join(work, "mimic"),
+        os.path.join(repo, "ecamp_tpu", "assets", "mimic_wordpiece.json"),
+        CLI_IMAGES, CLI_IMG, cfg.vit.grid_size - cfg.sr_window, seed=SEED)
+    out = os.path.join(work, "out")
+    print(f"CLI on {card}: {CLI_IMAGES} images at {CLI_IMG} px written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    base = [sys.executable, "-m", "ecamp_tpu_torch.cli.pretrain",
+            "--data_path", data, "--fused_mlm_ce", "--batch_size",
+            str(PRE_B), "--output_dir", out, "--seed", str(SEED),
+            "--print_freq", "1"]
 
-        def run(extra):
+    def run(extra):
+        t = time.perf_counter()
+        r = subprocess.run(base + extra, cwd=repo, capture_output=True,
+                           text=True, timeout=CLI_TIMEOUT)
+        check(r.returncode == 0, f"CLI {extra} exited {r.returncode}:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        with open(os.path.join(out, "log.txt")) as f:
+            recs = [json.loads(line) for line in f]
+        print(f"  {' '.join(extra)}: {time.perf_counter() - t:.1f} s")
+        return r.stdout, recs
+
+    steps = CLI_IMAGES // PRE_B
+    want = {k: v * steps for k, v in per_step.items()}
+    _, recs = run(["--epochs", "2"])
+    printed, recs = run(["--epochs", "3", "--resume",
+                         os.path.join(out, "checkpoint-1.pth")])
+    check([r["epoch"] for r in recs] == [0, 1, 2],
+          f"epochs logged {[r['epoch'] for r in recs]}")
+    for r in recs:
+        print(f"  epoch {r['epoch']}: loss {r['loss']:.5f} (mim "
+              f"{r['mim_loss']:.5f} res {r['res_loss']:.5f} mlm "
+              f"{r['mlm_loss']:.5f}) lr {r['lr']:.3e}, max_mem_mb "
+              f"{r['max_mem_mb']:.1f}, launches {r['kernel_launches']}")
+        check(all(np.isfinite(r[k]) for k in ("loss", "mim_loss",
+                                              "res_loss", "mlm_loss")),
+              f"epoch {r['epoch']}: non-finite loss")
+        check(r["max_mem_mb"] > 0, "no device memory reported")
+        check(r["kernel_launches"] == want,
+              f"epoch {r['epoch']}: launches {r['kernel_launches']} != "
+              f"{want}")
+    n_params = len(torch.load(os.path.join(out, "checkpoint-1.pth"),
+                              weights_only=True)["optimizer"]["state"])
+    restored = (f"restored AdamW moments for {n_params} params (torch "
+                f"step {2 * steps})")
+    check(restored in printed and "resuming at epoch 2" in printed,
+          f"resume did not report '{restored}' and epoch 2")
+    last = torch.load(os.path.join(out, "checkpoint-2.pth"),
+                      weights_only=True)
+    after = {int(st["step"]) for st in last["optimizer"]["state"].values()}
+    check(last["epoch"] == 2 and after == {3 * steps},
+          f"checkpoint-2: epoch {last['epoch']}, steps {after}")
+    print(f"  resume: {restored}, epoch 2 trained, checkpoint-2.pth at "
+          f"AdamW step {3 * steps}")
+    return recs, os.path.join(out, "checkpoint-2.pth")
+
+
+def finetune_kernel_phase(card: str, rows: list) -> dict:
+    """LayerNorm and attention at the fine-tune step's shapes (B = FT_B,
+    bf16): the trunk's (B * 197, 768) and fc_norm's (B, 768) LayerNorm and
+    the (B, 12, 197, 64) attention, each forward beside its library call
+    and bound, then forward + backward through its Function against
+    autograd of the plain version. Their rows join `rows`; returns the
+    forward rows by name."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, dtype, main = FT_B, torch.bfloat16, {}
+    print(f"kernels at the fine-tune step's shapes (B = {b}, bf16) on {card}")
+    for n, tag in ((b * 197, "trunk"), (b, "fc_norm")):
+        x = (torch.randn(n, 768, device=dev, generator=gen) * 2 + 0.5).to(
+            dtype)
+        w = 1 + 0.1 * torch.randn(768, device=dev, generator=gen)
+        bias = 0.1 * torch.randn(768, device=dev, generator=gen)
+        g = torch.randn(n, 768, device=dev, generator=gen).to(dtype)
+        main[f"layer_norm_{tag}"] = _layer_norm_fwd(
+            rows, f"finetune layer_norm {tag} fwd ({n}, 768) {dtype}", x, w,
+            bias, 1e-6, dtype)
+        compare(f"finetune layer_norm {tag} fwd+bwd ({n}, 768) {dtype}",
+                _grads_of(lambda *a: ln.fused_layer_norm(*a, 1e-6),
+                          (x, w, bias), (True,) * 3, g),
+                _grads_of(lambda *a: ln._ln_reference(*a, 1e-6),
+                          (x, w, bias), (True,) * 3, g),
+                dtype, reps=10, per_pair=3)
+    q, k, v, g = (torch.randn(b, 12, 197, 64, device=dev, generator=gen)
+                  .to(dtype) for _ in range(4))
+    label = f"finetune attention ({b}, 12, 197, 64) {dtype}"
+    main["attention"] = _attention_fwd(rows, f"{label} fwd", q, k, v, None,
+                                       dtype)
+    compare(f"{label} fwd+bwd",
+            _grads_of(lambda *a: fa.flash_attention(*a), (q, k, v),
+                      (True,) * 3, g),
+            _grads_of(lambda *a: fa._attention_reference(*a), (q, k, v),
+                      (True,) * 3, g),
+            dtype, reps=10, per_pair=3)
+    torch.cuda.synchronize()
+    return main
+
+
+def finetune_phase(card: str, pretrained: str, work: str) -> dict:
+    """The classification fine-tune at full width (module docstring, 7)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.train.classification import ClassificationTask
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = c.ClassificationConfig(
+        vit=c.ViTConfig(drop_path_rate=0.1),
+        optimizer=c.OptimizerConfig(name="sgd", lr=3e-2, weight_decay=0.0,
+                                    momentum=0.9,
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=50, total_steps=3000,
+                                    grad_clip=1.0),
+        seed=SEED)
+    depth = cfg.vit.depth
+    per_step = {"layer_norm": 2 * depth + 1, "attention": depth}
+    counters = {"layer_norm": ln.launches, "attention": fa.launches}
+    t0 = time.perf_counter()
+    task = ClassificationTask(cfg, device="cuda")
+    model = task.model
+    # The JAX head init (std 2e-5) leaves the loss at ln 2 for any trunk;
+    # redraw the head from the seed at std 0.05 so the comparisons see it.
+    with torch.no_grad():
+        model.head.weight.copy_(0.05 * torch.randn(
+            model.head.weight.shape, generator=torch.Generator()
+            .manual_seed(SEED + 1)))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    images = torch.randint(0, 256, (FT_B, 224, 224, 1), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = (torch.rand(FT_B, cfg.num_classes, device="cuda",
+                         generator=gen) < 0.3).float()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"fine-tune on {card}: ViT-B/16 224 px, {cfg.num_classes} "
+          f"multilabel classes, {n_params} parameters, B = {FT_B}, bf16, SGD "
+          f"momentum 0.9 lr 3e-2 warmup 50 clip 1.0, drop-path 0.1; built "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    def counts():
+        return {k: ctr.value for k, ctr in counters.items()}
+
+    def reset():
+        for ctr in counters.values():
+            ctr.reset()
+
+    def first_step(plain: bool):
+        model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        reset()
+        state, m = task.train_step(state, images, labels)
+        gnorm = adamw.global_norm([p.grad for p in model.parameters()])
+        torch.cuda.synchronize()
+        return float(m["loss"]), float(gnorm), counts()
+
+    # (a) the first step through the kernels, then the plain versions
+    loss_k, gnorm_k, n_k = first_step(False)
+    loss_p, gnorm_p, n_p = first_step(True)
+    task.set_plain(False)
+    print(f"  (a) first step: kernels loss {loss_k:.6g} grad norm "
+          f"{gnorm_k:.6g} launches {n_k}; plain loss {loss_p:.6g} grad norm "
+          f"{gnorm_p:.6g} launches {n_p}")
+    check(np.isfinite(loss_k) and np.isfinite(gnorm_k), "non-finite step")
+    check(n_k == per_step, f"(a) launches {n_k} != {per_step}")
+    check(all(v == 0 for v in n_p.values()), f"plain step launched {n_p}")
+    check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
+          f"(a) loss {loss_k:.6g} vs plain {loss_p:.6g}")
+    check(abs(gnorm_k - gnorm_p) <= GNORM_TOL * gnorm_p,
+          f"(a) grad norm {gnorm_k:.6g} vs plain {gnorm_p:.6g}")
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad():
+            return float(task.loss(images, labels)[0])
+
+    def steps(n):
+        """n steps from `init` (dropout and drop-path on), counters set to
+        0 just before and read just after; the eval-mode loss of the batch
+        before and after, the step times, the launches, peak memory and the
+        device busy time of one more step (profiler)."""
+        model.load_state_dict(init)
+        state = task.init_state()
+        before = eval_loss()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        losses, times = [], []
+        for _ in range(n):
             t = time.perf_counter()
-            r = subprocess.run(base + extra, cwd=repo, capture_output=True,
-                               text=True, timeout=CLI_TIMEOUT)
-            check(r.returncode == 0, f"CLI {extra} exited {r.returncode}:\n"
-                  f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-            with open(os.path.join(out, "log.txt")) as f:
-                recs = [json.loads(line) for line in f]
-            print(f"  {' '.join(extra)}: {time.perf_counter() - t:.1f} s")
-            return r.stdout, recs
+            state, m = task.train_step(state, images, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        box = [state]
 
-        steps = CLI_IMAGES // PRE_B
-        want = {k: v * steps for k, v in per_step.items()}
-        _, recs = run(["--epochs", "2"])
-        printed, recs = run(["--epochs", "3", "--resume",
-                             os.path.join(out, "checkpoint-1.pth")])
-        check([r["epoch"] for r in recs] == [0, 1, 2],
-              f"epochs logged {[r['epoch'] for r in recs]}")
-        for r in recs:
-            print(f"  epoch {r['epoch']}: loss {r['loss']:.5f} (mim "
-                  f"{r['mim_loss']:.5f} res {r['res_loss']:.5f} mlm "
-                  f"{r['mlm_loss']:.5f}) lr {r['lr']:.3e}, max_mem_mb "
-                  f"{r['max_mem_mb']:.1f}, launches {r['kernel_launches']}")
-            check(all(np.isfinite(r[k]) for k in ("loss", "mim_loss",
-                                                  "res_loss", "mlm_loss")),
-                  f"epoch {r['epoch']}: non-finite loss")
-            check(r["max_mem_mb"] > 0, "no device memory reported")
-            check(r["kernel_launches"] == want,
-                  f"epoch {r['epoch']}: launches {r['kernel_launches']} != "
-                  f"{want}")
-        n_params = len(torch.load(os.path.join(out, "checkpoint-1.pth"),
-                                  weights_only=True)["optimizer"]["state"])
-        restored = (f"restored AdamW moments for {n_params} params (torch "
-                    f"step {2 * steps})")
-        check(restored in printed and "resuming at epoch 2" in printed,
-              f"resume did not report '{restored}' and epoch 2")
-        last = torch.load(os.path.join(out, "checkpoint-2.pth"),
-                          weights_only=True)
-        after = {int(st["step"]) for st in last["optimizer"]["state"].values()}
-        check(last["epoch"] == 2 and after == {3 * steps},
-              f"checkpoint-2: epoch {last['epoch']}, steps {after}")
-        print(f"  resume: {restored}, epoch 2 trained, checkpoint-2.pth at "
-              f"AdamW step {3 * steps}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return recs
+        def one_step():
+            box[0], _ = task.train_step(box[0], images, labels)
+
+        busy = device_ms(one_step, "", 3, "fine-tune step", alone=False)
+        return before, eval_loss(), losses, times, launches, peak, busy
+
+    def report(tag, n, before, after, losses, times, launches, peak, busy):
+        want = {k: v * n for k, v in per_step.items()}
+        step_ms = float(np.median(times[1:]))
+        print(f"  ({tag}) train losses {[round(x, 5) for x in losses]}; "
+              f"eval-mode loss of the batch {before:.6f} -> {after:.6f}; "
+              f"launches {launches} in {n} steps")
+        print(f"  ({tag}) step {step_ms:.3f} ms median of steps 2-{n} (host "
+              f"clock, synchronised), {FT_B / step_ms * 1e3:.2f} images/s, "
+              f"device busy {_ms(busy)} a step (profiler, 3 steps), peak "
+              f"device memory {peak / 2 ** 30:.3f} GiB on {card}")
+        check(all(np.isfinite(losses)), f"({tag}) non-finite loss")
+        check(launches == want, f"({tag}) launches {launches} != {want}")
+        return {"losses": losses, "eval_loss_before": before,
+                "eval_loss_after": after, "step_ms": times,
+                "step_ms_median": step_ms,
+                "images_per_s": FT_B / step_ms * 1e3,
+                "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
+                "launches": launches}
+
+    before, after, *rest = steps(FT_STEPS)
+    result = {"batch": FT_B, "card": card, "loss_first_step": loss_k,
+              "loss_plain_step": loss_p, "grad_norm": gnorm_k,
+              "grad_norm_plain": gnorm_p, "launches_a_step": per_step,
+              "finetune": report("a", FT_STEPS, before, after, *rest)}
+    check(after < before, f"(a) the eval-mode loss did not fall: {before} "
+          f"-> {after}")
+
+    # (b) the linear probe from the same weights
+    task.cfg = dataclasses.replace(cfg, linear_probe=True)
+    before, after, *rest = steps(FT_PROBE_STEPS)
+    result["linear_probe"] = report("b", FT_PROBE_STEPS, before, after, *rest)
+    now = model.state_dict()
+    for k, v in now.items():
+        same = torch.equal(v.cpu(), init[k])
+        check(same == (not k.startswith("head.")),
+              f"(b) {k} {'unchanged' if same else 'changed'}")
+    print("  (b) trunk and fc_norm bit-unchanged, head changed")
+    task.cfg = cfg
+    del now, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI from the pretrain CLI's checkpoint
+    from ecamp_tpu_torch.data.synthetic import write_classification_corpus
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    data = write_classification_corpus(
+        os.path.join(work, "cxr14"), cfg.task, *FT_SPLITS, seed=SEED,
+        num_classes=cfg.num_classes, multilabel=True, img_size=FT_IMG)
+    out = os.path.join(work, "ft_out")
+    print(f"  (c) {'/'.join(map(str, FT_SPLITS))} JPEGs at {FT_IMG} px "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    per_epoch = FT_SPLITS[0] // FT_B
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_cls",
+           "--task", cfg.task, "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(FT_B), "--eval_batch_size",
+           str(FT_EVAL_B), "--lr", "3e-2", "--warmup_steps", "50",
+           "--num_steps", str(2 * per_epoch), "--patience", "1",
+           "--output_dir", out, "--seed", str(SEED)]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT)
+    check(r.returncode == 0, f"fine-tune CLI exited {r.returncode}:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    cli_s = time.perf_counter() - t
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    printed = r.stdout
+    for line in printed.splitlines():
+        if line.startswith(("step ", "Epoch [", "TEST", pretrained,
+                            "loaded ")):
+            print(f"    {line}")
+    n_val = -(-FT_SPLITS[1] // FT_EVAL_B)
+    want = {k: v * (per_epoch + n_val) for k, v in per_step.items()}
+    vals = [rec for rec in recs if "step" in rec]
+    check([rec["step"] for rec in vals] == [per_epoch, 2 * per_epoch],
+          f"(c) validations at steps {[rec['step'] for rec in vals]}")
+    for rec in vals:
+        check(np.isfinite(rec["auc"]) and np.isfinite(rec["loss"]),
+              f"(c) non-finite validation {rec}")
+        check(rec["kernel_launches"] == want,
+              f"(c) launches {rec['kernel_launches']} != {want} (steps "
+              f"and a validation)")
+    # the trunk from the pretraining checkpoint: patch embedding, cls
+    # token and 12 tensors a block; pos_embed (a buffer in the port's
+    # ECAMP), fc_norm and the head stay at init
+    got = re.search(r": loaded (\d+) tensors, (\d+) left at init", printed)
+    check(got is not None and (int(got[1]), int(got[2])) == (
+        3 + 12 * depth, 5), f"(c) pretrained load: {got and got[0]}")
+    check("TEST mean AUROC:" in printed and "test" in recs[-1],
+          "(c) no test line")
+    check(printed.count("Total time:") == len(vals), "(c) epoch lines")
+    best = os.path.join(out, "best", "checkpoint-best.pth")
+    check(os.path.exists(best), "(c) no best checkpoint")
+    print(f"  (c) CLI {cli_s:.1f} s: validations {vals}, test mean AUROC "
+          f"{recs[-1]['test']['auc']:.4f}")
+
+    # (d) the serve engine on the best .pth against the task's eval step
+    from PIL import Image
+
+    from ecamp_tpu_torch.ckpt import load_classifier_state, load_reference_pth
+    from ecamp_tpu_torch.data.transforms import EvalTransform
+    from ecamp_tpu_torch.serve import classifier_engine
+
+    engine = classifier_engine(best, num_classes=cfg.num_classes,
+                               img_size=224, multilabel=True, buckets=(8,),
+                               device="cuda")
+    load_classifier_state(model, load_reference_pth(best))
+    et = EvalTransform(224, cfg.data.mean, cfg.data.std, crop_ratio=1.0)
+    with open(os.path.join(data, cfg.task, "test_list.txt")) as f:
+        paths = [os.path.join(data, line.split()[0]) for line in f][:5]
+    x = np.stack([et(Image.open(p).convert("RGB")) for p in paths])
+    served = engine(x)
+    logits = task.eval_step(None, torch.from_numpy(x).cuda())
+    want_p = torch.sigmoid(logits.float()).cpu().numpy()
+    err = float(np.abs(served - want_p).max())
+    print(f"  (d) engine on the best .pth: {len(paths)} test images, max "
+          f"|served - eval_step| {err:.3e}")
+    check(served.shape == want_p.shape and err <= PROB_TOL,
+          f"(d) served probabilities off by {err:.3e}")
+    result.update(cli_seconds=cli_s, cli_log=recs, served_max_err=err)
+    del task, model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -1465,7 +1773,14 @@ def main() -> int:
     main_times.update(fused_ce_phase(card))
     serve_launches, prob_err, p50, serve_busy = slice_phase(card)
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
-    cli = cli_phase(card, {k: v // PRE_STEPS for k, v in flaunches.items()})
+    ft_times = finetune_kernel_phase(card, shape_rows)
+    work = tempfile.mkdtemp(prefix="ecamp_cli_")
+    try:
+        cli, ckpt = cli_phase(card, {k: v // PRE_STEPS
+                                     for k, v in flaunches.items()}, work)
+        finetune = finetune_phase(card, ckpt, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # launches: the materialised step's (d) for the first four kernels, the
     # fused-CE step's (f) for the fused CE (dx + dW for its backward)
@@ -1509,6 +1824,8 @@ def main() -> int:
             entry["vs_library"] = t["vs_library"]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name]
+        if name in finetune["launches_a_step"]:  # a fine-tune step's
+            entry["finetune_launches"] = finetune["launches_a_step"][name]
         if name == "fused_ce_fwd":  # the tile kernel and the merge
             entry["parts"] = {
                 k: {"launches_a_step": flaunches[
@@ -1534,6 +1851,7 @@ def main() -> int:
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
+    print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))
     print(json.dumps({"fused_ce_mainloop":
                       main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))

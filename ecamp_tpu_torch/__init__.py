@@ -8,8 +8,10 @@ same function beside it. The plain version runs for CPU tensors and is the
 kernels' test oracle; it is never a fallback for a CUDA tensor.
 
 Ported so far: the classification serving path (`serve.classifier_engine`,
-`cli/serve.py`) and the ECAMP pretraining step (`train.pretrain.
-PretrainTask`). This package never imports JAX.
+`cli/serve.py`), the ECAMP pretraining step (`train.pretrain.PretrainTask`,
+`cli/pretrain.py`) and the classification fine-tune
+(`train.classification.ClassificationTask`, `cli/finetune_cls.py`). This
+package never imports JAX.
 """
 
 __version__ = "0.1.0"

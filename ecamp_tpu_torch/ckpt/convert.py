@@ -15,13 +15,15 @@ side has them as keys.
 
 `load_reference_pth` reads a reference classifier checkpoint the way
 `ckpt/torch_import.py:173-179` does: unwrap `model` and `state_dict`, strip
-DDP `module.` prefixes.
+DDP `module.` prefixes. `import_vit_classifier` initialises a classifier
+from such a checkpoint, or from a pretraining one, by the JAX package's
+partial-load rule (`import_vit_classifier`, `_apply_state`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -107,3 +109,37 @@ def load_classifier_state(model: nn.Module,
                                                    model.cfg.grid_size)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def import_vit_classifier(model: nn.Module, path: str
+                          ) -> Tuple[List[str], List[str]]:
+    """Initialise a port `ViTClassifier` from a reference `.pth` (a
+    fine-tuned classifier or a pretraining checkpoint), as the JAX package's
+    `import_vit_classifier` does (`ecamp_tpu/ckpt/torch_import.py:130-170,
+    205-215`): after unwrapping and stripping `module.`, each parameter of
+    the model is looked up by its name (the JAX package maps its `trunk.`
+    subtree to these top-level names); an entry whose shape matches is
+    copied; a 3-D `pos_embed` of the same width from another patch grid
+    is bicubic-resized to the model's grid; any other mismatch, `head.*`
+    of another width included, keeps the init. A pretraining checkpoint
+    of the port holds no `pos_embed` (a buffer there), so the
+    classifier's stays at init, as in the JAX package. Returns (loaded
+    names, names left at init)."""
+    state = load_reference_pth(path)
+    loaded, missing = [], []
+    with torch.no_grad():
+        for name, p in model.state_dict().items():
+            src = state.get(name)
+            if src is not None and tuple(src.shape) != tuple(p.shape):
+                if (name == "pos_embed" and src.ndim == 3 and p.ndim == 3
+                        and src.shape[-1] == p.shape[-1]):
+                    src = interpolate_pos_embed(
+                        src, int(round((p.shape[1] - 1) ** 0.5)))
+                if tuple(src.shape) != tuple(p.shape):
+                    src = None
+            if src is None:
+                missing.append(name)
+                continue
+            p.copy_(src.to(p.dtype))
+            loaded.append(name)
+    return loaded, missing

@@ -1,5 +1,11 @@
-"""Shared CLI plumbing (counterpart of `ecamp_tpu/cli/common.py:14-72`):
-common arguments, the run directory's provenance, checkpoint cadence."""
+"""Shared CLI plumbing (counterpart of `ecamp_tpu/cli/common.py:14-97`):
+common arguments, the run directory's provenance, checkpoint cadence and
+early stopping.
+
+The JAX package's `pad_eval_batch` has no counterpart: XLA compiles one
+program per input shape, so JAX pads the ragged last eval batch to the
+static shape, while PyTorch runs eagerly and takes that batch as it is.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +13,7 @@ import argparse
 import json
 import os
 import shutil
+from typing import Optional
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -56,3 +63,29 @@ def pretrain_ckpt_epochs(epochs: int, mid_every: int = 10,
                 or (e >= 100 and e % late_every == 0)):
             out.add(e)
     return out
+
+
+class EarlyStopper:
+    """Best-metric tracking + patience (Classification/train.py:427,502)."""
+
+    def __init__(self, patience: int, mode: str = "max"):
+        self.patience = patience
+        self.mode = mode
+        self.best: Optional[float] = None
+        self.bad = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True when `value` is a new best."""
+        better = (self.best is None or
+                  (value > self.best if self.mode == "max"
+                   else value < self.best))
+        if better:
+            self.best = value
+            self.bad = 0
+            return True
+        self.bad += 1
+        return False
+
+    @property
+    def should_stop(self) -> bool:
+        return self.bad >= self.patience

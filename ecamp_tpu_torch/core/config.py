@@ -1,9 +1,10 @@
 """Configuration tree, field for field the same as `ecamp_tpu.core.config`.
 
-Ported: `ViTConfig`, `BertConfig`, `MAEDecoderConfig`, `OptimizerConfig`,
-`DataConfig` and `PretrainConfig`. Left out: `MeshConfig` (the GSPMD
-data/model mesh, TPU-only; ROADMAP "Not ported"), and with it
-`PretrainConfig.mesh`. The fine-tune configs follow with their tasks.
+Ported: `ViTConfig` and its factories, `BertConfig`, `MAEDecoderConfig`,
+`OptimizerConfig`, `DataConfig`, `PretrainConfig` and
+`ClassificationConfig`. Left out: `MeshConfig` (the GSPMD data/model mesh,
+TPU-only; ROADMAP "Not ported"), and with it the configs' `mesh` fields.
+The segmentation and detection configs follow with their tasks.
 """
 
 from __future__ import annotations
@@ -52,6 +53,21 @@ def vit_tiny(**kw) -> ViTConfig:
 
 def vit_base(**kw) -> ViTConfig:
     return ViTConfig(embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_base_singlechannel(**kw) -> ViTConfig:
+    """vit_base_patch16_singlechannel (models_vit.py:131-136): ViT-B with
+    in_chans=1."""
+    return ViTConfig(embed_dim=768, depth=12, num_heads=12, in_chans=1, **kw)
+
+
+def vit_large(**kw) -> ViTConfig:
+    return ViTConfig(embed_dim=1024, depth=24, num_heads=16, **kw)
+
+
+def vit_huge(**kw) -> ViTConfig:
+    return ViTConfig(patch_size=14, embed_dim=1280, depth=32, num_heads=16,
+                     **kw)
 
 
 @dataclass(frozen=True)
@@ -151,3 +167,30 @@ class PretrainConfig:
     # the MLM loss through the fused vocab-projection + CE kernels, the
     # logits never stored (the JAX package's opt-in ECAMP_FUSED_CE=1)
     fused_mlm_ce: bool = False
+
+
+@dataclass(frozen=True)
+class ClassificationConfig:
+    """Fine-tune / linear-probe classification (reference
+    Classification/train.py + run_{ft,lp}.sh); `ecamp_tpu.core.config.
+    ClassificationConfig` without `mesh`."""
+
+    vit: ViTConfig = field(default_factory=vit_base)
+    optimizer: OptimizerConfig = field(
+        default_factory=lambda: OptimizerConfig(
+            name="sgd", lr=3e-3, weight_decay=0.0,
+            schedule="warmup_cosine_step"))
+    data: DataConfig = field(
+        default_factory=lambda: DataConfig(mean=0.4722, std=0.3028))
+    task: str = "ChestX-ray14"
+    num_classes: int = 14
+    is_multilabel: bool = True   # BCE + AUC vs CE + ACC (train.py:118-121)
+    linear_probe: bool = False   # freeze all but head (train.py:156-159)
+    global_pool: bool = True
+    eval_every: int = 0          # 0 = every len(train_loader) steps
+    patience: int = 20
+    head_init_std: float = 2e-5  # trunc_normal_ head re-init (train.py:147)
+    pretrained: str = ""
+    seed: int = 42
+    bf16: bool = True
+    ckpt_dir: str = "checkpoints"

@@ -1,15 +1,18 @@
-"""The pretraining dataset (counterpart of `ecamp_tpu/data/datasets.py::
-PretrainReportDataset`; reference pretrain_datasets.py:34-239), read with
-the stdlib `csv` module. Samples are dicts of numpy arrays."""
+"""The pretraining and classification datasets (counterpart of
+`ecamp_tpu/data/datasets.py::PretrainReportDataset` and
+`ClassificationListDataset`; reference pretrain_datasets.py:34-239 and
+Classification/utils/dataset.py), read with the stdlib. Samples are dicts
+of numpy arrays."""
 
 from __future__ import annotations
 
 import csv
 import os
 import random
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
+from PIL import Image
 
 from .entity_masking import build_text_example
 from .tokenizer import WordPieceTokenizer
@@ -74,3 +77,48 @@ class PretrainReportDataset:
             image = image.astype(np.float32)
         return dict(text, image=image, column=np.int32(self.attn_i[i]),
                     row=np.int32(self.attn_j[i]))
+
+
+class ClassificationListDataset:
+    """XRAY list-file dataset. Split files live under
+    <list_root>/<task>/{train_list[_1|_10],val_list,test_list}.txt, one
+    sample a line: an image path relative to `image_root`, then its
+    integer label columns (multi-hot, or one class id)."""
+
+    def __init__(self, list_root: str, image_root: str, task: str,
+                 split: str = "train", data_volume: str = "100",
+                 transform=None):
+        names = {"train": {"1": "train_list_1.txt", "10": "train_list_10.txt",
+                           "100": "train_list.txt"}[data_volume],
+                 "val": "val_list.txt", "test": "test_list.txt"}
+        path = os.path.join(list_root, task, names[split])
+        self.samples: List[Tuple[str, np.ndarray]] = []
+        with open(path) as f:
+            for line in f:
+                items = line.split()
+                if items:
+                    self.samples.append(
+                        (os.path.join(image_root, items[0]),
+                         np.asarray([int(v) for v in items[1:]], np.float32)))
+        self.transform = transform
+
+    def reseed(self, epoch: int, worker_id: int) -> None:
+        """DataLoader worker protocol: the only stateful RNG here is the
+        train transform's crop/flip stream."""
+        if hasattr(self.transform, "reseed"):
+            self.transform.reseed(epoch, worker_id)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i) -> Dict[str, np.ndarray]:
+        path, label = self.samples[i]
+        with open(path, "rb") as f:
+            img = Image.open(f).convert("RGB")
+        if self.transform is not None:
+            img = self.transform(img)
+        else:
+            img = np.asarray(img, np.float32) / 255.0
+        if img.dtype != np.uint8:  # the u8 pipe keeps its wire dtype
+            img = img.astype(np.float32)
+        return {"image": img, "label": label}

@@ -2,13 +2,20 @@
 mode): a thread pool fetches and augments samples while the device
 computes, and yields stacked numpy batches in order.
 
-Each epoch is a seeded permutation (`default_rng(seed + epoch)`) cut to
-whole batches, the last partial one dropped. Worker w of K builds batches
-w, w+K, ... from its own shallow copy of the dataset, reseeded through the
-dataset's `reseed(epoch, w)`, so every batch is a pure function of (seed,
-epoch, K, batch index): the same run to run, and across a resume. One
-process only: the JAX package's multi-process sharding, worker processes
-and unshuffled or ragged-batch modes are not ported.
+With `shuffle` (training) each epoch is a seeded permutation
+(`default_rng(seed + epoch)`), else the identity order (evaluation); with
+`drop_last` the last partial batch is dropped, else it is yielded ragged.
+Worker w of K builds batches w, w+K, ... from its own shallow copy of the
+dataset, reseeded through the dataset's `reseed(epoch, w)`, so every batch
+is a pure function of (seed, epoch, K, batch index): the same run to run,
+and across a resume.
+
+Each worker puts its batches, in order, on a queue of its own that holds
+two, and the consumer takes batch i from the queue of worker i % K. A
+worker that runs ahead blocks on its own full queue, so at most K * 2
+batches wait in the queues and one more in each worker's hands, however
+slow one worker is. One process only: the JAX package's multi-process
+sharding and worker processes are not ported.
 """
 
 from __future__ import annotations
@@ -25,20 +32,27 @@ def default_collate(samples) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+QUEUE_SIZE = 2  # batches a worker may have waiting for the consumer
+
+
 class DataLoader:
-    def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 num_workers: int = 8):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, num_workers: int = 8,
+                 drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n, b = len(self.dataset), self.batch_size
+        return n // b if self.drop_last else -(-n // b)
 
     def _worker_dataset(self, wid: int):
         """A shallow copy (the image lists and tokenizer stay shared) whose
@@ -51,62 +65,54 @@ class DataLoader:
             d.reseed(self.epoch, wid)
         return d
 
+    def _indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.default_rng(self.seed + self.epoch).permutation(n)
+        return np.arange(n)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = np.random.default_rng(self.seed + self.epoch).permutation(
-            len(self.dataset))
+        idx = self._indices()
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
         if not batches:
             return
         K = self.num_workers
-        out_q: "queue.Queue" = queue.Queue(maxsize=2)
+        queues = [queue.Queue(maxsize=QUEUE_SIZE) for _ in range(K)]
         stop = threading.Event()
 
-        def put(item) -> bool:
+        def put(q, item) -> bool:
             # a bounded put that keeps checking `stop`, so an abandoned
             # iterator leaves no thread parked in q.put
             while not stop.is_set():
                 try:
-                    out_q.put(item, timeout=0.1)
+                    q.put(item, timeout=0.1)
                     return True
                 except queue.Full:
                     continue
             return False
 
         def work(wid: int) -> None:
+            q = queues[wid]
             try:
                 ds = self._worker_dataset(wid)
                 for bi in range(wid, len(batches), K):
-                    if not put((bi, default_collate([ds[i]
-                                                     for i in batches[bi]]))):
+                    if not put(q, default_collate([ds[i]
+                                                   for i in batches[bi]])):
                         return
-                put((-1, None))
             except BaseException as e:  # noqa: BLE001 - raised below
-                put((-2, e))
+                put(q, e)
 
         threads = [threading.Thread(target=work, args=(w,), daemon=True)
                    for w in range(K)]
         for t in threads:
             t.start()
         try:
-            buffered: Dict[int, Dict[str, np.ndarray]] = {}
-            nxt, done = 0, 0
-            while nxt < len(batches):
-                if nxt in buffered:
-                    yield buffered.pop(nxt)
-                    nxt += 1
-                    continue
-                if done == K:
-                    raise RuntimeError(
-                        f"DataLoader workers exited early: batch {nxt} of "
-                        f"{len(batches)} never arrived")
-                tag, payload = out_q.get()
-                if tag == -1:
-                    done += 1
-                elif tag == -2:
-                    raise RuntimeError("DataLoader worker failed") from payload
-                else:
-                    buffered[tag] = payload
+            for nxt in range(len(batches)):
+                batch = queues[nxt % K].get()
+                if isinstance(batch, BaseException):
+                    raise RuntimeError("DataLoader worker failed") from batch
+                yield batch
         finally:
             stop.set()
             for t in threads:

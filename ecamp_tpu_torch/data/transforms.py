@@ -5,6 +5,8 @@ package:
   pretrain (`TrainTransform`): RandomResizedCrop(448, scale=(0.2, 1))
       bicubic + HFlip + Grayscale(3) + Normalize(0.4721, 0.3037)
       (pretrain_datasets.py:47-52)
+  cls train (`TrainTransform`): RandomResizedCrop(224) bilinear + HFlip +
+      Grayscale(3) + Normalize(0.4722, 0.3028) on a decoded image
   cls eval (`EvalTransform`): Resize(img/ratio) + CenterCrop + Grayscale(3)
       + Normalize (Classification/utils/data_utils.py:29-34)
 
@@ -57,15 +59,15 @@ def sample_crop_box(width: int, height: int, rng: random.Random,
     return (j, i, j + w, i + h)
 
 
-def center_crop_resize(img: Image.Image, size: int,
-                       resize_to: int) -> Image.Image:
+def center_crop_resize(img: Image.Image, size: int, resize_to: int,
+                       interpolation: str = "bilinear") -> Image.Image:
     """Resize smaller edge to resize_to then center-crop size x size."""
     w, h = img.size
     if w < h:
         nw, nh = resize_to, int(round(h * resize_to / w))
     else:
         nh, nw = resize_to, int(round(w * resize_to / h))
-    img = img.resize((nw, nh), Image.BILINEAR)
+    img = img.resize((nw, nh), _INTERP[interpolation])
     left = (nw - size) // 2
     top = (nh - size) // 2
     return img.crop((left, top, left + size, top + size))
@@ -82,17 +84,25 @@ def normalize(arr: np.ndarray, mean: float, std: float) -> np.ndarray:
 
 
 class EvalTransform:
-    """Resize(size / 0.875, bilinear) + CenterCrop + Grayscale(3) +
-    Normalize, the JAX package's defaults."""
+    """Resize(size / crop_ratio) + CenterCrop + Grayscale(3) + Normalize.
+    With `output_u8`, the quantized u8 gray (size, size, 1), normalized on
+    the device (see `TrainTransform`)."""
 
-    def __init__(self, size: int, mean: float, std: float):
+    def __init__(self, size: int, mean: float, std: float,
+                 crop_ratio: float = 0.875, interpolation: str = "bilinear",
+                 output_u8: bool = False):
         self.size = size
-        self.resize_to = int(size / 0.875)
+        self.resize_to = int(size / crop_ratio)
         self.mean = mean
         self.std = std
+        self.interpolation = interpolation
+        self.output_u8 = output_u8
 
     def __call__(self, img: Image.Image) -> np.ndarray:
-        img = center_crop_resize(img, self.size, self.resize_to)
+        img = center_crop_resize(img, self.size, self.resize_to,
+                                 self.interpolation)
+        if self.output_u8:
+            return np.asarray(img.convert("L"))[..., None]
         return normalize(np.asarray(to_grayscale3(img)), self.mean, self.std)
 
 
@@ -147,6 +157,18 @@ class TrainTransform:
         if (sw, sh) != (w, h):
             sx, sy = sw / w, sh / h
             box = (box[0] * sx, box[1] * sy, box[2] * sx, box[3] * sy)
+        return self._emit(img, box, flip)
+
+    def __call__(self, img: Image.Image) -> np.ndarray:
+        """Transform a decoded image; the crop box is drawn, then the flip,
+        as in `load`."""
+        box = sample_crop_box(img.size[0], img.size[1], self.rng, self.scale)
+        flip = self.rng.random() < 0.5
+        return self._emit(img, box, flip)
+
+    def _emit(self, img: Image.Image, box, flip: bool) -> np.ndarray:
+        """Crop-resize to size x size, flip, then gray: u8 (size, size, 1)
+        or normalized fp32 (size, size, 3)."""
         pil = img.resize((self.size, self.size), _INTERP[self.interpolation],
                          box=box)
         if flip:

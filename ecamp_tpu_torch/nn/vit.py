@@ -88,8 +88,21 @@ class ViTClassifier(VisionTransformer):
         norm.reset_parameters(generator)
         self.head.reset_parameters(generator)
 
-    def forward(self, x, features_only: bool = False):
-        tokens = super().forward(x)
+    def forward(self, x, stop_trunk_grad: bool = False,
+                features_only: bool = False):
+        """x: (B, H, W, C) -> fp32 logits (B, num_classes), or with
+        `features_only` the pooled pre-head feature. `stop_trunk_grad` is
+        the linear probe's mode (train.py:156-159 freezes all but the head):
+        the trunk runs with its dropout and drop-path as the module's mode
+        says, but records no autograd graph, so only the norm and the head
+        receive gradients and the trunk's backward is never run. Its
+        LayerNorm and attention wrappers then launch their kernels without
+        an `autograd.Function`."""
+        if stop_trunk_grad:
+            with torch.no_grad():
+                tokens = super().forward(x)
+        else:
+            tokens = super().forward(x)
         if self.global_pool:
             feat = self.fc_norm(tokens[:, 1:, :].mean(dim=1))
         else:

@@ -1,5 +1,6 @@
-"""Pretraining losses (counterpart of `ecamp_tpu/ops/losses.py`), with the
-reference's reductions, documented quirks included, and fp32 sums."""
+"""Pretraining and classification losses (counterpart of
+`ecamp_tpu/ops/losses.py`), with the reference's reductions, documented
+quirks included, and fp32 sums."""
 
 from __future__ import annotations
 
@@ -43,3 +44,12 @@ def masked_pixel_losses(pred_img: torch.Tensor, imgs: torch.Tensor,
     res = torch.square(super_pred * sm - big_imgs.to(super_pred.dtype) * sm
                        ).mean(dtype=torch.float32)
     return mim, res
+
+
+def sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean BCE-with-logits over every element, in fp32 (classification
+    multilabel path, Classification/train.py:442-447)."""
+    x = logits.float()
+    t = targets.float()
+    per = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    return per.mean()

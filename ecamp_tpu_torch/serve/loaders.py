@@ -2,7 +2,8 @@
 `ecamp_tpu/serve/loaders.py::classifier_engine`).
 
 The other engines (segmentation, detection, embedding) are not ported yet
-(ROADMAP Queue 1); nor are orbax checkpoints or int8 weights.
+(ROADMAP Queue 1); nor are orbax checkpoints or int8 weights. The
+classifier serves the `.pth` that `cli/finetune_cls.py` writes.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ def classifier_engine(checkpoint: str = "", num_classes: int = 14,
         kind = "an orbax directory" if os.path.isdir(checkpoint) else "not a .pth"
         raise ValueError(
             f"checkpoint {checkpoint!r} is {kind}: the port loads reference "
-            f".pth files only; orbax checkpoints wait for the fine-tune CLIs "
-            f"(ROADMAP Queue 1, classification fine-tune)")
+            f".pth files only, as its fine-tune CLI writes them "
+            f"(best/checkpoint-best.pth); orbax checkpoints are not read")
     vcfg = vit or ViTConfig(img_size=img_size)
     dtype = policy(bf16).compute_dtype
     model = ViTClassifier(vcfg, num_classes, dtype=dtype,

@@ -1,2 +1,3 @@
-"""The pretraining step (counterpart of `ecamp_tpu/train/`): optimizer,
-schedules, train state and `PretrainTask`."""
+"""The training steps (counterpart of `ecamp_tpu/train/`): optimizer,
+schedules, train state, `PretrainTask`, `ClassificationTask` and the
+evaluation metrics."""

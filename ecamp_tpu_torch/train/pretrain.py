@@ -190,7 +190,7 @@ class PretrainTask:
         loss = out["mim_loss"] + out["res_loss"] + out["mlm_loss"]
         loss.backward()
         # the lr this update applies: the schedule at the cycle-start step
-        # (accumulation is not ported, so accum is 1 and this is the step)
+        # (the step itself while the CLI refuses --accum_iter > 1)
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule((state.step // accum) * accum)
         new_state = state.apply_gradients(self.tx)

@@ -1,13 +1,19 @@
-"""Where one pretraining step spends the card's time.
+"""Where one pretraining or fine-tune step spends the card's time.
 
     python -m ecamp_tpu_torch.train.profile_step [--batch 32] [--out FILE]
         [--fused_mlm_ce]
+    python -m ecamp_tpu_torch.train.profile_step --finetune [--batch 96]
+        [--linear_probe] [--out FILE]
 
 Builds the full-width `PretrainTask` (the ECAMP of `PretrainConfig()`,
 bf16 compute, AdamW at a constant lr; with `--fused_mlm_ce`, the MLM loss
 through the fused vocab-projection + CE kernels) with seeded weights and a
-seeded `synthetic_batch`, runs two warm-up steps, times five steps on the
-host clock, then runs one step under `torch.profiler`, and prints the
+seeded `synthetic_batch`, or with `--finetune` the `ClassificationTask` of
+the recipe cls_ft_ChestX-ray14_1 (ViT-B/16 at 224, 14 multilabel classes,
+bf16, SGD momentum 0.9, lr 3e-2 past its warmup, clip 1.0, drop-path 0.1;
+`--linear_probe` freezes all but the head) on a seeded u8 batch, runs two
+warm-up steps, times five steps on the host clock, then runs one step
+under `torch.profiler`, and prints the
 device time of that step by kernel group (the port's kernels, GEMMs,
 convolutions, copies, other elementwise), the top kernels by name, and the
 device's idle share of the median unprofiled step (the profiler itself
@@ -52,19 +58,69 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _pretrain_step(args, b, gen):
+    """One full-width pretraining step on a seeded batch, as a function of
+    no arguments returning its metrics."""
+    from ..core.config import OptimizerConfig, PretrainConfig
+    from .pretrain import PretrainTask, synthetic_batch
+
+    cfg = PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
+                                                   lr=1.5e-4), seed=args.seed,
+                         fused_mlm_ce=args.fused_mlm_ce)
+    task = PretrainTask(cfg, device="cuda")
+    batch = synthetic_batch(cfg, b, gen)
+    box = [task.init_state()]
+
+    def step():
+        box[0], m = task.train_step(box[0], batch)
+        return m
+
+    mlm = "fused CE" if args.fused_mlm_ce else "materialised logits"
+    return step, f"pretraining ({mlm})"
+
+
+def _finetune_step(args, b, gen):
+    """One fine-tune (or linear-probe) step of the recipe
+    cls_ft_ChestX-ray14_1 on a seeded u8 batch; the warmup is set to 0 so
+    that every step updates."""
+    import torch
+
+    from ..core import config as c
+    from .classification import ClassificationTask
+
+    cfg = c.ClassificationConfig(
+        vit=c.ViTConfig(drop_path_rate=0.1), linear_probe=args.linear_probe,
+        optimizer=c.OptimizerConfig(name="sgd", lr=3e-2, weight_decay=0.0,
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=3000,
+                                    grad_clip=1.0), seed=args.seed)
+    task = ClassificationTask(cfg, device="cuda")
+    images = torch.randint(0, 256, (b, 224, 224, 1), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = (torch.rand(b, cfg.num_classes, device="cuda", generator=gen)
+              < 0.3).float()
+    box = [task.init_state()]
+
+    def step():
+        box[0], m = task.train_step(box[0], images, labels)
+        return m
+
+    return step, "linear-probe" if args.linear_probe else "fine-tune"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="32 (pretraining) or 96 (--finetune)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--fused_mlm_ce", action="store_true")
+    ap.add_argument("--finetune", action="store_true")
+    ap.add_argument("--linear_probe", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from ..core.config import OptimizerConfig, PretrainConfig
-    from .pretrain import PretrainTask, synthetic_batch
 
     if not torch.cuda.is_available():
         print("profile_step needs a CUDA card", file=sys.stderr)
@@ -72,28 +128,27 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
-                                                   lr=1.5e-4), seed=args.seed,
-                         fused_mlm_ce=args.fused_mlm_ce)
-    task = PretrainTask(cfg, device="cuda")
-    b = args.batch
-    batch = synthetic_batch(cfg, b, torch.Generator(device="cuda")
-                            .manual_seed(args.seed + 1))
-    state = task.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    if args.finetune:
+        b = args.batch or 96
+        step, what = _finetune_step(args, b, gen)
+    else:
+        b = args.batch or 32
+        step, what = _pretrain_step(args, b, gen)
     for _ in range(2):
-        state, _ = task.train_step(state, batch)
+        step()
     torch.cuda.synchronize()
     times = []
     for _ in range(5):
         t = time.perf_counter()
-        state, _ = task.train_step(state, batch)
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     step_ms = sorted(times)[len(times) // 2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        state, m = task.train_step(state, batch)
+        m = step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_group: Dict[str, float] = {}
@@ -109,8 +164,7 @@ def main(argv=None) -> int:
         by_group[g] = by_group.get(g, 0.0) + us / 1e3
     busy = sum(by_group.values())
     kernels.sort(reverse=True)
-    mlm = "fused CE" if args.fused_mlm_ce else "materialised logits"
-    print(f"one pretraining step ({mlm}), B = {b}, on {card}: {step_ms:.3f} ms "
+    print(f"one {what} step, B = {b}, on {card}: {step_ms:.3f} ms "
           f"median of 5 on the host clock ({wall_ms:.3f} ms profiled), "
           f"device busy {busy:.3f} ms, idle share {1 - busy / step_ms:.3f}; "
           f"loss {float(m['loss']):.5f}")
@@ -121,7 +175,7 @@ def main(argv=None) -> int:
         print(f"  {ms:9.3f} {n:5d}  {name[:110]}")
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "batch": b, "mlm_loss": mlm,
+            json.dump({"card": card, "batch": b, "step": what,
                        "step_ms": times,
                        "profiled_step_ms": wall_ms,
                        "device_busy_ms": busy, "groups_ms": by_group,

@@ -603,3 +603,53 @@ def test_served_classifier_matches_plain_forward(cuda):
         logits = eng.model(torch.as_tensor(x, device=cuda).to(torch.bfloat16))
     want = torch.sigmoid(logits.float()).cpu().numpy()
     np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+@pytest.mark.parametrize("probe", [False, True], ids=["finetune", "probe"])
+def test_classification_step_on_card_matches_plain(cuda, probe):
+    """A width-768, depth-2 classifier step (bf16, drop-path 0.1, SGD with
+    clip) through the kernels against the same step through the plain
+    versions: LayerNorm 2 * 2 + 1 and attention 2 launches a step, loss
+    within 2e-2 and grad norm within 5%; the linear probe's trunk records
+    no graph (the kernels launch outside their autograd Functions) and
+    keeps its weights bit for bit."""
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.train.classification import ClassificationTask
+
+    cfg = c.ClassificationConfig(
+        vit=c.ViTConfig(depth=2, drop_path_rate=0.1), linear_probe=probe,
+        optimizer=c.OptimizerConfig(name="sgd", lr=3e-2, weight_decay=0.0,
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=50,
+                                    grad_clip=1.0))
+    task = ClassificationTask(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():  # spread the logits past the tiny head init
+        task.model.head.weight.normal_(0.0, 0.05, generator=gen)
+    init = {k: v.clone() for k, v in task.model.state_dict().items()}
+    x = torch.randint(0, 256, (8, 224, 224, 1), dtype=torch.uint8,
+                      device=cuda, generator=gen)
+    y = (torch.rand(8, 14, device=cuda, generator=gen) < 0.3).float()
+    out = {}
+    for plain in (False, True):
+        task.model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        ln_mod.launches.reset()
+        fa_mod.launches.reset()
+        state, m = task.train_step(state, x, y)
+        torch.cuda.synchronize()
+        assert (ln_mod.launches.value, fa_mod.launches.value) == (
+            (0, 0) if plain else (5, 2))
+        grads = [p.grad for p in task.model.parameters()
+                 if p.grad is not None]
+        if probe:
+            assert len(grads) == 4  # fc_norm and head
+        out[plain] = (float(m["loss"]), float(adamw_mod.global_norm(grads)))
+        after = task.model.state_dict()
+        for k, v in after.items():
+            same = torch.equal(v, init[k])
+            assert same == (probe and not k.startswith("head.")), k
+    (lk, gk), (lp, gp) = out[False], out[True]
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+    assert abs(gk - gp) <= 5e-2 * gp

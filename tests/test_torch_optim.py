@@ -111,13 +111,62 @@ def test_make_optimizer_adamw_and_refusals():
     tx = poptim.make_optimizer(pcfg.OptimizerConfig(grad_clip=1.0))
     assert isinstance(tx, fa.FusedAdamW) and tx.grad_clip == 1.0
     assert (tx.b1, tx.b2, tx.eps, tx.weight_decay) == (0.9, 0.95, 1e-8, 0.05)
-    for kw in ({"freeze_mask": {}}, {"lr_scales": {}}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            poptim.make_optimizer(pcfg.OptimizerConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        poptim.make_optimizer(pcfg.OptimizerConfig(accum_steps=2))
+    # the wrappers compose as the JAX package's chain: the scales after the
+    # optimizer, accumulation around them, the freeze mask outermost
+    tx = poptim.make_optimizer(pcfg.OptimizerConfig(accum_steps=2),
+                               freeze_mask={}, lr_scales={})
+    assert isinstance(tx, poptim.Masked)
+    assert isinstance(tx.inner, poptim.MultiSteps) and tx.inner.every_k == 2
+    assert isinstance(tx.inner.inner, poptim.LayerwiseScaled)
+    assert isinstance(tx.inner.inner.inner, fa.FusedAdamW)
     with pytest.raises(ValueError, match="unknown optimizer"):
         poptim.make_optimizer(pcfg.OptimizerConfig(name="lamb"))
+
+
+MASK = {k: k.startswith(("dense", "conv")) for k in SHAPES}
+SCALES = {k: 0.5 ** i for i, k in enumerate(SHAPES)}
+
+
+@pytest.mark.parametrize("name", ["sgd", "adamw"])
+@pytest.mark.parametrize("wrap", ["mask", "scales", "accum", "mask+accum",
+                                  "scales+accum", "accum+epoch_cosine"])
+def test_wrappers_match_optax(name, wrap):
+    """The freeze mask, layer-wise lr scales and accumulation (3 micro-steps
+    an update, 6 calls) around SGD and AdamW (its plain path, clip 1.0),
+    against the JAX package's make_optimizer (optax.multi_transform,
+    scale_by_layerwise_lr, optax.MultiSteps) on the same flat params. The
+    schedule moves with the step, so counting updates and not micro-steps
+    shows. (The JAX package cannot take a mask and scales together: its
+    scales tree does not match multi_transform's masked updates.)"""
+    kw = dict(name=name, lr=3e-2, weight_decay=0.05, grad_clip=1.0,
+              schedule="warmup_cosine_step", warmup_steps=2, total_steps=10,
+              accum_steps=3 if "accum" in wrap else 1)
+    extra = {"freeze_mask": MASK if "mask" in wrap else None,
+             "lr_scales": SCALES if "scales" in wrap else None}
+    if "epoch_cosine" in wrap:  # read at each cycle's first micro-step
+        kw.update(schedule="warmup_cosine_epoch", warmup_epochs=1.0)
+        extra.update(steps_per_epoch=2, max_epoch=3)
+    port = poptim.make_optimizer(pcfg.OptimizerConfig(**kw), **extra)
+    ref = joptim.make_optimizer(jcfg.OptimizerConfig(**kw), **extra)
+    params = _params()
+    ref_p = {k: jnp.asarray(v) for k, v in params.items()}
+    ref_s = ref.init(ref_p)
+    port_p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    state = port.init(port_p)
+    for step in range(6):
+        g = _grads(step)
+        upd, ref_s = ref.update({k: jnp.asarray(v) for k, v in g.items()},
+                                ref_s, ref_p)
+        ref_p = optax.apply_updates(ref_p, upd)
+        state = port.apply(port_p, {k: torch.from_numpy(v)
+                                    for k, v in g.items()}, state)
+        for k in SHAPES:
+            np.testing.assert_allclose(port_p[k].numpy(), np.asarray(ref_p[k]),
+                                       rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{k} after call {step}")
+    for k in SHAPES:
+        if extra["freeze_mask"] is not None and not MASK[k]:
+            np.testing.assert_array_equal(port_p[k].numpy(), params[k])
 
 
 def test_adamw_leaf_table_layout():
