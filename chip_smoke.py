@@ -72,7 +72,27 @@
    updates, patience 1: validation and test lines, the best `.pth`; (d)
    `classifier_engine` on that `.pth` against `ClassificationTask.eval_step`
    plus a sigmoid (2e-2).
-8. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
+8. The segmentation fine-tune at full width (SegViT: ViT-B/16 at 224,
+   seg_head, decoder 512/256/128/64, bf16, the encoder frozen; recipe
+   seg_SIIM_100: B = 512, AdamW lr 5e-4 wd 0.05, warmup 50 of 3000, clip
+   1.0), after the fine-tune: LayerNorm and attention against their plain
+   versions at (512 * 197, 768) and (512, 12, 197, 64); (a) the first
+   step through the kernels against the plain step (loss 2e-2, grad norm
+   5%, BatchNorm running statistics 2e-2), the AdamW kernel on the 20
+   trainable leaves against the per-leaf formula at count 50 (the end of
+   the warmup: every leaf moves), the device time of the
+   last decoder upsample, 5 steps on a fixed seeded batch (the loss
+   falls), 24 LayerNorm, 12 attention and 1 AdamW launches a step, the
+   trunk bit-unchanged and seg_head and the decoder changed, step time,
+   device busy and peak memory; (b) SegViTDual (RIGA, B = 56) for 3
+   steps, the same launches, both decoders changed; (c) `python -m
+   ecamp_tpu_torch.cli.finetune_seg --task SIIM` from the pretrain CLI's
+   checkpoint on a seeded SIIM corpus (PNGs at 512 px, RLE masks at 1024,
+   B = 32, eval batch 32, ragged), 2 epochs of updates, patience 1; (d)
+   `segmenter_engine` on its best `.pth` against
+   `SegmentationTask.eval_step` (2e-2) and one POST through the HTTP
+   server with task segmentation.
+9. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
    lines of the results, of every kernel shape timed and of the kernels
    and, last, the device line.
 
@@ -120,6 +140,15 @@ FT_PROBE_STEPS = 3
 FT_SPLITS = (192, 70, 70)  # the CLI's corpus: 2 updates an epoch at FT_B
 FT_EVAL_B = 32       # 70 = 2 * 32 + 6: a ragged last eval batch
 FT_IMG = 512         # the corpus's JPEG size
+# -- the segmentation fine-tune (recipe seg_SIIM_100; RIGA seg_RIGA_10) ----
+SEG_B = 512
+SEG_STEPS = 5        # steps of (a); all but the first are timed
+SEG_DUAL_B = 56
+SEG_DUAL_STEPS = 3
+SEG_SPLITS = (96, 70, 40)  # SIIM rows; train balances to ~2 x positives
+SEG_CLI_B = 32
+SEG_EVAL_B = 32      # 70 = 2 * 32 + 6: a ragged last eval batch
+SEG_IMG = 512        # the corpus's PNG size (masks stay RLE at 1024)
 
 
 class CheckFailed(RuntimeError):
@@ -226,7 +255,8 @@ def device_ms(fn, match: str = "", calls: int = 20, label: str = "",
     """Device time per call of `fn`: the time of the kernels whose name
     holds `match` (every kernel if empty), summed by torch.profiler over
     `calls` calls. Unlike `median_ms` it does not see the host's launch
-    rate. The profiler now and then records no kernel at all: after
+    rate. The profiler now and then records no kernel at all, or (with a
+    `match`, a kernel each call launches) fewer of them than calls: after
     PROFILER_TRIES such tries, a function that launches nothing on the
     card but what is measured (`alone`) is timed by `queued_ms` (and
     `label` joins BY_EVENTS); any other reads None, not measured."""
@@ -245,12 +275,17 @@ def device_ms(fn, match: str = "", calls: int = 20, label: str = "",
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages()
-                 if match in e.key)
-        if us > 0:
+        hits = [e for e in prof.key_averages() if match in e.key]
+        us = sum(_device_us(e) for e in hits)
+        seen = sum(e.count for e in hits if _device_us(e) > 0)
+        if us > 0 and (not match or seen >= calls):
             return us / calls / 1e3
-    what = f"'{label or match}': the profiler saw no kernel in " \
-        f"{PROFILER_TRIES} tries"
+        if us > 0:
+            print(f"  '{label or match}': the profiler recorded {seen} of "
+                  f"{calls} kernels ({us / seen / 1e3:.4f} ms each); session "
+                  f"refused")
+    what = f"'{label or match}': the profiler saw no kernel, or fewer " \
+        f"than one a call, in {PROFILER_TRIES} tries"
     if not alone:
         print(f"  {what}; device time not measured")
         return None
@@ -367,15 +402,17 @@ def _within(label, got, want, dtype, scaled: bool = False) -> float:
 
 def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
             per_pair: int = 10, oracle_fn=None, library_fn=None, match=None,
-            work=None, inputs=None, library_inputs=None) -> dict:
+            work=None, inputs=None, library_inputs=None,
+            events: bool = False) -> dict:
     """Run a kernel wrapper and its plain version on the same inputs; check
     every output at the tolerance of `dtype` (a tuple of outputs are
     gradients, checked relative to their scale) against `oracle_fn` if
     given, else the plain version; time both. `library_fn`, one PyTorch
     call that computes the same function (a yardstick the port never
     calls), is timed beside them; `match`, the kernel's name, adds the
-    profiler's device time of the kernel (and of the library call);
-    `work`, its (flops, bytes, type), adds its bound. With `inputs`, every
+    profiler's device time of the kernel (and of the library call), both
+    read by `queued_ms` instead if `events` or if the profiler failed
+    either; `work`, its (flops, bytes, type), adds its bound. With `inputs`, every
     function is one of those tensors (the library call's of
     `library_inputs` if given), and the kernel and the library call are
     timed on `rotated` copies of them. Returns what was measured:
@@ -407,11 +444,24 @@ def compare(label, kernel_fn, plain_fn, dtype, reps: int = TIMING_REPS,
         r["library_ms"] = median_ms(library_fn, reps, per_pair)
         line += f"  library {r['library_ms']:8.4f} ms"
     if match is not None:
-        r["device_ms"] = device_ms(timed_kernel, match, label=label)
-        line += f"  device {r['device_ms']:8.4f} ms"
+        lib_label = f"library {label}"
+        if events:
+            r["device_ms"] = queued_ms(timed_kernel)
+            BY_EVENTS.append(label)
+        else:
+            r["device_ms"] = device_ms(timed_kernel, match, label=label)
+        if library_fn is not None:  # timed as the kernel was
+            if label in BY_EVENTS:
+                r["library_device_ms"] = queued_ms(library_fn)
+                BY_EVENTS.append(lib_label)
+            else:
+                r["library_device_ms"] = device_ms(library_fn, label=lib_label)
+                if lib_label in BY_EVENTS:
+                    r["device_ms"] = queued_ms(timed_kernel)
+                    BY_EVENTS.append(label)
+        r["device_by"] = "queued events" if label in BY_EVENTS else "profiler"
+        line += f"  device {r['device_ms']:8.4f} ms ({r['device_by']})"
         if library_fn is not None:
-            r["library_device_ms"] = device_ms(library_fn,
-                                               label=f"library {label}")
             r["vs_library"] = r["device_ms"] / r["library_device_ms"]
             line += (f" (library {r['library_device_ms']:8.4f} ms, "
                      f"{r['vs_library']:.2f}x)")
@@ -432,9 +482,10 @@ def _sdpa(q, k, v, mask):
                                           scale=q.shape[-1] ** -0.5)
 
 
-def _attention_fwd(rows, label, q, k, v, bias, dtype):
+def _attention_fwd(rows, label, q, k, v, bias, dtype, events=False):
     """The attention forward at one shape: kernel against plain, with the
-    library call, device time and bound; its row joins `rows`."""
+    library call, device time (by queued events if `events`) and bound;
+    its row joins `rows`."""
     from ecamp_tpu_torch.kernels import flash_attention as fa
 
     b, h, nq, d = q.shape
@@ -443,12 +494,13 @@ def _attention_fwd(rows, label, q, k, v, bias, dtype):
                 library_fn=_sdpa, match="attention_fwd",
                 work=attention_work(b, h, nq, k.shape[2], d, q.element_size(),
                                     0 if bias is None else bias.numel()),
-                inputs=(q, k, v, bias), library_inputs=(q, k, v, mask))
+                inputs=(q, k, v, bias), library_inputs=(q, k, v, mask),
+                events=events)
     rows.append({"kernel": "attention", "shape": label, **r})
     return r
 
 
-def _layer_norm_fwd(rows, label, x, w, b, eps, dtype):
+def _layer_norm_fwd(rows, label, x, w, b, eps, dtype, events=False):
     """The LayerNorm forward at one shape, as `_attention_fwd`; the
     library call, `F.layer_norm`, takes its weight and bias in x's dtype
     (cast once, outside the call)."""
@@ -463,7 +515,8 @@ def _layer_norm_fwd(rows, label, x, w, b, eps, dtype):
                 work=layer_norm_work(x.shape[0], x.shape[1],
                                      x.element_size()),
                 inputs=(x, w, b, eps),
-                library_inputs=(x, w.to(x.dtype), b.to(x.dtype), eps))
+                library_inputs=(x, w.to(x.dtype), b.to(x.dtype), eps),
+                events=events)
     rows.append({"kernel": "layer_norm", "shape": label, **r})
     return r
 
@@ -1634,8 +1687,11 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     before, after, *rest = steps(FT_STEPS)
     result = {"batch": FT_B, "card": card, "loss_first_step": loss_k,
               "loss_plain_step": loss_p, "grad_norm": gnorm_k,
-              "grad_norm_plain": gnorm_p, "launches_a_step": per_step,
+              "grad_norm_plain": gnorm_p,
               "finetune": report("a", FT_STEPS, before, after, *rest)}
+    # the launches counted in (a)'s steps, a step
+    result["launches_a_step"] = {
+        k: v // FT_STEPS for k, v in result["finetune"]["launches"].items()}
     check(after < before, f"(a) the eval-mode loss did not fall: {before} "
           f"-> {after}")
 
@@ -1713,14 +1769,14 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     # (d) the serve engine on the best .pth against the task's eval step
     from PIL import Image
 
-    from ecamp_tpu_torch.ckpt import load_classifier_state, load_reference_pth
+    from ecamp_tpu_torch.ckpt import load_reference_pth, load_reference_state
     from ecamp_tpu_torch.data.transforms import EvalTransform
     from ecamp_tpu_torch.serve import classifier_engine
 
     engine = classifier_engine(best, num_classes=cfg.num_classes,
                                img_size=224, multilabel=True, buckets=(8,),
                                device="cuda")
-    load_classifier_state(model, load_reference_pth(best))
+    load_reference_state(model, load_reference_pth(best))
     et = EvalTransform(224, cfg.data.mean, cfg.data.std, crop_ratio=1.0)
     with open(os.path.join(data, cfg.task, "test_list.txt")) as f:
         paths = [os.path.join(data, line.split()[0]) for line in f][:5]
@@ -1735,6 +1791,434 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
           f"(d) served probabilities off by {err:.3e}")
     result.update(cli_seconds=cli_s, cli_log=recs, served_max_err=err)
     del task, model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def segmentation_kernel_phase(card: str, rows: list) -> dict:
+    """LayerNorm and attention forward at the frozen trunk's shapes in the
+    segmentation step (B = SEG_B, bf16: (B * 197, 768), (B, 12, 197, 64)),
+    each beside its library call and bound, both timed on the device by
+    queued events (the profiler dropped kernels of sessions at these
+    shapes); their rows join `rows`. Returns the rows by name."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b, dtype, main = SEG_B, torch.bfloat16, {}
+    print(f"kernels at the segmentation step's shapes (B = {b}, bf16) on "
+          f"{card}")
+    n = b * 197
+    x = (torch.randn(n, 768, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(768, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(768, device=dev, generator=gen)
+    main["layer_norm"] = _layer_norm_fwd(
+        rows, f"segmentation layer_norm fwd ({n}, 768) {dtype}", x, w, bias,
+        1e-6, dtype, events=True)
+    del x
+    q, k, v = (torch.randn(b, 12, 197, 64, device=dev, generator=gen)
+               .to(dtype) for _ in range(3))
+    main["attention"] = _attention_fwd(
+        rows, f"segmentation attention fwd ({b}, 12, 197, 64) {dtype}", q, k,
+        v, None, dtype, events=True)
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return main
+
+
+def _seg_batch(b, channels, gen):
+    """A seeded u8 gray batch (b, 224, 224, 1) whose masks are discs that
+    brighten the image, so the loss can fall: masks (b, 224, 224,
+    channels), RIGA's cup a disc inside the disc."""
+    import torch
+
+    dev = gen.device
+    yy, xx = torch.meshgrid(torch.arange(224, device=dev),
+                            torch.arange(224, device=dev), indexing="ij")
+    c = 40 + 144 * torch.rand(b, 2, 1, 1, device=dev, generator=gen)
+    r = 15 + 35 * torch.rand(b, 1, 1, device=dev, generator=gen)
+    d2 = (yy - c[:, 0]) ** 2 + (xx - c[:, 1]) ** 2
+    masks = [(d2 <= r ** 2).float()]
+    if channels == 2:
+        masks.append((d2 <= (0.5 * r) ** 2).float())
+    noise = 25 * torch.randn(b, 224, 224, device=dev, generator=gen)
+    img = (100 + noise + 70 * masks[0]).clamp(0, 255).to(torch.uint8)
+    return img[..., None], torch.stack(masks, dim=-1)
+
+
+def segmentation_phase(card: str, pretrained: str, work: str,
+                       ktimes: dict, rows: list) -> dict:
+    """The segmentation fine-tune at full width (module docstring, 8). The
+    masked AdamW's times join `ktimes` and `rows`."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
+    from ecamp_tpu_torch.train.segmentation import SegmentationTask
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def seg_cfg(task, lr, warmup, total):
+        return c.SegmentationConfig(
+            optimizer=c.OptimizerConfig(
+                name="adamw", lr=lr, weight_decay=0.05, betas=(0.9, 0.999),
+                schedule="warmup_cosine_step", warmup_steps=warmup,
+                total_steps=total, grad_clip=1.0),
+            task=task, seed=SEED)
+
+    cfg = seg_cfg("SIIM", 5e-4, 50, 3000)
+    depth = cfg.vit.depth
+    per_step = {"layer_norm": 2 * depth, "attention": depth, "adamw": 1}
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "adamw": adamw.launches}
+
+    def counts():
+        return {k: ctr.value for k, ctr in counters.items()}
+
+    def reset():
+        for ctr in counters.values():
+            ctr.reset()
+
+    t0 = time.perf_counter()
+    task = SegmentationTask(cfg, device="cuda")
+    model = task.model
+    mask = task.freeze_mask()
+    trainable = [k for k, keep in mask.items() if keep]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for k, p in model.named_parameters() if mask[k])
+    n_stats = sum(t.numel() for k, t in model.state_dict().items()
+                  if "running_" in k)
+    print(f"segmentation on {card}: SegViT ViT-B/16 224 px, decoder "
+          f"{cfg.decode_features}, {n_params} parameters, {n_train} "
+          f"trainable in {len(trainable)} leaves, {n_stats} BatchNorm "
+          f"statistics, B = {SEG_B}, bf16, AdamW lr 5e-4 wd 0.05 warmup 50 "
+          f"of 3000 clip 1.0, encoder frozen; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    images, masks = _seg_batch(SEG_B, 1, gen)
+
+    def stats():
+        return torch.cat([t.float().flatten() for k, t in
+                          model.state_dict().items() if "running_" in k])
+
+    def first_step(plain: bool):
+        model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        reset()
+        state, m = task.train_step(state, images, masks)
+        gnorm = adamw.global_norm([p.grad for k, p in
+                                   model.named_parameters() if mask[k]])
+        torch.cuda.synchronize()
+        return float(m["loss"]), float(gnorm), counts(), stats()
+
+    # (a) the first step through the kernels, then the plain versions
+    loss_k, gnorm_k, n_k, stats_k = first_step(False)
+    loss_p, gnorm_p, n_p, stats_p = first_step(True)
+    task.set_plain(False)
+    stats_err = float((stats_k - stats_p).abs().max())
+    stats_scale = max(1.0, float(stats_p.abs().max()))
+    print(f"  (a) first step: kernels loss {loss_k:.6g} grad norm "
+          f"{gnorm_k:.6g} launches {n_k}; plain loss {loss_p:.6g} grad norm "
+          f"{gnorm_p:.6g} launches {n_p}; BatchNorm statistics max |kernels "
+          f"- plain| {stats_err:.3e} (scale {stats_scale:.3g})")
+    check(np.isfinite(loss_k) and np.isfinite(gnorm_k), "non-finite step")
+    check(n_k == per_step, f"(a) launches {n_k} != {per_step}")
+    check(all(v == 0 for v in n_p.values()), f"plain step launched {n_p}")
+    check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
+          f"(a) loss {loss_k:.6g} vs plain {loss_p:.6g}")
+    check(abs(gnorm_k - gnorm_p) <= GNORM_TOL * gnorm_p,
+          f"(a) grad norm {gnorm_k:.6g} vs plain {gnorm_p:.6g}")
+    check(stats_err <= LOSS_TOL * stats_scale,
+          f"(a) BatchNorm statistics off by {stats_err:.3e}")
+
+    # the AdamW kernel on the masked leaves of that step against the
+    # per-leaf formula, at the count that ends the warmup: at count 0 the
+    # schedule's lr is 0 and no parameter would move
+    opt = task.tx.inner
+    params = {k: p for k, p in model.named_parameters() if mask[k]}
+    grads = {k: p.grad for k, p in params.items()}
+    state0 = opt.init(params)
+    state0.count.fill_(cfg.optimizer.warmup_steps)
+    lr = float(opt.schedule(state0.count))
+
+    def adamw_copy():
+        return ({k: p.detach().clone() for k, p in params.items()},
+                adamw.AdamWState(count=state0.count.clone(),
+                                 mu={k: t.clone() for k, t in
+                                     state0.mu.items()},
+                                 nu={k: t.clone() for k, t in
+                                     state0.nu.items()}))
+
+    pk, sk = adamw_copy()
+    opt.apply(pk, grads, sk)
+    opt.plain = True
+    pp, sp = adamw_copy()
+    opt.apply(pp, grads, sp)
+    torch.cuda.synchronize()
+    err, moved = 0.0, 0.0
+    check(lr > 0, f"segmentation adamw: lr {lr} at count "
+          f"{cfg.optimizer.warmup_steps}")
+    for k in pk:
+        for got, want in ((pk[k], pp[k]), (sk.mu[k], sp.mu[k]),
+                          (sk.nu[k], sp.nu[k])):
+            d = (got - want).abs()
+            check(bool((d <= 1e-6 * want.abs() + 1e-12).all()),
+                  f"segmentation adamw {k}: max |err| {float(d.max()):.3e}")
+        err = max(err, float((pk[k] - pp[k]).abs().max()))
+        # every leaf with a gradient moves, on both sides
+        dk = float((pk[k] - params[k]).abs().max())
+        dp = float((pp[k] - params[k]).abs().max())
+        check((dk > 0 and dp > 0) or not bool(grads[k].any()),
+              f"segmentation adamw {k}: no update (kernel {dk:.3e}, plain "
+              f"{dp:.3e})")
+        moved = max(moved, dk)
+    check(moved > 0, "segmentation adamw: no parameter moved")
+    opt.plain = False
+    adamw_times = {"max_abs_err": err, "lr": lr, "max_update": moved,
+                   "ms": median_ms(lambda: opt.apply(pk, grads, sk), 10, 2),
+                   "device_ms": device_ms(lambda: opt.apply(pk, grads, sk),
+                                          "adamw_multi", 5,
+                                          "segmentation adamw")}
+    opt.plain = True
+    adamw_times["plain_ms"] = median_ms(lambda: opt.apply(pp, grads, sp), 10,
+                                        2)
+    opt.plain = False
+    adamw_times["bound_ms"], adamw_times["bound_by"] = bound(
+        adamw_work(n_train))
+    adamw_times["leaves"] = len(params)
+    print(f"  segmentation adamw at count {cfg.optimizer.warmup_steps} (lr "
+          f"{lr:.3g}): max |update| {moved:.3e}")
+    print(f"  {'segmentation adamw, ' + str(n_train) + ' fp32 parameters':58s}"
+          f" max|err| {err:.3e}  kernel {adamw_times['ms']:8.4f} ms  plain "
+          f"{adamw_times['plain_ms']:8.4f} ms  device "
+          f"{adamw_times['device_ms']:8.4f} ms  bound "
+          f"{adamw_times['bound_ms']:8.4f} ms ({adamw_times['bound_by']})")
+    ktimes["adamw"] = adamw_times
+    rows.append({"kernel": "adamw", "shape": f"segmentation adamw masked "
+                 f"({len(params)} leaves, {n_train}) fp32", **adamw_times})
+    del pk, sk, pp, sp, state0
+
+    # one decoder upsample stage, the last: (B, 64, 112, 112) bf16
+    # channels_last -> 224, through fp32 as the JAX package computes it.
+    # Its device time is read by CUDA events around calls queued behind a
+    # held stream (`queued_ms`): its calls launch several kernels each, so
+    # `device_ms` could not tell a profiler session that dropped some
+    up_in = torch.randn(SEG_B, 112, 112, 64, device="cuda",
+                        generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
+    up_bytes = up_in.numel() * 2 * (1 + 4)
+    upsample = {"shape": "(512, 64, 112, 112) bf16 -> 224",
+                "ms": median_ms(lambda: upsample_align_corners(up_in, 2), 5,
+                                2),
+                "device_ms": queued_ms(lambda: upsample_align_corners(up_in,
+                                                                      2), 5),
+                "bound_ms": up_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
+    print(f"  decoder upsample stage 4 {upsample['shape']}: "
+          f"{upsample['ms']:.3f} ms (events), device "
+          f"{upsample['device_ms']:.3f} ms (queued events), bound "
+          f"{upsample['bound_ms']:.3f} ms (bytes) on {card}")
+    del up_in
+    torch.cuda.empty_cache()
+
+    def steps(t, start, imgs, msks, n, b):
+        """n steps of task t from the state dict `start` on a fixed batch,
+        counters set to 0 just before and read just after; the losses,
+        step times, launches, peak memory and the device busy time of one
+        more step (profiler)."""
+        t.model.load_state_dict(start)
+        state = t.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        losses, times = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, m = t.train_step(state, imgs, msks)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        box = [state]
+
+        def one_step():
+            box[0], _ = t.train_step(box[0], imgs, msks)
+
+        busy = device_ms(one_step, "", 3, "segmentation step", alone=False)
+        step_ms = float(np.median(times[1:]))
+        print(f"    train losses {[round(x, 5) for x in losses]}; launches "
+              f"{launches} in {n} steps; step {step_ms:.3f} ms median of "
+              f"steps 2-{n} (host clock, synchronised), "
+              f"{b / step_ms * 1e3:.2f} images/s, device busy {_ms(busy)} a "
+              f"step (profiler, 3 steps), peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB on {card}")
+        check(all(np.isfinite(losses)), "non-finite segmentation loss")
+        want = {k: v * n for k, v in per_step.items()}
+        check(launches == want, f"launches {launches} != {want}")
+        return {"losses": losses, "step_ms": times,
+                "step_ms_median": step_ms, "images_per_s": b / step_ms * 1e3,
+                "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
+                "launches": launches}
+
+    print(f"  (a) {SEG_STEPS} steps at B = {SEG_B}")
+    result = {"card": card, "batch": SEG_B, "parameters": n_params,
+              "trainable": n_train, "trainable_leaves": len(trainable),
+              "batch_norm_statistics": n_stats,
+              "loss_first_step": loss_k, "loss_plain_step": loss_p,
+              "grad_norm": gnorm_k, "grad_norm_plain": gnorm_p,
+              "batch_norm_stats_max_err": stats_err,
+              "upsample_stage4": upsample,
+              "siim": steps(task, init, images, masks, SEG_STEPS, SEG_B)}
+    # the launches counted in (a)'s steps, a step
+    result["launches_a_step"] = {
+        k: v // SEG_STEPS for k, v in result["siim"]["launches"].items()}
+    losses = result["siim"]["losses"]
+    check(losses[-1] < losses[0], f"(a) the loss did not fall: {losses}")
+
+    def changed(t, before):
+        now = t.model.state_dict()
+        for k, v in now.items():
+            trunk = k.startswith("encoder.") and not k.startswith(
+                "encoder.seg_head.")
+            same = torch.equal(v, before[k])
+            check(same == trunk, f"{k} {'unchanged' if same else 'changed'}")
+
+    changed(task, init)
+    print("  (a) trunk bit-unchanged, seg_head and decoder changed")
+    del task, model, images, masks, init, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) SegViTDual (RIGA) at B = SEG_DUAL_B
+    dtask = SegmentationTask(seg_cfg("RIGA", 5e-4, 15, 500), device="cuda")
+    dual_init = {k: v.detach().clone()
+                 for k, v in dtask.model.state_dict().items()}
+    n_dual = sum(p.numel() for p in dtask.model.parameters())
+    dmask = dtask.freeze_mask()
+    print(f"  (b) SegViTDual (RIGA): {n_dual} parameters, "
+          f"{sum(p.numel() for k, p in dtask.model.named_parameters() if dmask[k])}"
+          f" trainable in {sum(dmask.values())} leaves, {SEG_DUAL_STEPS} "
+          f"steps at B = {SEG_DUAL_B}")
+    dimgs, dmasks = _seg_batch(SEG_DUAL_B, 2, gen)
+    result["riga"] = steps(dtask, dual_init, dimgs, dmasks, SEG_DUAL_STEPS,
+                           SEG_DUAL_B)
+    result["riga"]["parameters"] = n_dual
+    changed(dtask, dual_init)
+    print("  (b) trunk bit-unchanged, both decoders changed")
+    del dtask, dual_init, dimgs, dmasks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI from the pretrain CLI's checkpoint on a seeded SIIM corpus
+    from ecamp_tpu_torch.data.datasets import SIIMSegmentationDataset
+    from ecamp_tpu_torch.data.synthetic import write_segmentation_corpus
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    data = write_segmentation_corpus(os.path.join(work, "siim"), "SIIM",
+                                     *SEG_SPLITS, seed=SEED,
+                                     img_size=SEG_IMG)
+    n_images = len(SIIMSegmentationDataset(data, data, "train"))
+    per_epoch = n_images // SEG_CLI_B
+    print(f"  (c) SIIM corpus {'/'.join(map(str, SEG_SPLITS))} rows, PNGs at "
+          f"{SEG_IMG} px, RLE masks at 1024, written in "
+          f"{time.perf_counter() - t0:.1f} s; {n_images} balanced training "
+          f"images, {per_epoch} updates an epoch at B = {SEG_CLI_B}")
+    check(per_epoch >= 1, "(c) the corpus fills no batch")
+    out = os.path.join(work, "seg_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_seg",
+           "--task", "SIIM", "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(SEG_CLI_B), "--eval_batch_size",
+           str(SEG_EVAL_B), "--lr", "5e-4", "--warmup_steps", "50",
+           "--num_steps", str(2 * per_epoch), "--patience", "1",
+           "--output_dir", out, "--seed", str(SEED)]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT)
+    check(r.returncode == 0, f"segmentation CLI exited {r.returncode}:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    cli_s = time.perf_counter() - t
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    printed = r.stdout
+    for line in printed.splitlines():
+        if line.startswith(("step ", "Epoch [", "TEST", pretrained,
+                            "loaded ")):
+            print(f"    {line}")
+    n_val = -(-SEG_SPLITS[1] // SEG_EVAL_B)
+    want = {k: per_step[k] * (per_epoch + n_val)
+            for k in ("layer_norm", "attention")}
+    vals = [rec for rec in recs if "step" in rec]
+    check([rec["step"] for rec in vals] == [per_epoch, 2 * per_epoch],
+          f"(c) validations at steps {[rec['step'] for rec in vals]}")
+    for rec in vals:
+        check(np.isfinite(rec["dice"]) and np.isfinite(rec["loss"]),
+              f"(c) non-finite validation {rec}")
+        check(rec["kernel_launches"] == want,
+              f"(c) launches {rec['kernel_launches']} != {want} (steps "
+              f"and a validation)")
+    # the trunk from the pretraining checkpoint: patch embedding, cls token
+    # and 12 tensors a block; pos_embed (a buffer in the port's ECAMP),
+    # seg_head and the decoder (4 x 6 + 2) stay at init
+    got = re.search(r": loaded (\d+) tensors, (\d+) left at init", printed)
+    check(got is not None and (int(got[1]), int(got[2])) == (
+        3 + 12 * depth, 1 + 2 + 4 * 6 + 2),
+        f"(c) pretrained load: {got and got[0]}")
+    check("TEST dice:" in printed and "test_dice" in recs[-1],
+          "(c) no test line")
+    best = os.path.join(out, "best", "checkpoint-best.pth")
+    check(os.path.exists(best), "(c) no best checkpoint")
+    print(f"  (c) CLI {cli_s:.1f} s: validations {vals}, test dice "
+          f"{recs[-1]['test_dice']:.4f}")
+
+    # (d) the serve engine on the best .pth against the task's eval step,
+    # then one POST through the HTTP server
+    from ecamp_tpu_torch.ckpt import load_reference_pth, load_reference_state
+    from ecamp_tpu_torch.serve import segmenter_engine
+    from ecamp_tpu_torch.serve.http_server import PredictionService, serve
+
+    engine = segmenter_engine(best, img_size=224, buckets=(8,),
+                              device="cuda")
+    etask = SegmentationTask(cfg, device="cuda")
+    load_reference_state(etask.model, load_reference_pth(best))
+    ds = SIIMSegmentationDataset(data, data, "test")
+    x = np.stack([ds[i]["image"] for i in range(5)])
+    served = engine(x)
+    want_p = etask.eval_step(None, torch.from_numpy(x).cuda()).cpu().numpy()
+    err = float(np.abs(served - want_p).max())
+    print(f"  (d) engine on the best .pth: {len(x)} test images, max |served "
+          f"- eval_step| {err:.3e}")
+    check(served.shape == want_p.shape == (5, 224, 224, 1) and err <= PROB_TOL,
+          f"(d) served masks off by {err:.3e}")
+    with open(ds.image_path(ds.img_ids[0]), "rb") as f:
+        body = {"image": base64.b64encode(f.read()).decode()}
+    service = PredictionService(engine, img_size=224, task="segmentation")
+    httpd = serve(service, port=0, background=True)
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        reply = _http(f"{base}/predict", body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    pred = reply["predictions"][0]
+    print(f"  (d) POST /predict with --task segmentation: {pred}")
+    check(set(pred) == {"area_fraction", "bbox_xyxy"}
+          and 0.0 <= pred["area_fraction"] <= 1.0, f"(d) reply {reply}")
+    result.update(cli_seconds=cli_s, cli_log=recs, served_max_err=err,
+                  http_reply=pred)
+    del etask, engine
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -1779,6 +2263,9 @@ def main() -> int:
         cli, ckpt = cli_phase(card, {k: v // PRE_STEPS
                                      for k, v in flaunches.items()}, work)
         finetune = finetune_phase(card, ckpt, work)
+        seg_kernels = segmentation_kernel_phase(card, shape_rows)
+        segmentation = segmentation_phase(card, ckpt, work, seg_kernels,
+                                          shape_rows)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1826,6 +2313,9 @@ def main() -> int:
             entry["serve_launches"] = serve_launches[name]
         if name in finetune["launches_a_step"]:  # a fine-tune step's
             entry["finetune_launches"] = finetune["launches_a_step"][name]
+        if name in segmentation["launches_a_step"]:  # a segmentation step's
+            entry["segmentation_launches"] = \
+                segmentation["launches_a_step"][name]
         if name == "fused_ce_fwd":  # the tile kernel and the merge
             entry["parts"] = {
                 k: {"launches_a_step": flaunches[
@@ -1852,6 +2342,8 @@ def main() -> int:
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
     print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))
+    print(json.dumps({"segmentation": segmentation,
+                      "segmentation_kernels": seg_kernels}))
     print(json.dumps({"fused_ce_mainloop":
                       main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))

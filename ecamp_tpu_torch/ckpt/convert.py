@@ -1,29 +1,34 @@
 """Weights into the port: the JAX param tree and reference `.pth` files.
 
-`state_dict_from_flax` maps a JAX `ViTClassifier` or `ECAMP` param tree
-onto the port's state dict by the rules of `ecamp_tpu/ckpt/torch_import.py
-::_default_key_fn` and `torch_export.py::_deconvert` and the namespace of
-`export_ecamp_pretrain` (reimplemented here; the port imports nothing of
-JAX): `blocks_i` -> `blocks.i` (so `decoder_blocks_i` ->
-`decoder_blocks.i`), BERT `layer_i` -> `encoder.layer.i`, the MLM head's
-`transform_*` / `decoder` -> `predictions.*`, `bert.*` ->
+`state_dict_from_flax` maps a JAX `ViTClassifier`, `ECAMP`, `SegViT` or
+`SegViTDual` param tree (and a `batch_stats` tree) onto the port's state
+dict by the rules of `ecamp_tpu/ckpt/torch_import.py::_default_key_fn` and
+`torch_export.py::_deconvert` and the namespaces of
+`export_ecamp_pretrain` and `export_seg_vit` (reimplemented here; the port
+imports nothing of JAX): `blocks_i` -> `blocks.i` (so `decoder_blocks_i`
+-> `decoder_blocks.i`), BERT `layer_i` -> `encoder.layer.i`, the MLM
+head's `transform_*` / `decoder` -> `predictions.*`, `bert.*` ->
 `bert_encoder.model.bert.*` and `bert.cls.*` -> `bert_encoder.model.cls.*`,
-`kernel` / `embedding` / `scale` -> `weight` with 2-D (in, out) ->
-(out, in) and 4-D HWIO -> OIHW, and the `trunk.` prefix dropped. The ECAMP
-sin-cos tables are buffers in the port and constants in JAX, so neither
-side has them as keys.
+the seg decoders' `decoder_i_conv` / `decoder_i_bn` -> `decoder_i.0` /
+`decoder_i.1`, `kernel` / `embedding` / `scale` -> `weight` with 2-D
+(in, out) -> (out, in) and 4-D HWIO -> OIHW, BatchNorm `mean` / `var` ->
+`running_mean` / `running_var`, and the `trunk.` prefix dropped (a
+`SegEncoder`'s `encoder.trunk.` becomes `encoder.`). The ECAMP sin-cos
+tables are buffers in the port and constants in JAX, so neither side has
+them as keys.
 
-`load_reference_pth` reads a reference classifier checkpoint the way
+`load_reference_pth` reads a reference checkpoint the way
 `ckpt/torch_import.py:173-179` does: unwrap `model` and `state_dict`, strip
-DDP `module.` prefixes. `import_vit_classifier` initialises a classifier
-from such a checkpoint, or from a pretraining one, by the JAX package's
-partial-load rule (`import_vit_classifier`, `_apply_state`).
+DDP `module.` prefixes; `load_reference_state` strict-loads it.
+`import_vit_classifier` and `import_seg_vit` initialise a classifier or a
+segmenter from such a checkpoint, or from a pretraining one, by the JAX
+package's partial-load rule (`_apply_state`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +37,8 @@ from torch import nn
 from ..nn.pos_embed import interpolate_pos_embed
 
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight",
-                  "embedding": "weight"}
+                  "embedding": "weight", "mean": "running_mean",
+                  "var": "running_var"}
 _MLM_HEAD = (("cls.transform_dense", "cls.predictions.transform.dense"),
              ("cls.transform_LayerNorm",
               "cls.predictions.transform.LayerNorm"),
@@ -53,6 +59,9 @@ def _key(path) -> str:
     joined = re.sub(r"layer_(\d+)", r"encoder.layer.\1", joined)
     for jax_name, torch_name in _MLM_HEAD:
         joined = joined.replace(jax_name, torch_name)
+    joined = re.sub(r"decoder_(\d+)_conv", r"decoder_\1.0", joined)
+    joined = re.sub(r"decoder_(\d+)_bn", r"decoder_\1.1", joined)
+    joined = re.sub(r"^encoder\.trunk(\.|$)", r"encoder\1", joined)
     if joined.startswith("trunk."):
         joined = joined[len("trunk."):]
     elif joined == "trunk":
@@ -75,12 +84,23 @@ def _value(leaf: str, v) -> np.ndarray:
     return np.ascontiguousarray(v)
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX `ViTClassifier` or `ECAMP` params (`variables["params"]`, a
-    tree of arrays) -> the port's state dict of the same model (fp32 CPU
-    tensors). A gradient tree maps the same way."""
-    return {_key(path): torch.tensor(_value(path[-1], v))
-            for path, v in _flatten(params)}
+def state_dict_from_flax(params: Mapping[str, Any],
+                         batch_stats: Optional[Mapping[str, Any]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX params (`variables["params"]`, a tree of arrays) -> the port's
+    state dict of the same model (fp32 CPU tensors). A gradient tree maps
+    the same way. With `batch_stats`, each BatchNorm's running mean and
+    variance join it, and its `num_batches_tracked` (a torch buffer that
+    flax does not keep) reads 0."""
+    out = {_key(path): torch.tensor(_value(path[-1], v))
+           for path, v in _flatten(params)}
+    for path, v in _flatten(batch_stats or {}):
+        key = _key(path)
+        out[key] = torch.tensor(_value(path[-1], v))
+        if path[-1] == "mean":
+            out[key[:-len("running_mean")] + "num_batches_tracked"] = \
+                torch.zeros((), dtype=torch.long)
+    return out
 
 
 def _model_state(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
@@ -92,47 +112,51 @@ def _model_state(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
-    """A reference classifier `.pth` as a flat state dict (fp32)."""
+    """A reference `.pth` as a flat state dict (fp32)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return {k: torch.as_tensor(v).float()
             for k, v in _model_state(ckpt).items()}
 
 
-def load_classifier_state(model: nn.Module,
-                          state: Mapping[str, torch.Tensor]) -> nn.Module:
-    """Strict-load `state` into a port `ViTClassifier`; a `pos_embed` from
-    another patch grid is bicubic-resized to the model's grid first."""
+def load_reference_state(model: nn.Module,
+                         state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Strict-load a reference-namespace `state` into a port model (a
+    `ViTClassifier`, `SegViT` or `SegViTDual`): a `pos_embed` from another
+    patch grid is bicubic-resized to the model's grid first, and a
+    BatchNorm `num_batches_tracked` that the file lacks (the JAX package's
+    `export_seg_vit` writes none) keeps the model's."""
     state = dict(state)
-    pe = state.get("pos_embed")
-    if pe is not None and pe.shape != model.pos_embed.shape:
-        state["pos_embed"] = interpolate_pos_embed(pe,
-                                                   model.cfg.grid_size)
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            state.setdefault(k, v)
+        elif (k.endswith("pos_embed") and k in state
+              and state[k].shape != v.shape):
+            state[k] = interpolate_pos_embed(state[k], model.cfg.grid_size)
     model.load_state_dict(state, strict=True)
     return model
 
 
-def import_vit_classifier(model: nn.Module, path: str
-                          ) -> Tuple[List[str], List[str]]:
-    """Initialise a port `ViTClassifier` from a reference `.pth` (a
-    fine-tuned classifier or a pretraining checkpoint), as the JAX package's
-    `import_vit_classifier` does (`ecamp_tpu/ckpt/torch_import.py:130-170,
-    205-215`): after unwrapping and stripping `module.`, each parameter of
-    the model is looked up by its name (the JAX package maps its `trunk.`
-    subtree to these top-level names); an entry whose shape matches is
-    copied; a 3-D `pos_embed` of the same width from another patch grid
-    is bicubic-resized to the model's grid; any other mismatch, `head.*`
-    of another width included, keeps the init. A pretraining checkpoint
-    of the port holds no `pos_embed` (a buffer there), so the
-    classifier's stays at init, as in the JAX package. Returns (loaded
-    names, names left at init)."""
-    state = load_reference_pth(path)
+def _load_matching(model: nn.Module, state: Mapping[str, torch.Tensor],
+                   source: Callable[[str], Optional[str]]
+                   ) -> Tuple[List[str], List[str]]:
+    """The JAX package's partial load (`_apply_state`): each entry of the
+    model's state dict is looked up in `state` under `source(name)` (None:
+    left at init); an entry whose shape matches is copied, a 3-D
+    `pos_embed` of the same width from another patch grid is
+    bicubic-resized to the model's grid, any other mismatch keeps the
+    init. BatchNorm `num_batches_tracked` counters, which flax does not
+    keep, are neither loaded nor listed. Returns (loaded names, names left
+    at init)."""
     loaded, missing = [], []
     with torch.no_grad():
         for name, p in model.state_dict().items():
-            src = state.get(name)
+            if name.endswith("num_batches_tracked"):
+                continue
+            key = source(name)
+            src = None if key is None else state.get(key)
             if src is not None and tuple(src.shape) != tuple(p.shape):
-                if (name == "pos_embed" and src.ndim == 3 and p.ndim == 3
-                        and src.shape[-1] == p.shape[-1]):
+                if (name.endswith("pos_embed") and src.ndim == 3
+                        and p.ndim == 3 and src.shape[-1] == p.shape[-1]):
                     src = interpolate_pos_embed(
                         src, int(round((p.shape[1] - 1) ** 0.5)))
                 if tuple(src.shape) != tuple(p.shape):
@@ -143,3 +167,50 @@ def import_vit_classifier(model: nn.Module, path: str
             p.copy_(src.to(p.dtype))
             loaded.append(name)
     return loaded, missing
+
+
+def import_vit_classifier(model: nn.Module, path: str
+                          ) -> Tuple[List[str], List[str]]:
+    """Initialise a port `ViTClassifier` from a reference `.pth` (a
+    fine-tuned classifier or a pretraining checkpoint), as the JAX package's
+    `import_vit_classifier` does (`ecamp_tpu/ckpt/torch_import.py:130-170,
+    205-215`): after unwrapping and stripping `module.`, each parameter of
+    the model is looked up by its name (the JAX package maps its `trunk.`
+    subtree to these top-level names) and loaded by `_load_matching`, so
+    `head.*` of another width keeps the init. A pretraining checkpoint of
+    the port holds no `pos_embed` (a buffer there), so the classifier's
+    stays at init, as in the JAX package. Returns (loaded names, names
+    left at init)."""
+    return _load_matching(model, load_reference_pth(path), lambda n: n)
+
+
+def import_seg_vit(model: nn.Module, path: str, from_pretrain: bool = True,
+                   flavor: str = "ecamp") -> Tuple[List[str], List[str]]:
+    """Initialise a port `SegViT` or `SegViTDual` from a reference `.pth`,
+    as the JAX package's `import_seg_vit` does (`ecamp_tpu/ckpt/
+    torch_import.py:218-245`, convention 3): with `from_pretrain` only the
+    trunk, found in a pretraining checkpoint without its `encoder.` prefix
+    (`seg_head` and the decoders keep their init); otherwise a fine-tuned
+    SegViT's every parameter and BatchNorm statistic under its own name;
+    both by `_load_matching`. `flavor` is the RIGA baselines' convention
+    (train_RIGA.py:110-138): 'ecamp', or 'gloria', whose keys carry a
+    `gloria.img_encoder.model.` prefix that is stripped first ('random'
+    loads nothing and never reaches here). Returns (loaded names, names
+    left at init)."""
+    state = load_reference_pth(path)
+    if flavor == "gloria":
+        pre = "gloria.img_encoder.model."
+        state = {k[len(pre):]: v for k, v in state.items()
+                 if k.startswith(pre)}
+    elif flavor != "ecamp":
+        raise ValueError(f"unknown checkpoint flavor {flavor!r}")
+
+    def source(name: str) -> Optional[str]:
+        if not from_pretrain:
+            return name
+        if name.startswith("encoder.") and not name.startswith(
+                "encoder.seg_head."):
+            return name[len("encoder."):]
+        return None
+
+    return _load_matching(model, state, source)

@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ..ckpt.convert import load_classifier_state, load_reference_pth
+from ..ckpt.convert import load_reference_pth, load_reference_state
 from ..core import config as cfg
 from ..core.metrics import JsonlLogger, MetricLogger
 from ..data.assets import resolve_list_root
@@ -267,7 +267,7 @@ def main(argv=None):
 
     # test phase: reload the best model, per-class report (train.py:267-361)
     if os.path.exists(best_path):
-        load_classifier_state(task.model, load_reference_pth(best_path))
+        load_reference_state(task.model, load_reference_pth(best_path))
         print(f"loaded {best_path}")
     metrics = evaluate(task, state, eval_loader("test"))
     if multilabel:

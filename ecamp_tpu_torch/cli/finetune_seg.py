@@ -1,0 +1,238 @@
+"""Segmentation fine-tune entry point of the port (counterpart of
+`ecamp_tpu/cli/finetune_seg.py`; reference Segmentation/run.sh + train.py
+/ train_RIGA.py), on one CUDA card:
+
+python -m ecamp_tpu_torch.cli.finetune_seg \\
+  --task SIIM --dataset_path /data/siim --pretrained ECAMP.pth \\
+  --batch_size 512 --lr 5e-4 --warmup_steps 50 --num_steps 3000 \\
+  --output_dir ./out
+
+SIIM images are `<dataset_path>/train/images/1024/dicom/<ImageId>.png`,
+RSNA and RIGA images (and RIGA's masks) `<dataset_path>/<path in the
+list>`; the split lists come from `--list_path`, else
+`<dataset_path>/<task>/`, else the ones shipped in the repository
+(`data/assets.py`). AdamW with a step warmup-cosine schedule and the mixed
+loss train `seg_head` and the decoder(s) of a frozen encoder. It validates
+every epoch's worth of optimizer steps (`len(train_loader) // accum`),
+stops early after `--patience` validations without a better dice, writes
+the best model to `<output_dir>/best/checkpoint-best.pth` as `{"model":
+state_dict}` in the reference namespace (what `cli/serve.py --task
+segmentation --checkpoint` serves), then reloads it and prints `TEST
+dice:`. `<output_dir>/log.txt` gets the JAX CLI's JSON lines (`step`,
+`dice`, `best` a validation, with the mean training loss and the
+LayerNorm and attention launches since the last one; `test_dice`).
+`--device cuda` (the default) needs a card; `--device cpu` runs the
+kernels' plain versions.
+
+A training split too small for one batch raises: the JAX CLI's loop would
+wait forever for a step (SIIM's 1% and 10% lists balance to 50 and 444
+images, under the recipes' 512 and 1024).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..ckpt.convert import load_reference_pth, load_reference_state
+from ..core import config as cfg
+from ..core.metrics import JsonlLogger, MetricLogger
+from ..data.assets import resolve_list_root
+from ..data.datasets import (RIGASegmentationDataset, RSNASegmentationDataset,
+                             SIIMSegmentationDataset)
+from ..data.loader import DataLoader
+from ..kernels import flash_attention, layer_norm
+from ..train.segmentation import SegmentationTask
+from .common import EarlyStopper, add_common_args, setup_output
+from .finetune_cls import (BEST, _VIT_FACTORY, refuse_what_is_not_ported,
+                           save_best)
+
+DATASETS = {"SIIM": SIIMSegmentationDataset, "RSNA": RSNASegmentationDataset,
+            "RIGA": RIGASegmentationDataset}
+
+# the launch counters each validation's log line reports
+_COUNTERS = {"layer_norm": layer_norm.launches,
+             "attention": flash_attention.launches}
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser("ecamp_tpu_torch finetune segmentation")
+    add_common_args(p)
+    p.add_argument("--task", default="SIIM", choices=sorted(DATASETS))
+    p.add_argument("--dataset_path", required=True)
+    p.add_argument("--list_path", default="",
+                   help="dir with <task>/{train,val,test}_list*.csv "
+                        "(defaults to dataset_path)")
+    p.add_argument("--img_size", type=int, default=224)
+    p.add_argument("--model", default="base",
+                   choices=sorted(_VIT_FACTORY) + ["resnet50"],
+                   help="ViT variant; 'resnet50' (the UNet baseline) is "
+                        "not ported")
+    p.add_argument("--decode_features", default="512,256,128,64",
+                   help="conv-decoder channel widths (reference SegViT "
+                        "decode_features, models_vit.py:70-106)")
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--weight_decay", type=float, default=0.05)
+    p.add_argument("--warmup_steps", type=int, default=50)
+    p.add_argument("--num_steps", type=int, default=3000)
+    p.add_argument("--patience", type=int, default=40)
+    p.add_argument("--eval_batch_size", type=int, default=64)
+    p.add_argument("--max_grad_norm", type=float, default=1.0,
+                   help="global grad-norm clip, every step "
+                        "(Segmentation/train.py:388,465); <=0 disables")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1,
+                   help="micro-batch = batch_size//accum; the optimizer "
+                        "steps once per accum micro-batches")
+    p.add_argument("--no_freeze_encoder", action="store_true")
+    p.add_argument("--name", default="ecamp",
+                   choices=["ecamp", "gloria", "random"],
+                   help="pretrained-checkpoint convention of the RIGA "
+                        "baselines (train_RIGA.py:110-138); random skips "
+                        "loading")
+    p.add_argument("--stage", default="train", choices=["train", "test"])
+    p.add_argument("--u8_pipe", action="store_true",
+                   help="ship images as quantized u8 (1-ch gray for "
+                        "SIIM/RSNA, 3-ch for RIGA) and normalize on the "
+                        "device")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; needs a card) or cpu")
+    return p.parse_args(argv)
+
+
+def evaluate(task: SegmentationTask, state, loader) -> float:
+    """Mean per-sample dice over one pass of an unshuffled loader (RIGA:
+    the mean of disc and cup, train_RIGA.py:264-327); the ragged last
+    batch runs as it is."""
+    dices = []
+    for batch in loader:
+        probs = task.eval_step(state, task.put(batch["image"]))
+        mask = batch["mask"]
+        if task.dual:
+            disc, cup = (p.cpu().numpy()[..., 0] for p in probs)
+            dices.append((task.compute_dice(disc, mask[..., 0])
+                          + task.compute_dice(cup, mask[..., 1])) / 2.0)
+        else:
+            dices.append(task.compute_dice(probs.cpu().numpy()[..., 0],
+                                           mask[..., 0]))
+    return float(np.concatenate(dices).mean())
+
+
+def main(argv=None):
+    args = get_args(argv)
+    refuse_what_is_not_ported(args)
+    if args.model == "resnet50":
+        raise NotImplementedError("--model resnet50 (the UNet baseline) is "
+                                  "not ported to ecamp_tpu_torch (ROADMAP "
+                                  "Queue 1, item 10b)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
+                           "runs the kernels' plain versions)")
+    setup_output(args.output_dir, args)
+    list_path = resolve_list_root(args.list_path, args.dataset_path,
+                                  "Segmentation",
+                                  f"{args.task}/test_list.csv")
+    ds_cls = DATASETS[args.task]
+    accum = max(1, args.gradient_accumulation_steps)
+    scfg = cfg.SegmentationConfig(
+        vit=_VIT_FACTORY[args.model](img_size=args.img_size),
+        decode_features=tuple(int(x) for x
+                              in args.decode_features.split(",")),
+        optimizer=cfg.OptimizerConfig(
+            name="adamw", lr=args.lr, weight_decay=args.weight_decay,
+            betas=(0.9, 0.999), schedule="warmup_cosine_step",
+            warmup_steps=args.warmup_steps, total_steps=args.num_steps,
+            grad_clip=(args.max_grad_norm if args.max_grad_norm > 0
+                       else None),
+            accum_steps=accum),
+        task=args.task, freeze_encoder=not args.no_freeze_encoder,
+        patience=args.patience, bf16=not args.no_bf16, seed=args.seed,
+        data=cfg.DataConfig(img_size=args.img_size, mean=0.4722, std=0.3028))
+    task = SegmentationTask(scfg, device=device)
+    state = task.init_state(pretrained=args.pretrained, flavor=args.name)
+    best_path = os.path.join(args.output_dir, BEST)
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+
+    def make_ds(split):
+        return ds_cls(list_path, args.dataset_path, split,
+                      img_size=args.img_size, data_volume=args.data_volume,
+                      seed=args.seed, output_u8=args.u8_pipe)
+
+    def eval_loader(split):
+        return DataLoader(make_ds(split), args.eval_batch_size,
+                          shuffle=False, seed=args.seed,
+                          num_workers=args.num_workers, drop_last=False)
+
+    if args.stage == "train":
+        # micro-batch = batch // accum (reference train.py:308)
+        train_ds = make_ds("train")
+        micro_bs = max(1, args.batch_size // accum)
+        train_loader = DataLoader(train_ds, micro_bs, shuffle=True,
+                                  seed=args.seed,
+                                  num_workers=args.num_workers)
+        if len(train_loader) == 0:
+            raise ValueError(
+                f"the {args.task} training split holds {len(train_ds)} "
+                f"images, fewer than one micro-batch of {micro_bs}: an "
+                f"epoch would have no step (the JAX CLI waits forever "
+                f"here); lower --batch_size")
+        val_loader = eval_loader("val")
+        stopper = EarlyStopper(args.patience, mode="max")
+        eval_every = max(1, len(train_loader) // accum)
+        step = micro = epoch = 0
+        logger = MetricLogger()
+        launches = {k: c.value for k, c in _COUNTERS.items()}
+        pending = None  # read a step's metrics once the next is issued
+        while step < args.num_steps and not stopper.should_stop:
+            train_loader.set_epoch(epoch)
+            t0, n0 = time.perf_counter(), micro
+            for batch in train_loader:
+                state, m = task.train_step(state, task.put(batch["image"]),
+                                           task.put(batch["mask"]))
+                if pending is not None:
+                    logger.update(**pending)
+                pending = m
+                micro += 1
+                if micro % accum != 0:
+                    continue  # the optimizer updates every accum micro-steps
+                step += 1
+                if step % eval_every != 0:
+                    continue
+                logger.update(**pending)
+                pending = None
+                dice = evaluate(task, state, val_loader)
+                is_best = stopper.update(dice)
+                now = {k: c.value for k, c in _COUNTERS.items()}
+                jsonl.write({"step": step, "dice": dice,
+                             "best": stopper.best,
+                             "loss": logger.meters["loss"].global_avg,
+                             "kernel_launches": {k: now[k] - launches[k]
+                                                 for k in now}})
+                launches = now
+                print(f"step {step}: val dice={dice:.4f} "
+                      f"(best {stopper.best:.4f})", flush=True)
+                if is_best:
+                    save_best(best_path, task.model)
+                if stopper.should_stop or step >= args.num_steps:
+                    break
+            dt, dn = time.perf_counter() - t0, micro - n0
+            if dn > 0:
+                print(f"Epoch [{epoch}]  Total time: {dt:.1f}s "
+                      f"({dt / dn:.4f} s/it)", flush=True)
+            epoch += 1
+
+    if os.path.exists(best_path):
+        load_reference_state(task.model, load_reference_pth(best_path))
+        print(f"loaded {best_path}")
+    dice = evaluate(task, state, eval_loader("test"))
+    print(f"TEST dice: {dice:.4f}")
+    jsonl.write({"test_dice": dice})
+    return dice
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,11 @@
 """Inference entry point of the port: HTTP serving or offline batch
-prediction of the ViT classifier on one CUDA card.
+prediction of the ViT classifier or the SegViT segmenter on one CUDA card.
 
   # HTTP server (stdlib, JSON/base64)
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
       --checkpoint cls.pth --port 8000
+  python -m ecamp_tpu_torch.cli.serve --task segmentation [--dual] \\
+      --checkpoint seg.pth --port 8000
 
   # offline batch: folder or list file -> JSONL of predictions
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
@@ -24,7 +26,6 @@ import torch
 
 # what each option of the JAX CLI that is not ported waits for
 _NOT_PORTED = {
-    "segmentation": "ROADMAP Queue 1, segmentation",
     "detection": "ROADMAP Queue 1, detection",
     "embedding": "ROADMAP Queue 1, ECAMP model",
     "int8": "ROADMAP Queue 1, serving + export (serve/quantize.py)",
@@ -37,7 +38,10 @@ def get_args(argv=None):
                    choices=["classification", "segmentation", "detection",
                             "embedding"])
     p.add_argument("--checkpoint", default="",
-                   help="reference classifier .pth (random init if empty)")
+                   help="reference classifier or SegViT .pth (random init "
+                        "if empty)")
+    p.add_argument("--dual", action="store_true",
+                   help="RIGA dual-decoder segmentation")
     p.add_argument("--num_classes", type=int, default=14)
     p.add_argument("--multilabel", action="store_true", default=True)
     p.add_argument("--singlelabel", dest="multilabel", action="store_false")
@@ -62,9 +66,9 @@ def get_args(argv=None):
 
 
 def build_engine(args):
-    from ..serve import classifier_engine
+    from ..serve import classifier_engine, segmenter_engine
 
-    if args.task != "classification":
+    if args.task in _NOT_PORTED:
         raise SystemExit(f"--task {args.task} is not ported yet "
                          f"({_NOT_PORTED[args.task]})")
     if args.quantize:
@@ -79,6 +83,8 @@ def build_engine(args):
           "device": device}
     if args.buckets:
         kw["buckets"] = tuple(args.buckets)
+    if args.task == "segmentation":
+        return segmenter_engine(dual=args.dual, **kw)
     return classifier_engine(num_classes=args.num_classes,
                              multilabel=args.multilabel, **kw)
 
@@ -104,6 +110,7 @@ def batch_predict(args, engine):
     from PIL import Image
 
     from ..data.transforms import EvalTransform
+    from ..serve.http_server import _summarize_mask
 
     et = EvalTransform(args.img_size, args.mean, args.std)
     paths = list(iter_paths(args.images))
@@ -112,6 +119,10 @@ def batch_predict(args, engine):
             chunk = paths[i:i + args.batch_size]
             xs = np.stack([et(Image.open(p).convert("RGB")) for p in chunk])
             for path, pred in zip(chunk, engine(xs)):
+                if args.task == "segmentation":
+                    out.write(json.dumps({"path": path,
+                                          **_summarize_mask(pred)}) + "\n")
+                    continue
                 rec = {"probs": pred.tolist()}
                 if args.class_names:
                     rec["labels"] = {n: float(v) for n, v in
@@ -134,7 +145,7 @@ def main(argv=None):
 
     service = PredictionService(engine, img_size=args.img_size,
                                 mean=args.mean, std=args.std,
-                                class_names=args.class_names)
+                                class_names=args.class_names, task=args.task)
     serve(service, host=args.host, port=args.port)
 
 

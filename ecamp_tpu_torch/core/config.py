@@ -1,10 +1,10 @@
 """Configuration tree, field for field the same as `ecamp_tpu.core.config`.
 
 Ported: `ViTConfig` and its factories, `BertConfig`, `MAEDecoderConfig`,
-`OptimizerConfig`, `DataConfig`, `PretrainConfig` and
-`ClassificationConfig`. Left out: `MeshConfig` (the GSPMD data/model mesh,
-TPU-only; ROADMAP "Not ported"), and with it the configs' `mesh` fields.
-The segmentation and detection configs follow with their tasks.
+`OptimizerConfig`, `DataConfig`, `PretrainConfig`, `ClassificationConfig`
+and `SegmentationConfig`. Left out: `MeshConfig` (the GSPMD data/model
+mesh, TPU-only; ROADMAP "Not ported"), and with it the configs' `mesh`
+fields. The detection config follows with its task.
 """
 
 from __future__ import annotations
@@ -190,6 +190,33 @@ class ClassificationConfig:
     eval_every: int = 0          # 0 = every len(train_loader) steps
     patience: int = 20
     head_init_std: float = 2e-5  # trunc_normal_ head re-init (train.py:147)
+    pretrained: str = ""
+    seed: int = 42
+    bf16: bool = True
+    ckpt_dir: str = "checkpoints"
+
+
+@dataclass(frozen=True)
+class SegmentationConfig:
+    """SIIM/RSNA/RIGA segmentation (reference: Segmentation/train*.py)."""
+
+    vit: ViTConfig = field(default_factory=vit_base)
+    optimizer: OptimizerConfig = field(
+        default_factory=lambda: OptimizerConfig(
+            name="adamw", lr=2e-4, weight_decay=0.05, betas=(0.9, 0.999),
+            schedule="warmup_cosine_step"))
+    data: DataConfig = field(
+        default_factory=lambda: DataConfig(mean=0.4722, std=0.3028))
+    task: str = "SIIM"           # SIIM | RSNA | RIGA
+    backbone: str = "vit"        # vit | resnet50 (smp.Unet baseline path,
+                                 # Segmentation/train.py:139-180)
+    out_channels: int = 1        # RIGA uses dual single-channel decoders
+    sample_rate: int = 4         # seg_head token upsample exponent (models_vit.py:35)
+    decode_features: Tuple[int, ...] = (512, 256, 128, 64)
+    mixed_loss_alpha: float = 10.0
+    focal_gamma: float = 2.0
+    freeze_encoder: bool = True  # encoder frozen except seg_head (train.py:128-133)
+    patience: int = 40
     pretrained: str = ""
     seed: int = 42
     bf16: bool = True

@@ -11,6 +11,12 @@ masking and template weighting both act.
 `write_classification_corpus` writes the layout `ClassificationListDataset`
 reads: gray JPEGs and `<task>/{train,val,test}_list.txt`, each line an
 image path and its label columns.
+
+`write_segmentation_corpus` writes what the SIIM, RSNA or RIGA
+segmentation dataset reads, in the shipped lists' columns and path layout:
+`<task>/{train,val,test}_list.csv` and the images (and RIGA's masks) they
+name. Each lesion brightens the image where its mask lies, so a model can
+learn the masks.
 """
 
 from __future__ import annotations
@@ -115,4 +121,122 @@ def write_classification_corpus(root: str, task: str, n_train: int,
             i += 1
         with open(os.path.join(root, task, f"{split}_list.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
+    return root
+
+
+def mask2rle(mask: np.ndarray) -> str:
+    """SIIM run-length encoding of a (1024, 1024) binary mask, the inverse
+    of `datasets.rle2mask`: runs over the column-major pixels, each start
+    counted from the end of the previous run."""
+    flat = np.concatenate([[0], mask.T.ravel().astype(np.int8), [0]])
+    edges = np.flatnonzero(np.diff(flat))
+    starts, ends = edges[0::2], edges[1::2]
+    out, pos = [], 0
+    for a, b in zip(starts, ends):
+        out += [str(a - pos), str(b - a)]
+        pos = b
+    return " ".join(out)
+
+
+def _ellipse(h: int, w: int, cy: float, cx: float, ry: float,
+             rx: float) -> np.ndarray:
+    yy, xx = np.mgrid[0:h, 0:w]
+    return ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+
+
+def _film(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A smooth gray field plus noise, a stand-in for a chest film."""
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    fx, fy = rng.uniform(2, 8, 2)
+    return 100 + 40 * np.sin(fx * xx + fy * yy) + rng.normal(0, 12, (h, w))
+
+
+def _save_gray(path: str, img: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "L").save(path)
+
+
+def write_segmentation_corpus(root: str, task: str, n_train: int,
+                              n_val: int, n_test: int, seed: int = 0,
+                              img_size: int = 512,
+                              positive_rate: float = 0.5) -> str:
+    """Write a seeded SIIM, RSNA or RIGA corpus under `root`; returns
+    `root`. SIIM: `train/images/1024/dicom/<ImageId>.png` at `img_size`,
+    masks as RLE at 1024 (`ImageId,EncodedPixels`, "-1" for none; one in
+    four positives has a second lesion on a second row). RSNA:
+    `train_images/<id>.png` and `bbox` lists of xyxy boxes at 1024
+    ("[[0.0, 0.0, 0.0, 0.0]]" for none). RIGA: colour images under
+    `Image/` and masks under `FinalLabel/` (0 background, 128 disc, 255
+    cup) at `img_size` x 4/3 `img_size`. Each split holds at least one
+    positive."""
+    if task not in ("SIIM", "RSNA", "RIGA"):
+        raise ValueError(f"unknown segmentation task {task!r}")
+    os.makedirs(os.path.join(root, task), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    k = img_size / 1024.0  # image pixels per mask pixel (SIIM, RSNA)
+    i = 0
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        rows = []
+        for j in range(n):
+            positive = j == 0 or rng.random() < positive_rate
+            if task == "SIIM":
+                image_id = f"1.2.276.0.7230010.3.1.4.8323329.{seed}.{i}"
+                img = _film(rng, img_size, img_size)
+                blobs = []
+                for _ in range((1 + (rng.random() < 0.25)) if positive
+                               else 0):
+                    cy, cx = rng.uniform(200, 824, 2)
+                    ry, rx = rng.uniform(40, 160, 2)
+                    blobs.append(_ellipse(1024, 1024, cy, cx, ry, rx))
+                    img[_ellipse(img_size, img_size, cy * k, cx * k,
+                                 ry * k, rx * k)] += 70
+                _save_gray(os.path.join(root, "train/images/1024/dicom",
+                                        image_id + ".png"), img)
+                rows += ([{"ImageId": image_id,
+                           "EncodedPixels": mask2rle(b)} for b in blobs]
+                         or [{"ImageId": image_id, "EncodedPixels": "-1"}])
+            elif task == "RSNA":
+                name = f"train_images/{seed:04d}-{i:06d}.png"
+                img = _film(rng, img_size, img_size)
+                boxes = []
+                for _ in range(int(rng.integers(1, 3)) if positive else 0):
+                    x1, y1 = rng.uniform(100, 700, 2).round()
+                    x2, y2 = x1 + rng.uniform(80, 300), y1 + rng.uniform(
+                        80, 300)
+                    x2, y2 = float(round(x2)), float(round(y2))
+                    boxes.append([float(x1), float(y1), x2, y2])
+                    img[int(y1 * k):int(y2 * k),
+                        int(x1 * k):int(x2 * k)] += 70
+                _save_gray(os.path.join(root, name), img)
+                rows.append({"image_path": name,
+                             "bbox": str(boxes or [[0.0, 0.0, 0.0, 0.0]])})
+            else:
+                h, w = img_size, img_size * 4 // 3
+                sub = ("MESSIDOR", "BinRushed/BinRushed1", "Magrabia")[i % 3]
+                img = np.stack([_film(rng, h, w) + off
+                                for off in (40, 0, -30)], axis=-1)
+                mask = np.zeros((h, w), np.float64)
+                cy, cx = rng.uniform(0.3 * h, 0.7 * h), rng.uniform(
+                    0.3 * w, 0.7 * w)
+                r = rng.uniform(0.12, 0.2) * h
+                disc = _ellipse(h, w, cy, cx, r, r * rng.uniform(0.8, 1.2))
+                mask[disc] = 128
+                if positive:
+                    mask[_ellipse(h, w, cy, cx, 0.5 * r, 0.5 * r)] = 255
+                img[..., 0] += mask * 0.3
+                names = [f"{d}/{sub}/image{i}.tif"
+                         for d in ("Image", "FinalLabel")]
+                for name, arr, mode in ((names[0], img, "RGB"),
+                                        (names[1], mask, "L")):
+                    path = os.path.join(root, name)
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8),
+                                    mode).save(path)
+                rows.append({"img_path": names[0], "mask_path": names[1]})
+            i += 1
+        with open(os.path.join(root, task, f"{split}_list.csv"), "w",
+                  newline="", encoding="utf-8") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
     return root

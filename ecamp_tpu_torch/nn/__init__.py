@@ -1,9 +1,12 @@
-from .layers import (Attention, Block, Dense, Dropout, DropPath, LayerNorm,
-                     Mlp, PatchEmbed, set_generator, set_plain)
+from .layers import (Attention, BatchNorm, Block, Conv2d, Dense, Dropout,
+                     DropPath, LayerNorm, Mlp, PatchEmbed, set_generator,
+                     set_plain)
 from .pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
+from .seg import ConvDecoder, SegEncoder, SegViT, SegViTDual
 from .vit import ViTClassifier, VisionTransformer
 
-__all__ = ["Attention", "Block", "Dense", "Dropout", "DropPath", "LayerNorm",
-           "Mlp", "PatchEmbed", "set_generator", "set_plain",
-           "get_2d_sincos_pos_embed", "interpolate_pos_embed",
+__all__ = ["Attention", "BatchNorm", "Block", "Conv2d", "Dense", "Dropout",
+           "DropPath", "LayerNorm", "Mlp", "PatchEmbed", "set_generator",
+           "set_plain", "get_2d_sincos_pos_embed", "interpolate_pos_embed",
+           "ConvDecoder", "SegEncoder", "SegViT", "SegViTDual",
            "ViTClassifier", "VisionTransformer"]

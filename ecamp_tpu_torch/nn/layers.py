@@ -209,6 +209,83 @@ class Block(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
+class Conv2d(nn.Module):
+    """flax `nn.Conv` with SAME-size padding on NCHW tensors (channels_last
+    in memory when the input is): the reference's OIHW `weight` and
+    `bias`, lecun-normal and zero at init, computed in `dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.padding = kernel_size // 2
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator=None) -> None:
+        lecun_normal_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype), padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum, epsilon)` over the channels of an NCHW
+    tensor, with torch BatchNorm's names (`weight`, `bias`,
+    `running_mean`, `running_var`, `num_batches_tracked`). Not
+    `F.batch_norm`: flax reduces in fp32 whatever the input dtype, takes
+    the fast variance E[x^2] - E[x]^2 clipped at 0, feeds the running
+    variance the biased batch variance, and normalises in fp32 before the
+    cast to `dtype`. `momentum` is flax's (0.9 is torch's 0.1).
+
+    `forward(x, train)`: with `train` the batch statistics normalise, and
+    the running ones are updated in place; otherwise the running ones
+    normalise. The module's `training` flag plays no part, as in flax."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        self.num_batches_tracked.zero_()
+
+    def forward(self, x, train: bool = False):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if train:
+            axes = [0] + list(range(2, x.ndim))
+            xf = x.float()
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+        return y.to(self.dtype)
+
+
 class PatchProj(nn.Module):
     """The patch embedding's strided conv, held as the reference's OIHW
     `weight` (D, C, p, p) and `bias`, computed exactly as a patch reshape

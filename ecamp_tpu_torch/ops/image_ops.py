@@ -5,6 +5,12 @@ device (model_ecamp.py:318, torchvision Resize without antialias). As in
 the JAX package, a resize is two dense products with the (dst, src)
 matrices of torch's non-antialiased kernels, built once in numpy: the same
 linear map as `F.interpolate`, and the same matrices as `_resize_matmul`.
+
+The segmentation decoder's align-corners upsample is the exception: the
+JAX package writes it as two dense fp32 (out, in) products because a
+gather's backward is slow on the TPU; on the card those products would
+cost ~0.7 TFLOP of fp32 work at B = 512, so it is `F.interpolate`, which
+computes the same function.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _cubic(x: np.ndarray, a: float) -> np.ndarray:
@@ -74,6 +81,16 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """NHWC bilinear resize, align_corners=False (the SR head's
     F.interpolate, model_ecamp.py:38)."""
     return _resize_matmul(x, size, "bilinear")
+
+
+def upsample_align_corners(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear upsample with align_corners=True (the seg decoder's
+    nn.Upsample, Segmentation/models_vit.py:77) of an NCHW tensor, in fp32
+    and cast back to x's dtype, as `ecamp_tpu/ops/image_ops.py::
+    upsample_align_corners` computes it (there on NHWC)."""
+    y = F.interpolate(x.float(), scale_factor=scale, mode="bilinear",
+                      align_corners=True)
+    return y.to(x.dtype)
 
 
 def device_normalize_image(x: torch.Tensor, mean: float,

@@ -1,4 +1,4 @@
-"""Pretraining and classification losses (counterpart of
+"""Pretraining, classification and segmentation losses (counterpart of
 `ecamp_tpu/ops/losses.py`), with the reference's reductions, documented
 quirks included, and fp32 sums."""
 
@@ -7,6 +7,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -53,3 +54,34 @@ def sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     t = targets.float()
     per = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
     return per.mean()
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+               gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss as the reference writes it
+    (Segmentation/utils/segmentation_loss.py:55-76): stable BCE-with-logits
+    weighted by exp(gamma * logsigmoid(-x*(2t-1))), mean-reduced, fp32."""
+    x = logits.float()
+    t = targets.float()
+    max_val = torch.clamp(-x, min=0.0)
+    bce = x - x * t + max_val + torch.log(torch.exp(-max_val)
+                                          + torch.exp(-x - max_val))
+    invprobs = F.logsigmoid(-x * (t * 2.0 - 1.0))
+    return (torch.exp(invprobs * gamma) * bce).mean()
+
+
+def dice_coefficient(logits: torch.Tensor, targets: torch.Tensor,
+                     smooth: float = 1.0) -> torch.Tensor:
+    """Soft dice over the whole batch (segmentation_loss.py:7-24): the
+    reference flattens across the batch, not per sample."""
+    p = torch.sigmoid(logits.float()).reshape(-1)
+    t = targets.float().reshape(-1)
+    inter = (p * t).sum()
+    return (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+
+
+def mixed_loss(logits: torch.Tensor, targets: torch.Tensor,
+               alpha: float = 10.0, gamma: float = 2.0) -> torch.Tensor:
+    """MixedLoss = alpha*focal - log(dice) (segmentation_loss.py:79-90)."""
+    return alpha * focal_loss(logits, targets, gamma) - torch.log(
+        dice_coefficient(logits, targets))

@@ -1,5 +1,5 @@
 from .engine import InferenceEngine, MicroBatcher, sigmoid_np, softmax_np
-from .loaders import classifier_engine
+from .loaders import classifier_engine, segmenter_engine
 
 __all__ = ["InferenceEngine", "MicroBatcher", "classifier_engine",
-           "sigmoid_np", "softmax_np"]
+           "segmenter_engine", "sigmoid_np", "softmax_np"]

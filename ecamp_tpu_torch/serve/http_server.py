@@ -7,7 +7,9 @@ Endpoints:
   POST /predict          -> body {"image": <base64 of an image file>}
                             or  {"images": [<b64>, ...]}
                             response {"predictions": [{"probs": [...],
-                            "labels": {...}}, ...]}
+                            "labels": {...}}, ...]} (classification), or
+                            [{"area_fraction": f, "bbox_xyxy": [...]}, ...]
+                            per mask channel (segmentation)
 
 Requests are decoded and preprocessed on the host (`data/transforms.py::
 EvalTransform` — the reference test path's Resize/CenterCrop/Normalize),
@@ -35,16 +37,38 @@ def _decode_image(b64: str, transform) -> np.ndarray:
     return transform(img)
 
 
+def _summarize_mask(mask: np.ndarray, threshold: float = 0.5) -> dict:
+    """Masks are too large for JSON round-trips at serving granularity;
+    return the binarized area fraction + bounding box per channel (clients
+    needing the full mask use the batch CLI). Multi-channel masks (RIGA
+    dual disc/cup) summarize every channel."""
+    def one(m2d: np.ndarray) -> dict:
+        binm = m2d > threshold
+        ys, xs = np.nonzero(binm)
+        box = ([int(xs.min()), int(ys.min()), int(xs.max()), int(ys.max())]
+               if len(xs) else None)
+        return {"area_fraction": float(binm.mean()), "bbox_xyxy": box}
+
+    if mask.ndim == 3 and mask.shape[-1] > 1:
+        return {"channels": [one(mask[..., i])
+                             for i in range(mask.shape[-1])]}
+    return one(mask[..., 0] if mask.ndim == 3 else mask)
+
+
 class PredictionService:
-    """Binds the classifier engine, preprocessing and response shaping."""
+    """Binds an engine, preprocessing and response shaping for one task
+    ('classification' or 'segmentation')."""
 
     def __init__(self, engine, img_size: int = 224, mean: float = 0.4722,
                  std: float = 0.3028, micro_batch: bool = True,
-                 class_names=None):
+                 class_names=None, task: str = "classification"):
         from ..data.transforms import EvalTransform
         from .engine import MicroBatcher
 
+        if task not in ("classification", "segmentation"):
+            raise ValueError(f"no service for task {task!r}")
         self.engine = engine
+        self.task = task
         self.transform = EvalTransform(img_size, mean, std)
         self.class_names = class_names
         self.batcher = MicroBatcher(engine) if micro_batch else None
@@ -62,6 +86,8 @@ class PredictionService:
         return [self._shape(o) for o in outs]
 
     def _shape(self, out):
+        if self.task == "segmentation":
+            return _summarize_mask(np.asarray(out))
         r = {"probs": out.tolist()}
         if self.class_names:
             r["labels"] = {n: float(p) for n, p in zip(self.class_names, out)}
@@ -126,7 +152,7 @@ def serve(service: PredictionService, host: str = "127.0.0.1",
     if background:
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
         return httpd
-    print(f"serving classification on http://{host}:{port}")
+    print(f"serving {service.task} on http://{host}:{port}")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,9 +1,10 @@
-"""Engine factory for the classifier (counterpart of
-`ecamp_tpu/serve/loaders.py::classifier_engine`).
+"""Engine factories for the classifier and the segmenter (counterpart of
+`ecamp_tpu/serve/loaders.py::classifier_engine` and `segmenter_engine`).
 
-The other engines (segmentation, detection, embedding) are not ported yet
-(ROADMAP Queue 1); nor are orbax checkpoints or int8 weights. The
-classifier serves the `.pth` that `cli/finetune_cls.py` writes.
+The other engines (detection, embedding) are not ported yet (ROADMAP
+Queue 1); nor are orbax checkpoints or int8 weights. The classifier serves
+the `.pth` that `cli/finetune_cls.py` writes, the segmenter the one
+`cli/finetune_seg.py` writes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,15 @@ from ..core.dtypes import policy
 from .engine import InferenceEngine, sigmoid_np, softmax_np
 
 
+def _check_pth(checkpoint: str) -> None:
+    if checkpoint and not checkpoint.endswith(".pth"):
+        kind = "an orbax directory" if os.path.isdir(checkpoint) else "not a .pth"
+        raise ValueError(
+            f"checkpoint {checkpoint!r} is {kind}: the port loads reference "
+            f".pth files only, as its fine-tune CLIs write them "
+            f"(best/checkpoint-best.pth); orbax checkpoints are not read")
+
+
 def classifier_engine(checkpoint: str = "", num_classes: int = 14,
                       img_size: int = 224, multilabel: bool = True,
                       vit: Optional[ViTConfig] = None,
@@ -29,21 +39,16 @@ def classifier_engine(checkpoint: str = "", num_classes: int = 14,
 
     Without a checkpoint the weights are a seeded random init (`seed`,
     through a `torch.Generator`). The served module is `engine.model`."""
-    from ..ckpt import load_classifier_state, load_reference_pth
+    from ..ckpt import load_reference_pth, load_reference_state
     from ..nn import ViTClassifier
 
-    if checkpoint and not checkpoint.endswith(".pth"):
-        kind = "an orbax directory" if os.path.isdir(checkpoint) else "not a .pth"
-        raise ValueError(
-            f"checkpoint {checkpoint!r} is {kind}: the port loads reference "
-            f".pth files only, as its fine-tune CLI writes them "
-            f"(best/checkpoint-best.pth); orbax checkpoints are not read")
+    _check_pth(checkpoint)
     vcfg = vit or ViTConfig(img_size=img_size)
     dtype = policy(bf16).compute_dtype
     model = ViTClassifier(vcfg, num_classes, dtype=dtype,
                           generator=torch.Generator().manual_seed(seed))
     if checkpoint:
-        load_classifier_state(model, load_reference_pth(checkpoint))
+        load_reference_state(model, load_reference_pth(checkpoint))
     model = model.to(device).eval()
 
     def apply_fn(x):
@@ -54,5 +59,40 @@ def classifier_engine(checkpoint: str = "", num_classes: int = 14,
     engine = InferenceEngine(apply_fn, buckets=buckets,
                              postprocess=sigmoid_np if multilabel else softmax_np,
                              input_dtype=dtype, device=device)
+    engine.model = model
+    return engine
+
+
+def segmenter_engine(checkpoint: str = "", img_size: int = 224,
+                     dual: bool = False, vit: Optional[ViTConfig] = None,
+                     buckets=(8, 32), bf16: bool = True, device="cuda",
+                     seed: int = 0) -> InferenceEngine:
+    """Serve SegViT sigmoid masks (B, H, W, 1) in fp32; dual=True serves
+    the RIGA disc/cup pair concatenated on the channel axis (B, H, W, 2).
+
+    The checkpoint is a fine-tuned SegViT `.pth` in the reference
+    namespace, strict-loaded (`ckpt/convert.py::load_reference_state`);
+    without one the weights are a seeded random init. The BatchNorms use their
+    running statistics. The served module is `engine.model`."""
+    from ..ckpt import load_reference_pth, load_reference_state
+    from ..nn import SegViT, SegViTDual
+
+    _check_pth(checkpoint)
+    vcfg = vit or ViTConfig(img_size=img_size)
+    dtype = policy(bf16).compute_dtype
+    model = (SegViTDual if dual else SegViT)(
+        vcfg, dtype=dtype, generator=torch.Generator().manual_seed(seed))
+    if checkpoint:
+        load_reference_state(model, load_reference_pth(checkpoint))
+    model = model.to(device).eval()
+
+    def apply_fn(x):
+        out = model(x, train=False)
+        if dual:
+            out = torch.cat(out, dim=-1)
+        return torch.sigmoid(out.float())
+
+    engine = InferenceEngine(apply_fn, buckets=buckets, input_dtype=dtype,
+                             device=device)
     engine.model = model
     return engine

@@ -51,3 +51,21 @@ def multilabel_auc(scores: np.ndarray, labels: np.ndarray) -> List[float]:
 def accuracy(preds: np.ndarray, labels: np.ndarray) -> float:
     """simple_accuracy (Classification/train.py:74-77)."""
     return float(((np.asarray(preds) == np.asarray(labels)) * 1).mean())
+
+
+def dice_scores(probs: np.ndarray, truth: np.ndarray,
+                threshold: float = 0.5) -> np.ndarray:
+    """Per-sample dice with the empty-mask convention
+    (Segmentation/train.py:191-213): empty gt -> 1.0 iff pred empty else 0;
+    non-empty gt -> 2|p∩t| / (|p|+|t|)."""
+    b = truth.shape[0]
+    p = (probs.reshape(b, -1) > threshold).astype(np.float64)
+    t = (truth.reshape(b, -1) > 0.5).astype(np.float64)
+    t_sum = t.sum(-1)
+    p_sum = p.sum(-1)
+    dice = np.where(
+        t_sum == 0,
+        (p_sum == 0).astype(np.float64),
+        2.0 * (p * t).sum(-1) / np.maximum((p + t).sum(-1), 1e-12),
+    )
+    return dice

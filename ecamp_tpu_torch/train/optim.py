@@ -208,7 +208,9 @@ class Masked:
         self.mask = dict(mask)
 
     def _trainable(self, tree):
-        return {k: v for k, v in tree.items() if self.mask[k]}
+        # reads the trainable entries only: no frozen leaf's gradient is
+        # made when `tree` builds its values on demand (TrainState's)
+        return {k: tree[k] for k in tree if self.mask[k]}
 
     def init(self, params):
         return self.inner.init(self._trainable(params))

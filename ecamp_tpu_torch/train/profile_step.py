@@ -4,6 +4,8 @@
         [--fused_mlm_ce]
     python -m ecamp_tpu_torch.train.profile_step --finetune [--batch 96]
         [--linear_probe] [--out FILE]
+    python -m ecamp_tpu_torch.train.profile_step --segmentation
+        [--batch 512] [--dual] [--out FILE]
 
 Builds the full-width `PretrainTask` (the ECAMP of `PretrainConfig()`,
 bf16 compute, AdamW at a constant lr; with `--fused_mlm_ce`, the MLM loss
@@ -11,7 +13,10 @@ through the fused vocab-projection + CE kernels) with seeded weights and a
 seeded `synthetic_batch`, or with `--finetune` the `ClassificationTask` of
 the recipe cls_ft_ChestX-ray14_1 (ViT-B/16 at 224, 14 multilabel classes,
 bf16, SGD momentum 0.9, lr 3e-2 past its warmup, clip 1.0, drop-path 0.1;
-`--linear_probe` freezes all but the head) on a seeded u8 batch, runs two
+`--linear_probe` freezes all but the head), or with `--segmentation` the
+`SegmentationTask` of the recipe seg_SIIM_100 (SegViT at 224, bf16,
+encoder frozen, AdamW lr 5e-4 past its warmup, wd 0.05, clip 1.0;
+`--dual`: SegViTDual, RIGA) on a seeded u8 batch, runs two
 warm-up steps, times five steps on the host clock, then runs one step
 under `torch.profiler`, and prints the
 device time of that step by kernel group (the port's kernels, GEMMs,
@@ -108,15 +113,48 @@ def _finetune_step(args, b, gen):
     return step, "linear-probe" if args.linear_probe else "fine-tune"
 
 
+def _segmentation_step(args, b, gen):
+    """One frozen-encoder segmentation step of the recipe seg_SIIM_100 (or
+    RIGA's SegViTDual) on a seeded u8 batch with random masks; the warmup
+    is set to 0 so that every step updates."""
+    import torch
+
+    from ..core import config as c
+    from .segmentation import SegmentationTask
+
+    cfg = c.SegmentationConfig(
+        task="RIGA" if args.dual else "SIIM",
+        optimizer=c.OptimizerConfig(name="adamw", lr=5e-4, weight_decay=0.05,
+                                    betas=(0.9, 0.999),
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=3000,
+                                    grad_clip=1.0), seed=args.seed)
+    task = SegmentationTask(cfg, device="cuda")
+    images = torch.randint(0, 256, (b, 224, 224, 1), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    masks = (torch.rand(b, 224, 224, 2 if args.dual else 1, device="cuda",
+                        generator=gen) < 0.1).float()
+    box = [task.init_state()]
+
+    def step():
+        box[0], m = task.train_step(box[0], images, masks)
+        return m
+
+    return step, "segmentation (RIGA, dual)" if args.dual else "segmentation"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=None,
-                    help="32 (pretraining) or 96 (--finetune)")
+                    help="32 (pretraining), 96 (--finetune) or 512 "
+                         "(--segmentation)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--fused_mlm_ce", action="store_true")
     ap.add_argument("--finetune", action="store_true")
     ap.add_argument("--linear_probe", action="store_true")
+    ap.add_argument("--segmentation", action="store_true")
+    ap.add_argument("--dual", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -129,7 +167,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    if args.finetune:
+    if args.segmentation:
+        b = args.batch or 512
+        step, what = _segmentation_step(args, b, gen)
+    elif args.finetune:
         b = args.batch or 96
         step, what = _finetune_step(args, b, gen)
     else:

@@ -32,6 +32,25 @@ def reference_param_order(params: Mapping[str, torch.Tensor]
     return no_decay + [k for k in params if k not in skip], len(no_decay)
 
 
+class _Grads(Mapping):
+    """The parameters' `.grad`s by name, a missing one read as zeros, made
+    only when the optimizer reads it (`Masked` reads the trainable leaves
+    alone, so a frozen trunk makes none)."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor]):
+        self._params = params
+
+    def __getitem__(self, k: str) -> torch.Tensor:
+        p = self._params[k]
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self) -> int:
+        return len(self._params)
+
+
 @dataclass
 class TrainState:
     step: torch.Tensor                 # int32 device scalar
@@ -48,10 +67,8 @@ class TrainState:
     def apply_gradients(self, tx) -> "TrainState":
         """One optimizer update from the parameters' `.grad` (a missing
         gradient counts as zero, as JAX's would be)."""
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in self.params.items()}
         return TrainState(step=self.step + 1, params=self.params,
-                          opt_state=tx.apply(self.params, grads,
+                          opt_state=tx.apply(self.params, _Grads(self.params),
                                              self.opt_state))
 
     def optimizer_state_dict(self, weight_decay: float = 0.0

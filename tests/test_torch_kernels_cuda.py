@@ -653,3 +653,58 @@ def test_classification_step_on_card_matches_plain(cuda, probe):
     (lk, gk), (lp, gp) = out[False], out[True]
     assert abs(lk - lp) <= 2e-2 * abs(lp)
     assert abs(gk - gp) <= 5e-2 * gp
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["siim", "riga"])
+def test_segmentation_step_on_card_matches_plain(cuda, dual):
+    """A width-768, depth-2 SegViT (SegViTDual for RIGA) step with the
+    encoder frozen (bf16, masked AdamW with clip) through the kernels
+    against the same step through the plain versions: LayerNorm 2 * 2,
+    attention 2 and AdamW 1 launches a step, loss within 2e-2, grad norm
+    within 5%, BatchNorm running statistics within 2e-2; the trunk keeps
+    its weights bit for bit, the rest moves."""
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.train.segmentation import SegmentationTask
+
+    cfg = c.SegmentationConfig(
+        vit=c.ViTConfig(depth=2), task="RIGA" if dual else "SIIM",
+        optimizer=c.OptimizerConfig(name="adamw", lr=5e-4, weight_decay=0.05,
+                                    betas=(0.9, 0.999),
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=50,
+                                    grad_clip=1.0))
+    task = SegmentationTask(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    init = {k: v.clone() for k, v in task.model.state_dict().items()}
+    x = torch.randint(0, 256, (8, 224, 224, 1), dtype=torch.uint8,
+                      device=cuda, generator=gen)
+    y = (torch.rand(8, 224, 224, 2 if dual else 1, device=cuda,
+                    generator=gen) < 0.2).float()
+    out = {}
+    for plain in (False, True):
+        task.model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        for ctr in (ln_mod.launches, fa_mod.launches, adamw_mod.launches):
+            ctr.reset()
+        state, m = task.train_step(state, x, y)
+        torch.cuda.synchronize()
+        assert (ln_mod.launches.value, fa_mod.launches.value,
+                adamw_mod.launches.value) == ((0, 0, 0) if plain
+                                              else (4, 2, 1))
+        mask = task.freeze_mask()
+        grads = [p.grad for k, p in task.model.named_parameters() if mask[k]]
+        stats = torch.cat([t.float().flatten() for k, t in
+                           task.model.state_dict().items()
+                           if "running_" in k])
+        out[plain] = (float(m["loss"]), float(adamw_mod.global_norm(grads)),
+                      stats)
+        for k, v in task.model.state_dict().items():
+            trunk = k.startswith("encoder.") and not k.startswith(
+                "encoder.seg_head.")
+            assert torch.equal(v, init[k]) == trunk, k
+    (lk, gk, sk), (lp, gp, sp) = out[False], out[True]
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+    assert abs(gk - gp) <= 5e-2 * gp
+    assert float((sk - sp).abs().max()) <= 2e-2 * max(1.0,
+                                                      float(sp.abs().max()))

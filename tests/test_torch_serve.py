@@ -268,23 +268,24 @@ def test_cli_batch_mode_writes_jsonl(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    cases = [(["--task", "segmentation"], "segmentation"),
-             (["--task", "detection"], "detection"),
+    cases = [(["--task", "detection"], "detection"),
              (["--task", "embedding"], "ECAMP model"),
              (["--quantize", "int8"], "quantize")]
     for extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             _cli(["--device", "cpu", *extra], tmp_path)
-    with pytest.raises(ValueError, match="orbax directory"):
-        _cli(["--device", "cpu", "--checkpoint", str(tmp_path)], tmp_path)
+    for task in ("classification", "segmentation"):
+        with pytest.raises(ValueError, match="orbax directory"):
+            _cli(["--device", "cpu", "--checkpoint", str(tmp_path),
+                  "--task", task], tmp_path)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA card"):
             _cli([], tmp_path)  # --device cuda is the default
 
 
 def test_port_imports_no_jax():
-    """Every ecamp_tpu_torch module imports with jax, flax, the JAX package
-    and pandas (not among the card machine's packages) blocked."""
+    """Every ecamp_tpu_torch module imports with jax, flax, the JAX package,
+    pandas and cv2 (not among the card machine's packages) blocked."""
     code = r"""
 import importlib, pkgutil, sys
 
@@ -292,7 +293,7 @@ class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
         if top in ("jax", "jaxlib", "flax", "optax", "orbax", "ecamp_tpu",
-                   "pandas"):
+                   "pandas", "cv2"):
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, Block())
@@ -302,7 +303,7 @@ names = [m.name for m in pkgutil.walk_packages(ecamp_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "ecamp_tpu", "pandas")]
+       if m.split(".")[0] in ("jax", "flax", "ecamp_tpu", "pandas", "cv2")]
 assert not bad, bad
 print(len(names))
 """

@@ -17,8 +17,8 @@ torch = pytest.importorskip("torch")
 
 from ecamp_tpu.core import config as jcfg  # noqa: E402
 from ecamp_tpu.nn import ViTClassifier as JaxViTClassifier  # noqa: E402
-from ecamp_tpu_torch.ckpt import (load_classifier_state,  # noqa: E402
-                                  load_reference_pth, state_dict_from_flax)
+from ecamp_tpu_torch.ckpt import (load_reference_pth,  # noqa: E402
+                                  load_reference_state, state_dict_from_flax)
 from ecamp_tpu_torch.core import ViTConfig  # noqa: E402
 from ecamp_tpu_torch.nn import ViTClassifier, interpolate_pos_embed  # noqa: E402
 
@@ -138,13 +138,13 @@ def test_reference_pth_strict_load(tmp_path):
     want = _jax_apply(jm, params, x)
     for path in (flat, wrapped):
         model = ViTClassifier(ViTConfig(**KW), N_CLASSES).eval()
-        load_classifier_state(model, load_reference_pth(str(path)))
+        load_reference_state(model, load_reference_pth(str(path)))
         np.testing.assert_allclose(_port_apply(model, x), want,
                                    rtol=1e-4, atol=1e-4)
     bad = dict(load_reference_pth(str(flat)))
     bad.pop("head.bias")
     with pytest.raises(RuntimeError, match="head.bias"):
-        load_classifier_state(ViTClassifier(ViTConfig(**KW), N_CLASSES), bad)
+        load_reference_state(ViTClassifier(ViTConfig(**KW), N_CLASSES), bad)
 
 
 def test_state_dict_round_trips_through_jax_importer(tmp_path):
@@ -185,7 +185,7 @@ def test_checkpoint_from_another_grid_is_resized():
     grid = KW["img_size"] // KW["patch_size"]
     sd["pos_embed"] = interpolate_pos_embed(sd["pos_embed"], grid + 2)
     model = ViTClassifier(ViTConfig(**KW), N_CLASSES)
-    load_classifier_state(model, sd)
+    load_reference_state(model, sd)
     assert tuple(model.pos_embed.shape) == (1, 1 + grid * grid, 64)
 
 
