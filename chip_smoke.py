@@ -92,7 +92,31 @@
    `segmenter_engine` on its best `.pth` against
    `SegmentationTask.eval_step` (2e-2) and one POST through the HTTP
    server with task segmentation.
-9. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
+9. The detection fine-tune at full width (the ViT-B/16 detector: det_head
+   768 -> 768, the Bottleneck neck at expansion 4 to 28^2 x 512, 14^2 x
+   1024 and 7^2 x 2048, the YOLOv3 head with 1 class; bf16, the encoder
+   frozen; recipe det_RSNA_100: B = 1024, AdamW lr 5e-4 wd 0.05, warmup
+   30 of 20000, clip 1.0), after the segmentation fine-tune: LayerNorm and
+   attention against their plain versions at (1024 * 197, 768) and (1024,
+   12, 197, 64); (a) on a fixed seeded u8 batch with 1-3 boxes an image,
+   the first step through the kernels against the plain step (loss 2e-2,
+   grad norm 5%, BatchNorm running statistics 2e-2), the AdamW kernel on
+   the 100 trainable leaves against the per-leaf formula at count 30 (the
+   end of the warmup: every leaf moves), 5 steps from count 30 (the peak
+   lr, reached through the 30 warmup steps; the loss falls), 24 LayerNorm, 12 attention and 1 AdamW launches a
+   step, the trunk bit-unchanged and det_head, the neck and the head
+   changed, step time, images/s, device busy and peak memory; (b)
+   det_RSNA_10 (expansion 8, B = 256) for 3 steps, the same launches; (c)
+   `python -m ecamp_tpu_torch.cli.finetune_det --task RSNA` from the
+   pretrain CLI's checkpoint on a seeded RSNA corpus (PNGs at 512 px, B =
+   32, eval batch 32, ragged), 2 epochs of updates, patience 1,
+   `--start_eval 1`: validation mAP lines, the best `.pth`, the test mAP
+   line; (d) `detector_engine` on its best `.pth`: its decoded candidates
+   against `DetectionTask.eval_step` (the boxes 2e-2 of their scale, the
+   probabilities 2e-2 absolute), the same boxes from its NMS and the
+   task's on one candidate set, and one POST through the HTTP server with
+   task detection. The phase prints its seconds.
+10. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
    lines of the results, of every kernel shape timed and of the kernels
    and, last, the device line.
 
@@ -149,6 +173,16 @@ SEG_SPLITS = (96, 70, 40)  # SIIM rows; train balances to ~2 x positives
 SEG_CLI_B = 32
 SEG_EVAL_B = 32      # 70 = 2 * 32 + 6: a ragged last eval batch
 SEG_IMG = 512        # the corpus's PNG size (masks stay RLE at 1024)
+# -- the detection fine-tune (recipe det_RSNA_100; det_RSNA_10) -----------
+DET_B = 1024
+DET_STEPS = 5        # steps of (a) from the end of the warmup; all but the
+                     # first are timed
+DET10_B = 256
+DET10_STEPS = 3
+DET_SPLITS = (96, 70, 40)  # RSNA rows; val and test read the 70
+DET_CLI_B = 32
+DET_EVAL_B = 32      # 70 = 2 * 32 + 6: a ragged last eval batch
+DET_IMG = 512        # the corpus's PNG size
 
 
 class CheckFailed(RuntimeError):
@@ -1796,6 +1830,77 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     return result
 
 
+def masked_adamw_check(label: str, opt, named: dict, count: int,
+                       ktimes: dict, rows: list) -> None:
+    """The AdamW kernel on the masked leaves of a fine-tune step (`named`:
+    the trainable parameters, their `.grad` set) against the per-leaf
+    formula, from fresh moments at update `count`, the end of the warmup
+    (at count 0 the schedule's lr is 0 and no parameter would move):
+    parameters, mu and nu within 1e-6 relative, and every leaf with a
+    gradient moving on both sides. Its times join `ktimes` and `rows`."""
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+
+    params = {k: p.detach() for k, p in named.items()}
+    grads = {k: p.grad for k, p in named.items()}
+    n_train = sum(p.numel() for p in params.values())
+    state0 = opt.init(params)
+    state0.count.fill_(count)
+    lr = float(opt.schedule(state0.count))
+
+    def adamw_copy():
+        return ({k: p.clone() for k, p in params.items()},
+                adamw.AdamWState(count=state0.count.clone(),
+                                 mu={k: t.clone() for k, t in
+                                     state0.mu.items()},
+                                 nu={k: t.clone() for k, t in
+                                     state0.nu.items()}))
+
+    pk, sk = adamw_copy()
+    opt.apply(pk, grads, sk)
+    opt.plain = True
+    pp, sp = adamw_copy()
+    opt.apply(pp, grads, sp)
+    torch.cuda.synchronize()
+    err, moved = 0.0, 0.0
+    check(lr > 0, f"{label} adamw: lr {lr} at count {count}")
+    for k in pk:
+        for got, want in ((pk[k], pp[k]), (sk.mu[k], sp.mu[k]),
+                          (sk.nu[k], sp.nu[k])):
+            d = (got - want).abs()
+            check(bool((d <= 1e-6 * want.abs() + 1e-12).all()),
+                  f"{label} adamw {k}: max |err| {float(d.max()):.3e}")
+        err = max(err, float((pk[k] - pp[k]).abs().max()))
+        # every leaf with a gradient moves, on both sides
+        dk = float((pk[k] - params[k]).abs().max())
+        dp = float((pp[k] - params[k]).abs().max())
+        check((dk > 0 and dp > 0) or not bool(grads[k].any()),
+              f"{label} adamw {k}: no update (kernel {dk:.3e}, plain "
+              f"{dp:.3e})")
+        moved = max(moved, dk)
+    check(moved > 0, f"{label} adamw: no parameter moved")
+    opt.plain = False
+    times = {"max_abs_err": err, "lr": lr, "max_update": moved,
+             "ms": median_ms(lambda: opt.apply(pk, grads, sk), 10, 2),
+             "device_ms": device_ms(lambda: opt.apply(pk, grads, sk),
+                                    "adamw_multi", 5, f"{label} adamw")}
+    opt.plain = True
+    times["plain_ms"] = median_ms(lambda: opt.apply(pp, grads, sp), 10, 2)
+    opt.plain = False
+    times["bound_ms"], times["bound_by"] = bound(adamw_work(n_train))
+    times["leaves"] = len(params)
+    print(f"  {label} adamw at count {count} (lr {lr:.3g}): max |update| "
+          f"{moved:.3e}")
+    print(f"  {label + ' adamw, ' + str(n_train) + ' fp32 parameters':58s}"
+          f" max|err| {err:.3e}  kernel {times['ms']:8.4f} ms  plain "
+          f"{times['plain_ms']:8.4f} ms  device {_ms(times['device_ms'])}  "
+          f"bound {times['bound_ms']:8.4f} ms ({times['bound_by']})")
+    ktimes["adamw"] = times
+    rows.append({"kernel": "adamw", "shape": f"{label} adamw masked "
+                 f"({len(params)} leaves, {n_train}) fp32", **times})
+
+
 def segmentation_kernel_phase(card: str, rows: list) -> dict:
     """LayerNorm and attention forward at the frozen trunk's shapes in the
     segmentation step (B = SEG_B, bf16: (B * 197, 768), (B, 12, 197, 64)),
@@ -1943,71 +2048,11 @@ def segmentation_phase(card: str, pretrained: str, work: str,
           f"(a) BatchNorm statistics off by {stats_err:.3e}")
 
     # the AdamW kernel on the masked leaves of that step against the
-    # per-leaf formula, at the count that ends the warmup: at count 0 the
-    # schedule's lr is 0 and no parameter would move
-    opt = task.tx.inner
-    params = {k: p for k, p in model.named_parameters() if mask[k]}
-    grads = {k: p.grad for k, p in params.items()}
-    state0 = opt.init(params)
-    state0.count.fill_(cfg.optimizer.warmup_steps)
-    lr = float(opt.schedule(state0.count))
-
-    def adamw_copy():
-        return ({k: p.detach().clone() for k, p in params.items()},
-                adamw.AdamWState(count=state0.count.clone(),
-                                 mu={k: t.clone() for k, t in
-                                     state0.mu.items()},
-                                 nu={k: t.clone() for k, t in
-                                     state0.nu.items()}))
-
-    pk, sk = adamw_copy()
-    opt.apply(pk, grads, sk)
-    opt.plain = True
-    pp, sp = adamw_copy()
-    opt.apply(pp, grads, sp)
-    torch.cuda.synchronize()
-    err, moved = 0.0, 0.0
-    check(lr > 0, f"segmentation adamw: lr {lr} at count "
-          f"{cfg.optimizer.warmup_steps}")
-    for k in pk:
-        for got, want in ((pk[k], pp[k]), (sk.mu[k], sp.mu[k]),
-                          (sk.nu[k], sp.nu[k])):
-            d = (got - want).abs()
-            check(bool((d <= 1e-6 * want.abs() + 1e-12).all()),
-                  f"segmentation adamw {k}: max |err| {float(d.max()):.3e}")
-        err = max(err, float((pk[k] - pp[k]).abs().max()))
-        # every leaf with a gradient moves, on both sides
-        dk = float((pk[k] - params[k]).abs().max())
-        dp = float((pp[k] - params[k]).abs().max())
-        check((dk > 0 and dp > 0) or not bool(grads[k].any()),
-              f"segmentation adamw {k}: no update (kernel {dk:.3e}, plain "
-              f"{dp:.3e})")
-        moved = max(moved, dk)
-    check(moved > 0, "segmentation adamw: no parameter moved")
-    opt.plain = False
-    adamw_times = {"max_abs_err": err, "lr": lr, "max_update": moved,
-                   "ms": median_ms(lambda: opt.apply(pk, grads, sk), 10, 2),
-                   "device_ms": device_ms(lambda: opt.apply(pk, grads, sk),
-                                          "adamw_multi", 5,
-                                          "segmentation adamw")}
-    opt.plain = True
-    adamw_times["plain_ms"] = median_ms(lambda: opt.apply(pp, grads, sp), 10,
-                                        2)
-    opt.plain = False
-    adamw_times["bound_ms"], adamw_times["bound_by"] = bound(
-        adamw_work(n_train))
-    adamw_times["leaves"] = len(params)
-    print(f"  segmentation adamw at count {cfg.optimizer.warmup_steps} (lr "
-          f"{lr:.3g}): max |update| {moved:.3e}")
-    print(f"  {'segmentation adamw, ' + str(n_train) + ' fp32 parameters':58s}"
-          f" max|err| {err:.3e}  kernel {adamw_times['ms']:8.4f} ms  plain "
-          f"{adamw_times['plain_ms']:8.4f} ms  device "
-          f"{adamw_times['device_ms']:8.4f} ms  bound "
-          f"{adamw_times['bound_ms']:8.4f} ms ({adamw_times['bound_by']})")
-    ktimes["adamw"] = adamw_times
-    rows.append({"kernel": "adamw", "shape": f"segmentation adamw masked "
-                 f"({len(params)} leaves, {n_train}) fp32", **adamw_times})
-    del pk, sk, pp, sp, state0
+    # per-leaf formula
+    masked_adamw_check("segmentation", task.tx.inner,
+                       {k: p for k, p in model.named_parameters()
+                        if mask[k]}, cfg.optimizer.warmup_steps, ktimes,
+                       rows)
 
     # one decoder upsample stage, the last: (B, 64, 112, 112) bf16
     # channels_last -> 224, through fp32 as the JAX package computes it.
@@ -2096,7 +2141,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
 
     changed(task, init)
     print("  (a) trunk bit-unchanged, seg_head and decoder changed")
-    del task, model, images, masks, init, params, grads
+    del task, model, images, masks, init
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2224,6 +2269,373 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     return result
 
 
+def detection_kernel_phase(card: str, rows: list) -> dict:
+    """LayerNorm and attention forward at the frozen trunk's shapes in the
+    detection step (B = DET_B, bf16: (B * 197, 768), (B, 12, 197, 64)),
+    each beside its library call and bound, both timed on the device by
+    queued events; their rows join `rows`. Returns the rows by name."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, dtype, main = DET_B, torch.bfloat16, {}
+    print(f"kernels at the detection step's shapes (B = {b}, bf16) on "
+          f"{card}")
+    n = b * 197
+    x = (torch.randn(n, 768, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(768, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(768, device=dev, generator=gen)
+    main["layer_norm"] = _layer_norm_fwd(
+        rows, f"detection layer_norm fwd ({n}, 768) {dtype}", x, w, bias,
+        1e-6, dtype, events=True)
+    del x
+    q, k, v = (torch.randn(b, 12, 197, 64, device=dev, generator=gen)
+               .to(dtype) for _ in range(3))
+    main["attention"] = _attention_fwd(
+        rows, f"detection attention fwd ({b}, 12, 197, 64) {dtype}", q, k, v,
+        None, dtype, events=True)
+    del q, k, v
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return main
+
+
+def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
+                    rows: list) -> dict:
+    """The detection fine-tune at full width (module docstring, 9). The
+    masked AdamW's times join `ktimes` and `rows`."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.data.synthetic import detection_batch
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.train.detection import DetectionTask
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def det_cfg(expansion, warmup, total):
+        return c.DetectionConfig(
+            expansion=expansion,
+            optimizer=c.OptimizerConfig(
+                name="adamw", lr=5e-4, weight_decay=0.05, betas=(0.9, 0.999),
+                schedule="warmup_cosine_step", warmup_steps=warmup,
+                total_steps=total, grad_clip=1.0),
+            seed=SEED)
+
+    cfg = det_cfg(4, 30, 20000)
+    depth = cfg.vit.depth
+    per_step = {"layer_norm": 2 * depth, "attention": depth, "adamw": 1}
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "adamw": adamw.launches}
+
+    def counts():
+        return {k: ctr.value for k, ctr in counters.items()}
+
+    def reset():
+        for ctr in counters.values():
+            ctr.reset()
+
+    def trunk(k):
+        return k.startswith("backbone.encoder.") and not k.startswith(
+            "backbone.encoder.det_head.")
+
+    t0 = time.perf_counter()
+    task = DetectionTask(cfg, device="cuda")
+    model = task.model
+    mask = task.freeze_mask()
+    trainable = [k for k, keep in mask.items() if keep]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for k, p in model.named_parameters() if mask[k])
+    n_stats = sum(t.numel() for k, t in model.state_dict().items()
+                  if "running_" in k)
+    n_entries = sum(1 for k in model.state_dict()
+                    if not k.endswith("num_batches_tracked"))
+    print(f"detection on {card}: ViT-B/16 224 px + det_head + Bottleneck "
+          f"neck (expansion 4) + YOLOv3 head (1 class), {n_params} "
+          f"parameters, {n_train} trainable in {len(trainable)} leaves, "
+          f"{n_stats} BatchNorm statistics, B = {DET_B}, bf16, AdamW lr 5e-4 "
+          f"wd 0.05 warmup 30 of 20000 clip 1.0, encoder frozen; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    images, targets = detection_batch(DET_B, cfg.max_objects, gen)
+    n_boxes = int((targets.sum(-1) > 0).sum())
+
+    def stats():
+        return torch.cat([t.float().flatten() for k, t in
+                          model.state_dict().items() if "running_" in k])
+
+    def first_step(plain: bool):
+        model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        reset()
+        state, m = task.train_step(state, images, targets)
+        gnorm = adamw.global_norm([p.grad for k, p in
+                                   model.named_parameters() if mask[k]])
+        torch.cuda.synchronize()
+        return float(m["loss"]), float(gnorm), counts(), stats()
+
+    # (a) the first step through the kernels, then the plain versions
+    loss_k, gnorm_k, n_k, stats_k = first_step(False)
+    loss_p, gnorm_p, n_p, stats_p = first_step(True)
+    task.set_plain(False)
+    stats_err = float((stats_k - stats_p).abs().max())
+    stats_scale = max(1.0, float(stats_p.abs().max()))
+    print(f"  (a) {n_boxes} boxes in the batch; first step: kernels loss "
+          f"{loss_k:.6g} grad norm {gnorm_k:.6g} launches {n_k}; plain loss "
+          f"{loss_p:.6g} grad norm {gnorm_p:.6g} launches {n_p}; BatchNorm "
+          f"statistics max |kernels - plain| {stats_err:.3e} (scale "
+          f"{stats_scale:.3g})")
+    check(np.isfinite(loss_k) and np.isfinite(gnorm_k), "non-finite step")
+    check(n_k == per_step, f"(a) launches {n_k} != {per_step}")
+    check(all(v == 0 for v in n_p.values()), f"plain step launched {n_p}")
+    check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
+          f"(a) loss {loss_k:.6g} vs plain {loss_p:.6g}")
+    check(abs(gnorm_k - gnorm_p) <= GNORM_TOL * gnorm_p,
+          f"(a) grad norm {gnorm_k:.6g} vs plain {gnorm_p:.6g}")
+    check(stats_err <= LOSS_TOL * stats_scale,
+          f"(a) BatchNorm statistics off by {stats_err:.3e}")
+
+    # the AdamW kernel on the masked leaves of that step against the
+    # per-leaf formula
+    masked_adamw_check("detection", task.tx.inner,
+                       {k: p for k, p in model.named_parameters()
+                        if mask[k]}, cfg.optimizer.warmup_steps, ktimes,
+                       rows)
+    torch.cuda.empty_cache()
+
+    def steps(t, start, imgs, tgts, n, b, count):
+        """n steps of task t on a fixed batch from the state dict `start`,
+        after `count` untimed steps through the warmup (so the AdamW
+        moments fit the update count), counters set to 0 just before the n
+        and read just after; the losses, step times, launches, peak memory
+        and the device busy time of one more step (profiler)."""
+        t.model.load_state_dict(start)
+        state = t.init_state()
+        for _ in range(count):
+            state, _ = t.train_step(state, imgs, tgts)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        losses, times, lrs = [], [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, m = t.train_step(state, imgs, tgts)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        box = [state]
+
+        def one_step():
+            box[0], _ = t.train_step(box[0], imgs, tgts)
+
+        busy = device_ms(one_step, "", 3, "detection step", alone=False)
+        step_ms = float(np.median(times[1:]))
+        print(f"    train losses {[round(x, 5) for x in losses]} at lr "
+              f"{[float(f'{x:.4g}') for x in lrs]}; launches {launches} in "
+              f"{n} steps; step {step_ms:.3f} ms median of steps 2-{n} "
+              f"(host clock, synchronised), {b / step_ms * 1e3:.2f} "
+              f"images/s, device busy {_ms(busy)} a step (profiler, 3 "
+              f"steps), peak device memory {peak / 2 ** 30:.3f} GiB on "
+              f"{card}")
+        check(all(np.isfinite(losses)), "non-finite detection loss")
+        check(min(lrs) > 0, f"lr {lrs} not past the warmup's start")
+        want = {k: v * n for k, v in per_step.items()}
+        check(launches == want, f"launches {launches} != {want}")
+        return {"losses": losses, "lr": lrs, "step_ms": times,
+                "step_ms_median": step_ms, "images_per_s": b / step_ms * 1e3,
+                "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
+                "launches": launches}
+
+    def changed(t, before):
+        for k, v in t.model.state_dict().items():
+            same = torch.equal(v, before[k])
+            check(same == trunk(k),
+                  f"{k} {'unchanged' if same else 'changed'}")
+
+    print(f"  (a) {DET_STEPS} steps at B = {DET_B} from update "
+          f"{cfg.optimizer.warmup_steps} (the peak lr)")
+    result = {"card": card, "batch": DET_B, "parameters": n_params,
+              "trainable": n_train, "trainable_leaves": len(trainable),
+              "batch_norm_statistics": n_stats, "boxes": n_boxes,
+              "loss_first_step": loss_k, "loss_plain_step": loss_p,
+              "grad_norm": gnorm_k, "grad_norm_plain": gnorm_p,
+              "batch_norm_stats_max_err": stats_err,
+              "rsna_100": steps(task, init, images, targets, DET_STEPS,
+                                DET_B, cfg.optimizer.warmup_steps)}
+    result["launches_a_step"] = {
+        k: v // DET_STEPS for k, v in result["rsna_100"]["launches"].items()}
+    losses = result["rsna_100"]["losses"]
+    check(losses[-1] < losses[0], f"(a) the loss did not fall: {losses}")
+    changed(task, init)
+    print("  (a) trunk bit-unchanged; det_head, the neck and the head "
+          "changed")
+    del task, model, images, targets, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) det_RSNA_10: expansion 8 at B = DET10_B
+    cfg10 = det_cfg(8, 5, 3000)
+    task10 = DetectionTask(cfg10, device="cuda")
+    init10 = {k: v.detach().clone()
+              for k, v in task10.model.state_dict().items()}
+    mask10 = task10.freeze_mask()
+    n10 = sum(p.numel() for p in task10.model.parameters())
+    n10_train = sum(p.numel() for k, p in task10.model.named_parameters()
+                    if mask10[k])
+    print(f"  (b) det_RSNA_10 (expansion 8): {n10} parameters, {n10_train} "
+          f"trainable in {sum(mask10.values())} leaves, {DET10_STEPS} steps "
+          f"at B = {DET10_B}")
+    imgs10, tgts10 = detection_batch(DET10_B, cfg10.max_objects, gen)
+    result["rsna_10"] = steps(task10, init10, imgs10, tgts10, DET10_STEPS,
+                              DET10_B, cfg10.optimizer.warmup_steps)
+    result["rsna_10"].update(parameters=n10, trainable=n10_train)
+    changed(task10, init10)
+    del task10, init10, imgs10, tgts10
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI from the pretrain CLI's checkpoint on a seeded RSNA corpus
+    from ecamp_tpu_torch.data.datasets import RSNADetectionDataset
+    from ecamp_tpu_torch.data.synthetic import write_detection_corpus
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    data = write_detection_corpus(os.path.join(work, "rsna_det"), "RSNA",
+                                  *DET_SPLITS, seed=SEED, img_size=DET_IMG)
+    n_images = len(RSNADetectionDataset(data, data, "train"))
+    per_epoch = n_images // DET_CLI_B
+    n_val = len(RSNADetectionDataset(data, data, "val"))
+    print(f"  (c) RSNA corpus {'/'.join(map(str, DET_SPLITS))} rows, PNGs at "
+          f"{DET_IMG} px, written in {time.perf_counter() - t0:.1f} s; "
+          f"{per_epoch} updates an epoch at B = {DET_CLI_B}, {n_val} "
+          f"validation images in batches of {DET_EVAL_B}")
+    check(per_epoch >= 1, "(c) the corpus fills no batch")
+    out = os.path.join(work, "det_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_det",
+           "--task", "RSNA", "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(DET_CLI_B), "--eval_batch_size",
+           str(DET_EVAL_B), "--lr", "5e-4", "--weight_decay", "0.05",
+           "--warmup_steps", "2", "--num_steps", str(2 * per_epoch),
+           "--patience", "1", "--start_eval", "1", "--output_dir", out,
+           "--seed", str(SEED)]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT)
+    check(r.returncode == 0, f"detection CLI exited {r.returncode}:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    cli_s = time.perf_counter() - t
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    printed = r.stdout
+    for line in printed.splitlines():
+        if line.startswith(("step ", "Epoch [", "TEST", pretrained,
+                            "loaded ")):
+            print(f"    {line}")
+    n_eval = -(-n_val // DET_EVAL_B)
+    want = {k: per_step[k] * (per_epoch + n_eval)
+            for k in ("layer_norm", "attention")}
+    vals = [rec for rec in recs if "step" in rec]
+    check(len(vals) >= 1 and [rec["step"] for rec in vals]
+          == [per_epoch * (i + 1) for i in range(len(vals))],
+          f"(c) validations at steps {[rec['step'] for rec in vals]}")
+    for rec in vals:
+        check(0.0 <= rec["mAP"] <= 1.0 and np.isfinite(rec["loss"]),
+              f"(c) validation {rec}")
+        check(rec["kernel_launches"] == want,
+              f"(c) launches {rec['kernel_launches']} != {want} (steps "
+              f"and a validation)")
+    # the trunk from the pretraining checkpoint: patch embedding, cls token
+    # and 12 tensors a block; pos_embed (a buffer in the port's ECAMP),
+    # det_head, the neck and the head stay at init
+    got = re.search(r": loaded (\d+) tensors, (\d+) left at init", printed)
+    check(got is not None and (int(got[1]), int(got[2])) == (
+        3 + 12 * depth, n_entries - 3 - 12 * depth),
+        f"(c) pretrained load: {got and got[0]}")
+    check("TEST mAP@[.40:.05:.75]:" in printed and "test_map" in recs[-1],
+          "(c) no test line")
+    best = os.path.join(out, "best", "checkpoint-best.pth")
+    check(os.path.exists(best), "(c) no best checkpoint")
+    print(f"  (c) CLI {cli_s:.1f} s: validations {vals}, test mAP "
+          f"{recs[-1]['test_map']:.4f}")
+
+    # (d) the serve engine on the best .pth against the task's eval step,
+    # the same NMS on the same candidates, then one POST
+    from ecamp_tpu_torch.ckpt import load_reference_pth, load_reference_state
+    from ecamp_tpu_torch.serve import detector_engine
+    from ecamp_tpu_torch.serve.http_server import PredictionService, serve
+
+    engine = detector_engine(best, img_size=224, buckets=(8,),
+                             device="cuda")
+    etask = DetectionTask(cfg, device="cuda")
+    load_reference_state(etask.model, load_reference_pth(best))
+    ds = RSNADetectionDataset(data, data, "test")
+    x = np.stack([ds[i]["image"] for i in range(5)])
+    with torch.inference_mode():
+        served = engine._run_padded(np.concatenate(
+            [x, np.broadcast_to(x[-1:], (3,) + x.shape[1:])]), 5)
+    want_c = etask.eval_step(None, torch.from_numpy(x).cuda()).cpu().numpy()
+    # the boxes (pixels) against their own scale, the probabilities absolute
+    box_err = float(np.abs(served[..., :4] - want_c[..., :4]).max())
+    scale = float(np.abs(want_c[..., :4]).max())
+    prob_err = float(np.abs(served[..., 4:] - want_c[..., 4:]).max())
+    print(f"  (d) engine on the best .pth: {len(x)} test images, "
+          f"{served.shape[1]} candidates each, max |served - eval_step| "
+          f"{box_err:.3e} on the boxes (scale {scale:.3g}), {prob_err:.3e} "
+          f"on objectness and class")
+    check(served.shape == want_c.shape == (5, 3 * (49 + 196 + 784), 6)
+          and box_err <= PROB_TOL * max(1.0, scale)
+          and prob_err <= PROB_TOL,
+          f"(d) served candidates off by {box_err:.3e} (boxes), "
+          f"{prob_err:.3e} (probabilities)")
+    boxes_e = engine.postprocess(served)
+    boxes_t = etask.detections(served)
+    check(all((a is None and b is None) or (a is not None and b is not None
+                                            and np.array_equal(a, b))
+              for a, b in zip(boxes_e, boxes_t)),
+          "(d) the engine's NMS and the task's differ on one candidate set")
+    full = engine(x)
+    check(len(full) == 5, f"(d) engine answered {len(full)} images")
+    with open(ds.img_paths[0], "rb") as f:
+        body = {"image": base64.b64encode(f.read()).decode()}
+    service = PredictionService(engine, img_size=224, task="detection")
+    httpd = serve(service, port=0, background=True)
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        reply = _http(f"{base}/predict", body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    pred = reply["predictions"][0]
+    print(f"  (d) POST /predict with --task detection: {pred}")
+    check(set(pred) == {"boxes"} and (pred["boxes"] is None or all(
+        len(b) == 7 for b in pred["boxes"])), f"(d) reply {reply}")
+    result.update(cli_seconds=cli_s, cli_log=recs,
+                  served_box_max_err=box_err, served_prob_max_err=prob_err,
+                  served_boxes=[None if b is None else len(b)
+                                for b in boxes_e], http_reply=pred,
+                  phase_seconds=time.perf_counter() - t_phase)
+    print(f"  detection phase: {result['phase_seconds']:.1f} s")
+    del etask, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2266,6 +2678,9 @@ def main() -> int:
         seg_kernels = segmentation_kernel_phase(card, shape_rows)
         segmentation = segmentation_phase(card, ckpt, work, seg_kernels,
                                           shape_rows)
+        det_kernels = detection_kernel_phase(card, shape_rows)
+        detection = detection_phase(card, ckpt, work, det_kernels,
+                                    shape_rows)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2316,6 +2731,8 @@ def main() -> int:
         if name in segmentation["launches_a_step"]:  # a segmentation step's
             entry["segmentation_launches"] = \
                 segmentation["launches_a_step"][name]
+        if name in detection["launches_a_step"]:  # a detection step's
+            entry["detection_launches"] = detection["launches_a_step"][name]
         if name == "fused_ce_fwd":  # the tile kernel and the merge
             entry["parts"] = {
                 k: {"launches_a_step": flaunches[
@@ -2344,6 +2761,8 @@ def main() -> int:
     print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))
     print(json.dumps({"segmentation": segmentation,
                       "segmentation_kernels": seg_kernels}))
+    print(json.dumps({"detection": detection,
+                      "detection_kernels": det_kernels}))
     print(json.dumps({"fused_ce_mainloop":
                       main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))

@@ -1,28 +1,31 @@
 """Weights into the port: the JAX param tree and reference `.pth` files.
 
-`state_dict_from_flax` maps a JAX `ViTClassifier`, `ECAMP`, `SegViT` or
-`SegViTDual` param tree (and a `batch_stats` tree) onto the port's state
-dict by the rules of `ecamp_tpu/ckpt/torch_import.py::_default_key_fn` and
-`torch_export.py::_deconvert` and the namespaces of
-`export_ecamp_pretrain` and `export_seg_vit` (reimplemented here; the port
-imports nothing of JAX): `blocks_i` -> `blocks.i` (so `decoder_blocks_i`
--> `decoder_blocks.i`), BERT `layer_i` -> `encoder.layer.i`, the MLM
-head's `transform_*` / `decoder` -> `predictions.*`, `bert.*` ->
-`bert_encoder.model.bert.*` and `bert.cls.*` -> `bert_encoder.model.cls.*`,
-the seg decoders' `decoder_i_conv` / `decoder_i_bn` -> `decoder_i.0` /
-`decoder_i.1`, `kernel` / `embedding` / `scale` -> `weight` with 2-D
-(in, out) -> (out, in) and 4-D HWIO -> OIHW, BatchNorm `mean` / `var` ->
+`state_dict_from_flax` maps a JAX `ViTClassifier`, `ECAMP`, `SegViT`,
+`SegViTDual` or `DetectionModel` param tree (and a `batch_stats` tree)
+onto the port's state dict by the rules of `ecamp_tpu/ckpt/
+torch_import.py::_default_key_fn` and `torch_export.py::_deconvert` and
+the namespaces of `export_ecamp_pretrain`, `export_seg_vit` and
+`export_detector` (reimplemented here; the port imports nothing of JAX):
+`blocks_i` -> `blocks.i` (so `decoder_blocks_i` -> `decoder_blocks.i`),
+BERT `layer_i` -> `encoder.layer.i`, the MLM head's `transform_*` /
+`decoder` -> `predictions.*`, `bert.*` -> `bert_encoder.model.bert.*` and
+`bert.cls.*` -> `bert_encoder.model.cls.*`, the seg decoders'
+`decoder_i_conv` / `decoder_i_bn` -> `decoder_i.0` / `decoder_i.1`, the
+YOLO head's `embeddingN/cbl_i` -> `embeddingN.i` with its `head.` prefix
+dropped, `kernel` / `embedding` / `scale` -> `weight` with 2-D (in, out)
+-> (out, in) and 4-D HWIO -> OIHW, BatchNorm `mean` / `var` ->
 `running_mean` / `running_var`, and the `trunk.` prefix dropped (a
-`SegEncoder`'s `encoder.trunk.` becomes `encoder.`). The ECAMP sin-cos
-tables are buffers in the port and constants in JAX, so neither side has
-them as keys.
+`SegEncoder`'s `encoder.trunk.` becomes `encoder.`, a `DetEncoder`'s
+`backbone.encoder.trunk.` `backbone.encoder.`). The ECAMP sin-cos tables
+are buffers in the port and constants in JAX, so neither side has them as
+keys.
 
 `load_reference_pth` reads a reference checkpoint the way
 `ckpt/torch_import.py:173-179` does: unwrap `model` and `state_dict`, strip
 DDP `module.` prefixes; `load_reference_state` strict-loads it.
-`import_vit_classifier` and `import_seg_vit` initialise a classifier or a
-segmenter from such a checkpoint, or from a pretraining one, by the JAX
-package's partial-load rule (`_apply_state`).
+`import_vit_classifier`, `import_seg_vit` and `import_detector` initialise
+a classifier, a segmenter or a detector from such a checkpoint, or from a
+pretraining one, by the JAX package's partial-load rule (`_apply_state`).
 """
 
 from __future__ import annotations
@@ -61,7 +64,10 @@ def _key(path) -> str:
         joined = joined.replace(jax_name, torch_name)
     joined = re.sub(r"decoder_(\d+)_conv", r"decoder_\1.0", joined)
     joined = re.sub(r"decoder_(\d+)_bn", r"decoder_\1.1", joined)
-    joined = re.sub(r"^encoder\.trunk(\.|$)", r"encoder\1", joined)
+    joined = re.sub(r"embedding(\d+)\.cbl_(\d+)", r"embedding\1.\2", joined)
+    joined = re.sub(r"^head\.", "", joined)  # the detector's YOLO head
+    joined = re.sub(r"^((?:backbone\.)?encoder)\.trunk(\.|$)", r"\1\2",
+                    joined)
     if joined.startswith("trunk."):
         joined = joined[len("trunk."):]
     elif joined == "trunk":
@@ -214,3 +220,26 @@ def import_seg_vit(model: nn.Module, path: str, from_pretrain: bool = True,
         return None
 
     return _load_matching(model, state, source)
+
+
+def import_detector(model: nn.Module, path: str, from_pretrain: bool = True
+                    ) -> Tuple[List[str], List[str]]:
+    """Initialise a port `DetectionModel` (ViT backbone) from a reference
+    `.pth`, as the JAX package's `import_detector` does (`ecamp_tpu/ckpt/
+    torch_import.py:267-305`, convention 4): with `from_pretrain` only the
+    trunk, found in a pretraining checkpoint without its
+    `backbone.encoder.` prefix (`det_head`, the neck and the YOLO head
+    keep their init); otherwise a fine-tuned detector's every parameter
+    and BatchNorm statistic under its own name (the namespace of
+    `export_detector`); both by `_load_matching`. Returns (loaded names,
+    names left at init)."""
+    pre = "backbone.encoder."
+
+    def source(name: str) -> Optional[str]:
+        if not from_pretrain:
+            return name
+        if name.startswith(pre) and not name.startswith(pre + "det_head."):
+            return name[len(pre):]
+        return None
+
+    return _load_matching(model, load_reference_pth(path), source)

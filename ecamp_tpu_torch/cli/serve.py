@@ -1,11 +1,14 @@
 """Inference entry point of the port: HTTP serving or offline batch
-prediction of the ViT classifier or the SegViT segmenter on one CUDA card.
+prediction of the ViT classifier, the SegViT segmenter or the YOLOv3
+detector on one CUDA card.
 
   # HTTP server (stdlib, JSON/base64)
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
       --checkpoint cls.pth --port 8000
   python -m ecamp_tpu_torch.cli.serve --task segmentation [--dual] \\
       --checkpoint seg.pth --port 8000
+  python -m ecamp_tpu_torch.cli.serve --task detection [--expansion 8] \\
+      --checkpoint det.pth --port 8000
 
   # offline batch: folder or list file -> JSONL of predictions
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
@@ -26,7 +29,6 @@ import torch
 
 # what each option of the JAX CLI that is not ported waits for
 _NOT_PORTED = {
-    "detection": "ROADMAP Queue 1, detection",
     "embedding": "ROADMAP Queue 1, ECAMP model",
     "int8": "ROADMAP Queue 1, serving + export (serve/quantize.py)",
 }
@@ -38,11 +40,20 @@ def get_args(argv=None):
                    choices=["classification", "segmentation", "detection",
                             "embedding"])
     p.add_argument("--checkpoint", default="",
-                   help="reference classifier or SegViT .pth (random init "
-                        "if empty)")
+                   help="reference classifier, SegViT or detector .pth "
+                        "(random init if empty)")
     p.add_argument("--dual", action="store_true",
                    help="RIGA dual-decoder segmentation")
-    p.add_argument("--num_classes", type=int, default=14)
+    p.add_argument("--num_classes", type=int, default=None,
+                   help="14 for classification, 1 (RSNA pneumonia) for "
+                        "detection when not given")
+    p.add_argument("--expansion", type=int, default=4,
+                   help="detection: the neck's Bottleneck expansion (8 for "
+                        "a model fine-tuned on the 1%% or 10%% volume)")
+    p.add_argument("--conf_threshold", type=float, default=0.5,
+                   help="detection: NMS objectness threshold")
+    p.add_argument("--nms_threshold", type=float, default=0.5,
+                   help="detection: NMS IoU threshold")
     p.add_argument("--multilabel", action="store_true", default=True)
     p.add_argument("--singlelabel", dest="multilabel", action="store_false")
     p.add_argument("--img_size", type=int, default=224)
@@ -66,7 +77,7 @@ def get_args(argv=None):
 
 
 def build_engine(args):
-    from ..serve import classifier_engine, segmenter_engine
+    from ..serve import classifier_engine, detector_engine, segmenter_engine
 
     if args.task in _NOT_PORTED:
         raise SystemExit(f"--task {args.task} is not ported yet "
@@ -85,7 +96,12 @@ def build_engine(args):
         kw["buckets"] = tuple(args.buckets)
     if args.task == "segmentation":
         return segmenter_engine(dual=args.dual, **kw)
-    return classifier_engine(num_classes=args.num_classes,
+    if args.task == "detection":
+        return detector_engine(num_classes=args.num_classes or 1,
+                               expansion=args.expansion,
+                               conf_threshold=args.conf_threshold,
+                               nms_threshold=args.nms_threshold, **kw)
+    return classifier_engine(num_classes=args.num_classes or 14,
                              multilabel=args.multilabel, **kw)
 
 
@@ -110,7 +126,7 @@ def batch_predict(args, engine):
     from PIL import Image
 
     from ..data.transforms import EvalTransform
-    from ..serve.http_server import _summarize_mask
+    from ..serve.http_server import _jsonable, _summarize_mask
 
     et = EvalTransform(args.img_size, args.mean, args.std)
     paths = list(iter_paths(args.images))
@@ -122,6 +138,10 @@ def batch_predict(args, engine):
                 if args.task == "segmentation":
                     out.write(json.dumps({"path": path,
                                           **_summarize_mask(pred)}) + "\n")
+                    continue
+                if args.task == "detection":
+                    out.write(json.dumps({"path": path,
+                                          "boxes": _jsonable(pred)}) + "\n")
                     continue
                 rec = {"probs": pred.tolist()}
                 if args.class_names:

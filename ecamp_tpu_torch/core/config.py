@@ -1,10 +1,10 @@
 """Configuration tree, field for field the same as `ecamp_tpu.core.config`.
 
 Ported: `ViTConfig` and its factories, `BertConfig`, `MAEDecoderConfig`,
-`OptimizerConfig`, `DataConfig`, `PretrainConfig`, `ClassificationConfig`
-and `SegmentationConfig`. Left out: `MeshConfig` (the GSPMD data/model
-mesh, TPU-only; ROADMAP "Not ported"), and with it the configs' `mesh`
-fields. The detection config follows with its task.
+`OptimizerConfig`, `DataConfig`, `PretrainConfig`, `ClassificationConfig`,
+`SegmentationConfig` and `DetectionConfig`. Left out: `MeshConfig` (the
+GSPMD data/model mesh, TPU-only; ROADMAP "Not ported"), and with it the
+configs' `mesh` fields.
 """
 
 from __future__ import annotations
@@ -217,6 +217,38 @@ class SegmentationConfig:
     focal_gamma: float = 2.0
     freeze_encoder: bool = True  # encoder frozen except seg_head (train.py:128-133)
     patience: int = 40
+    pretrained: str = ""
+    seed: int = 42
+    bf16: bool = True
+    ckpt_dir: str = "checkpoints"
+
+
+@dataclass(frozen=True)
+class DetectionConfig:
+    """RSNA pneumonia / ObjectCXR detection (reference Detection/train.py);
+    `ecamp_tpu.core.config.DetectionConfig` without `mesh`."""
+
+    vit: ViTConfig = field(default_factory=vit_base)
+    optimizer: OptimizerConfig = field(
+        default_factory=lambda: OptimizerConfig(
+            name="adamw", lr=5e-4, weight_decay=1e-6, betas=(0.9, 0.999),
+            schedule="warmup_cosine_step"))
+    data: DataConfig = field(
+        default_factory=lambda: DataConfig(mean=0.4722, std=0.3028))
+    task: str = "RSNA"
+    backbone: str = "vit"        # vit | resnet50 (ResNetDetector baseline,
+                                 # Detection/train.py:99-131; not ported)
+    num_classes: int = 1
+    img_size: int = 224
+    max_objects: int = 10
+    expansion: int = 4           # bottleneck expansion; 8 for 1/10% volume (train.py:136)
+    conf_threshold: float = 0.5
+    nms_threshold: float = 0.5
+    # mAP over IoU .40:.05:.75 (train.py:214-215)
+    map_iou_thresholds: Tuple[float, ...] = tuple(
+        round(0.4 + 0.05 * i, 2) for i in range(8))
+    freeze_encoder: bool = True
+    patience: int = 20
     pretrained: str = ""
     seed: int = 42
     bf16: bool = True

@@ -1,8 +1,8 @@
-"""The pretraining, classification and segmentation datasets
+"""The pretraining, classification, segmentation and detection datasets
 (counterpart of `ecamp_tpu/data/datasets.py`; reference
-pretrain_datasets.py:34-239, Classification/utils/dataset.py and
-Segmentation/utils/my_dataset.py), read with the stdlib `csv` module.
-Samples are dicts of numpy arrays.
+pretrain_datasets.py:34-239, Classification/utils/dataset.py,
+Segmentation/utils/my_dataset.py and Detection/utils/my_dataset.py), read
+with the stdlib `csv` module. Samples are dicts of numpy arrays.
 
 The segmentation geometry is the JAX package's, without OpenCV: its
 INTER_AREA and INTER_LINEAR resizes of float32 arrays are written here in
@@ -281,7 +281,8 @@ def shift_scale_rotate(img: np.ndarray, mask: Optional[np.ndarray],
 
 def _finish_image(img: np.ndarray, mean: float, std: float,
                   output_u8: bool, gray: bool = True) -> np.ndarray:
-    """The last host step of the segmentation pipelines: normalize
+    """The last host step of the segmentation and detection pipelines:
+    normalize
     (albumentations semantics), or with `output_u8` quantize the
     interpolated f32 image to u8 for the device to normalize
     (`ops/image_ops.py::device_normalize_image`): a <= 0.5/255 rounding
@@ -460,3 +461,100 @@ class RIGASegmentationDataset(_SegDataset):
         img = _finish_image(img, self.mean, self.std, self.output_u8,
                             gray=False)
         return {"image": img, "mask": stacked.astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# detection
+
+
+def _det_list(list_root: str, task: str, names: Dict[str, str], split: str,
+              data_volume: str) -> str:
+    name = (names["train"][data_volume] if split == "train"
+            else names[split])
+    return os.path.join(list_root, task, name)
+
+
+class ObjectCXRDetectionDataset:
+    """Object-CXR foreign-object detection
+    (Detection/utils/my_dataset.py:106-209): a CSV of image names under
+    `<image_root>/resize/`, sorted by name, with a precomputed label array
+    `<name>.npy` per image (rows [cls, cx, cy, w, h] normalised), padded
+    to `max_objects` rows; the image bilinear-resized and normalised.
+    Validation and test both read `test_list.csv`."""
+
+    LISTS = {"train": {"1": "train_list_1.csv", "10": "train_list_10.csv",
+                       "100": "train_list.csv"},
+             "val": "test_list.csv", "test": "test_list.csv"}
+
+    def __init__(self, list_root: str, image_root: str, split: str,
+                 img_size: int = 224, data_volume: str = "100",
+                 max_objects: int = 20, mean: float = 0.4722,
+                 std: float = 0.3028, output_u8: bool = False):
+        (names,) = _columns(_det_list(list_root, "ObjectCXR", self.LISTS,
+                                      split, data_volume), ("image_name",))
+        self.image_dir = os.path.join(image_root, "resize")
+        self.names = sorted(names)
+        self.img_size = img_size
+        self.max_objects = max_objects
+        self.mean, self.std = mean, std
+        self.output_u8 = output_u8
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __getitem__(self, i) -> Dict[str, np.ndarray]:
+        name = self.names[i]
+        img = np.asarray(_pil_load_rgb(os.path.join(self.image_dir, name)),
+                         np.float32)
+        img = _resize_img_linear(img, self.img_size)
+        img = _finish_image(img, self.mean, self.std, self.output_u8)
+        y = np.load(os.path.join(self.image_dir, name + ".npy"))
+        out = np.zeros((self.max_objects, 5), np.float32)
+        n = min(len(y), self.max_objects)
+        out[:n] = y[:n, :5]
+        return {"image": img, "target": out}
+
+
+class RSNADetectionDataset:
+    """RSNA pneumonia detection (Detection/utils/my_dataset.py:18-102):
+    the CSV's xyxy boxes in image pixels -> normalised [cls = 0, cx, cy,
+    w, h] rows padded to `max_objects` (a negative's "[[0.0, 0.0, 0.0,
+    0.0]]" becomes a padding row); the image bilinear-resized and
+    normalised. Validation and test both read `val_list.csv`."""
+
+    LISTS = {"train": {"1": "train_list_1.csv", "10": "train_list_10.csv",
+                       "100": "train_list.csv"},
+             "val": "val_list.csv", "test": "val_list.csv"}
+
+    def __init__(self, list_root: str, image_root: str, split: str,
+                 img_size: int = 224, data_volume: str = "100",
+                 max_objects: int = 10, mean: float = 0.4722,
+                 std: float = 0.3028, output_u8: bool = False):
+        paths, self.raw_bboxes = _columns(
+            _det_list(list_root, "RSNA", self.LISTS, split, data_volume),
+            ("image_path", "bbox"))
+        self.img_paths = [os.path.join(image_root, p) for p in paths]
+        self.img_size = img_size
+        self.max_objects = max_objects
+        self.mean, self.std = mean, std
+        self.output_u8 = output_u8
+
+    def __len__(self) -> int:
+        return len(self.img_paths)
+
+    def __getitem__(self, i) -> Dict[str, np.ndarray]:
+        img = np.asarray(_pil_load_rgb(self.img_paths[i]), np.float32)
+        h, w = img.shape[:2]
+        img = _resize_img_linear(img, self.img_size)
+        img = _finish_image(img, self.mean, self.std, self.output_u8)
+
+        bbox = np.asarray(ast.literal_eval(self.raw_bboxes[i]), np.float32)
+        out = np.zeros((self.max_objects, 5), np.float32)
+        n = min(len(bbox), self.max_objects)
+        if n > 0:
+            cx = (bbox[:n, 0] + bbox[:n, 2]) / 2.0 / w
+            cy = (bbox[:n, 1] + bbox[:n, 3]) / 2.0 / h
+            bw = (bbox[:n, 2] - bbox[:n, 0]) / w
+            bh = (bbox[:n, 3] - bbox[:n, 1]) / h
+            out[:n, 1], out[:n, 2], out[:n, 3], out[:n, 4] = cx, cy, bw, bh
+        return {"image": img, "target": out}

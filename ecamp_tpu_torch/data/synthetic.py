@@ -17,6 +17,16 @@ segmentation dataset reads, in the shipped lists' columns and path layout:
 `<task>/{train,val,test}_list.csv` and the images (and RIGA's masks) they
 name. Each lesion brightens the image where its mask lies, so a model can
 learn the masks.
+
+`write_detection_corpus` writes what the RSNA or ObjectCXR detection
+dataset reads: RSNA gray PNGs with `image_path,bbox` lists (xyxy boxes in
+image pixels, "[[0.0, 0.0, 0.0, 0.0]]" for a negative), ObjectCXR JPEGs
+under `resize/` with one `<name>.npy` label array each and
+`image_name` lists. Each box brightens the image inside it.
+
+`detection_batch` makes the same kind of batch on the device, for step
+profiles and smoke runs: u8 gray images with 1-3 seeded boxes each and
+their zero-padded targets.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import random
 import shutil
 
 import numpy as np
+import torch
 from PIL import Image
 
 from .datasets import REPORTS_CSV, VOCAB_JSON, WINDOWS_CSV
@@ -240,3 +251,88 @@ def write_segmentation_corpus(root: str, task: str, n_train: int,
             writer.writeheader()
             writer.writerows(rows)
     return root
+
+
+def write_detection_corpus(root: str, task: str, n_train: int, n_val: int,
+                           n_test: int, seed: int = 0,
+                           img_size: int = 256) -> str:
+    """Write a seeded RSNA or ObjectCXR detection corpus under `root`;
+    returns `root`. About 60% of the images are positive; one holds 1-3 boxes whose sides are 12-40%
+    of the image. RSNA: `train_images/<id>.png` and
+    `RSNA/{train,val,test}_list.csv` (`image_path,bbox`; the dataset's val
+    and test read `val_list.csv`). ObjectCXR: `resize/<id>.jpg` with
+    `resize/<id>.jpg.npy` ((n, 5) rows [0, cx, cy, w, h] normalised; one
+    zero row for a negative) and `ObjectCXR/{train,val,test}_list.csv`
+    (`image_name`; the dataset's val and test read `test_list.csv`). Each
+    split holds at least one positive."""
+    if task not in ("RSNA", "ObjectCXR"):
+        raise ValueError(f"unknown detection task {task!r}")
+    os.makedirs(os.path.join(root, task), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    s = img_size
+    i = 0
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        rows = []
+        for j in range(n):
+            positive = j == 0 or rng.random() < 0.6
+            img = _film(rng, s, s)
+            boxes = []
+            for _ in range(int(rng.integers(1, 4)) if positive else 0):
+                bw, bh = rng.uniform(0.12, 0.4, 2) * s
+                x1 = float(round(rng.uniform(0, s - bw)))
+                y1 = float(round(rng.uniform(0, s - bh)))
+                x2, y2 = float(round(x1 + bw)), float(round(y1 + bh))
+                boxes.append([x1, y1, x2, y2])
+                img[int(y1):int(y2), int(x1):int(x2)] += 60
+            if task == "RSNA":
+                name = f"train_images/{seed:04d}-{i:06d}.png"
+                _save_gray(os.path.join(root, name), img)
+                rows.append({"image_path": name,
+                             "bbox": str(boxes or [[0.0, 0.0, 0.0, 0.0]])})
+            else:
+                name = f"{seed:04d}{i:06d}.jpg"
+                path = os.path.join(root, "resize", name)
+                _save_gray(path, img)
+                b = np.asarray(boxes, np.float32).reshape(-1, 4)
+                labels = np.stack([np.zeros(len(b), np.float32),
+                                   (b[:, 0] + b[:, 2]) / 2 / s,
+                                   (b[:, 1] + b[:, 3]) / 2 / s,
+                                   (b[:, 2] - b[:, 0]) / s,
+                                   (b[:, 3] - b[:, 1]) / s], axis=1)
+                np.save(path + ".npy",
+                        labels if len(b) else np.zeros((1, 5), np.float32))
+                rows.append({"image_name": name})
+            i += 1
+        with open(os.path.join(root, task, f"{split}_list.csv"), "w",
+                  newline="", encoding="utf-8") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
+    return root
+
+
+def detection_batch(b: int, max_objects: int, gen: torch.Generator,
+                    img_size: int = 224):
+    """A seeded u8 gray batch (b, img_size, img_size, 1) on `gen`'s device,
+    with 1-3 boxes an image (sides 10-40% of the image) that brighten the
+    image inside them, so a loss can fall; and the targets (b, max_objects,
+    5), rows [0, cx, cy, w, h] normalised, zero-padded."""
+    dev = gen.device
+    n = torch.randint(1, 4, (b, 1), device=dev, generator=gen)
+    live = (torch.arange(max_objects, device=dev) < n).float()
+    r = torch.rand(b, max_objects, 4, device=dev, generator=gen)
+    wh = 0.1 + 0.3 * r[..., 2:]
+    c = wh / 2 + (1 - wh) * r[..., :2]
+    targets = torch.cat([torch.zeros(b, max_objects, 1, device=dev), c, wh],
+                        dim=-1) * live[..., None]
+    pix = torch.arange(img_size, device=dev) + 0.5
+    yy, xx = torch.meshgrid(pix, pix, indexing="ij")
+    img = 100 + 25 * torch.randn(b, img_size, img_size, device=dev,
+                                 generator=gen)
+    for i in range(3):
+        x0, y0 = (c[:, i] - wh[:, i] / 2).mul(img_size).unbind(-1)
+        x1, y1 = (c[:, i] + wh[:, i] / 2).mul(img_size).unbind(-1)
+        inside = ((xx >= x0[:, None, None]) & (xx < x1[:, None, None])
+                  & (yy >= y0[:, None, None]) & (yy < y1[:, None, None]))
+        img += 60 * inside * live[:, i, None, None]
+    return img.clamp(0, 255).to(torch.uint8)[..., None], targets

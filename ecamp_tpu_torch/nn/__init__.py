@@ -1,6 +1,8 @@
 from .layers import (Attention, BatchNorm, Block, Conv2d, Dense, Dropout,
                      DropPath, LayerNorm, Mlp, PatchEmbed, set_generator,
                      set_plain)
+from .det import (YOLO_ANCHORS, Bottleneck, DetectionLayers,
+                  DetectionModel, DetEncoder, ViTDetector)
 from .pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
 from .seg import ConvDecoder, SegEncoder, SegViT, SegViTDual
 from .vit import ViTClassifier, VisionTransformer
@@ -8,5 +10,6 @@ from .vit import ViTClassifier, VisionTransformer
 __all__ = ["Attention", "BatchNorm", "Block", "Conv2d", "Dense", "Dropout",
            "DropPath", "LayerNorm", "Mlp", "PatchEmbed", "set_generator",
            "set_plain", "get_2d_sincos_pos_embed", "interpolate_pos_embed",
-           "ConvDecoder", "SegEncoder", "SegViT", "SegViTDual",
-           "ViTClassifier", "VisionTransformer"]
+           "YOLO_ANCHORS", "Bottleneck", "DetectionLayers", "DetectionModel",
+           "DetEncoder", "ViTDetector", "ConvDecoder", "SegEncoder",
+           "SegViT", "SegViTDual", "ViTClassifier", "VisionTransformer"]

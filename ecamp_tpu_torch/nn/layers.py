@@ -212,24 +212,32 @@ class Block(nn.Module):
 class Conv2d(nn.Module):
     """flax `nn.Conv` with SAME-size padding on NCHW tensors (channels_last
     in memory when the input is): the reference's OIHW `weight` and
-    `bias`, lecun-normal and zero at init, computed in `dtype`."""
+    `bias` (none with `bias=False`), lecun-normal and zero at init,
+    computed in `dtype`. A `stride` is taken by 1x1 kernels only, where
+    flax's SAME padding is 0 at every input size."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, dtype: torch.dtype = torch.float32):
+                 kernel_size: int = 3, dtype: torch.dtype = torch.float32,
+                 bias: bool = True, stride: int = 1):
         super().__init__()
+        if stride != 1 and kernel_size != 1:
+            raise ValueError("a strided Conv2d takes a 1x1 kernel only")
         self.dtype = dtype
         self.padding = kernel_size // 2
+        self.stride = stride
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def reset_parameters(self, generator=None) -> None:
         lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=self.padding)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                        stride=self.stride, padding=self.padding)
 
 
 class BatchNorm(nn.Module):

@@ -6,11 +6,12 @@ the JAX package, a resize is two dense products with the (dst, src)
 matrices of torch's non-antialiased kernels, built once in numpy: the same
 linear map as `F.interpolate`, and the same matrices as `_resize_matmul`.
 
-The segmentation decoder's align-corners upsample is the exception: the
-JAX package writes it as two dense fp32 (out, in) products because a
-gather's backward is slow on the TPU; on the card those products would
-cost ~0.7 TFLOP of fp32 work at B = 512, so it is `F.interpolate`, which
-computes the same function.
+The align-corners upsample of the segmentation decoder and the detector's
+neck is the exception: the JAX package writes it as two dense fp32 (out,
+in) products because a gather's backward is slow on the TPU; on the card
+those products would cost ~0.7 TFLOP of fp32 work at B = 512, so it is
+`F.interpolate`, which computes the same function. So is the YOLO head's
+nearest upsample (a `repeat` in JAX).
 """
 
 from __future__ import annotations
@@ -91,6 +92,15 @@ def upsample_align_corners(x: torch.Tensor, scale: int) -> torch.Tensor:
     y = F.interpolate(x.float(), scale_factor=scale, mode="bilinear",
                       align_corners=True)
     return y.to(x.dtype)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Nearest-neighbour upsample by an integer `scale` of an NCHW tensor
+    (the YOLO head, detector_model.py:30-31): each pixel repeated `scale`
+    times along H and W, as `ecamp_tpu/ops/image_ops.py::upsample_nearest`
+    does on NHWC (`F.interpolate(mode="nearest")` gives the same values at
+    an integer scale)."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
 def device_normalize_image(x: torch.Tensor, mean: float,

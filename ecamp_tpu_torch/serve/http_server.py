@@ -9,12 +9,14 @@ Endpoints:
                             response {"predictions": [{"probs": [...],
                             "labels": {...}}, ...]} (classification), or
                             [{"area_fraction": f, "bbox_xyxy": [...]}, ...]
-                            per mask channel (segmentation)
+                            per mask channel (segmentation), or
+                            {"boxes": [[x1, y1, x2, y2, conf, cls_conf,
+                            cls], ...] or null} (detection)
 
 Requests are decoded and preprocessed on the host (`data/transforms.py::
 EvalTransform` — the reference test path's Resize/CenterCrop/Normalize),
 then single images go through a `MicroBatcher` so concurrent clients share
-device calls.
+device calls; detection bypasses it, as its outputs are per-image lists.
 """
 
 from __future__ import annotations
@@ -37,6 +39,18 @@ def _decode_image(b64: str, transform) -> np.ndarray:
     return transform(img)
 
 
+def _jsonable(x):
+    """Numpy arrays and scalars (and lists of them, None included) as JSON
+    values."""
+    if isinstance(x, np.ndarray):
+        return [_jsonable(v) for v in x.tolist()] if x.ndim else float(x)
+    if isinstance(x, (np.floating, np.integer)):
+        return float(x)
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x
+
+
 def _summarize_mask(mask: np.ndarray, threshold: float = 0.5) -> dict:
     """Masks are too large for JSON round-trips at serving granularity;
     return the binarized area fraction + bounding box per channel (clients
@@ -57,7 +71,7 @@ def _summarize_mask(mask: np.ndarray, threshold: float = 0.5) -> dict:
 
 class PredictionService:
     """Binds an engine, preprocessing and response shaping for one task
-    ('classification' or 'segmentation')."""
+    ('classification', 'segmentation' or 'detection')."""
 
     def __init__(self, engine, img_size: int = 224, mean: float = 0.4722,
                  std: float = 0.3028, micro_batch: bool = True,
@@ -65,13 +79,14 @@ class PredictionService:
         from ..data.transforms import EvalTransform
         from .engine import MicroBatcher
 
-        if task not in ("classification", "segmentation"):
+        if task not in ("classification", "segmentation", "detection"):
             raise ValueError(f"no service for task {task!r}")
         self.engine = engine
         self.task = task
         self.transform = EvalTransform(img_size, mean, std)
         self.class_names = class_names
-        self.batcher = MicroBatcher(engine) if micro_batch else None
+        self.batcher = (MicroBatcher(engine)
+                        if micro_batch and task != "detection" else None)
 
     def decode(self, images_b64) -> np.ndarray:
         """Host-side decode+preprocess; raises on malformed input (400)."""
@@ -88,6 +103,8 @@ class PredictionService:
     def _shape(self, out):
         if self.task == "segmentation":
             return _summarize_mask(np.asarray(out))
+        if self.task == "detection":
+            return {"boxes": _jsonable(out)}
         r = {"probs": out.tolist()}
         if self.class_names:
             r["labels"] = {n: float(p) for n, p in zip(self.class_names, out)}

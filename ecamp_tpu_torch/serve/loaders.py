@@ -1,10 +1,11 @@
-"""Engine factories for the classifier and the segmenter (counterpart of
-`ecamp_tpu/serve/loaders.py::classifier_engine` and `segmenter_engine`).
+"""Engine factories for the classifier, the segmenter and the detector
+(counterpart of `ecamp_tpu/serve/loaders.py::classifier_engine`,
+`segmenter_engine` and `detector_engine`).
 
-The other engines (detection, embedding) are not ported yet (ROADMAP
-Queue 1); nor are orbax checkpoints or int8 weights. The classifier serves
-the `.pth` that `cli/finetune_cls.py` writes, the segmenter the one
-`cli/finetune_seg.py` writes.
+The embedding engine is not ported yet (ROADMAP Queue 1); nor are orbax
+checkpoints or int8 weights. The classifier serves the `.pth` that
+`cli/finetune_cls.py` writes, the segmenter the one `cli/finetune_seg.py`
+writes, the detector the one `cli/finetune_det.py` writes.
 """
 
 from __future__ import annotations
@@ -94,5 +95,50 @@ def segmenter_engine(checkpoint: str = "", img_size: int = 224,
 
     engine = InferenceEngine(apply_fn, buckets=buckets, input_dtype=dtype,
                              device=device)
+    engine.model = model
+    return engine
+
+
+def detector_engine(checkpoint: str = "", img_size: int = 224,
+                    num_classes: int = 1, expansion: int = 4,
+                    conf_threshold: float = 0.5, nms_threshold: float = 0.5,
+                    vit: Optional[ViTConfig] = None, buckets=(8, 16),
+                    bf16: bool = True, device="cuda",
+                    seed: int = 0) -> InferenceEngine:
+    """Serve YOLOv3 detections: the three scales decoded on the device to
+    (B, N, 5 + C) candidates, NMS on the host in `postprocess`. Returns a
+    list (len B) of (k_i, 7) arrays [x1 y1 x2 y2 conf cls_conf cls] or
+    None, the reference's NMS output (detection_utils.py:76-135).
+
+    The checkpoint is a fine-tuned detector `.pth` in the reference
+    namespace, strict-loaded (`ckpt/convert.py::load_reference_state`);
+    without one the weights are a seeded random init. The BatchNorms use
+    their running statistics. The served module is `engine.model`."""
+    from ..ckpt import load_reference_pth, load_reference_state
+    from ..nn import YOLO_ANCHORS, DetectionModel
+    from ..ops.boxes import decode_yolo, nms
+
+    _check_pth(checkpoint)
+    vcfg = vit or ViTConfig(img_size=img_size)
+    dtype = policy(bf16).compute_dtype
+    model = DetectionModel(vcfg, num_classes=num_classes,
+                           expansion=expansion, dtype=dtype,
+                           generator=torch.Generator().manual_seed(seed))
+    if checkpoint:
+        load_reference_state(model, load_reference_pth(checkpoint))
+    model = model.to(device).eval()
+
+    def apply_fn(x):
+        outs = model(x, train=False)
+        return torch.cat([decode_yolo(o, YOLO_ANCHORS[i], img_size,
+                                      num_classes)
+                          for i, o in enumerate(outs)], dim=1)
+
+    def post(preds):
+        return nms(preds, num_classes, conf_thres=conf_threshold,
+                   nms_thres=nms_threshold)
+
+    engine = InferenceEngine(apply_fn, buckets=buckets, postprocess=post,
+                             input_dtype=dtype, device=device)
     engine.model = model
     return engine

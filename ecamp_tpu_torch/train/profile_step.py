@@ -6,6 +6,8 @@
         [--linear_probe] [--out FILE]
     python -m ecamp_tpu_torch.train.profile_step --segmentation
         [--batch 512] [--dual] [--out FILE]
+    python -m ecamp_tpu_torch.train.profile_step --detection
+        [--batch 1024] [--expansion 8] [--out FILE]
 
 Builds the full-width `PretrainTask` (the ECAMP of `PretrainConfig()`,
 bf16 compute, AdamW at a constant lr; with `--fused_mlm_ce`, the MLM loss
@@ -16,7 +18,11 @@ bf16, SGD momentum 0.9, lr 3e-2 past its warmup, clip 1.0, drop-path 0.1;
 `--linear_probe` freezes all but the head), or with `--segmentation` the
 `SegmentationTask` of the recipe seg_SIIM_100 (SegViT at 224, bf16,
 encoder frozen, AdamW lr 5e-4 past its warmup, wd 0.05, clip 1.0;
-`--dual`: SegViTDual, RIGA) on a seeded u8 batch, runs two
+`--dual`: SegViTDual, RIGA) on a seeded u8 batch, or with `--detection`
+the `DetectionTask` of the recipe det_RSNA_100 (the ViT-B/16 detector at
+224, neck expansion 4, or 8 with `--expansion 8` as det_RSNA_10 at
+`--batch 256`; bf16, encoder frozen, AdamW lr 5e-4 past its warmup, wd
+0.05, clip 1.0) on a seeded u8 batch with 1-3 boxes an image, runs two
 warm-up steps, times five steps on the host clock, then runs one step
 under `torch.profiler`, and prints the
 device time of that step by kernel group (the port's kernels, GEMMs,
@@ -38,7 +44,7 @@ from typing import Dict
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("attention kernel", ("attention_fwd",)),
     ("layer_norm kernel", ("ln_fwd",)),
-    ("sr_conv_stack kernel", ("sr_conv_stack_kernel",)),
+    ("sr_conv_stack kernel", ("sr_conv_stack",)),  # generic and TMA
     ("adamw kernel", ("adamw_multi_kernel",)),
     ("fused CE kernels", ("fused_ce_fwd", "fused_ce_bwd")),
     # cuDNN's convolutions (the SR backward) are implicit GEMMs: test first
@@ -143,11 +149,38 @@ def _segmentation_step(args, b, gen):
     return step, "segmentation (RIGA, dual)" if args.dual else "segmentation"
 
 
+def _detection_step(args, b, gen):
+    """One frozen-encoder detection step of the recipe det_RSNA_100 (or
+    det_RSNA_10 with `--expansion 8`) on a seeded u8 batch with 1-3
+    seeded boxes an image (padded to 10); the warmup is set to 0 so that
+    every step updates."""
+    from ..core import config as c
+    from ..data.synthetic import detection_batch
+    from .detection import DetectionTask
+
+    cfg = c.DetectionConfig(
+        expansion=args.expansion,
+        optimizer=c.OptimizerConfig(name="adamw", lr=5e-4, weight_decay=0.05,
+                                    betas=(0.9, 0.999),
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=20000,
+                                    grad_clip=1.0), seed=args.seed)
+    task = DetectionTask(cfg, device="cuda")
+    images, targets = detection_batch(b, cfg.max_objects, gen)
+    box = [task.init_state()]
+
+    def step():
+        box[0], m = task.train_step(box[0], images, targets)
+        return m
+
+    return step, f"detection (expansion {args.expansion})"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=None,
-                    help="32 (pretraining), 96 (--finetune) or 512 "
-                         "(--segmentation)")
+                    help="32 (pretraining), 96 (--finetune), 512 "
+                         "(--segmentation) or 1024 (--detection)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--fused_mlm_ce", action="store_true")
@@ -155,6 +188,9 @@ def main(argv=None) -> int:
     ap.add_argument("--linear_probe", action="store_true")
     ap.add_argument("--segmentation", action="store_true")
     ap.add_argument("--dual", action="store_true")
+    ap.add_argument("--detection", action="store_true")
+    ap.add_argument("--expansion", type=int, default=4,
+                    help="--detection: the neck's Bottleneck expansion")
     args = ap.parse_args(argv)
 
     import torch
@@ -167,7 +203,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
          "--id=0"], capture_output=True, text=True, timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    if args.segmentation:
+    if args.detection:
+        b = args.batch or 1024
+        step, what = _detection_step(args, b, gen)
+    elif args.segmentation:
         b = args.batch or 512
         step, what = _segmentation_step(args, b, gen)
     elif args.finetune:

@@ -103,8 +103,8 @@ def test_rotated_copies_hold_twice_the_l2_and_take_turns():
 
 def test_profile_groups_hold_every_kernel_of_the_port():
     """`train/profile_step.py` puts each of the port's kernels in its
-    group by name, the two-kernel fused-CE forward and the TMA + wgmma
-    attention included."""
+    group by name, the two-kernel fused-CE forward, the TMA + wgmma
+    attention and the TMA SR forward included."""
     from ecamp_tpu_torch.train.profile_step import group_of
 
     for name, group in (
@@ -112,6 +112,10 @@ def test_profile_groups_hold_every_kernel_of_the_port():
              "attention kernel"),
             ("void attention_fwd_kernel<float, 64>(...)", "attention kernel"),
             ("ln_fwd_kernel", "layer_norm kernel"),
+            ("ln_fwd_vec_kernel", "layer_norm kernel"),
+            ("sr_conv_stack_kernel", "sr_conv_stack kernel"),
+            ("sr_conv_stack_tma_kernel", "sr_conv_stack kernel"),
+            ("adamw_multi_kernel", "adamw kernel"),
             ("fused_ce_fwd_tiles_kernel(CUtensorMap_st, ...)",
              "fused CE kernels"),
             ("fused_ce_fwd_merge_kernel(float2 const*, ...)",

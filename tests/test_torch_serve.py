@@ -268,13 +268,12 @@ def test_cli_batch_mode_writes_jsonl(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    cases = [(["--task", "detection"], "detection"),
-             (["--task", "embedding"], "ECAMP model"),
+    cases = [(["--task", "embedding"], "ECAMP model"),
              (["--quantize", "int8"], "quantize")]
     for extra, msg in cases:
         with pytest.raises(SystemExit, match=msg):
             _cli(["--device", "cpu", *extra], tmp_path)
-    for task in ("classification", "segmentation"):
+    for task in ("classification", "segmentation", "detection"):
         with pytest.raises(ValueError, match="orbax directory"):
             _cli(["--device", "cpu", "--checkpoint", str(tmp_path),
                   "--task", task], tmp_path)
