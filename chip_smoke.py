@@ -116,7 +116,44 @@
    probabilities 2e-2 absolute), the same boxes from its NMS and the
    task's on one candidate set, and one POST through the HTTP server with
    task detection. The phase prints its seconds.
-10. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
+10. The ResNet-50 UNet segmentation baseline (`ResNetUNet`: torchvision
+   ResNet-50 encoder, decoder 256/128/64/32/16, 224 px, bf16, trained end
+   to end; seg_SIIM_100's AdamW lr 5e-4 wd 0.05 clip 1.0 with the warmup
+   cut to 2 updates), after the
+   detection fine-tune: B = 512 halved until a step fits in the card's
+   memory (a B = 16 step's peak sets the first try; the B used is
+   printed); (a) the first step through the kernels (here AdamW only)
+   against the plain step (loss 2e-2, grad norm 5%, BatchNorm statistics
+   2e-2), the AdamW kernel unmasked over all 191 leaves against the
+   per-leaf formula at count 2, 4 steps on a fixed seeded batch after the
+   2 warmup steps (the loss falls), 1 AdamW launch a step and no other,
+   step time, images/s,
+   device busy and peak memory; (b) `python -m
+   ecamp_tpu_torch.cli.finetune_seg --task SIIM --model resnet50` on (8)'s
+   SIIM corpus with its encoder from a seeded torchvision-layout `.pth`
+   (265 tensors loaded), 2 epochs, patience 1: validation lines with their
+   AdamW launches, the best `.pth`, the test dice line.
+11. The ResNet-50 detector baseline (`DetectionModel(backbone="resnet50")`:
+   the frozen ResNet-50's layer2/3/4 maps into the YOLOv3 head, 224 px,
+   bf16; det_RSNA_100's AdamW, warmup 30): B = 1024 halved until a step
+   fits; (a) the first step through the kernels against the plain step,
+   the masked AdamW on the head's 66 leaves at count 30, 4 steps after the
+   30 warmup steps (the loss falls), 1 AdamW launch a step and no other,
+   the backbone's weights bit-unchanged while its BatchNorm statistics
+   move, the head changed, step time, images/s, device busy and peak memory; (b) `python
+   -m ecamp_tpu_torch.cli.finetune_det --task RSNA --model resnet50` on
+   (9)'s RSNA corpus from the same `.pth`, 2 epochs, patience 1.
+12. The visualizer: `cli.visualize.main` in this process at full width
+   (ViT-B/16 and the 6-layer BERT, fp32, 224 px, L = 256) on the pretrain
+   CLI's `checkpoint-2.pth`, a seeded PNG and
+   `ecamp_tpu/assets/mimic_wordpiece.json` (read as a file): the PNGs
+   written, 42 LayerNorm and 19 attention launches (every LayerNorm and
+   self-attention; the cross attention that returns its probabilities runs
+   the plain version, as in JAX), and the heatmap within VIZ_TOL of the
+   one from the plain versions of every kernel on the same inputs; the
+   LayerNorm and attention forwards at its fp32 shapes against their plain
+   versions.
+13. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
    lines of the results, of every kernel shape timed and of the kernels
    and, last, the device line.
 
@@ -183,6 +220,15 @@ DET_SPLITS = (96, 70, 40)  # RSNA rows; val and test read the 70
 DET_CLI_B = 32
 DET_EVAL_B = 32      # 70 = 2 * 32 + 6: a ragged last eval batch
 DET_IMG = 512        # the corpus's PNG size
+# -- the ResNet-50 baselines (seg_SIIM_100's and det_RSNA_100's batches) --
+RSEG_B = 512         # halved until a step fits
+RDET_B = 1024
+RESNET_PROBE_B = 16  # the batch whose peak memory sets the first try
+RESNET_STEPS = 4     # steps of (a); all but the first are timed
+RESNET_WARMUP = 2
+RESNET50_TENSORS = 53 + 4 * 53  # a torchvision ResNet-50 (53 convs and BNs)
+# -- the visualizer -------------------------------------------------------
+VIZ_TOL = 2e-3       # max |heatmap with kernels - plain| on its [0, 1] map
 
 
 class CheckFailed(RuntimeError):
@@ -1831,9 +1877,10 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
 
 
 def masked_adamw_check(label: str, opt, named: dict, count: int,
-                       ktimes: dict, rows: list) -> None:
+                       ktimes: dict, rows: list, masked: bool = True) -> None:
     """The AdamW kernel on the masked leaves of a fine-tune step (`named`:
-    the trainable parameters, their `.grad` set) against the per-leaf
+    the trainable parameters, their `.grad` set; every leaf if not
+    `masked`) against the per-leaf
     formula, from fresh moments at update `count`, the end of the warmup
     (at count 0 the schedule's lr is 0 and no parameter would move):
     parameters, mu and nu within 1e-6 relative, and every leaf with a
@@ -1897,8 +1944,9 @@ def masked_adamw_check(label: str, opt, named: dict, count: int,
           f"{times['plain_ms']:8.4f} ms  device {_ms(times['device_ms'])}  "
           f"bound {times['bound_ms']:8.4f} ms ({times['bound_by']})")
     ktimes["adamw"] = times
-    rows.append({"kernel": "adamw", "shape": f"{label} adamw masked "
-                 f"({len(params)} leaves, {n_train}) fp32", **times})
+    rows.append({"kernel": "adamw", "shape": f"{label} adamw "
+                 f"{'masked' if masked else 'unmasked'} ({len(params)} "
+                 f"leaves, {n_train}) fp32", **times})
 
 
 def segmentation_kernel_phase(card: str, rows: list) -> dict:
@@ -2204,6 +2252,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     n_val = -(-SEG_SPLITS[1] // SEG_EVAL_B)
     want = {k: per_step[k] * (per_epoch + n_val)
             for k in ("layer_norm", "attention")}
+    want["adamw"] = per_epoch  # one an update; a validation runs none
     vals = [rec for rec in recs if "step" in rec]
     check([rec["step"] for rec in vals] == [per_epoch, 2 * per_epoch],
           f"(c) validations at steps {[rec['step'] for rec in vals]}")
@@ -2548,6 +2597,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     n_eval = -(-n_val // DET_EVAL_B)
     want = {k: per_step[k] * (per_epoch + n_eval)
             for k in ("layer_norm", "attention")}
+    want["adamw"] = per_epoch  # one an update; a validation runs none
     vals = [rec for rec in recs if "step" in rec]
     check(len(vals) >= 1 and [rec["step"] for rec in vals]
           == [per_epoch * (i + 1) for i in range(len(vals))],
@@ -2636,6 +2686,424 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     return result
 
 
+def write_torchvision_resnet50(work: str) -> str:
+    """A seeded torchvision-layout ResNet-50 `.pth` (the port's
+    `ResNet50Backbone` state dict, with the `fc.*` a torchvision file
+    carries), the baselines' `--pretrained`; returns its path."""
+    import torch
+
+    from ecamp_tpu_torch.nn.resnet import ResNet50Backbone
+
+    sd = ResNet50Backbone(
+        generator=torch.Generator().manual_seed(SEED + 11)).state_dict()
+    sd["fc.weight"] = torch.zeros(1000, 2048)
+    sd["fc.bias"] = torch.zeros(1000)
+    path = os.path.join(work, "resnet50_torchvision.pth")
+    torch.save(sd, path)
+    return path
+
+
+def resnet_phase(card: str, kind: str, work: str, pretrained: str,
+                 ktimes: dict, rows: list) -> dict:
+    """A ResNet-50 baseline at full width: kind "seg", the UNet (module
+    docstring, 10), or "det", the detector (11). `pretrained` is the
+    torchvision-layout `.pth` the CLI starts from; (8) and (9) wrote the
+    corpora under `work`. The AdamW check's times join `ktimes` and
+    `rows`."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.data.synthetic import detection_batch
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.train.detection import DetectionTask
+    from ecamp_tpu_torch.train.segmentation import SegmentationTask
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    seg = kind == "seg"
+    # the UNet's warmup cut to RESNET_WARMUP; the detector's is its
+    # recipe's 30 (at once at the peak lr its loss jumped on the CPU)
+    warmup = RESNET_WARMUP if seg else 30
+    opt = c.OptimizerConfig(
+        name="adamw", lr=5e-4, weight_decay=0.05, betas=(0.9, 0.999),
+        schedule="warmup_cosine_step", warmup_steps=warmup,
+        total_steps=3000 if seg else 20000, grad_clip=1.0)
+    if seg:
+        cfg = c.SegmentationConfig(backbone="resnet50", optimizer=opt,
+                                   task="SIIM", seed=SEED)
+        task = SegmentationTask(cfg, device="cuda")
+        b_max, name = RSEG_B, "resnet_seg"
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+        def make(b):
+            return _seg_batch(b, 1, gen)
+    else:
+        cfg = c.DetectionConfig(backbone="resnet50", optimizer=opt,
+                                seed=SEED)
+        task = DetectionTask(cfg, device="cuda")
+        b_max, name = RDET_B, "resnet_det"
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+        def make(b):
+            return detection_batch(b, cfg.max_objects, gen)
+    model = task.model
+    mask = task.freeze_mask()
+    trainable = [k for k, _ in model.named_parameters()
+                 if mask is None or mask[k]]
+    per_step = {"layer_norm": 0, "attention": 0, "adamw": 1}
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "adamw": adamw.launches}
+
+    def counts():
+        return {k: ctr.value for k, ctr in counters.items()}
+
+    def reset():
+        for ctr in counters.values():
+            ctr.reset()
+
+    def frozen(k):  # the detector's backbone weights (not its statistics)
+        return (not seg and k.startswith("backbone.")
+                and "running_" not in k
+                and not k.endswith("num_batches_tracked"))
+
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for k, p in model.named_parameters()
+                  if k in trainable)
+    n_stats = sum(t.numel() for k, t in model.state_dict().items()
+                  if "running_" in k)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    # the batch: the recipe's, halved until a step fits. A probe step's
+    # peak memory (over the model and the optimizer) sets the first try
+    def one_step(b):
+        model.load_state_dict(init)
+        state = task.init_state()
+        imgs, tgts = make(b)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        task.train_step(state, imgs, tgts)
+        torch.cuda.synchronize()
+        return base, torch.cuda.max_memory_allocated()
+
+    base, probe_peak = one_step(RESNET_PROBE_B)
+    per_image = (probe_peak - base) / RESNET_PROBE_B
+    total = torch.cuda.get_device_properties(0).total_memory
+    b = b_max
+    while b > RESNET_PROBE_B and base + per_image * b > 0.85 * total:
+        b //= 2
+    tried = []
+    while True:
+        try:
+            one_step(b)
+            break
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+            model.zero_grad(set_to_none=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(b > RESNET_PROBE_B, f"{name}: B = {b} does not fit")
+            b //= 2
+    desc = ("ResNet-50 UNet, decoder 256/128/64/32/16" if seg
+            else "ResNet-50 (frozen) + YOLOv3 head (1 class)")
+    print(f"{name} on {card}: {desc}, 224 px, bf16, {n_params} parameters, "
+          f"{n_train} trainable in {len(trainable)} leaves, {n_stats} "
+          f"BatchNorm statistics; a B = {RESNET_PROBE_B} step peaks at "
+          f"{probe_peak / 2 ** 30:.3f} GiB "
+          f"({per_image / 2 ** 20:.1f} MiB an image over "
+          f"{base / 2 ** 30:.3f}); B = {b} (recipe {b_max}"
+          f"{', refused by the allocator: ' + str(tried) if tried else ''})")
+    images, targets = make(b)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def stats():
+        return torch.cat([t.float().flatten() for k, t in
+                          model.state_dict().items() if "running_" in k])
+
+    def first_step(plain: bool):
+        model.load_state_dict(init)
+        task.set_plain(plain)
+        state = task.init_state()
+        reset()
+        state, m = task.train_step(state, images, targets)
+        gnorm = adamw.global_norm([p.grad for k, p in
+                                   model.named_parameters()
+                                   if k in trainable])
+        torch.cuda.synchronize()
+        return float(m["loss"]), float(gnorm), counts(), stats()
+
+    # (a) the first step through the kernels, then the plain versions
+    loss_k, gnorm_k, n_k, stats_k = first_step(False)
+    loss_p, gnorm_p, n_p, stats_p = first_step(True)
+    task.set_plain(False)
+    stats_err = float((stats_k - stats_p).abs().max())
+    stats_scale = max(1.0, float(stats_p.abs().max()))
+    print(f"  (a) first step: kernels loss {loss_k:.6g} grad norm "
+          f"{gnorm_k:.6g} launches {n_k}; plain loss {loss_p:.6g} grad norm "
+          f"{gnorm_p:.6g} launches {n_p}; BatchNorm statistics max |kernels "
+          f"- plain| {stats_err:.3e} (scale {stats_scale:.3g})")
+    check(np.isfinite(loss_k) and np.isfinite(gnorm_k), "non-finite step")
+    check(n_k == per_step, f"(a) launches {n_k} != {per_step}")
+    check(all(v == 0 for v in n_p.values()), f"plain step launched {n_p}")
+    check(abs(loss_k - loss_p) <= LOSS_TOL * abs(loss_p),
+          f"(a) loss {loss_k:.6g} vs plain {loss_p:.6g}")
+    check(abs(gnorm_k - gnorm_p) <= GNORM_TOL * gnorm_p,
+          f"(a) grad norm {gnorm_k:.6g} vs plain {gnorm_p:.6g}")
+    check(stats_err <= LOSS_TOL * stats_scale,
+          f"(a) BatchNorm statistics off by {stats_err:.3e}")
+    masked_adamw_check(name, task.tx if mask is None else task.tx.inner,
+                       {k: p for k, p in model.named_parameters()
+                        if k in trainable}, warmup, ktimes, rows,
+                       masked=mask is not None)
+    torch.cuda.empty_cache()
+
+    # the timed steps follow `warmup` untimed ones, from the peak lr
+    model.load_state_dict(init)
+    state = task.init_state()
+    for _ in range(warmup):
+        state, _ = task.train_step(state, images, targets)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        state, m = task.train_step(state, images, targets)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    box = [state]
+
+    def step():
+        box[0], _ = task.train_step(box[0], images, targets)
+
+    busy = device_ms(step, "", 3, f"{name} step", alone=False)
+    step_ms = float(np.median(times[1:]))
+    print(f"  (a) train losses {[round(x, 5) for x in losses]}; launches "
+          f"{launches} in {RESNET_STEPS} steps; step {step_ms:.3f} ms median "
+          f"of steps 2-{RESNET_STEPS} (host clock, synchronised), "
+          f"{b / step_ms * 1e3:.2f} images/s, device busy {_ms(busy)} a step "
+          f"(profiler, 3 steps), peak device memory {peak / 2 ** 30:.3f} GiB "
+          f"on {card}")
+    check(all(np.isfinite(losses)), f"non-finite {name} loss")
+    check(float(m["lr"]) > 0, f"lr {float(m['lr'])} not past the warmup")
+    want = {k: v * RESNET_STEPS for k, v in per_step.items()}
+    check(launches == want, f"launches {launches} != {want}")
+    check(losses[-1] < losses[0], f"(a) the loss did not fall: {losses}")
+    for k, v in model.state_dict().items():
+        same = torch.equal(v, init[k])
+        check(same == frozen(k), f"{k} {'unchanged' if same else 'changed'}")
+    print("  (a) " + ("every parameter and statistic changed" if seg else
+                      "the backbone's weights bit-unchanged, its BatchNorm "
+                      "statistics and the head changed"))
+    result = {"card": card, "batch": b, "batch_recipe": b_max,
+              "batches_refused": tried, "parameters": n_params,
+              "trainable": n_train, "trainable_leaves": len(trainable),
+              "batch_norm_statistics": n_stats,
+              "probe_peak_bytes": probe_peak, "loss_first_step": loss_k,
+              "loss_plain_step": loss_p, "grad_norm": gnorm_k,
+              "grad_norm_plain": gnorm_p,
+              "batch_norm_stats_max_err": stats_err, "losses": losses,
+              "step_ms": times, "step_ms_median": step_ms,
+              "images_per_s": b / step_ms * 1e3, "device_busy_ms": busy,
+              "max_memory_allocated_bytes": peak, "launches": launches,
+              "launches_a_step": {k: v // RESNET_STEPS
+                                  for k, v in launches.items()}}
+    del task, model, images, targets, init, box, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the CLI on the earlier phase's corpus, from the torchvision .pth
+    from ecamp_tpu_torch.data.datasets import (RSNADetectionDataset,
+                                               SIIMSegmentationDataset)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(work, "siim" if seg else "rsna_det")
+    ds_cls = SIIMSegmentationDataset if seg else RSNADetectionDataset
+    cli_b, eval_b = (SEG_CLI_B, SEG_EVAL_B) if seg else (DET_CLI_B,
+                                                         DET_EVAL_B)
+    per_epoch = len(ds_cls(data, data, "train")) // cli_b
+    check(per_epoch >= 1, "(b) the corpus fills no batch")
+    out = os.path.join(work, f"{name}_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli."
+           + ("finetune_seg" if seg else "finetune_det"),
+           "--task", "SIIM" if seg else "RSNA", "--model", "resnet50",
+           "--dataset_path", data, "--pretrained", pretrained,
+           "--batch_size", str(cli_b), "--eval_batch_size", str(eval_b),
+           "--lr", "5e-4", "--weight_decay", "0.05", "--warmup_steps",
+           str(RESNET_WARMUP), "--num_steps", str(2 * per_epoch),
+           "--patience", "1", "--output_dir", out, "--seed", str(SEED)]
+    if not seg:
+        cmd += ["--start_eval", "1"]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT)
+    check(r.returncode == 0, f"{name} CLI exited {r.returncode}:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    cli_s = time.perf_counter() - t
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    printed = r.stdout
+    for line in printed.splitlines():
+        if line.startswith(("step ", "Epoch [", "TEST", pretrained,
+                            "loaded ")):
+            print(f"    {line}")
+    vals = [rec for rec in recs if "step" in rec]
+    check(len(vals) >= 1 and [rec["step"] for rec in vals]
+          == [per_epoch * (i + 1) for i in range(len(vals))],
+          f"(b) validations at steps {[rec['step'] for rec in vals]}")
+    want = {"layer_norm": 0, "attention": 0, "adamw": per_epoch}
+    metric = "dice" if seg else "mAP"
+    for rec in vals:
+        check(0.0 <= rec[metric] <= 1.0 and np.isfinite(rec["loss"]),
+              f"(b) validation {rec}")
+        check(rec["kernel_launches"] == want,
+              f"(b) launches {rec['kernel_launches']} != {want}")
+    got = re.search(r": loaded (\d+) tensors, (\d+) left at init", printed)
+    check(got is not None and int(got[1]) == RESNET50_TENSORS,
+          f"(b) pretrained load: {got and got[0]}")
+    test_line = "TEST dice:" if seg else "TEST mAP@[.40:.05:.75]:"
+    check(test_line in printed and f"test_{metric.lower()}" in recs[-1],
+          "(b) no test line")
+    check(os.path.exists(os.path.join(out, "best", "checkpoint-best.pth")),
+          "(b) no best checkpoint")
+    print(f"  (b) CLI {cli_s:.1f} s: {got[0].strip()}; validations {vals}, "
+          f"test {metric} {recs[-1][f'test_{metric.lower()}']:.4f}")
+    result.update(cli_seconds=cli_s, cli_log=recs,
+                  phase_seconds=time.perf_counter() - t_phase)
+    print(f"  {name} phase: {result['phase_seconds']:.1f} s")
+    return result
+
+
+def visualize_phase(card: str, pretrained: str, work: str,
+                    rows: list) -> dict:
+    """The visualizer at full width (module docstring, 12); the LayerNorm
+    and attention rows at its shapes join `rows`."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ecamp_tpu_torch.cli import visualize
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.nn.layers import set_plain
+
+    t_phase = time.perf_counter()
+    vit, bert = c.ViTConfig(), c.BertConfig()
+    counters = {"layer_norm": ln.launches, "attention": fa.launches}
+
+    def counts():
+        return {k: ctr.value for k, ctr in counters.items()}
+
+    # every LayerNorm (ViT: 2 a block and the last; BERT: the embeddings',
+    # 3 in the fusion layer, 2 a layer, the MLM transform's) and every
+    # self-attention; the cross attention is plain
+    want = {"layer_norm": 2 * vit.depth + 1 + 1 + 3
+            + 2 * bert.num_hidden_layers + 1,
+            "attention": vit.depth + 1 + bert.num_hidden_layers}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tok = os.path.join(repo, "ecamp_tpu", "assets", "mimic_wordpiece.json")
+    rng = np.random.default_rng(SEED + 14)
+    yy, xx = np.mgrid[:512, :512]
+    gray = 90 + 60 * np.exp(-((yy - 300) ** 2 + (xx - 180) ** 2) / 5000.0) \
+        + 20 * rng.standard_normal((512, 512))
+    image = os.path.join(work, "viz_input.png")
+    Image.fromarray(np.clip(gray, 0, 255).astype(np.uint8), "L").save(image)
+    text = "small left pleural effusion with basilar atelectasis"
+    out_png = os.path.join(work, "viz_heatmap.png")
+    orig_png = os.path.join(work, "viz_original.png")
+    for ctr in counters.values():
+        ctr.reset()
+    t = time.perf_counter()
+    amap = visualize.main(["--image", image, "--text", text, "--checkpoint",
+                           pretrained, "--tokenizer", tok, "--output",
+                           out_png, "--save_original", orig_png])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = counts()
+    heat = np.asarray(Image.open(out_png))
+    print(f"visualize on {card}: cli.visualize.main {main_s:.2f} s "
+          f"(the model built and loaded, one fp32 forward at 224 px, L = "
+          f"{bert.max_position_embeddings}), launches {launches}, heatmap "
+          f"{heat.shape} in {os.path.basename(out_png)}")
+    check(launches == want, f"visualize launches {launches} != {want}")
+    check(heat.shape == (224, 224, 3) and np.asarray(
+        Image.open(orig_png)).shape == (224, 224), "visualize PNGs")
+    check(amap.shape == (224, 224) and np.isfinite(amap).all()
+          and 0.0 <= amap.min() < amap.max() <= 1.0, "visualize map")
+
+    # the same inputs through the plain version of every kernel
+    model = visualize.load_model(pretrained, "cuda")
+    _, batch = visualize.prepare(image, text, tok,
+                                 bert.max_position_embeddings)
+    set_plain(model, True)
+    for ctr in counters.values():
+        ctr.reset()
+    amap_p = visualize.cross_attention_map(model, batch, 4)
+    n_p = counts()
+    err = float(np.abs(amap - amap_p).max())
+    print(f"  heatmap with kernels against the plain versions: max |diff| "
+          f"{err:.3e} (tolerance {VIZ_TOL}); plain launches {n_p}")
+    check(all(v == 0 for v in n_p.values()), f"plain run launched {n_p}")
+    check(err <= VIZ_TOL, f"visualize heatmap off by {err:.3e}")
+    forward = {}
+    for plain in (False, True):
+        set_plain(model, plain)
+        forward["plain_ms" if plain else "ms"] = median_ms(
+            lambda: visualize.cross_attention_map(model, batch, 4), 5, 2)
+    print(f"  one forward + heatmap: kernels {forward['ms']:.3f} ms, plain "
+          f"{forward['plain_ms']:.3f} ms (events, host-synchronised by the "
+          f"map's copy) on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # LayerNorm and attention forwards at the visualizer's fp32 shapes
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    dtype = torch.float32
+    n_text = 12
+    for n, d, eps, tag in ((vit.num_patches + 1, vit.embed_dim, 1e-6, "vit"),
+                           (bert.max_position_embeddings, bert.hidden_size,
+                            1e-12, "bert")):
+        x = torch.randn(n, d, device=dev, generator=gen) * 2 + 0.5
+        w = 1 + 0.1 * torch.randn(d, device=dev, generator=gen)
+        bias = 0.1 * torch.randn(d, device=dev, generator=gen)
+        _layer_norm_fwd(rows, f"visualize layer_norm {tag} fwd ({n}, {d}) "
+                        f"{dtype}", x, w, bias, eps, dtype)
+    hd = vit.embed_dim // vit.num_heads
+    for n, tag, key_pad in ((vit.num_patches + 1, "vit", False),
+                            (bert.max_position_embeddings, "bert", True)):
+        q, k, v = (torch.randn(1, vit.num_heads, n, hd, device=dev,
+                               generator=gen) for _ in range(3))
+        kb = None
+        if key_pad:
+            kb = torch.zeros(1, 1, 1, n, device=dev)
+            kb[..., n_text:] = torch.finfo(torch.float32).min
+        _attention_fwd(rows, f"visualize attention {tag} fwd (1, "
+                       f"{vit.num_heads}, {n}, {hd}) {dtype}"
+                       + (" key-pad" if key_pad else ""), q, k, v, kb,
+                       dtype)
+    torch.cuda.synchronize()
+    result = {"card": card, "main_seconds": main_s, "launches": launches,
+              "heatmap_max_err": err, "tolerance": VIZ_TOL,
+              "forward": forward,
+              "phase_seconds": time.perf_counter() - t_phase}
+    print(f"  visualize phase: {result['phase_seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2681,6 +3149,13 @@ def main() -> int:
         det_kernels = detection_kernel_phase(card, shape_rows)
         detection = detection_phase(card, ckpt, work, det_kernels,
                                     shape_rows)
+        tv_pth = write_torchvision_resnet50(work)
+        resnet_kernels = {"resnet_seg": {}, "resnet_det": {}}
+        resnet_seg = resnet_phase(card, "seg", work, tv_pth,
+                                  resnet_kernels["resnet_seg"], shape_rows)
+        resnet_det = resnet_phase(card, "det", work, tv_pth,
+                                  resnet_kernels["resnet_det"], shape_rows)
+        viz = visualize_phase(card, ckpt, work, shape_rows)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2733,6 +3208,12 @@ def main() -> int:
                 segmentation["launches_a_step"][name]
         if name in detection["launches_a_step"]:  # a detection step's
             entry["detection_launches"] = detection["launches_a_step"][name]
+        for tag, run in (("resnet_seg", resnet_seg),
+                         ("resnet_det", resnet_det)):  # a step's
+            if name in run["launches_a_step"]:
+                entry[f"{tag}_launches"] = run["launches_a_step"][name]
+        if name in viz["launches"]:  # one visualizer forward's
+            entry["visualize_launches"] = viz["launches"][name]
         if name == "fused_ce_fwd":  # the tile kernel and the merge
             entry["parts"] = {
                 k: {"launches_a_step": flaunches[
@@ -2763,6 +3244,9 @@ def main() -> int:
                       "segmentation_kernels": seg_kernels}))
     print(json.dumps({"detection": detection,
                       "detection_kernels": det_kernels}))
+    print(json.dumps({"resnet_seg": resnet_seg, "resnet_det": resnet_det,
+                      "resnet_kernels": resnet_kernels}))
+    print(json.dumps({"visualize": viz}))
     print(json.dumps({"fused_ce_mainloop":
                       main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))

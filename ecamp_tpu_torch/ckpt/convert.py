@@ -12,9 +12,12 @@ BERT `layer_i` -> `encoder.layer.i`, the MLM head's `transform_*` /
 `bert.cls.*` -> `bert_encoder.model.cls.*`, the seg decoders'
 `decoder_i_conv` / `decoder_i_bn` -> `decoder_i.0` / `decoder_i.1`, the
 YOLO head's `embeddingN/cbl_i` -> `embeddingN.i` with its `head.` prefix
-dropped, `kernel` / `embedding` / `scale` -> `weight` with 2-D (in, out)
--> (out, in) and 4-D HWIO -> OIHW, BatchNorm `mean` / `var` ->
-`running_mean` / `running_var`, and the `trunk.` prefix dropped (a
+dropped, the ResNet-50's `layerN_M` -> `layerN.M` and `downsample_conv` /
+`downsample_bn` -> `downsample.0` / `downsample.1` (a `ResNetUNet`, or a
+`DetectionModel` with the ResNet-50 backbone), `kernel` / `embedding` /
+`scale` -> `weight` with 2-D (in, out) -> (out, in) and 4-D HWIO -> OIHW,
+BatchNorm `mean` / `var` -> `running_mean` / `running_var`, and the
+`trunk.` prefix dropped (a
 `SegEncoder`'s `encoder.trunk.` becomes `encoder.`, a `DetEncoder`'s
 `backbone.encoder.trunk.` `backbone.encoder.`). The ECAMP sin-cos tables
 are buffers in the port and constants in JAX, so neither side has them as
@@ -25,7 +28,9 @@ keys.
 DDP `module.` prefixes; `load_reference_state` strict-loads it.
 `import_vit_classifier`, `import_seg_vit` and `import_detector` initialise
 a classifier, a segmenter or a detector from such a checkpoint, or from a
-pretraining one, by the JAX package's partial-load rule (`_apply_state`).
+pretraining one, by the JAX package's partial-load rule (`_apply_state`);
+`import_resnet_unet` and `import_detector(backbone="resnet50")` the
+ResNet-50 baselines from a torchvision-layout one.
 """
 
 from __future__ import annotations
@@ -65,6 +70,9 @@ def _key(path) -> str:
     joined = re.sub(r"decoder_(\d+)_conv", r"decoder_\1.0", joined)
     joined = re.sub(r"decoder_(\d+)_bn", r"decoder_\1.1", joined)
     joined = re.sub(r"embedding(\d+)\.cbl_(\d+)", r"embedding\1.\2", joined)
+    joined = re.sub(r"layer(\d)_(\d+)", r"layer\1.\2", joined)  # ResNet-50
+    joined = joined.replace("downsample_conv", "downsample.0")
+    joined = joined.replace("downsample_bn", "downsample.1")
     joined = re.sub(r"^head\.", "", joined)  # the detector's YOLO head
     joined = re.sub(r"^((?:backbone\.)?encoder)\.trunk(\.|$)", r"\1\2",
                     joined)
@@ -222,17 +230,64 @@ def import_seg_vit(model: nn.Module, path: str, from_pretrain: bool = True,
     return _load_matching(model, state, source)
 
 
-def import_detector(model: nn.Module, path: str, from_pretrain: bool = True
-                    ) -> Tuple[List[str], List[str]]:
-    """Initialise a port `DetectionModel` (ViT backbone) from a reference
-    `.pth`, as the JAX package's `import_detector` does (`ecamp_tpu/ckpt/
-    torch_import.py:267-305`, convention 4): with `from_pretrain` only the
-    trunk, found in a pretraining checkpoint without its
-    `backbone.encoder.` prefix (`det_head`, the neck and the YOLO head
-    keep their init); otherwise a fine-tuned detector's every parameter
-    and BatchNorm statistic under its own name (the namespace of
-    `export_detector`); both by `_load_matching`. Returns (loaded names,
-    names left at init)."""
+def _strip_prefixes(state: Mapping[str, torch.Tensor],
+                    prefixes: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """Each key without the first of `prefixes` it starts with."""
+    out = {}
+    for k, v in state.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+                break
+        out[k] = v
+    return out
+
+
+def _first_present(state: Mapping[str, torch.Tensor],
+                   candidates) -> Optional[str]:
+    return next((c for c in candidates if c in state), None)
+
+
+# the wrappers of the reference's baseline checkpoints (ResNetDetector's
+# `img_encoder`, GLoRIA's), stripped before a ResNet-50 import
+_RESNET_PREFIXES = ("module.img_encoder.", "img_encoder.",
+                    "gloria.img_encoder.")
+
+
+def import_detector(model: nn.Module, path: str, from_pretrain: bool = True,
+                    backbone: str = "vit") -> Tuple[List[str], List[str]]:
+    """Initialise a port `DetectionModel` from a reference `.pth`, as the
+    JAX package's `import_detector` does (`ecamp_tpu/ckpt/
+    torch_import.py:267-305`, convention 4), by `_load_matching`.
+
+    ViT backbone: with `from_pretrain` only the trunk, found in a
+    pretraining checkpoint without its `backbone.encoder.` prefix
+    (`det_head`, the neck and the YOLO head keep their init); otherwise a
+    fine-tuned detector's every parameter and BatchNorm statistic under
+    its own name (the namespace of `export_detector`).
+
+    `backbone="resnet50"` (Detection/train.py:99-131): the backbone reads
+    torchvision-layout keys, bare or `model.`-prefixed (ResNetDetector's
+    `model`), after the `module.img_encoder.` / `img_encoder.` /
+    `gloria.img_encoder.` wrappers are stripped; torchvision's `fc.*` and
+    `num_batches_tracked` are ignored. With `from_pretrain` the head
+    keeps its init; otherwise it reads its own names, or the JAX tree's
+    `head.`-prefixed ones. Returns (loaded names, names left at init)."""
+    state = load_reference_pth(path)
+    if backbone == "resnet50":
+        state = _strip_prefixes(state, _RESNET_PREFIXES)
+
+        def source(name: str) -> Optional[str]:
+            if name.startswith("backbone."):
+                bare = name[len("backbone."):]
+                return _first_present(state, (bare, f"model.{bare}"))
+            if from_pretrain:
+                return None
+            return _first_present(state, (f"head.{name}", name))
+
+        return _load_matching(model, state, source)
+    if backbone != "vit":
+        raise ValueError(f"unknown detector backbone {backbone!r}")
     pre = "backbone.encoder."
 
     def source(name: str) -> Optional[str]:
@@ -242,4 +297,26 @@ def import_detector(model: nn.Module, path: str, from_pretrain: bool = True
             return name[len(pre):]
         return None
 
-    return _load_matching(model, load_reference_pth(path), source)
+    return _load_matching(model, state, source)
+
+
+def import_resnet_unet(model: nn.Module, path: str
+                       ) -> Tuple[List[str], List[str]]:
+    """Initialise a port `ResNetUNet`'s encoder from a torchvision-layout
+    ResNet-50 `.pth`, as the JAX package's `import_resnet_unet` does
+    (`ecamp_tpu/ckpt/torch_import.py:311-327`): after the
+    `module.img_encoder.` / `img_encoder.` / `gloria.img_encoder.`
+    wrappers are stripped, each encoder entry is read under its own name,
+    then `encoder.<name>` (smp's), then `model.<name>`; the decoder blocks
+    and `seg_head` keep their init, and torchvision's `fc.*` and
+    `num_batches_tracked` are ignored. Returns (loaded names, names left
+    at init)."""
+    state = _strip_prefixes(load_reference_pth(path), _RESNET_PREFIXES)
+
+    def source(name: str) -> Optional[str]:
+        if name.startswith(("decoder_", "seg_head.")):
+            return None
+        return _first_present(state, (name, f"encoder.{name}",
+                                      f"model.{name}"))
+
+    return _load_matching(model, state, source)

@@ -13,7 +13,10 @@ split lists come from `--list_path`, else `<dataset_path>/<task>/`, else
 the ones shipped in the repository (`data/assets.py`). AdamW with a step
 warmup-cosine schedule and the three-scale YOLO loss train `det_head`, the
 neck and the head of a frozen encoder; the neck's Bottleneck expansion is
-8 for the 1% and 10% volumes, else 4 (train.py:136). From epoch
+8 for the 1% and 10% volumes, else 4 (train.py:136). `--model resnet50`
+is the ResNetDetector baseline (train.py:99-131): a frozen ResNet-50
+under the same head, from a torchvision-layout `--pretrained` `.pth` or
+from its init. From epoch
 `--start_eval` on it validates every epoch's worth of optimizer steps
 (`len(train_loader) // accum`): decode + NMS + mAP@[.40:.05:.75] over the
 unshuffled validation split (the ragged last batch as it is), stops early
@@ -23,7 +26,7 @@ to `<output_dir>/best/checkpoint-best.pth` as `{"model": state_dict,
 detection --checkpoint` serves), then reloads it and prints `TEST
 mAP@[.40:.05:.75]:`. `<output_dir>/log.txt` gets the JAX CLI's JSON lines
 (`step`, `mAP`, `best` a validation, with the mean training loss and the
-LayerNorm and attention launches since the last one; `test_map`).
+LayerNorm, attention and AdamW launches since the last one; `test_map`).
 
 `--resume` is the reference trainer's best-checkpoint re-entry
 (Detection/train.py:176-182), as the JAX CLI does it: the best `.pth` (or
@@ -34,10 +37,10 @@ update count at 0 with its zero moments, so the lr warms up again and the
 bias correction fits the fresh moments. `--device cuda` (the default)
 needs a card; `--device cpu` runs the kernels' plain versions.
 
-Refused, each naming its ROADMAP item: `--model resnet50` (item 10b), the
-preemption saves (`ECAMP_PREEMPT_AT_STEP`) and multi-process evaluation
-(item 8), and a training split too small for one micro-batch (the JAX
-CLI's loop would wait forever for a step).
+Refused, each naming its ROADMAP item: the preemption saves
+(`ECAMP_PREEMPT_AT_STEP`) and multi-process evaluation (item 8), and a
+training split too small for one micro-batch (the JAX CLI's loop would
+wait forever for a step).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from ..core.metrics import JsonlLogger, MetricLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import ObjectCXRDetectionDataset, RSNADetectionDataset
 from ..data.loader import DataLoader
-from ..kernels import flash_attention, layer_norm
+from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.detection import DetectionTask
 from .common import EarlyStopper, add_common_args, setup_output
 from .finetune_cls import BEST, _VIT_FACTORY, refuse_what_is_not_ported
@@ -65,7 +68,8 @@ DATASETS = {"RSNA": RSNADetectionDataset,
 
 # the launch counters each validation's log line reports
 _COUNTERS = {"layer_norm": layer_norm.launches,
-             "attention": flash_attention.launches}
+             "attention": flash_attention.launches,
+             "adamw": fused_adamw.launches}
 
 
 def get_args(argv=None):
@@ -79,8 +83,8 @@ def get_args(argv=None):
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--model", default="base",
                    choices=sorted(_VIT_FACTORY) + ["resnet50"],
-                   help="ViT variant; 'resnet50' (the ResNetDetector "
-                        "baseline) is not ported")
+                   help="ViT variant, or 'resnet50' for the ResNetDetector "
+                        "baseline (Detection/train.py:99-131)")
     p.add_argument("--lr", type=float, default=5e-4)
     p.add_argument("--weight_decay", type=float, default=1e-6)
     p.add_argument("--warmup_steps", type=int, default=50)
@@ -167,11 +171,6 @@ def main(argv=None):
         raise NotImplementedError(
             "multi-process evaluation (ShardedEval) is not ported to "
             "ecamp_tpu_torch (ROADMAP Queue 1, item 8)")
-    if args.model == "resnet50":
-        raise NotImplementedError(
-            "--model resnet50 (the ResNetDetector baseline) is not ported to "
-            "ecamp_tpu_torch (ROADMAP Queue 1, item 10b, ResNet-50 "
-            "baselines)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
@@ -181,8 +180,13 @@ def main(argv=None):
                                   "Detection", f"{args.task}/test_list.csv")
     expansion = 8 if args.data_volume in ("1", "10") else 4  # train.py:136
     accum = max(1, args.gradient_accumulation_steps)
+    # the ResNet baseline keeps the base ViT config for the fields the
+    # config carries (the JAX CLI's choice)
+    is_resnet = args.model == "resnet50"
     dcfg = cfg.DetectionConfig(
-        vit=_VIT_FACTORY[args.model](img_size=args.img_size),
+        backbone="resnet50" if is_resnet else "vit",
+        vit=_VIT_FACTORY["base" if is_resnet else args.model](
+            img_size=args.img_size),
         optimizer=cfg.OptimizerConfig(
             name="adamw", lr=args.lr, weight_decay=args.weight_decay,
             betas=(0.9, 0.999), schedule="warmup_cosine_step",

@@ -12,7 +12,10 @@ RSNA and RIGA images (and RIGA's masks) `<dataset_path>/<path in the
 list>`; the split lists come from `--list_path`, else
 `<dataset_path>/<task>/`, else the ones shipped in the repository
 (`data/assets.py`). AdamW with a step warmup-cosine schedule and the mixed
-loss train `seg_head` and the decoder(s) of a frozen encoder. It validates
+loss train `seg_head` and the decoder(s) of a frozen encoder; with
+`--model resnet50` (the smp.Unet baseline, Segmentation/train.py:139-180)
+a ResNet-50 UNet trains end to end, its encoder from a torchvision-layout
+`--pretrained` `.pth` or from its init (SIIM / RSNA only). It validates
 every epoch's worth of optimizer steps (`len(train_loader) // accum`),
 stops early after `--patience` validations without a better dice, writes
 the best model to `<output_dir>/best/checkpoint-best.pth` as `{"model":
@@ -20,7 +23,7 @@ state_dict}` in the reference namespace (what `cli/serve.py --task
 segmentation --checkpoint` serves), then reloads it and prints `TEST
 dice:`. `<output_dir>/log.txt` gets the JAX CLI's JSON lines (`step`,
 `dice`, `best` a validation, with the mean training loss and the
-LayerNorm and attention launches since the last one; `test_dice`).
+LayerNorm, attention and AdamW launches since the last one; `test_dice`).
 `--device cuda` (the default) needs a card; `--device cpu` runs the
 kernels' plain versions.
 
@@ -45,7 +48,7 @@ from ..data.assets import resolve_list_root
 from ..data.datasets import (RIGASegmentationDataset, RSNASegmentationDataset,
                              SIIMSegmentationDataset)
 from ..data.loader import DataLoader
-from ..kernels import flash_attention, layer_norm
+from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.segmentation import SegmentationTask
 from .common import EarlyStopper, add_common_args, setup_output
 from .finetune_cls import (BEST, _VIT_FACTORY, refuse_what_is_not_ported,
@@ -56,7 +59,8 @@ DATASETS = {"SIIM": SIIMSegmentationDataset, "RSNA": RSNASegmentationDataset,
 
 # the launch counters each validation's log line reports
 _COUNTERS = {"layer_norm": layer_norm.launches,
-             "attention": flash_attention.launches}
+             "attention": flash_attention.launches,
+             "adamw": fused_adamw.launches}
 
 
 def get_args(argv=None):
@@ -70,8 +74,8 @@ def get_args(argv=None):
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--model", default="base",
                    choices=sorted(_VIT_FACTORY) + ["resnet50"],
-                   help="ViT variant; 'resnet50' (the UNet baseline) is "
-                        "not ported")
+                   help="ViT variant, or 'resnet50' for the ResNet-50 UNet "
+                        "baseline (Segmentation/train.py:139-180)")
     p.add_argument("--decode_features", default="512,256,128,64",
                    help="conv-decoder channel widths (reference SegViT "
                         "decode_features, models_vit.py:70-106)")
@@ -124,10 +128,6 @@ def evaluate(task: SegmentationTask, state, loader) -> float:
 def main(argv=None):
     args = get_args(argv)
     refuse_what_is_not_ported(args)
-    if args.model == "resnet50":
-        raise NotImplementedError("--model resnet50 (the UNet baseline) is "
-                                  "not ported to ecamp_tpu_torch (ROADMAP "
-                                  "Queue 1, item 10b)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
@@ -138,8 +138,13 @@ def main(argv=None):
                                   f"{args.task}/test_list.csv")
     ds_cls = DATASETS[args.task]
     accum = max(1, args.gradient_accumulation_steps)
+    # the ResNet baseline keeps the base ViT config for the fields the
+    # config carries (the JAX CLI's choice)
+    is_resnet = args.model == "resnet50"
     scfg = cfg.SegmentationConfig(
-        vit=_VIT_FACTORY[args.model](img_size=args.img_size),
+        backbone="resnet50" if is_resnet else "vit",
+        vit=_VIT_FACTORY["base" if is_resnet else args.model](
+            img_size=args.img_size),
         decode_features=tuple(int(x) for x
                               in args.decode_features.split(",")),
         optimizer=cfg.OptimizerConfig(

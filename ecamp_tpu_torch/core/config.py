@@ -237,7 +237,7 @@ class DetectionConfig:
         default_factory=lambda: DataConfig(mean=0.4722, std=0.3028))
     task: str = "RSNA"
     backbone: str = "vit"        # vit | resnet50 (ResNetDetector baseline,
-                                 # Detection/train.py:99-131; not ported)
+                                 # Detection/train.py:99-131)
     num_classes: int = 1
     img_size: int = 224
     max_objects: int = 10

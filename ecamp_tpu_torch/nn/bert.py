@@ -16,7 +16,10 @@ is a bare BertSelfAttention whose context output gets gap_mlp(gap_token)
 added before `out_layer`. Every attention runs through
 `dot_product_attention` (the attention kernel for CUDA tensors), and
 attention dropout drops the context output at the same rate unless
-`exact_attn_dropout` asks for HF's dropout of the probabilities.
+`exact_attn_dropout` asks for HF's dropout of the probabilities. The one
+exception: asked for its probabilities (`return_cross_probs`, the
+visualizer), the fusion layer's cross attention runs the plain version,
+which materialises them, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -58,7 +61,10 @@ class BertSelfAttention(nn.Module):
         # context output (default)
         self.dropout = Dropout(cfg.attention_probs_dropout_prob)
 
-    def forward(self, hidden, bias=None, kv_states=None):
+    def forward(self, hidden, bias=None, kv_states=None,
+                return_probs: bool = False):
+        """The context output (B, Nq, D); with `return_probs` also the fp32
+        probabilities (B, H, Nq, Nk), from the plain attention."""
         h = self.cfg.num_attention_heads
         b, nq, d = hidden.shape
         hd = d // h
@@ -80,10 +86,15 @@ class BertSelfAttention(nn.Module):
                 logits = logits + bias
             probs = self.dropout(torch.softmax(logits, dim=-1))
             out = torch.matmul(probs.to(v.dtype), v)
-            return out.transpose(1, 2).reshape(b, nq, d)
+            out = out.transpose(1, 2).reshape(b, nq, d)
+            return (out, probs) if return_probs else out
         fn = _attention_reference if self.plain else dot_product_attention
-        out = fn(q, k, v, bias, hd ** -0.5)
-        return self.dropout(out.transpose(1, 2).reshape(b, nq, d))
+        out = fn(q, k, v, bias, hd ** -0.5, return_probs=return_probs)
+        probs = None
+        if return_probs:
+            out, probs = out
+        out = self.dropout(out.transpose(1, 2).reshape(b, nq, d))
+        return (out, probs) if return_probs else out
 
 
 class BertSelfOutput(nn.Module):
@@ -154,11 +165,19 @@ class FusionLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg, dtype)
         self.output = BertOutput(cfg, dtype)
 
-    def forward(self, hidden, latent, gap_token, text_bias=None):
+    def forward(self, hidden, latent, gap_token, text_bias=None,
+                return_cross_probs: bool = False):
+        """The fused text (B, L, D); with `return_cross_probs` also the
+        cross attention's probabilities (B, H, L, N_image)."""
         attn = self.attention(hidden, text_bias)
-        cross = self.cross_self_attention(attn, kv_states=latent)
+        cross = self.cross_self_attention(attn, kv_states=latent,
+                                          return_probs=return_cross_probs)
+        probs = None
+        if return_cross_probs:
+            cross, probs = cross
         fused = self.out_layer(cross + self.gap_mlp(gap_token), attn)
-        return self.output(self.intermediate(fused), fused)
+        out = self.output(self.intermediate(fused), fused)
+        return (out, probs) if return_cross_probs else out
 
 
 class Embed(nn.Module):
@@ -230,7 +249,8 @@ class MultimodalBert(nn.Module):
     (MultimodalBertMaskedLM, bert_modeling.py:160-227); the weighted CE is
     `ops.losses.weighted_mlm_loss`. With `return_mlm_features`, the MLM
     head's (features, decoder weight, decoder bias) for the fused CE
-    instead of the logits."""
+    instead of the logits. With `return_cross_probs`, the pair (that
+    output, the fusion layer's cross-attention probabilities)."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -248,12 +268,18 @@ class MultimodalBert(nn.Module):
     def forward(self, latent, gap_token, input_ids,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
-                return_mlm_features: bool = False):
+                return_mlm_features: bool = False,
+                return_cross_probs: bool = False):
         bias = None
         if attention_mask is not None:
             bias = extend_attention_mask(attention_mask)
         h = self.bert.embeddings(input_ids, token_type_ids)
-        h = self.bert.context_fusion_layer(h, latent, gap_token, bias)
+        h = self.bert.context_fusion_layer(h, latent, gap_token, bias,
+                                           return_cross_probs)
+        probs = None
+        if return_cross_probs:
+            h, probs = h
         for layer in self.bert.encoder.layer:
             h = layer(h, bias)
-        return self.cls(h, return_features=return_mlm_features)
+        out = self.cls(h, return_features=return_mlm_features)
+        return (out, probs) if return_cross_probs else out

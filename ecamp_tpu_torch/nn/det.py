@@ -21,6 +21,11 @@ reference), and the head's `embedding{0,1,2}.{0..5}.{conv,bn}.*`,
 `embedding{0,1,2}.conv_out.*` and `embedding{1,2}_cbl.{conv,bn}.*` at the
 top level.
 
+`backbone="resnet50"` is the reference's ResNetDetector baseline
+(Detection/detector_backbone_resnet.py): `nn/resnet.py::ResNet50Backbone`
+as `backbone` (`backbone.conv1`, `backbone.layer1.0.*`, ...), its
+layer2 / layer3 / layer4 maps straight into the same head, no neck.
+
 `forward(x, train, stop_trunk_grad)`: `train` selects the BatchNorm batch
 statistics (and updates the running ones). Dropout in the trunk follows
 the module's `training` flag; the detection task keeps the model in eval
@@ -37,7 +42,8 @@ from torch import nn
 
 from ..core.config import ViTConfig
 from ..ops.image_ops import upsample_align_corners, upsample_nearest
-from .layers import BatchNorm, Conv2d, Dense
+from .layers import BatchNorm, Conv2d, Dense, reset_conv_bn
+from .resnet import ResNet50Backbone
 from .vit import VisionTransformer
 
 # COCO anchors * 224/416 (detector_model.py:14-18); scale order matches the
@@ -54,12 +60,6 @@ YOLO_ANCHORS = tuple(
 
 def _bn(channels: int, dtype: torch.dtype) -> BatchNorm:
     return BatchNorm(channels, momentum=0.9, eps=1e-5, dtype=dtype)
-
-
-def _reset(module: nn.Module, generator) -> None:
-    for m in module.modules():
-        if isinstance(m, (Conv2d, BatchNorm)):
-            m.reset_parameters(generator)
 
 
 class Bottleneck(nn.Module):
@@ -147,7 +147,7 @@ class ViTDetector(nn.Module):
         self.encoder = DetEncoder(cfg, dtype, generator)
         self.layers = DetectionLayers(cfg.embed_dim, expansion=expansion,
                                       dtype=dtype)
-        _reset(self.layers, generator)
+        reset_conv_bn(self.layers, generator)
 
     def forward(self, x, train: bool = False, stop_trunk_grad: bool = False):
         feat = self.encoder(x, stop_trunk_grad)
@@ -197,23 +197,24 @@ class DetectionModel(nn.Module):
     NCHW fp32 maps ((B, 18, 7, 7), (B, 18, 14, 14), (B, 18, 28, 28)) at
     1 class, the layout the YOLO loss and decode read.
 
-    `backbone="resnet50"` (the reference's ResNetDetector baseline) is not
-    ported and raises."""
+    `backbone="resnet50"` (the reference's ResNetDetector baseline) puts a
+    ResNet-50 in place of the ViT and its neck; `expansion` then plays no
+    part."""
 
     def __init__(self, cfg: ViTConfig, num_classes: int = 1,
                  expansion: int = 4, backbone: str = "vit",
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if backbone != "vit":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: the ResNet-50 detector baseline is "
-                f"not ported to ecamp_tpu_torch (ROADMAP Queue 1, item 10b, "
-                f"ResNet-50 baselines)")
+        if backbone not in ("vit", "resnet50"):
+            raise ValueError(f"unknown detector backbone {backbone!r}")
         self.cfg = cfg
         self.num_classes = num_classes
+        self.resnet = backbone == "resnet50"
         n_out = 3 * (5 + num_classes)
-        self.backbone = ViTDetector(cfg, expansion, dtype, generator)
+        self.backbone = (ResNet50Backbone(dtype, generator=generator)
+                         if self.resnet
+                         else ViTDetector(cfg, expansion, dtype, generator))
         self.embedding0 = _Embedding(2048, (512, 1024), n_out, dtype)
         self.embedding1_cbl = _CBL(512, 256, 1, dtype)
         self.embedding1 = _Embedding(256 + 1024, (256, 512), n_out, dtype)
@@ -226,19 +227,31 @@ class DetectionModel(nn.Module):
 
     def _reset_head(self, generator) -> None:
         for name in self.HEAD:
-            _reset(getattr(self, name), generator)
+            reset_conv_bn(getattr(self, name), generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Initialise every parameter from `generator` (JAX init rules) and
         the BatchNorm statistics to their start."""
-        self.backbone.encoder.reset_parameters(generator)
-        _reset(self.backbone.layers, generator)
+        if self.resnet:
+            self.backbone.reset_parameters(generator)
+        else:
+            self.backbone.encoder.reset_parameters(generator)
+            reset_conv_bn(self.backbone.layers, generator)
         self._reset_head(generator)
 
     def forward(self, x, train: bool = False, stop_trunk_grad: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (B, H, W, C) -> three fp32 NCHW maps, coarse to fine."""
-        x2, x1, x0 = self.backbone(x, train, stop_trunk_grad)
+        """x: (B, H, W, C) -> three fp32 NCHW maps, coarse to fine. With
+        the ResNet-50, `stop_trunk_grad` (its whole backbone frozen,
+        Detection/train.py:126-127) runs it without an autograd graph, the
+        gradient cut at the three taps as in JAX; in train mode its
+        BatchNorm statistics still update."""
+        if not self.resnet:
+            x2, x1, x0 = self.backbone(x, train, stop_trunk_grad)
+        else:
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not stop_trunk_grad):
+                x2, x1, x0 = self.backbone(x, train)
         out0, b0 = self.embedding0(x0, train)
         y = upsample_nearest(self.embedding1_cbl(b0, train), 2)
         out1, b1 = self.embedding1(torch.cat([y, x1], dim=1), train)

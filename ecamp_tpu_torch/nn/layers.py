@@ -210,20 +210,26 @@ class Block(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax `nn.Conv` with SAME-size padding on NCHW tensors (channels_last
-    in memory when the input is): the reference's OIHW `weight` and
-    `bias` (none with `bias=False`), lecun-normal and zero at init,
-    computed in `dtype`. A `stride` is taken by 1x1 kernels only, where
-    flax's SAME padding is 0 at every input size."""
+    """flax `nn.Conv` on NCHW tensors (channels_last in memory when the
+    input is): the reference's OIHW `weight` and `bias` (none with
+    `bias=False`), lecun-normal and zero at init, computed in `dtype`.
+    Without `padding` it pads SAME, and a `stride` is taken by 1x1 kernels
+    only, where flax's SAME padding is 0 at every input size. An integer
+    `padding` is flax's explicit symmetric padding (`nn.Conv(padding=p)`,
+    the ResNet stem's and strided 3x3's), with any stride."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, dtype: torch.dtype = torch.float32,
-                 bias: bool = True, stride: int = 1):
+                 bias: bool = True, stride: int = 1,
+                 padding: Optional[int] = None):
         super().__init__()
-        if stride != 1 and kernel_size != 1:
-            raise ValueError("a strided Conv2d takes a 1x1 kernel only")
+        if padding is None:
+            if stride != 1 and kernel_size != 1:
+                raise ValueError("a strided SAME Conv2d takes a 1x1 kernel "
+                                 "only; give an explicit padding")
+            padding = kernel_size // 2
         self.dtype = dtype
-        self.padding = kernel_size // 2
+        self.padding = padding
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                kernel_size, kernel_size))
@@ -244,7 +250,7 @@ class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum, epsilon)` over the channels of an NCHW
     tensor, with torch BatchNorm's names (`weight`, `bias`,
     `running_mean`, `running_var`, `num_batches_tracked`). Not
-    `F.batch_norm`: flax reduces in fp32 whatever the input dtype, takes
+    `F.batch_norm`: flax reduces in fp32 at least (float64 stays), takes
     the fast variance E[x^2] - E[x]^2 clipped at 0, feeds the running
     variance the biased batch variance, and normalises in fp32 before the
     cast to `dtype`. `momentum` is flax's (0.9 is torch's 0.1).
@@ -277,7 +283,8 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if train:
             axes = [0] + list(range(2, x.ndim))
-            xf = x.float()
+            # flax's `_compute_stats`: at least fp32 (float64 stays)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(axes)
             var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
             with torch.no_grad():
@@ -292,6 +299,14 @@ class BatchNorm(nn.Module):
         y = (x - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
         return y.to(self.dtype)
+
+
+def reset_conv_bn(module: nn.Module, generator) -> None:
+    """Re-draw every `Conv2d` under `module` from `generator` and reset
+    every `BatchNorm` to its start, in module order."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, BatchNorm)):
+            m.reset_parameters(generator)
 
 
 class PatchProj(nn.Module):

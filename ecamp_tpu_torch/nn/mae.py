@@ -139,7 +139,8 @@ class ECAMP(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor], mask_ratio: float = 0.75,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                features_only: bool = False) -> Dict[str, torch.Tensor]:
+                features_only: bool = False,
+                return_cross_probs: bool = False) -> Dict[str, torch.Tensor]:
         """batch: image (N, H, W, 3) at the data size, ids, labels,
         attention_mask, type_ids, weights (N, L), column, row (N,).
         Masking noise (N, grid**2) uniform is `noise`, or drawn from
@@ -147,7 +148,10 @@ class ECAMP(nn.Module):
         mlm_logits and mlm_loss (if labels and weights are given); with
         `fused_mlm_ce` and a loss to compute, mlm_loss through the fused
         vocab-projection + CE and no mlm_logits; with features_only,
-        gap_feature and patch_latent instead of the BERT outputs."""
+        gap_feature and patch_latent instead of the BERT outputs. With
+        `return_cross_probs` (the visualizer) also cross_attention, the
+        fusion layer's text-to-image probabilities (N, H, L_text, grid^2),
+        from the plain attention; the MLM loss is then never fused."""
         c = self.vit
         big = batch["image"].to(self.dtype)
         if big.shape[1] == c.img_size and big.shape[2] == c.img_size:
@@ -178,12 +182,15 @@ class ECAMP(nn.Module):
             outputs["patch_latent"] = patch_latent
             return outputs
         has_loss = "labels" in batch and "weights" in batch
-        use_fused = self.fused_mlm_ce and has_loss
+        use_fused = self.fused_mlm_ce and has_loss and not return_cross_probs
         bert_out = self.bert_encoder.model(
             patch_latent, gap_token, batch["ids"],
             attention_mask=batch.get("attention_mask"),
             token_type_ids=batch.get("type_ids"),
-            return_mlm_features=use_fused)
+            return_mlm_features=use_fused,
+            return_cross_probs=return_cross_probs)
+        if return_cross_probs:
+            bert_out, outputs["cross_attention"] = bert_out
         if use_fused:
             feats, kernel, bias = bert_out
             n, L, d = feats.shape

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..core.config import ViTConfig
 from ..ops.image_ops import upsample_align_corners
-from .layers import BatchNorm, Conv2d, Dense
+from .layers import BatchNorm, Conv2d, Dense, reset_conv_bn
 from .vit import VisionTransformer
 
 
@@ -85,9 +85,7 @@ class ConvDecoder(nn.Module):
         self.final_out = Conv2d(widths[-1], out_channels, 3, torch.float32)
 
     def reset_parameters(self, generator=None) -> None:
-        for m in self.modules():
-            if isinstance(m, (Conv2d, BatchNorm)):
-                m.reset_parameters(generator)
+        reset_conv_bn(self, generator)
 
     def forward(self, x, train: bool = False):
         """x: (B, h, w, C) NHWC -> fp32 logits (B, h * 2^n, w * 2^n, out)."""

@@ -7,7 +7,11 @@ the encoder is frozen except `det_head` (:169-174); evaluation decodes
 all three scales on the device, then runs NMS (conf / nms 0.5) and the
 mAP over IoU .40:.05:.75 on the host (:214-250). The frozen trunk runs
 under `torch.no_grad()`, so its backward never runs; `FusedAdamW` sees the
-trainable leaves only (`Masked`).
+trainable leaves only (`Masked`). With `backbone="resnet50"` (the
+ResNetDetector baseline, train.py:99-131) the whole ResNet-50 is frozen
+(train.py:126-127) and runs under `torch.no_grad()`; its BatchNorm
+statistics still update in train mode, as JAX's do under
+`stop_gradient`.
 
 The step draws no random numbers: the JAX step passes `train=True` but
 not `deterministic`, so the trunk's dropout and drop-path stay off. The
@@ -34,9 +38,14 @@ from .optim import make_optimizer, make_schedule
 from .state import TrainState
 
 
-def det_freeze_mask(model: torch.nn.Module) -> Dict[str, bool]:
+def det_freeze_mask(model: torch.nn.Module,
+                    backbone: str = "vit") -> Dict[str, bool]:
     """True = trainable: everything but the trunk (`backbone.encoder.*`
-    other than `backbone.encoder.det_head.*`)."""
+    other than `backbone.encoder.det_head.*`); with the ResNet-50,
+    everything but the whole `backbone.*`."""
+    if backbone == "resnet50":
+        return {k: not k.startswith("backbone.")
+                for k, _ in model.named_parameters()}
     pre = "backbone.encoder."
     return {k: not k.startswith(pre) or k.startswith(pre + "det_head.")
             for k, _ in model.named_parameters()}
@@ -57,7 +66,8 @@ class DetectionTask:
         self.plain = False  # see set_plain
 
     def freeze_mask(self) -> Optional[Dict[str, bool]]:
-        return det_freeze_mask(self.model) if self.cfg.freeze_encoder \
+        c = self.cfg
+        return det_freeze_mask(self.model, c.backbone) if c.freeze_encoder \
             else None
 
     def init_state(self, generator: Optional[torch.Generator] = None,
@@ -72,7 +82,8 @@ class DetectionTask:
             from ..ckpt import import_detector
 
             loaded, missing = import_detector(self.model, pretrained,
-                                              from_pretrain)
+                                              from_pretrain,
+                                              self.cfg.backbone)
             print(f"{pretrained}: loaded {len(loaded)} tensors, "
                   f"{len(missing)} left at init")
         self.tx = make_optimizer(self.cfg.optimizer,

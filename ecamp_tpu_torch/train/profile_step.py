@@ -5,9 +5,9 @@
     python -m ecamp_tpu_torch.train.profile_step --finetune [--batch 96]
         [--linear_probe] [--out FILE]
     python -m ecamp_tpu_torch.train.profile_step --segmentation
-        [--batch 512] [--dual] [--out FILE]
+        [--batch 512] [--dual | --resnet50] [--out FILE]
     python -m ecamp_tpu_torch.train.profile_step --detection
-        [--batch 1024] [--expansion 8] [--out FILE]
+        [--batch 1024] [--expansion 8 | --resnet50] [--out FILE]
 
 Builds the full-width `PretrainTask` (the ECAMP of `PretrainConfig()`,
 bf16 compute, AdamW at a constant lr; with `--fused_mlm_ce`, the MLM loss
@@ -22,7 +22,9 @@ encoder frozen, AdamW lr 5e-4 past its warmup, wd 0.05, clip 1.0;
 the `DetectionTask` of the recipe det_RSNA_100 (the ViT-B/16 detector at
 224, neck expansion 4, or 8 with `--expansion 8` as det_RSNA_10 at
 `--batch 256`; bf16, encoder frozen, AdamW lr 5e-4 past its warmup, wd
-0.05, clip 1.0) on a seeded u8 batch with 1-3 boxes an image, runs two
+0.05, clip 1.0) on a seeded u8 batch with 1-3 boxes an image; with
+`--resnet50` either one's ResNet-50 baseline (the UNet trained end to end,
+or the detector with its ResNet-50 frozen), runs two
 warm-up steps, times five steps on the host clock, then runs one step
 under `torch.profiler`, and prints the
 device time of that step by kernel group (the port's kernels, GEMMs,
@@ -130,6 +132,7 @@ def _segmentation_step(args, b, gen):
 
     cfg = c.SegmentationConfig(
         task="RIGA" if args.dual else "SIIM",
+        backbone="resnet50" if args.resnet50 else "vit",
         optimizer=c.OptimizerConfig(name="adamw", lr=5e-4, weight_decay=0.05,
                                     betas=(0.9, 0.999),
                                     schedule="warmup_cosine_step",
@@ -146,7 +149,9 @@ def _segmentation_step(args, b, gen):
         box[0], m = task.train_step(box[0], images, masks)
         return m
 
-    return step, "segmentation (RIGA, dual)" if args.dual else "segmentation"
+    return step, ("segmentation (RIGA, dual)" if args.dual else
+                  "segmentation (ResNet-50 UNet)" if args.resnet50 else
+                  "segmentation")
 
 
 def _detection_step(args, b, gen):
@@ -160,6 +165,7 @@ def _detection_step(args, b, gen):
 
     cfg = c.DetectionConfig(
         expansion=args.expansion,
+        backbone="resnet50" if args.resnet50 else "vit",
         optimizer=c.OptimizerConfig(name="adamw", lr=5e-4, weight_decay=0.05,
                                     betas=(0.9, 0.999),
                                     schedule="warmup_cosine_step",
@@ -173,7 +179,8 @@ def _detection_step(args, b, gen):
         box[0], m = task.train_step(box[0], images, targets)
         return m
 
-    return step, f"detection (expansion {args.expansion})"
+    return step, ("detection (ResNet-50)" if args.resnet50 else
+                  f"detection (expansion {args.expansion})")
 
 
 def main(argv=None) -> int:
@@ -191,6 +198,9 @@ def main(argv=None) -> int:
     ap.add_argument("--detection", action="store_true")
     ap.add_argument("--expansion", type=int, default=4,
                     help="--detection: the neck's Bottleneck expansion")
+    ap.add_argument("--resnet50", action="store_true",
+                    help="--segmentation / --detection: the ResNet-50 "
+                         "baseline")
     args = ap.parse_args(argv)
 
     import torch

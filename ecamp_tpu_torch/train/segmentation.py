@@ -9,6 +9,12 @@ mean of the disc and cup losses (train_RIGA.py:243-276). The frozen trunk
 runs under `torch.no_grad()`, so its backward never runs; `FusedAdamW`
 sees the trainable leaves only (`Masked`).
 
+`backbone="resnet50"` is the smp.Unet baseline (train.py:139-180):
+`nn/unet.py::ResNetUNet`, trained end to end (no freeze mask: `FusedAdamW`
+updates every leaf), from a torchvision-layout `.pth`
+(`import_resnet_unet`) or from its init; RIGA's two decoders have no such
+baseline and raise, as in JAX.
+
 The step draws no random numbers: the JAX step passes `train=True` but
 not `deterministic`, so the trunk's dropout and drop-path stay off. The
 model is kept in eval mode and only the BatchNorms take the batch
@@ -27,6 +33,7 @@ from ..core.config import SegmentationConfig
 from ..core.dtypes import policy
 from ..nn.layers import set_plain
 from ..nn.seg import SegViT, SegViTDual
+from ..nn.unet import ResNetUNet
 from ..ops.image_ops import device_normalize_image
 from ..ops.losses import mixed_loss
 from .eval_metrics import dice_scores
@@ -43,44 +50,58 @@ def seg_freeze_mask(model: torch.nn.Module) -> Dict[str, bool]:
 
 class SegmentationTask:
     def __init__(self, cfg: SegmentationConfig, device="cuda"):
-        if cfg.backbone != "vit":
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r}: the ResNet-50 UNet baseline is "
-                f"not ported to ecamp_tpu_torch (ROADMAP Queue 1, item 10b)")
+        if cfg.backbone not in ("vit", "resnet50"):
+            raise ValueError(f"unknown segmentation backbone "
+                             f"{cfg.backbone!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SegmentationTask on cuda needs a CUDA card")
         self.dual = cfg.task.upper() == "RIGA"
-        cls = SegViTDual if self.dual else SegViT
-        self.model = cls(cfg.vit, out_channels=cfg.out_channels,
-                         sample_rate=cfg.sample_rate,
-                         features=tuple(cfg.decode_features),
-                         dtype=policy(cfg.bf16).compute_dtype,
-                         generator=torch.Generator().manual_seed(cfg.seed)
-                         ).to(self.device)
+        self.resnet = cfg.backbone == "resnet50"
+        dtype = policy(cfg.bf16).compute_dtype
+        generator = torch.Generator().manual_seed(cfg.seed)
+        if self.resnet:
+            if self.dual:
+                raise ValueError("resnet50 baseline supports single-decoder "
+                                 "tasks only (SIIM/RSNA)")
+            self.model = ResNetUNet(out_channels=cfg.out_channels,
+                                    dtype=dtype, generator=generator)
+        else:
+            cls = SegViTDual if self.dual else SegViT
+            self.model = cls(cfg.vit, out_channels=cfg.out_channels,
+                             sample_rate=cfg.sample_rate,
+                             features=tuple(cfg.decode_features),
+                             dtype=dtype, generator=generator)
+        self.model.to(self.device)
         self.schedule = make_schedule(cfg.optimizer)
         self.tx = None
         self.plain = False  # see set_plain
 
     def freeze_mask(self) -> Optional[Dict[str, bool]]:
-        return seg_freeze_mask(self.model) if self.cfg.freeze_encoder \
-            else None
+        """The ViT's frozen trunk; the ResNet-50 UNet trains every leaf."""
+        if self.resnet or not self.cfg.freeze_encoder:
+            return None
+        return seg_freeze_mask(self.model)
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    pretrained: str = "", from_pretrain: bool = True,
                    flavor: str = "ecamp") -> TrainState:
         """A fresh train state at step 0: with `generator` the parameters
         are drawn anew from it, then `pretrained` (a reference `.pth`) is
-        loaded over them (`ckpt/convert.py::import_seg_vit`; flavor
-        'random' loads nothing)."""
+        loaded over them (`ckpt/convert.py::import_seg_vit`, or
+        `import_resnet_unet` for the ResNet-50 UNet, which reads neither
+        `from_pretrain` nor the flavor; flavor 'random' loads nothing)."""
         if generator is not None:
             self.model.reset_parameters(generator)
         if pretrained and flavor != "random":
-            from ..ckpt import import_seg_vit
+            from ..ckpt import import_resnet_unet, import_seg_vit
 
-            loaded, missing = import_seg_vit(self.model, pretrained,
-                                             from_pretrain, flavor)
+            if self.resnet:
+                loaded, missing = import_resnet_unet(self.model, pretrained)
+            else:
+                loaded, missing = import_seg_vit(self.model, pretrained,
+                                                 from_pretrain, flavor)
             print(f"{pretrained}: loaded {len(loaded)} tensors, "
                   f"{len(missing)} left at init")
         self.tx = make_optimizer(self.cfg.optimizer,
@@ -112,8 +133,8 @@ class SegmentationTask:
         running ones)."""
         c = self.cfg
         images = device_normalize_image(images, c.data.mean, c.data.std)
-        out = self.model(images, train=train,
-                         stop_trunk_grad=c.freeze_encoder)
+        kwargs = {} if self.resnet else {"stop_trunk_grad": c.freeze_encoder}
+        out = self.model(images, train=train, **kwargs)
         a, g = c.mixed_loss_alpha, c.focal_gamma
         if self.dual:
             disc, cup = out

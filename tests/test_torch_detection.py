@@ -209,7 +209,7 @@ def test_full_width_tree_and_namespace():
     """The full-width detector has the reference's sizes (116,628,534
     parameters; with the encoder frozen 30,831,414 trainable in 100 leaves;
     27,648 BatchNorm statistics in 29 BatchNorms) and `state_dict()` names
-    in `export_detector`'s namespace; the ResNet-50 backbone is refused."""
+    in `export_detector`'s namespace; an unknown backbone raises."""
     from ecamp_tpu_torch.train.detection import det_freeze_mask
 
     m = DetectionModel(pcfg.ViTConfig())
@@ -232,8 +232,8 @@ def test_full_width_tree_and_namespace():
     assert not any(k.startswith("head.") for k in sd)
     assert mask["backbone.encoder.det_head.weight"]
     assert not mask["backbone.encoder.blocks.0.norm1.weight"]
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        DetectionModel(pcfg.ViTConfig(), backbone="resnet50")
+    with pytest.raises(ValueError, match="unknown detector backbone"):
+        DetectionModel(pcfg.ViTConfig(), backbone="resnet101")
 
 
 def test_freeze_mask_and_config_match_jax(jax_vars):
@@ -906,9 +906,8 @@ def test_cli_resume_fast_forwards_to_the_best_step(tmp_path, tiny_cli,
 def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
         tmp_path, tiny_cli, monkeypatch):
     """A training split smaller than one batch raises (the JAX CLI would
-    spin without a step); the ResNet-50 baseline (item 10b), the
-    preemption saves and multi-process evaluation (item 8) raise as not
-    ported."""
+    spin without a step), on the ResNet-50 baseline too; the preemption
+    saves and multi-process evaluation (item 8) raise as not ported."""
     from ecamp_tpu_torch.data.synthetic import write_detection_corpus
 
     root = write_detection_corpus(str(tmp_path / "data"), "RSNA", 3, 2, 2,
@@ -916,7 +915,7 @@ def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
     out = str(tmp_path / "out")
     with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(_cli_args(root, out))
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(_cli_args(root, out) + ["--model", "resnet50"])
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="item 8"):

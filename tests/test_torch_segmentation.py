@@ -681,8 +681,9 @@ def test_cli_trains_stops_early_and_tests(tmp_path, tiny_cli, capsys, task):
 def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
         tmp_path, tiny_cli, monkeypatch):
     """A training split smaller than one batch raises (the JAX CLI would
-    spin without a step); the ResNet-50 baseline, `--resume` and
-    `ECAMP_PREEMPT_AT_STEP` raise as not ported."""
+    spin without a step); the ResNet-50 baseline on RIGA raises (it has
+    one decoder, as in JAX); `--resume` and `ECAMP_PREEMPT_AT_STEP` raise
+    as not ported."""
     from ecamp_tpu_torch.data.synthetic import write_segmentation_corpus
 
     root = write_segmentation_corpus(str(tmp_path / "data"), "SIIM", 3, 2,
@@ -690,8 +691,8 @@ def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
     out = str(tmp_path / "out")
     with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(["--task", "SIIM"] + _cli_args(root, out))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tiny_cli.main(["--task", "SIIM"] + _cli_args(root, out)
+    with pytest.raises(ValueError, match="single-decoder"):
+        tiny_cli.main(["--task", "RIGA"] + _cli_args(root, out)
                       + ["--model", "resnet50"])
     with pytest.raises(NotImplementedError, match="item 8"):
         tiny_cli.main(["--task", "SIIM", "--resume", "x"]

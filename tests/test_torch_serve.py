@@ -304,9 +304,12 @@ for n in names:
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "ecamp_tpu", "pandas", "cv2")]
 assert not bad, bad
-print(len(names))
+print(len(names), *names)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    names = r.stdout.split()
+    assert int(names[0]) >= 15
+    assert {"ecamp_tpu_torch.nn.resnet", "ecamp_tpu_torch.nn.unet",
+            "ecamp_tpu_torch.cli.visualize"} <= set(names[1:])
