@@ -28,7 +28,8 @@ keys.
 DDP `module.` prefixes; `load_reference_state` strict-loads it.
 `import_vit_classifier`, `import_seg_vit` and `import_detector` initialise
 a classifier, a segmenter or a detector from such a checkpoint, or from a
-pretraining one, by the JAX package's partial-load rule (`_apply_state`);
+pretraining one, by the JAX package's partial-load rule (`_apply_state`),
+`import_ecamp_pretrain` an ECAMP from a pretraining one;
 `import_resnet_unet` and `import_detector(backbone="resnet50")` the
 ResNet-50 baselines from a torchvision-layout one.
 """
@@ -196,6 +197,35 @@ def import_vit_classifier(model: nn.Module, path: str
     stays at init, as in the JAX package. Returns (loaded names, names
     left at init)."""
     return _load_matching(model, load_reference_pth(path), lambda n: n)
+
+
+# entries of a reference pretraining `.pth` that the port holds otherwise:
+# the two sin-cos tables (buffers here, constants in JAX) and HF's tied MLM
+# bias (the decoder keeps its own)
+PRETRAIN_UNUSED = ("pos_embed", "decoder_pos_embed",
+                   "bert_encoder.model.cls.predictions.bias")
+
+
+def pretrain_state(path: str) -> Dict[str, torch.Tensor]:
+    """A pretraining `.pth` (the port's `checkpoint-<epoch>.pth` or a
+    reference one) as the port's ECAMP state: `model` unwrapped, `module.`
+    stripped, the visualizer's `cross_attn_layer` read as
+    `context_fusion_layer` (as `ecamp_tpu/ckpt/torch_import.py::
+    import_ecamp_pretrain` does) and `PRETRAIN_UNUSED` dropped."""
+    state = {k.replace("cross_attn_layer", "context_fusion_layer"): v
+             for k, v in load_reference_pth(path).items()}
+    return {k: v for k, v in state.items() if k not in PRETRAIN_UNUSED}
+
+
+def import_ecamp_pretrain(model: nn.Module, path: str
+                          ) -> Tuple[List[str], List[str]]:
+    """Initialise a port `ECAMP` from a pretraining `.pth` by the JAX
+    package's partial-load rule (`import_ecamp_pretrain`, convention 1):
+    every entry of `pretrain_state(path)` under the model's own name and of
+    its shape is copied. Returns (loaded names, names left at init); a
+    caller that needs some of them whole checks the second list."""
+    state = pretrain_state(path)
+    return _load_matching(model, state, lambda n: n)
 
 
 def import_seg_vit(model: nn.Module, path: str, from_pretrain: bool = True,

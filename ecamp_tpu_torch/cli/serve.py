@@ -1,6 +1,6 @@
 """Inference entry point of the port: HTTP serving or offline batch
-prediction of the ViT classifier, the SegViT segmenter or the YOLOv3
-detector on one CUDA card.
+prediction of the ViT classifier, the SegViT segmenter, the YOLOv3
+detector or the ECAMP image embedding on one CUDA card.
 
   # HTTP server (stdlib, JSON/base64)
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
@@ -9,13 +9,17 @@ detector on one CUDA card.
       --checkpoint seg.pth --port 8000
   python -m ecamp_tpu_torch.cli.serve --task detection [--expansion 8] \\
       --checkpoint det.pth --port 8000
+  python -m ecamp_tpu_torch.cli.serve --task embedding \\
+      --checkpoint checkpoint-N.pth --port 8000
 
   # offline batch: folder or list file -> JSONL of predictions
   python -m ecamp_tpu_torch.cli.serve --task classification --num_classes 14 \\
       --checkpoint cls.pth --images /data/imgs --output preds.jsonl
 
-`--device cuda` (the default) needs a card and refuses to start without
-one; `--device cpu` runs the kernels' plain PyTorch versions.
+`--quantize int8` serves any task with weight-only int8 (per output
+channel; `serve/quantize.py`). `--device cuda` (the default) needs a card
+and refuses to start without one; `--device cpu` runs the kernels' plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -27,12 +31,6 @@ import os
 import numpy as np
 import torch
 
-# what each option of the JAX CLI that is not ported waits for
-_NOT_PORTED = {
-    "embedding": "ROADMAP Queue 1, ECAMP model",
-    "int8": "ROADMAP Queue 1, serving + export (serve/quantize.py)",
-}
-
 
 def get_args(argv=None):
     p = argparse.ArgumentParser("ecamp_tpu_torch serve/infer")
@@ -40,8 +38,9 @@ def get_args(argv=None):
                    choices=["classification", "segmentation", "detection",
                             "embedding"])
     p.add_argument("--checkpoint", default="",
-                   help="reference classifier, SegViT or detector .pth "
-                        "(random init if empty)")
+                   help="reference classifier, SegViT or detector .pth, "
+                        "or a pretraining .pth for the embedding (random "
+                        "init if empty)")
     p.add_argument("--dual", action="store_true",
                    help="RIGA dual-decoder segmentation")
     p.add_argument("--num_classes", type=int, default=None,
@@ -60,7 +59,9 @@ def get_args(argv=None):
     p.add_argument("--mean", type=float, default=0.4722)
     p.add_argument("--std", type=float, default=0.3028)
     p.add_argument("--buckets", type=int, nargs="+", default=None)
-    p.add_argument("--quantize", default="", choices=["", "int8"])
+    p.add_argument("--quantize", default="", choices=["", "int8"],
+                   help="int8: weight-only int8, one scale an output "
+                        "channel")
     p.add_argument("--class_names", nargs="+", default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; needs a card) or cpu")
@@ -77,21 +78,16 @@ def get_args(argv=None):
 
 
 def build_engine(args):
-    from ..serve import classifier_engine, detector_engine, segmenter_engine
+    from ..serve import (classifier_engine, detector_engine,
+                         embedding_engine, segmenter_engine)
 
-    if args.task in _NOT_PORTED:
-        raise SystemExit(f"--task {args.task} is not ported yet "
-                         f"({_NOT_PORTED[args.task]})")
-    if args.quantize:
-        raise SystemExit(f"--quantize {args.quantize} is not ported yet "
-                         f"({_NOT_PORTED[args.quantize]})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA card is visible; the port "
                          "does not fall back to the CPU (pass --device cpu "
                          "to run the plain PyTorch versions on purpose)")
     kw = {"checkpoint": args.checkpoint, "img_size": args.img_size,
-          "device": device}
+          "device": device, "quantize": args.quantize}
     if args.buckets:
         kw["buckets"] = tuple(args.buckets)
     if args.task == "segmentation":
@@ -101,6 +97,8 @@ def build_engine(args):
                                expansion=args.expansion,
                                conf_threshold=args.conf_threshold,
                                nms_threshold=args.nms_threshold, **kw)
+    if args.task == "embedding":
+        return embedding_engine(**kw)
     return classifier_engine(num_classes=args.num_classes or 14,
                              multilabel=args.multilabel, **kw)
 
@@ -142,6 +140,11 @@ def batch_predict(args, engine):
                 if args.task == "detection":
                     out.write(json.dumps({"path": path,
                                           "boxes": _jsonable(pred)}) + "\n")
+                    continue
+                if args.task == "embedding":
+                    out.write(json.dumps({"path": path,
+                                          "embedding": _jsonable(pred)})
+                              + "\n")
                     continue
                 rec = {"probs": pred.tolist()}
                 if args.class_names:

@@ -54,6 +54,7 @@ SIGNATURES = {
     "ecamp_fused_ce_bwd_dx_chunk": [_P] * 4 + [_I] * 8 + [_P],
     "ecamp_fused_ce_bwd_dw_chunk": [_P] * 5 + [_I] * 6 + [_P],
     "ecamp_wgmma_gemm": [_P] * 3 + [_I] * 4 + [_P],
+    "ecamp_int8_linear": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

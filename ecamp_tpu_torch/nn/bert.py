@@ -33,7 +33,7 @@ from torch import nn
 from ..core.config import BertConfig
 from ..kernels import dot_product_attention
 from ..kernels.flash_attention import _attention_reference
-from .layers import Dense, Dropout, LayerNorm
+from .layers import Dense, Dropout, LayerNorm, compute_weight
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -240,7 +240,7 @@ class MLMHead(nn.Module):
         feats = t.LayerNorm(F.gelu(t.dense(x)))
         decoder = self.predictions.decoder
         if return_features:
-            return feats, decoder.weight.to(decoder.dtype), decoder.bias
+            return feats, compute_weight(decoder, decoder.dtype), decoder.bias
         return decoder(feats)
 
 

@@ -10,6 +10,13 @@ compute `dtype` at every call, as flax's `Dense(dtype=bf16)` does inside
 the jitted apply. No bf16 copy of the weights is kept, so serving holds
 one fp32 copy and pays one cast per weight per call.
 
+For serving, `serve/quantize.py` can replace the weight of a `Dense`,
+`PatchProj` or `Conv2d` (modules that hold a flax `kernel`) by an int8
+buffer `weight_q` and an fp32 per-output-channel `weight_scale`: `Dense`
+and `PatchProj` then run the int8-weight linear kernel, `Conv2d` widens
+the weight to `bf16(q·s)` in torch ops before `F.conv2d` (a dequantised
+copy each call, where XLA fuses the widening into the convolution).
+
 Initialisation mirrors the JAX defaults (xavier-uniform Linear, lecun-
 normal patch conv, zero biases, unit LayerNorm) and draws from an explicit
 `torch.Generator` passed to `reset_parameters`.
@@ -26,6 +33,8 @@ from torch import nn
 
 from ..kernels import dot_product_attention, fused_layer_norm
 from ..kernels.flash_attention import _attention_reference
+from ..kernels.int8_linear import (_int8_linear_reference, dequantize_int8,
+                                   int8_linear)
 from ..kernels.layer_norm import _ln_reference
 
 # flax truncated_normal / variance_scaling draw from N(0, 1) cut at +-2 and
@@ -46,6 +55,28 @@ def lecun_normal_(t: torch.Tensor,
     1 / fan_in, for an OIHW weight (fan_in = I * H * W)."""
     return trunc_normal_(t, math.sqrt(1.0 / t[0].numel()) / _TRUNC_STD,
                          generator)
+
+
+def is_quantized(module: nn.Module) -> bool:
+    """Whether `serve/quantize.py` replaced module's weight by int8."""
+    return "weight_q" in module._buffers
+
+
+def compute_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """module's weight in `dtype`: its fp32 parameter cast, or its int8
+    weight widened to `dtype(q·s)` once quantized."""
+    if is_quantized(module):
+        return dequantize_int8(module.weight_q, module.weight_scale, dtype)
+    return module.weight.to(dtype)
+
+
+def _quantized_linear(module: nn.Module, x, weight_q):
+    """x · dtype(q·s)ᵀ + bias for module's int8 weight viewed as (out, in)
+    through the int8-weight linear kernel (its plain version with the
+    module's `plain` flag)."""
+    fn = _int8_linear_reference if module.plain else int8_linear
+    b = None if module.bias is None else module.bias.to(module.dtype)
+    return fn(x.to(module.dtype), weight_q, module.weight_scale, b)
 
 
 class LayerNorm(nn.Module):
@@ -80,6 +111,7 @@ class Dense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
+        self.plain = False  # see set_plain; read once quantized
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
@@ -92,6 +124,8 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if is_quantized(self):
+            return _quantized_linear(self, x, self.weight_q)
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
@@ -242,7 +276,7 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+        return F.conv2d(x.to(self.dtype), compute_weight(self, self.dtype), b,
                         stride=self.stride, padding=self.padding)
 
 
@@ -319,6 +353,7 @@ class PatchProj(nn.Module):
         super().__init__()
         self.patch_size = patch_size
         self.dtype = dtype
+        self.plain = False  # see set_plain; read once quantized
         self.weight = nn.Parameter(
             torch.empty(embed_dim, in_chans, patch_size, patch_size))
         self.bias = nn.Parameter(torch.zeros(embed_dim))
@@ -335,6 +370,10 @@ class PatchProj(nn.Module):
         x = x[:, :gh * p, :gw * p].to(self.dtype)  # VALID padding
         patches = (x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 5, 2, 4)
                    .reshape(b, gh * gw, c * p * p))
+        if is_quantized(self):  # (D, C, p, p) -> (D, C * p * p), as patches
+            return _quantized_linear(
+                self, patches,
+                self.weight_q.reshape(self.weight_q.shape[0], -1))
         return F.linear(patches, self.weight.reshape(self.weight.shape[0], -1)
                         .to(self.dtype), self.bias.to(self.dtype))
 
@@ -354,10 +393,11 @@ class PatchEmbed(nn.Module):
 
 def set_plain(module: nn.Module, plain: bool = True) -> nn.Module:
     """Route every module under `module` that launches a kernel (LayerNorm,
-    attention, the SR head: each has a `plain` flag) to the plain versions
-    of its kernels, called directly (plain=True), or back to the kernel
-    wrappers. The plain route is the on-card reference that the kernels
-    are held against; serving and training never set it."""
+    attention, the SR head, a quantized Dense or PatchProj: each has a
+    `plain` flag) to the plain versions of its kernels, called directly
+    (plain=True), or back to the kernel wrappers. The plain route is the
+    on-card reference that the kernels are held against; serving and
+    training never set it."""
     for m in module.modules():
         if hasattr(m, "plain"):
             m.plain = plain

@@ -43,13 +43,15 @@ from ..ops.losses import masked_pixel_losses, weighted_mlm_loss
 from ..ops.masking import (mask_to_pixel, permute_tokens, random_masking,
                            unpatchify)
 from .bert import MultimodalBert
-from .layers import Block, Dense, LayerNorm, PatchEmbed, lecun_normal_
+from .layers import (Block, Dense, LayerNorm, PatchEmbed, compute_weight,
+                     lecun_normal_)
 from .pos_embed import get_2d_sincos_pos_embed
 
 
 class Conv3x3(nn.Module):
     """A 3x3 conv's parameters: OIHW `weight` and `bias`, flax's
-    lecun-normal / zeros init. The SR head computes with them."""
+    lecun-normal / zeros init. The SR head computes with them in the
+    parameters' dtype (`compute_weight` widens an int8-quantized weight)."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -78,8 +80,9 @@ class SuperResolutionHead(nn.Module):
         x = resize_bilinear(x, (h * self.scale, w * self.scale))
         x_chw = x.permute(0, 3, 1, 2).contiguous()
         fn = _sr_reference if self.plain else sr_conv_stack
-        out = fn(x_chw, self.conv1.weight, self.conv1.bias,
-                 self.conv2.weight, self.conv2.bias)
+        c1, c2 = self.conv1, self.conv2
+        out = fn(x_chw, compute_weight(c1, c1.bias.dtype), c1.bias,
+                 compute_weight(c2, c2.bias.dtype), c2.bias)
         return out.permute(0, 2, 3, 1)
 
 

@@ -9,9 +9,10 @@ Endpoints:
                             response {"predictions": [{"probs": [...],
                             "labels": {...}}, ...]} (classification), or
                             [{"area_fraction": f, "bbox_xyxy": [...]}, ...]
-                            per mask channel (segmentation), or
+                            per mask channel (segmentation),
                             {"boxes": [[x1, y1, x2, y2, conf, cls_conf,
-                            cls], ...] or null} (detection)
+                            cls], ...] or null} (detection), or
+                            {"embedding": [...]} (embedding, unit L2 norm)
 
 Requests are decoded and preprocessed on the host (`data/transforms.py::
 EvalTransform` — the reference test path's Resize/CenterCrop/Normalize),
@@ -71,7 +72,7 @@ def _summarize_mask(mask: np.ndarray, threshold: float = 0.5) -> dict:
 
 class PredictionService:
     """Binds an engine, preprocessing and response shaping for one task
-    ('classification', 'segmentation' or 'detection')."""
+    ('classification', 'segmentation', 'detection' or 'embedding')."""
 
     def __init__(self, engine, img_size: int = 224, mean: float = 0.4722,
                  std: float = 0.3028, micro_batch: bool = True,
@@ -79,7 +80,8 @@ class PredictionService:
         from ..data.transforms import EvalTransform
         from .engine import MicroBatcher
 
-        if task not in ("classification", "segmentation", "detection"):
+        if task not in ("classification", "segmentation", "detection",
+                        "embedding"):
             raise ValueError(f"no service for task {task!r}")
         self.engine = engine
         self.task = task
@@ -105,6 +107,8 @@ class PredictionService:
             return _summarize_mask(np.asarray(out))
         if self.task == "detection":
             return {"boxes": _jsonable(out)}
+        if self.task == "embedding":
+            return {"embedding": _jsonable(out)}
         r = {"probs": out.tolist()}
         if self.class_names:
             r["labels"] = {n: float(p) for n, p in zip(self.class_names, out)}

@@ -49,6 +49,8 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("sr_conv_stack kernel", ("sr_conv_stack",)),  # generic and TMA
     ("adamw kernel", ("adamw_multi_kernel",)),
     ("fused CE kernels", ("fused_ce_fwd", "fused_ce_bwd")),
+    # before "gemm": a name of the int8 kernel holding "gemm" stays here
+    ("int8 linear kernel", ("int8_linear",)),
     # cuDNN's convolutions (the SR backward) are implicit GEMMs: test first
     ("convolution", ("cudnn", "fprop", "dgrad", "wgrad", "conv")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),

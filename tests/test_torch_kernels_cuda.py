@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from ecamp_tpu_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import fused_adamw as adamw_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm_mod  # noqa: E402
+from ecamp_tpu_torch.kernels import int8_linear as i8_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import layer_norm as ln_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import sr_head as sr_mod  # noqa: E402
 
@@ -576,6 +577,57 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
             torch.zeros(9, device=cuda), torch.zeros(4, dtype=torch.long,
                                                      device=cuda),
             torch.ones(4, device=cuda))
+
+
+def _int8_operands(m, n, k, dev, bias=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                      dtype=torch.int32).to(torch.int8)
+    s = 0.02 * torch.rand(n, device=dev, generator=g) + 1e-3
+    b = (torch.randn(n, device=dev, generator=g).to(torch.bfloat16)
+         if bias else None)
+    return x, q, s, b
+
+
+@pytest.mark.parametrize("m,n,k", [(197, 2304, 768), (197, 768, 3072),
+                                   (1576, 3072, 768), (12608, 768, 768),
+                                   (37, 200, 64), (5, 7, 48), (1, 14, 16),
+                                   (130, 129, 784)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_linear_kernel_on_card(cuda, m, n, k, bias):
+    """The int8-weight linear kernel against its plain version (F.linear
+    with the dequantised bf16 weight) run in fp32 on the same bf16 values
+    and rounded once, the function the kernel computes: cuBLAS's bf16
+    product can round partial sums to bf16 (split-K), a bf16 ulp of the
+    pre-bias sum off at (130, 129, 784). Both tile shapes, ragged M and N,
+    an odd N (scalar stores), K = 48 (a half stage), with and without
+    bias; one launch a call; leading dims kept."""
+    x, q, s, b = _int8_operands(m, n, k, cuda, bias)
+    before = i8_mod.launches.value
+    got = i8_mod.int8_linear(x.reshape(1, m, k), q, s, b)
+    torch.cuda.synchronize()
+    assert i8_mod.launches.value == before + 1
+    assert got.shape == (1, m, n) and got.dtype == torch.bfloat16
+    w = i8_mod.dequantize_int8(q, s, torch.bfloat16).float()
+    want = torch.nn.functional.linear(
+        x.float(), w, None if b is None else b.float()).to(torch.bfloat16)
+    _close(got[0], want, torch.bfloat16)
+
+
+def test_int8_linear_kernel_refuses_what_it_does_not_take(cuda):
+    x, q, s, b = _int8_operands(8, 32, 64, cuda)
+    with pytest.raises(ValueError, match="bf16 x"):
+        i8_mod.int8_linear(x.float(), q, s, b)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        i8_mod.int8_linear(x[:, :40], q[:, :40].contiguous(), s, b)
+    with pytest.raises(ValueError, match="bias"):
+        i8_mod.int8_linear(x, q, s, b.float())
+    with pytest.raises(RuntimeError, match="no backward"):
+        i8_mod.int8_linear(x.requires_grad_(), q, s, b)
+    before = i8_mod.launches.value
+    i8_mod.int8_linear(x.detach()[:, 16:], q[:, 16:].contiguous(), s, b)
+    assert i8_mod.launches.value == before + 1  # a strided x is copied
 
 
 def test_served_classifier_matches_plain_forward(cuda):

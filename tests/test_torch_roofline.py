@@ -53,6 +53,14 @@ CASES = {
     # fused CE backward: one logit recompute plus the dx and dW products
     "fused_ce_bwd": (chip_smoke.fused_ce_bwd_work(8192, 768, 30000, 2),
                      1_132_462_080_000, 117_696_896, 1.145058, "operations"),
+    # int8-weight linear, fc1 at bucket 8 (M = 1576): bf16 x, int8 q, fp32
+    # scales, bf16 bias in, bf16 y out; 7.4 GFLOP -> 7.5 us over 4.3 us
+    "int8_linear_fc1_b8": (chip_smoke.int8_linear_work(1576, 3072, 768),
+                           7_436_500_992, 14_481_408, 0.0075192,
+                           "operations"),
+    # qkv at one image (M = 197): the 1.77 MB of int8 weight dominate
+    "int8_linear_qkv_b1": (chip_smoke.int8_linear_work(197, 2304, 768),
+                           697_171_968, 2_993_664, 0.00089363, "bytes"),
 }
 
 
@@ -104,7 +112,8 @@ def test_rotated_copies_hold_twice_the_l2_and_take_turns():
 def test_profile_groups_hold_every_kernel_of_the_port():
     """`train/profile_step.py` puts each of the port's kernels in its
     group by name, the two-kernel fused-CE forward, the TMA + wgmma
-    attention and the TMA SR forward included."""
+    attention, the TMA SR forward and the int8-weight linear included (a
+    name of it holding "gemm" stays out of the GEMM group)."""
     from ecamp_tpu_torch.train.profile_step import group_of
 
     for name, group in (
@@ -122,5 +131,39 @@ def test_profile_groups_hold_every_kernel_of_the_port():
              "fused CE kernels"),
             ("void fused_ce_fwd_kernel<float>(...)", "fused CE kernels"),
             ("fused_ce_bwd_dl_kernel", "fused CE kernels"),
+            ("void (anonymous namespace)::int8_linear_kernel<128, 128>(...)",
+             "int8 linear kernel"),
+            ("int8_linear_kernel<64, 64>", "int8 linear kernel"),
+            ("int8_linear_gemm", "int8 linear kernel"),
             ("sm90_xmma_gemm_bf16bf16", "gemm")):
         assert group_of(name) == group, name
+
+
+def test_compare_retimes_a_profiler_time_under_the_bound(monkeypatch):
+    """`compare` takes a profiler reading under the bound (a session that
+    kept part of its kernels) for none: it times the kernel and its
+    library call again by queued CUDA events and says so in BY_EVENTS;
+    readings at or over the bound stand. The card's timers are stubbed."""
+    import torch
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, *a: 1.0)
+    monkeypatch.setattr(chip_smoke, "queued_ms",
+                        lambda fn, *a: calls.append(fn) or 0.5)
+    monkeypatch.setattr(chip_smoke, "BY_EVENTS", [])
+    work = chip_smoke.int8_linear_work(1576, 3072, 768)  # 0.0075 ms
+    x = torch.ones(4)
+    for lib_ms, retimed in ((0.0139, False), (0.0010, True)):
+        times = iter([0.0574, lib_ms])
+        monkeypatch.setattr(chip_smoke, "device_ms",
+                            lambda fn, *a, **k: next(times))
+        calls.clear()
+        r = chip_smoke.compare("k", lambda: x, lambda: x, torch.float32,
+                               library_fn=lambda: x, match="k", work=work)
+        assert (r["device_ms"], r["library_device_ms"]) == (
+            (0.5, 0.5) if retimed else (0.0574, lib_ms))
+        assert r["device_by"] == ("queued events" if retimed
+                                  else "profiler")
+        assert len(calls) == 2 * retimed
+    assert chip_smoke.BY_EVENTS == ["k", "library k"]

@@ -267,13 +267,93 @@ def test_cli_batch_mode_writes_jsonl(tmp_path):
                and all(0.0 <= p <= 1.0 for p in r["probs"]) for r in rows)
 
 
+def _tiny_loaders(monkeypatch):
+    """The serve CLI's engines at a tiny size (ViT img 32, patch 16, dim
+    64, depth 2; ECAMP with a 1-layer BERT), int8 at a floor of 256
+    elements (the default 65536 picks nothing of them)."""
+    from ecamp_tpu_torch.core import config as pc
+    from ecamp_tpu_torch.serve import loaders, quantize
+
+    monkeypatch.setattr(loaders, "ViTConfig", lambda img_size: ViTConfig(
+        img_size=img_size, patch_size=16, embed_dim=64, depth=2, num_heads=4))
+    monkeypatch.setattr(loaders, "MAEDecoderConfig", lambda: (
+        pc.MAEDecoderConfig(embed_dim=32, depth=1, num_heads=2)))
+    monkeypatch.setattr(loaders, "BertConfig", lambda: pc.BertConfig(
+        vocab_size=128, hidden_size=64, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=128,
+        max_position_embeddings=16))
+    monkeypatch.setattr(quantize, "MIN_ELEMS", 256)
+
+
+@pytest.mark.parametrize("task,quantize", [
+    ("classification", "int8"), ("segmentation", "int8"),
+    ("detection", "int8"), ("embedding", ""), ("embedding", "int8")])
+def test_cli_int8_and_embedding_batch_mode(tmp_path, monkeypatch, task,
+                                           quantize):
+    """`--quantize int8` builds every task's engine with int8 weights and
+    `--task embedding` the ECAMP embedding engine; batch mode writes one
+    row an image: {"path", "embedding"} of unit norm for the embedding."""
+    from PIL import Image
+
+    from ecamp_tpu_torch.cli.serve import batch_predict, build_engine, get_args
+    from ecamp_tpu_torch.serve.quantize import quantized_modules
+
+    _tiny_loaders(monkeypatch)
+    imgdir = tmp_path / "imgs"
+    imgdir.mkdir()
+    for i in range(3):
+        Image.fromarray(np.full((40, 36, 3), 50 * i, np.uint8)).save(
+            imgdir / f"im{i}.png")
+    out = tmp_path / "rows.jsonl"
+    args = get_args(["--task", task, "--img_size", "32", "--buckets", "4",
+                     "--device", "cpu", "--images", str(imgdir), "--output",
+                     str(out)] + (["--quantize", quantize] if quantize
+                                  else []))
+    engine = build_engine(args)
+    assert bool(quantized_modules(engine.model)) == (quantize == "int8")
+    batch_predict(args, engine)
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [os.path.basename(r["path"]) for r in rows] == [
+        f"im{i}.png" for i in range(3)]
+    key = {"classification": "probs", "segmentation": "area_fraction",
+           "detection": "boxes", "embedding": "embedding"}[task]
+    assert all(key in r for r in rows)
+    if task == "embedding":
+        emb = np.asarray([r["embedding"] for r in rows])
+        assert emb.shape == (3, 64)
+        np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0,
+                                   atol=1e-6)
+
+
+def test_cli_embedding_service_answers(tmp_path, monkeypatch):
+    """The serve CLI's int8 embedding engine behind the HTTP service
+    answers a POST of two images with two unit-norm embeddings."""
+    from ecamp_tpu_torch.cli.serve import build_engine, get_args
+    from ecamp_tpu_torch.serve.http_server import PredictionService, serve
+
+    _tiny_loaders(monkeypatch)
+    engine = build_engine(get_args(["--task", "embedding", "--img_size",
+                                    "32", "--buckets", "4", "--device",
+                                    "cpu", "--quantize", "int8"]))
+    service = PredictionService(engine, img_size=32, task="embedding")
+    httpd = serve(service, port=0, background=True)
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        code, reply = _post(base, json.dumps(
+            {"images": [_png(1), _png(2)]}).encode())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    assert code == 200
+    emb = np.asarray([p["embedding"] for p in reply["predictions"]])
+    assert emb.shape == (2, 64)
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-6)
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    cases = [(["--task", "embedding"], "ECAMP model"),
-             (["--quantize", "int8"], "quantize")]
-    for extra, msg in cases:
-        with pytest.raises(SystemExit, match=msg):
-            _cli(["--device", "cpu", *extra], tmp_path)
-    for task in ("classification", "segmentation", "detection"):
+    for task in ("classification", "segmentation", "detection",
+                 "embedding"):
         with pytest.raises(ValueError, match="orbax directory"):
             _cli(["--device", "cpu", "--checkpoint", str(tmp_path),
                   "--task", task], tmp_path)
@@ -312,4 +392,6 @@ print(len(names), *names)
     names = r.stdout.split()
     assert int(names[0]) >= 15
     assert {"ecamp_tpu_torch.nn.resnet", "ecamp_tpu_torch.nn.unet",
-            "ecamp_tpu_torch.cli.visualize"} <= set(names[1:])
+            "ecamp_tpu_torch.cli.visualize", "ecamp_tpu_torch.cli.export",
+            "ecamp_tpu_torch.serve.quantize",
+            "ecamp_tpu_torch.kernels.int8_linear"} <= set(names[1:])
