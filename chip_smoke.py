@@ -158,7 +158,10 @@
    four ViT-B projections (N, K) = (2304, 768), (768, 768), (3072, 768),
    (768, 3072) for M = 197 x 1, 8 and 64 images, and at a ragged (37,
    200, 64), beside `F.linear` on the weight dequantised once (the
-   library call) and the bound; (b) `classifier_engine(quantize="int8")`
+   library call) and the bound, each with the plan the wrapper took
+   (`_plan`: token tile, work units, splits of K), after the int8
+   kernels' `ptxas:` lines (registers, spills, any serialised `wgmma`);
+   (b) `classifier_engine(quantize="int8")`
    at full width (the serving slice's model and seeded weights, its 49
    projections int8, the 768 x 14 head under the size floor) behind the
    HTTP server: one POST with 25 LayerNorm, 12 attention and 49 int8
@@ -3158,6 +3161,23 @@ def visualize_phase(card: str, pretrained: str, work: str,
     return result
 
 
+def int8_ptxas_lines() -> list:
+    """What ptxas said of int8_linear.cu's kernels in the library's build
+    log: registers, spills, and any wgmma it serialised (C75xx)."""
+    from ecamp_tpu_torch.kernels import _build
+
+    lines, inside = [], False
+    log = _build.build().with_suffix(".log").read_text().splitlines()
+    for line in log:
+        if "nvcc" in line and " -c " in line:
+            inside = "int8_linear.cu" in line
+        elif inside or ("C75" in line and "int8_linear" in line):
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "C75")):
+                lines.append(line.strip())
+    return lines
+
+
 def int8_kernel_phase(card: str, rows: list) -> dict:
     """The int8-weight linear kernel at the served shapes (module
     docstring, 13a); every row joins `rows`, the I8_MAIN one is returned."""
@@ -3170,7 +3190,10 @@ def int8_kernel_phase(card: str, rows: list) -> dict:
     print(f"int8-weight linear on {card}: kernel against F.linear with the "
           f"dequantised weight (plain, dequantising every call) and the "
           f"weight dequantised once (library)")
+    for line in int8_ptxas_lines():
+        print("  ptxas:", line)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
     shapes = [(197 * b, n, k) for b in I8_IMAGES
               for n, k in I8_PROJECTIONS] + [I8_RAGGED]
@@ -3186,6 +3209,11 @@ def int8_kernel_phase(card: str, rows: list) -> dict:
                     torch.bfloat16, library_fn=F.linear, match="int8_linear",
                     work=int8_linear_work(m, n, k), inputs=(x, q, s, b),
                     library_inputs=(x, i8.dequantize_int8(q, s, x.dtype), b))
+        plan = i8._plan(m, n, k, sms)
+        r["plan"] = dict(plan._asdict(), splits=plan.splits)
+        print(f"    plan: {plan.bt} tokens by 128 channels a tile, "
+              f"{plan.tiles} tiles ({plan.whole} whole), {plan.units} units "
+              f"on {plan.grid} blocks, K in up to {plan.splits} split(s)")
         rows.append({"kernel": "int8_linear", "shape": label, **r})
         if (m, n, k) == I8_MAIN:
             main = dict(r, shape=label)

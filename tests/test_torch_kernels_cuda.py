@@ -590,29 +590,126 @@ def _int8_operands(m, n, k, dev, bias=True, seed=0):
     return x, q, s, b
 
 
+def _int8_want(x, q, s, b):
+    """The plain version run in fp32 on the same bf16 values and rounded
+    once, the function the kernel computes: cuBLAS's bf16 product can round
+    partial sums to bf16 (split-K), a bf16 ulp of the pre-bias sum off at
+    (130, 129, 784)."""
+    w = i8_mod.dequantize_int8(q, s, torch.bfloat16).float()
+    return torch.nn.functional.linear(
+        x.float(), w, None if b is None else b.float()).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("m,n,k", [(197, 2304, 768), (197, 768, 3072),
-                                   (1576, 3072, 768), (12608, 768, 768),
+                                   (1576, 3072, 768), (1576, 768, 3072),
+                                   (12608, 768, 768), (12608, 3072, 768),
                                    (37, 200, 64), (5, 7, 48), (1, 14, 16),
-                                   (130, 129, 784)])
+                                   (130, 129, 784), (300, 129, 16),
+                                   (197, 200, 48)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_int8_linear_kernel_on_card(cuda, m, n, k, bias):
-    """The int8-weight linear kernel against its plain version (F.linear
-    with the dequantised bf16 weight) run in fp32 on the same bf16 values
-    and rounded once, the function the kernel computes: cuBLAS's bf16
-    product can round partial sums to bf16 (split-K), a bf16 ulp of the
-    pre-bias sum off at (130, 129, 784). Both tile shapes, ragged M and N,
-    an odd N (scalar stores), K = 48 (a half stage), with and without
-    bias; one launch a call; leading dims kept."""
+    """The int8-weight linear kernel against its plain version in fp32
+    (`_int8_want`) at the plan `_plan` picks: the served shapes (split-K at
+    M = 197, the wide token tile at M = 12,608), M not a multiple of the
+    token tile, N not a multiple of 64 (7, 129, 200; odd N: scalar stores),
+    K below one 64-deep TMA box (16, 48) and ragged (784), with and without
+    bias; one launch counted a call; leading dims kept."""
     x, q, s, b = _int8_operands(m, n, k, cuda, bias)
     before = i8_mod.launches.value
     got = i8_mod.int8_linear(x.reshape(1, m, k), q, s, b)
     torch.cuda.synchronize()
     assert i8_mod.launches.value == before + 1
     assert got.shape == (1, m, n) and got.dtype == torch.bfloat16
-    w = i8_mod.dequantize_int8(q, s, torch.bfloat16).float()
-    want = torch.nn.functional.linear(
-        x.float(), w, None if b is None else b.float()).to(torch.bfloat16)
-    _close(got[0], want, torch.bfloat16)
+    _close(got[0], _int8_want(x, q, s, b), torch.bfloat16)
+
+
+def _int8_plans(m, n, k, sms):
+    """Every path on one shape: each token tile unsplit, split into two
+    and into one wave of units (uneven splits), and with all but its last
+    tiles whole and those split in two."""
+    nk = -(-k // i8_mod.BK)
+    plans = []
+    for bt in i8_mod.TILE_T:
+        tiles = -(-m // bt) * -(-n // i8_mod.BN)
+        plans.append(i8_mod.Plan(bt, tiles, tiles, tiles, min(tiles, sms)))
+        for units in sorted(u for u in {2 * tiles, sms}
+                            if tiles < u <= tiles * nk):
+            plans.append(i8_mod.Plan(bt, tiles, 0, units, min(units, sms)))
+        if tiles > 1 and nk > 1:  # a tail of the last (up to) three tiles
+            whole = tiles - min(3, tiles - 1)
+            units = whole + 2 * (tiles - whole)
+            plans.append(i8_mod.Plan(bt, tiles, whole, units,
+                                     min(units, sms)))
+    return plans
+
+
+@pytest.mark.parametrize("m,n,k", [(197, 768, 3072), (197, 2304, 768),
+                                   (1576, 768, 3072), (1576, 3072, 768),
+                                   (37, 200, 64), (5, 7, 48), (130, 129, 784),
+                                   (300, 129, 16), (520, 200, 192)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_linear_every_path_on_card(cuda, m, n, k, bias):
+    """Every plan the kernel takes (token tile 128 or 256; one unit a tile,
+    or K split in whole stages, evenly or not, for all tiles or for the
+    last ones) against the plain version in fp32, whatever `_plan` would
+    pick at the shape."""
+    x, q, s, b = _int8_operands(m, n, k, cuda, bias, seed=1)
+    want = _int8_want(x, q, s, b)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for plan in _int8_plans(m, n, k, sms):
+        got = i8_mod._int8_linear_cuda(x, q, s, b, plan=plan)
+        torch.cuda.synchronize()
+        _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n,k", [(197, 768, 3072), (197, 3072, 768),
+                                   (12608, 768, 768)])
+def test_int8_linear_is_deterministic_on_card(cuda, m, n, k):
+    """Two calls on the same inputs give the same bits, on every path: the
+    split-K partials are summed in a fixed order, never by atomics."""
+    x, q, s, b = _int8_operands(m, n, k, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for plan in [None] + _int8_plans(m, n, k, sms):
+        first = i8_mod._int8_linear_cuda(x, q, s, b, plan=plan)
+        again = i8_mod._int8_linear_cuda(x, q, s, b, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again), plan
+
+
+def test_int8_linear_served_shapes_take_the_planned_path(cuda):
+    """At every served shape the card runs the kernel of `_plan`'s token
+    tile, and the reduction exactly when the plan splits K (the kernels'
+    names in the profiler). The profiler there now and then keeps only
+    part of a session's kernels (chip_smoke's `device_ms` refuses such
+    sessions), so a session that misses one is taken again, up to five:
+    a reduction where the plan has none fails at once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shapes = [(197 * b, n, k) for b in (1, 8, 64)
+              for n, k in ((2304, 768), (768, 768), (3072, 768), (768, 3072))]
+    shapes += [(196, 768, 768), (196 * 8, 768, 768), (37, 200, 64)]
+    for m, n, k in shapes:
+        x, q, s, b = _int8_operands(m, n, k, cuda)
+        plan = i8_mod._plan(m, n, k, sms)
+        split = plan.units > plan.tiles
+        tiled = f"int8_linear_kernel<{plan.bt}>"
+        i8_mod.int8_linear(x, q, s, b)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    i8_mod.int8_linear(x, q, s, b)
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages()
+                     if "int8_linear" in e.key}
+            reduced = any("int8_linear_reduce_kernel" in name
+                          for name in names)
+            assert split or not reduced, (m, n, k, plan, names)
+            if any(tiled in name for name in names) and reduced == split:
+                break
+        assert any(tiled in name for name in names), (m, n, k, plan, names)
+        assert reduced == split, (m, n, k, plan, names)
 
 
 def test_int8_linear_kernel_refuses_what_it_does_not_take(cuda):
