@@ -47,6 +47,17 @@
    dl, dx and dW launch for each of the 8 vocab chunks a step beside the
    others, step time, peak memory and device busy time (profiler) beside
    (e)'s.
+4b. The recipe's micro-batch (pretrain_mimic: B = 256, accumulation 8),
+   after the pretraining slice: `PretrainTask` at full width with
+   `accum_steps` 8, (e) materialised and (f) fused CE, 8 micro-steps on
+   seeded synthetic batches (one update), the counters set to 0 before
+   and read after: every kernel's launches a micro-step as in 4 and
+   AdamW once; the parameters bit-unchanged after micro-steps 1-7 and
+   changed at 8; ms a micro-step, images/s, peak device memory; the host
+   and device ms of `MultiSteps`' per-leaf fold of one micro-step. Then
+   two micro-steps of B = 16 against one step of B = 32 on the same
+   images and noise, dropout off, through the kernels: the mean gradient
+   that reaches AdamW within 1e-2 of the whole batch's (relative L2).
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
    in bf16, at a ragged fp32 shape, and at a ragged bf16 shape (V = 3001:
@@ -56,7 +67,22 @@
    main shape.
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
-   a temporary directory, 2 epochs and a resume for a third.
+   a temporary directory, 2 epochs and a resume for a third. Then on the
+   same corpus: (6b) `--accum_iter 2 --fused_mlm_ce` for 2 epochs (2
+   micro-steps an epoch): each epoch's launches a micro-step as before
+   and one AdamW launch an update, the log's micro-steps and updates,
+   checkpoint-1.pth's AdamW step the updates; (6c) the same with
+   ECAMP_PREEMPT_AT_STEP=3 (epoch 1, batch 1, mid-cycle): exit 0 with
+   the preemption message and `checkpoint-step-3.pth` (its step and open
+   cycle), then `--resume` on it to the end of epoch 1: the final
+   checkpoint's epoch, AdamW step and open cycle equal (6b)'s, its
+   parameters equal (6b)'s bit for bit or lie within 1e-3 of each leaf's
+   movement from the initial weights (which of the two held is printed,
+   with the max difference); (6d) `python -m
+   ecamp_tpu_torch.cli.run_preset pretrain_mimic --batch_size 32 --epochs
+   1 --fused_mlm_ce`: the preset's accumulation 8 over 2 micro-steps, 0
+   updates, no AdamW launch. The `pretrain_recipe` JSON line holds 4b's
+   figures and these results.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
    momentum 0.9, lr 3e-2, warmup 50, clip 1.0, drop-path 0.1), after the
@@ -217,6 +243,15 @@ LN_V = 10.308952660644293  # ln 30000
 CLI_IMAGES = 64      # the CLI's corpus: 2 steps an epoch at PRE_B
 CLI_IMG = 512
 CLI_TIMEOUT = 400    # seconds for one CLI run
+CLI_ACCUM = 2        # (6b), (6c): an update every 2 micro-steps
+CLI_PREEMPT_AT = 3   # (6c): epoch 1, batch 1, the cycle's micro-step 1
+PREEMPT_TOL = 1e-3   # (6c) against (6b) where not bit for bit: of each
+                     # leaf's movement from the initial weights
+# -- the recipe's micro-batch (pretrain_mimic: B = 256, accum 8) ----------
+RECIPE_B = 256
+RECIPE_ACCUM = 8     # micro-steps an update
+ACCUM_HALF_B = 16    # two micro-steps of this against one step of PRE_B
+ACCUM_TOL = 1e-2     # their mean gradient against the whole's, relative L2
 # the fine-tune: recipe cls_ft_ChestX-ray14_1 (ecamp_tpu/core/presets.py:
 # 32-48): batch 96, SGD momentum 0.9, lr 3e-2, warmup 50 of 3000 steps,
 # clip 1.0, drop-path 0.1, ViT-B/16 at 224, 14 multilabel findings
@@ -1428,6 +1463,192 @@ def pretrain_phase(card: str):
     return launches, flaunches, adamw_times, result
 
 
+def recipe_phase(card: str) -> dict:
+    """The recipe's micro-batch (pretrain_mimic: B = RECIPE_B, accumulation
+    over RECIPE_ACCUM micro-steps; `PretrainTask` at full width, bf16, AdamW
+    at a constant lr): (e) the materialised MLM loss and (f) the fused CE,
+    each RECIPE_ACCUM micro-steps on seeded synthetic batches, one update.
+    The counters are set to 0 before the micro-steps and read after them:
+    LayerNorm, attention, SR (and the fused CE) a micro-step as in the
+    pretraining slice, AdamW once. The parameters stay bit-unchanged
+    through micro-steps 1 to RECIPE_ACCUM - 1 and change at the last. Per
+    micro-step ms (host clock, synchronised), images/s, peak device
+    memory; the host ms of `MultiSteps`' per-leaf fold of one micro-step's
+    gradients and its device time. Then the accumulation through the
+    kernels: two micro-steps of ACCUM_HALF_B against one step of PRE_B on
+    the same images and noise, dropout off: the mean gradient that reaches
+    AdamW within ACCUM_TOL (relative L2) of the whole batch's."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core.config import OptimizerConfig, PretrainConfig
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.kernels import sr_head as sr
+    from ecamp_tpu_torch.train.optim import MultiStepsState
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = PretrainConfig(optimizer=OptimizerConfig(
+        schedule="constant", lr=1.5e-4, accum_steps=RECIPE_ACCUM), seed=SEED)
+    c, dc, bc = cfg.vit, cfg.decoder, cfg.bert
+    n_chunks = len(mlm._chunks(bc.vocab_size, mlm.CHUNK_V))
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "sr_conv_stack": sr.launches,
+                "sr_conv_stack_tma": sr.launches_tma, "adamw": adamw.launches,
+                "fused_ce_fwd": mlm.launches_fwd,
+                "fused_ce_merge": mlm.launches_merge,
+                "fused_ce_dl": mlm.launches_dl, "fused_ce_dx": mlm.launches_dx,
+                "fused_ce_dw": mlm.launches_dw}
+    # a micro-step's launches (as `pretrain_phase` counts them), AdamW aside
+    micro = {"layer_norm": (2 * c.depth + 1) + (2 * dc.depth + 1)
+             + (1 + 3 + 2 * bc.num_hidden_layers + 1),
+             "attention": c.depth + dc.depth + 2 + bc.num_hidden_layers,
+             "sr_conv_stack": 1, "sr_conv_stack_tma": 1}
+    fused_micro = {"fused_ce_fwd": 1, "fused_ce_merge": 1,
+                   "fused_ce_dl": n_chunks, "fused_ce_dx": n_chunks,
+                   "fused_ce_dw": n_chunks}
+    print(f"the recipe's micro-batch on {card}: B = {RECIPE_B}, accumulation "
+          f"over {RECIPE_ACCUM} micro-steps (one update), AdamW lr "
+          f"{cfg.optimizer.lr:g} constant")
+    result = {"batch": RECIPE_B, "accum": RECIPE_ACCUM, "card": card}
+    for tag, fused in (("e", False), ("f", True)):
+        task = PretrainTask(dataclasses.replace(cfg, fused_mlm_ce=fused),
+                            device="cuda")
+        state = task.init_state()
+        before = {k: p.detach().cpu().clone() for k, p in state.params.items()}
+        want = {k: 0 for k in counters}
+        want.update({k: v * RECIPE_ACCUM for k, v in micro.items()})
+        if fused:
+            want.update({k: v * RECIPE_ACCUM for k, v in fused_micro.items()})
+        want["adamw"] = 1
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for ctr in counters.values():
+            ctr.reset()
+        times, losses, unchanged = [], [], []
+        for i in range(RECIPE_ACCUM):
+            batch = synthetic_batch(cfg, RECIPE_B, torch.Generator(
+                device="cuda").manual_seed(SEED + 100 + i))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = task.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            del batch, m
+            unchanged.append(all(torch.equal(p.detach().cpu(), before[k])
+                                 for k, p in state.params.items()))
+        launches = {k: ctr.value for k, ctr in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  ({tag}) {RECIPE_ACCUM} micro-steps: losses "
+              f"{[round(x, 5) for x in losses]}, parameters unchanged after "
+              f"each {unchanged}, launches {launches}")
+        check(all(np.isfinite(losses)), f"({tag}) non-finite loss")
+        check(unchanged == [True] * (RECIPE_ACCUM - 1) + [False],
+              f"({tag}) parameters unchanged after the micro-steps: "
+              f"{unchanged}")
+        check(launches == want, f"({tag}) launches {launches} != {want}")
+        count = int(adamw_state(state.opt_state).count)
+        check(count == 1 and state.opt_state.mini_step == 0,
+              f"({tag}) AdamW count {count}, cycle at "
+              f"{state.opt_state.mini_step}")
+        step_ms = float(np.median(times[1:]))
+        print(f"  ({tag}) micro-step {step_ms:.3f} ms median of micro-steps "
+              f"2-{RECIPE_ACCUM} (host clock, synchronised; the last, with "
+              f"the update, {times[-1]:.3f} ms), "
+              f"{RECIPE_B / step_ms * 1e3:.2f} images/s, peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB on {card}")
+        run = {"micro_step_ms_median": step_ms, "micro_step_ms": times,
+               "images_per_s": RECIPE_B / step_ms * 1e3,
+               "max_memory_allocated_bytes": peak,
+               "peak_gib": peak / 2 ** 30, "losses": losses,
+               "launches": launches}
+        if not fused:
+            # MultiSteps' fold of one micro-step's gradients into the
+            # running mean, alone: the host's time to issue it (the stream
+            # drained first) and the device's
+            params = state.params
+            grads = {k: p.grad for k, p in params.items()}
+            cycle = MultiStepsState(0, state.opt_state.inner_opt_state,
+                                    state.opt_state.acc_grads)
+
+            def fold():
+                task.tx.apply(params, grads, cycle)
+
+            host = []
+            for _ in range(TIMING_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fold()
+                host.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            run["fold_host_ms"] = float(np.median(host))
+            run["fold_device_ms"] = device_ms(fold, "", 5, "multisteps fold")
+            print(f"  ({tag}) MultiSteps fold of {len(grads)} leaves: host "
+                  f"{run['fold_host_ms']:.3f} ms (median of {TIMING_REPS}), "
+                  f"device {_ms(run['fold_device_ms'])}")
+            del params, grads, cycle
+        result[tag] = run
+        del task, state, before
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the mean of two micro-steps' gradients against one step's on the
+    # same images: the fold is the whole batch's mean gradient
+    acfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+        cfg.optimizer, accum_steps=2))
+    task = PretrainTask(acfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    batch = synthetic_batch(acfg, PRE_B, gen)
+    noise = torch.rand(PRE_B, c.num_patches, device="cuda", generator=gen)
+    state = task.init_state()
+    state, _ = task.train_step(state, batch, noise=noise, deterministic=True)
+    whole = {k: p.grad.detach().clone() for k, p in state.params.items()}
+    seen = {}
+    inner_apply = task.tx.inner.apply
+
+    def capture(params, grads, st):
+        seen.update({k: g.detach().clone() for k, g in grads.items()})
+        return inner_apply(params, grads, st)
+
+    task.tx.inner.apply = capture
+    state = task.init_state()  # no update yet: the same weights
+    for ctr in counters.values():
+        ctr.reset()
+    h = ACCUM_HALF_B
+    for part in (slice(0, h), slice(h, 2 * h)):
+        state, _ = task.train_step(state, {k: v[part] for k, v in
+                                           batch.items()},
+                                   noise=noise[part], deterministic=True)
+    torch.cuda.synchronize()
+    n_half = {k: ctr.value for k, ctr in counters.items()}
+    num = sum(float(((seen[k].double() - w.double()) ** 2).sum())
+              for k, w in whole.items())
+    den = sum(float((w.double() ** 2).sum()) for w in whole.values())
+    rel = (num / den) ** 0.5
+    print(f"  accumulation: the mean gradient of 2 micro-steps of B = {h} "
+          f"against one step of B = {2 * h} on the same images: relative "
+          f"L2 {rel:.3e} (tolerance {ACCUM_TOL:g}); launches {n_half}")
+    check(set(seen) == set(whole), "the update saw other leaves")
+    check(rel <= ACCUM_TOL, f"accumulated gradient rel L2 {rel:.3e}")
+    check(n_half["adamw"] == 1 and n_half["layer_norm"] == 2 * micro[
+        "layer_norm"], f"accumulation check launches {n_half}")
+    result["accum_check"] = {"half_batch": h, "rel_l2": rel}
+    del task, state, whole, seen, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def _png_b64(rng, h, w) -> str:
     from PIL import Image
     import numpy as np
@@ -1641,6 +1862,176 @@ def cli_phase(card: str, per_step, work: str):
     print(f"  resume: {restored}, epoch 2 trained, checkpoint-2.pth at "
           f"AdamW step {3 * steps}")
     return recs, os.path.join(out, "checkpoint-2.pth")
+
+
+def cli_accum_phase(card: str, per_step, work: str) -> dict:
+    """The pretraining CLI's accumulation, preemption and preset launcher
+    at full width on `cli_phase`'s corpus (in `work`): (6b) `--accum_iter
+    CLI_ACCUM --fused_mlm_ce` for 2 epochs: each epoch's log line counts
+    `per_step` launches a micro-step of every kernel but AdamW, and one
+    AdamW launch an update; checkpoint-1.pth's AdamW step is the updates.
+    (6c) the same with ECAMP_PREEMPT_AT_STEP=CLI_PREEMPT_AT (mid-epoch,
+    mid-cycle): exit 0, the message, the step file, then `--resume` on it
+    to the end of epoch 1; the final checkpoint's epoch, AdamW step and
+    open cycle equal (6b)'s, and its parameters equal them bit for bit or
+    lie within PREEMPT_TOL of each leaf's movement from the initial
+    weights. (6d) `python -m ecamp_tpu_torch.cli.run_preset pretrain_mimic`
+    with B = PRE_B, 1 epoch: the preset's accumulation (8) over 2
+    micro-steps, 0 updates, no AdamW launch."""
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core.config import PretrainConfig
+    from ecamp_tpu_torch.core.presets import PRESETS
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(work, "mimic")  # cli_phase's corpus
+    steps = CLI_IMAGES // PRE_B         # micro-steps an epoch
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+
+    def run(tag, args, out, extra_env=None):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", *args], cwd=repo,
+                           capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT, env={**env,
+                                                     **(extra_env or {})})
+        check(r.returncode == 0, f"({tag}) {args} exited {r.returncode}:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        log = os.path.join(out, "log.txt")
+        recs = []
+        if os.path.exists(log):
+            with open(log) as f:
+                recs = [json.loads(line) for line in f]
+        print(f"  ({tag}) {' '.join(args[1:])}: "
+              f"{time.perf_counter() - t:.1f} s")
+        return r.stdout, recs
+
+    def pretrain(out, *extra):
+        return ["ecamp_tpu_torch.cli.pretrain", "--data_path", data,
+                "--fused_mlm_ce", "--batch_size", str(PRE_B), "--output_dir",
+                out, "--seed", str(SEED), "--print_freq", "1",
+                "--accum_iter", str(CLI_ACCUM), "--epochs", "2", *extra]
+
+    def check_epochs(tag, recs, epochs, accum, start=0):
+        """Each epoch's line against the micro-steps it ran (from micro-step
+        `start` for the first); returns the updates at the end."""
+        check([r["epoch"] for r in recs] == epochs,
+              f"({tag}) epochs logged {[r['epoch'] for r in recs]}")
+        done = start
+        for r in recs:
+            micro = (r["epoch"] + 1) * steps
+            want = {k: v * (micro - done) for k, v in per_step.items()}
+            want["adamw"] = micro // accum - done // accum
+            done = micro
+            print(f"  ({tag}) epoch {r['epoch']}: loss {r['loss']:.5f} lr "
+                  f"{r['lr']:.3e}, micro-steps {r['micro_steps']}, updates "
+                  f"{r['updates']}, launches {r['kernel_launches']}")
+            check(all(np.isfinite(r[k]) for k in ("loss", "mim_loss",
+                                                  "res_loss", "mlm_loss")),
+                  f"({tag}) epoch {r['epoch']}: non-finite loss")
+            check((r["micro_steps"], r["updates"]) == (micro,
+                                                       micro // accum),
+                  f"({tag}) epoch {r['epoch']}: micro-steps "
+                  f"{r['micro_steps']}, updates {r['updates']}")
+            check(r["kernel_launches"] == want,
+                  f"({tag}) epoch {r['epoch']}: launches "
+                  f"{r['kernel_launches']} != {want}")
+        return done // accum
+
+    def load(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    # (6b)
+    out_b = os.path.join(work, "accum_out")
+    _, recs_b = run("6b", pretrain(out_b), out_b)
+    updates = check_epochs("6b", recs_b, [0, 1], CLI_ACCUM)
+    final_b = load(os.path.join(out_b, "checkpoint-1.pth"))
+    steps_b = {int(s["step"]) for s in final_b["optimizer"]["state"].values()}
+    check(final_b["epoch"] == 1 and steps_b == {updates},
+          f"(6b) checkpoint-1: epoch {final_b['epoch']}, AdamW steps "
+          f"{steps_b} for {updates} updates")
+    cycle_b = final_b.get("accum_cycle")
+
+    # (6c)
+    out_c = os.path.join(work, "preempt_out")
+    at = CLI_PREEMPT_AT
+    printed, recs_c = run("6c", pretrain(out_c), out_c,
+                          {"ECAMP_PREEMPT_AT_STEP": str(at)})
+    mid = os.path.join(out_c, f"checkpoint-step-{at}.pth")
+    epoch, skip = divmod(at, steps)
+    msg = (f"preemption checkpoint saved @ step {at} (epoch {epoch}); "
+           f"resume with --resume {mid} [injected @ {at}]")
+    check(msg in printed, f"(6c) no '{msg}' in:\n{printed[-2000:]}")
+    check_epochs("6c", recs_c, list(range(epoch)), CLI_ACCUM)
+    saved = load(mid)
+    check(saved["step"] == at and "epoch" not in saved
+          and saved["accum_cycle"]["mini_step"] == at % CLI_ACCUM,
+          f"(6c) {mid}: step {saved.get('step')}, cycle "
+          f"{saved.get('accum_cycle', {}).get('mini_step')}")
+    del saved
+    printed, recs_c = run("6c resume", pretrain(out_c, "--resume", mid),
+                          out_c)
+    check(f"resuming at epoch {epoch}, batch {skip}" in printed,
+          f"(6c) the resume did not report epoch {epoch}, batch {skip}")
+    check_epochs("6c resume", recs_c[epoch:], list(range(epoch, 2)),
+                 CLI_ACCUM, start=at)
+    final_c = load(os.path.join(out_c, "checkpoint-1.pth"))
+    steps_c = {int(s["step"]) for s in final_c["optimizer"]["state"].values()}
+    check(final_c["epoch"] == 1 and steps_c == steps_b
+          and final_c.get("accum_cycle") == cycle_b,
+          f"(6c) final checkpoint: epoch {final_c['epoch']}, AdamW steps "
+          f"{steps_c}, cycle {final_c.get('accum_cycle')} against (6b)'s "
+          f"{steps_b}, {cycle_b}")
+    # the initial weights, made as the CLI makes them from --seed
+    task = PretrainTask(PretrainConfig(seed=SEED, fused_mlm_ce=True),
+                        device="cuda")
+    init = {k: v.detach().cpu() for k, v in task.model.state_dict().items()}
+    del task
+    torch.cuda.empty_cache()
+    diff = move = 0.0
+    within = True
+    for k, b in final_b["model"].items():
+        d = float((final_c["model"][k] - b).abs().max())
+        mv = float((b - init[k]).abs().max())
+        diff, move = max(diff, d), max(move, mv)
+        within = within and d <= PREEMPT_TOL * mv
+    bitwise = diff == 0.0
+    held = ("bit for bit" if bitwise else
+            f"within {PREEMPT_TOL:g} of each leaf's movement" if within
+            else "neither")
+    print(f"  (6c) preempted at step {at} (epoch {epoch}, batch {skip}, "
+          f"cycle micro-step {at % CLI_ACCUM}) and resumed: parameters "
+          f"against (6b)'s {held}, max |diff| {diff:.3e}, largest movement "
+          f"from init {move:.3e}; AdamW steps {steps_c}, cycle {cycle_b}")
+    check(move < 1e-3, f"(6c) movement from init {move:.3e}: not the CLI's "
+          f"initial weights")
+    check(bitwise or within, f"(6c) parameters differ from (6b)'s by "
+          f"{diff:.3e}")
+    del final_b, final_c, init
+    shutil.rmtree(out_b, ignore_errors=True)
+    shutil.rmtree(out_c, ignore_errors=True)
+
+    # (6d)
+    out_d = os.path.join(work, "preset_out")
+    accum = PRESETS["pretrain_mimic"]["args"]["accum_iter"]
+    _, recs_d = run("6d", ["ecamp_tpu_torch.cli.run_preset", "pretrain_mimic",
+                           "--data_path", data, "--batch_size", str(PRE_B),
+                           "--epochs", "1", "--fused_mlm_ce",
+                           "--output_dir", out_d], out_d)
+    check_epochs("6d", recs_d, [0], accum)
+    check(recs_d[0]["updates"] == 0
+          and recs_d[0]["kernel_launches"]["adamw"] == 0,
+          f"(6d) {recs_d[0]['updates']} updates")
+    shutil.rmtree(out_d, ignore_errors=True)
+    return {"accum": {"epochs": recs_b, "updates": updates},
+            "preemption": {"at_step": at, "epoch": epoch, "batch": skip,
+                           "cycle_micro_step": at % CLI_ACCUM,
+                           "held": held, "max_abs_diff": diff,
+                           "max_movement": move},
+            "preset": {"name": "pretrain_mimic", "accum_iter": accum,
+                       "epochs": recs_d}}
 
 
 def finetune_kernel_phase(card: str, rows: list) -> dict:
@@ -3531,11 +3922,13 @@ def main() -> int:
     main_times.update(fused_ce_phase(card))
     serve_launches, prob_err, p50, serve_busy = slice_phase(card)
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
+    recipe = recipe_phase(card)
     ft_times = finetune_kernel_phase(card, shape_rows)
     work = tempfile.mkdtemp(prefix="ecamp_cli_")
     try:
-        cli, ckpt = cli_phase(card, {k: v // PRE_STEPS
-                                     for k, v in flaunches.items()}, work)
+        cli_per_step = {k: v // PRE_STEPS for k, v in flaunches.items()}
+        cli, ckpt = cli_phase(card, cli_per_step, work)
+        recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
         finetune = finetune_phase(card, ckpt, work)
         seg_kernels = segmentation_kernel_phase(card, shape_rows)
         segmentation = segmentation_phase(card, ckpt, work, seg_kernels,
@@ -3577,6 +3970,9 @@ def main() -> int:
                         "logsumexp and the gold logit",
         "fused_ce_bwd": "no single PyTorch call: softmax minus one-hot, "
                         "then the dx, dW and db products"}
+    # the counters of each kernel of the `kernels` line
+    parts = {"fused_ce_fwd": ("fused_ce_fwd", "fused_ce_merge"),
+             "fused_ce_bwd": ("fused_ce_dl", "fused_ce_dx", "fused_ce_dw")}
     kernels = []
     for name, mod, route, replaces in (
             ("layer_norm", ln, "cuda",
@@ -3615,6 +4011,13 @@ def main() -> int:
                          ("resnet_det", resnet_det)):  # a step's
             if name in run["launches_a_step"]:
                 entry[f"{tag}_launches"] = run["launches_a_step"][name]
+        # one update of the recipe's accumulation at B = RECIPE_B, (e) and
+        # (f): RECIPE_ACCUM micro-steps
+        for tag in ("e", "f"):
+            run = recipe[tag]["launches"]
+            n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
+            if n:
+                entry[f"recipe_{tag}_launches"] = n
         if name in viz["launches"]:  # one visualizer forward's
             entry["visualize_launches"] = viz["launches"][name]
         if name in int8_cls:  # one forward of each int8 engine
@@ -3650,6 +4053,7 @@ def main() -> int:
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
+    print(json.dumps({"pretrain_recipe": recipe}))
     print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))
     print(json.dumps({"segmentation": segmentation,
                       "segmentation_kernels": seg_kernels}))

@@ -4,9 +4,17 @@ util/misc.py:295-338): `checkpoint-<epoch>.pth` holding {'model',
 
 `model` is the port's state dict, whose names are already the reference's
 (`nn/mae.py`); `optimizer` is the reference torch.optim.AdamW state dict
-(`TrainState.optimizer_state_dict`). The JAX package reads both with
+(`TrainState.optimizer_state_dict`; under gradient accumulation the inner
+AdamW, its step the update count). The JAX package reads both with
 `ecamp_tpu/ckpt/torch_import.py::import_ecamp_pretrain` and
-`import_ecamp_adamw_state`.
+`import_ecamp_adamw_state`. Under accumulation one more key, `CYCLE_KEY`,
+holds the open cycle (`TrainState.cycle_state_dict`), so a resume is
+exact where an epoch ends mid-cycle; a reference file has none and
+resumes with an empty cycle.
+
+A preemption checkpoint (`save_preemption_checkpoint`,
+`checkpoint-step-<step>.pth`) holds the same keys with the micro-step
+`step` in place of `epoch`: the CLI resumes it mid-epoch.
 """
 
 from __future__ import annotations
@@ -22,18 +30,40 @@ def checkpoint_path(output_dir: str, epoch: int) -> str:
     return os.path.join(output_dir, f"checkpoint-{epoch}.pth")
 
 
-def save_checkpoint(output_dir: str, epoch: int, model: nn.Module, state,
-                    weight_decay: float) -> str:
-    """Write `checkpoint-<epoch>.pth` (through a temporary file, so a reader
-    never sees half of one); returns its path."""
-    path = checkpoint_path(output_dir, epoch)
+CYCLE_KEY = "accum_cycle"
+
+
+def _save(path: str, model: nn.Module, state, weight_decay: float,
+          **extra) -> str:
+    """Write the model, the AdamW state and the open cycle, if any, with
+    `extra` through a temporary file, so a reader never sees half of one;
+    returns `path`."""
+    payload = {"model": {k: v.detach().cpu()
+                         for k, v in model.state_dict().items()},
+               "optimizer": state.optimizer_state_dict(weight_decay),
+               **extra}
+    cycle = state.cycle_state_dict()
+    if cycle is not None:
+        payload[CYCLE_KEY] = cycle
     tmp = path + ".tmp"
-    torch.save({"model": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()},
-                "optimizer": state.optimizer_state_dict(weight_decay),
-                "epoch": epoch}, tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def save_checkpoint(output_dir: str, epoch: int, model: nn.Module, state,
+                    weight_decay: float) -> str:
+    """Write `checkpoint-<epoch>.pth`; returns its path."""
+    return _save(checkpoint_path(output_dir, epoch), model, state,
+                 weight_decay, epoch=epoch)
+
+
+def save_preemption_checkpoint(output_dir: str, step: int, model: nn.Module,
+                               state, weight_decay: float) -> str:
+    """Write `checkpoint-step-<step>.pth` at micro-step `step`, which may
+    fall mid-epoch and mid-cycle; returns its path."""
+    return _save(os.path.join(output_dir, f"checkpoint-step-{step}.pth"),
+                 model, state, weight_decay, step=step)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

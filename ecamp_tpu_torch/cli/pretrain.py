@@ -3,36 +3,53 @@
 CUDA card:
 
 python -m ecamp_tpu_torch.cli.pretrain \\
-  --data_path /data/mimic --batch_size 32 --epochs 120 --max_epoch 200 \\
-  --warmup_epochs 40 --lr 1.5e-4 --weight_decay 0.05 --mask_ratio 0.75 \\
-  --fused_mlm_ce --output_dir ./out
+  --data_path /data/mimic --batch_size 256 --accum_iter 8 --epochs 120 \\
+  --max_epoch 200 --warmup_epochs 40 --lr 1.5e-4 --weight_decay 0.05 \\
+  --mask_ratio 0.75 --fused_mlm_ce --output_dir ./out
 
-`--data_path` holds the two MIMIC-CXR CSVs, the images they name and
-`mimic_wordpiece.json` (`data/datasets.py`). Every epoch appends one JSON
-line to `<output_dir>/log.txt` (mean losses and lr, peak device memory,
-kernel launches) and, at the reference's cadence, writes
-`<output_dir>/checkpoint-<epoch>.pth`. `--resume checkpoint-<e>.pth`
-restores the parameters, the AdamW moments and step, and continues at
-epoch e + 1. `--device cuda` (the default) needs a card; `--device cpu`
-runs the kernels' plain versions.
+(`python -m ecamp_tpu_torch.cli.run_preset pretrain_mimic` gives the
+recipe's flags.) `--data_path` holds the two MIMIC-CXR CSVs, the images
+they name and `mimic_wordpiece.json` (`data/datasets.py`). Every epoch
+appends one JSON line to `<output_dir>/log.txt` (mean losses and lr, peak
+device memory, kernel launches, micro-steps and AdamW updates so far)
+and, at the reference's cadence, writes `<output_dir>/checkpoint-<epoch>.pth`.
+
+`--accum_iter k` averages the gradients of k micro-batches into one
+AdamW update (`train/optim.py::MultiSteps`): an epoch, the step, the RNG
+fold and the lr schedule count micro-steps, AdamW's count updates, and
+each update applies the lr of its cycle's first micro-step. An epoch may
+end mid-cycle; the checkpoint carries the open cycle
+(`ckpt/checkpoint.py::CYCLE_KEY`).
+
+`--resume checkpoint-<e>.pth` restores the parameters, the AdamW moments
+and count and the cycle, and continues at epoch e + 1. On SIGTERM,
+`ECAMP_PREEMPT_AT_STEP=N` or host RSS above `--rss_limit_gb`
+(`core/preemption.py`) the run writes `checkpoint-step-<step>.pth` at the
+exact micro-step and exits 0; `--resume` on it replays the interrupted
+epoch's loader order, skips the batches already taken and continues bit
+for bit. `--device cuda` (the default) needs a card; `--device cpu` runs
+the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 
 import torch
 
-from ..ckpt.checkpoint import (load_checkpoint, load_model_state,
-                               save_checkpoint)
+from ..ckpt.checkpoint import (CYCLE_KEY, load_checkpoint, load_model_state,
+                               save_checkpoint, save_preemption_checkpoint)
 from ..core import config as cfg
 from ..core.metrics import JsonlLogger, MetricLogger, device_memory_mb
+from ..core.preemption import PreemptionGuard
 from ..data.datasets import PretrainReportDataset
 from ..data.loader import DataLoader
 from ..kernels import (flash_attention, fused_adamw, fused_mlm_loss,
                        layer_norm, sr_head)
 from ..train.pretrain import PretrainTask
+from ..train.state import adamw_state
 from .common import add_common_args, pretrain_ckpt_epochs, setup_output
 
 # the launch counters an epoch's log line reports
@@ -78,7 +95,11 @@ def get_args(argv=None):
     p.add_argument("--steps_per_call", type=int, default=1)
     p.add_argument("--shard_optimizer", action="store_true")
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--rss_limit_gb", type=float, default=0.0)
+    p.add_argument("--rss_limit_gb", type=float, default=0.0,
+                   help="host-RSS watchdog: above this many GiB of RSS, "
+                        "checkpoint at the exact step and exit 0 "
+                        "(resumable); 0 disables (ECAMP_RSS_LIMIT_GB sets "
+                        "it too)")
     p.add_argument("--u8_pipe", action="store_true",
                    help="ship images as the quantized u8 single-channel "
                         "gray and normalize on the device (1/12 the bytes "
@@ -96,11 +117,9 @@ def refuse_what_is_not_ported(args) -> None:
     """Options of the JAX CLI that the port does not have raise; none is
     ignored silently (ROADMAP Queue 1 item 8)."""
     refused = [
-        (args.accum_iter > 1, "--accum_iter > 1 (gradient accumulation)"),
         (args.steps_per_call > 1, "--steps_per_call > 1 (a scan of steps)"),
         (args.shard_optimizer, "--shard_optimizer (ZeRO-1)"),
         (args.fsdp, "--fsdp"),
-        (args.rss_limit_gb > 0, "--rss_limit_gb (preemption checkpoints)"),
     ]
     for path in (args.resume, args.pretrained):
         refused.append((bool(path) and not path.endswith(".pth"),
@@ -145,7 +164,7 @@ def main(argv=None):
     task = PretrainTask(pconf, device=device, steps_per_epoch=steps_per_epoch)
     state = task.init_state()
 
-    start_epoch = 0
+    start_epoch = skip = 0
     for path in (args.pretrained, args.resume):
         if not path:
             continue
@@ -160,16 +179,35 @@ def main(argv=None):
                 and (args.resume_optimizer
                      or base.startswith(("ECAMP", "checkpoint")))):
             state = state.load_optimizer_state_dict(ckpt["optimizer"])
+            state = state.load_cycle_state_dict(ckpt.get(CYCLE_KEY),
+                                                args.accum_iter)
             print(f"restored AdamW moments for "
                   f"{len(ckpt['optimizer']['state'])} params (torch step "
-                  f"{int(state.opt_state.count)})")
-            if "epoch" in ckpt:
-                start_epoch = int(ckpt["epoch"]) + 1
-                state.step = torch.full_like(state.step,
-                                             start_epoch * steps_per_epoch)
-                task.step = start_epoch * steps_per_epoch  # the RNG fold
-                print(f"resuming at epoch {start_epoch}")
+                  f"{int(adamw_state(state.opt_state).count)})")
+            # a preemption checkpoint holds its micro-step, mid-epoch
+            step = (int(ckpt["step"]) if "step" in ckpt
+                    else (int(ckpt["epoch"]) + 1) * steps_per_epoch
+                    if "epoch" in ckpt else None)
+            if step is not None:
+                start_epoch, skip = divmod(step, steps_per_epoch)
+                state.step = torch.full_like(state.step, step)
+                task.step = step  # the RNG fold
+                print(f"resuming at epoch {start_epoch}"
+                      + (f", batch {skip}" if skip else ""))
 
+    guard = PreemptionGuard(
+        rss_limit_mb=args.rss_limit_gb * 1024.0 if args.rss_limit_gb
+        else None)
+    try:
+        train(args, task, state, loader, start_epoch, skip, guard)
+    finally:
+        guard.uninstall()
+
+
+def train(args, task: PretrainTask, state, loader: DataLoader,
+          start_epoch: int, skip: int, guard: PreemptionGuard) -> None:
+    """Epochs `start_epoch` to `args.epochs`, the first without its `skip`
+    batches; stops at the micro-step where `guard` asks for a save."""
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
     ckpt_epochs = pretrain_ckpt_epochs(args.epochs)
     for epoch in range(start_epoch, args.epochs):
@@ -177,19 +215,44 @@ def main(argv=None):
         logger = MetricLogger()
         launches = {k: c.value for k, c in _COUNTERS.items()}
         pending = None  # read a step's metrics once the next is issued
-        for batch in logger.log_every(loader, args.print_freq,
-                                      header=f"Epoch [{epoch}]"):
-            state, metrics = task.train_step(state, task.put_batch(batch))
-            if pending is not None:
-                logger.update(**pending)
-            pending = metrics
+        preempted = False
+        batches = iter(loader)
+        # the loader's order is a function of (seed, epoch): replay it and
+        # drop what the interrupted run took
+        source = (itertools.islice(batches, skip, None)
+                  if epoch == start_epoch and skip else batches)
+        steps = logger.log_every(source, args.print_freq,
+                                 header=f"Epoch [{epoch}]")
+        try:
+            for batch in steps:
+                state, metrics = task.train_step(state, task.put_batch(batch))
+                if pending is not None:
+                    logger.update(**pending)
+                pending = metrics
+                if guard.should_save(task.step):
+                    preempted = True
+                    break
+        finally:
+            # leaving mid-epoch: stop the loader's worker threads now
+            steps.close()
+            batches.close()
         if pending is not None:
             logger.update(**pending)
+        if preempted:
+            path = save_preemption_checkpoint(
+                args.output_dir, task.step, task.model, state,
+                args.weight_decay)
+            print(f"preemption checkpoint saved @ step {task.step} (epoch "
+                  f"{epoch}); resume with --resume {path}"
+                  + (f" [{guard.reason}]" if guard.reason else ""))
+            return
         jsonl.write({"epoch": epoch,
                      **{k: m.global_avg for k, m in logger.meters.items()},
                      "max_mem_mb": device_memory_mb(),
                      "kernel_launches": {k: c.value - launches[k]
-                                         for k, c in _COUNTERS.items()}})
+                                         for k, c in _COUNTERS.items()},
+                     "micro_steps": task.step,
+                     "updates": int(adamw_state(state.opt_state).count)})
         if epoch in ckpt_epochs:
             path = save_checkpoint(args.output_dir, epoch, task.model, state,
                                    args.weight_decay)

@@ -211,11 +211,9 @@ def test_cli_trains_checkpoints_and_resumes(cli_run):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
-    for extra, msg in ((["--accum_iter", "2"], "accum_iter"),
-                       (["--steps_per_call", "2"], "steps_per_call"),
+    for extra, msg in ((["--steps_per_call", "2"], "steps_per_call"),
                        (["--shard_optimizer"], "shard_optimizer"),
                        (["--fsdp"], "fsdp"),
-                       (["--rss_limit_gb", "8"], "rss_limit_gb"),
                        (["--resume", str(tmp_path)], "orbax")):
         with pytest.raises(NotImplementedError, match=msg):
             cli.main(base + extra)

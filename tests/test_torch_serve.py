@@ -394,4 +394,6 @@ print(len(names), *names)
     assert {"ecamp_tpu_torch.nn.resnet", "ecamp_tpu_torch.nn.unet",
             "ecamp_tpu_torch.cli.visualize", "ecamp_tpu_torch.cli.export",
             "ecamp_tpu_torch.serve.quantize",
-            "ecamp_tpu_torch.kernels.int8_linear"} <= set(names[1:])
+            "ecamp_tpu_torch.kernels.int8_linear",
+            "ecamp_tpu_torch.core.presets", "ecamp_tpu_torch.core.preemption",
+            "ecamp_tpu_torch.cli.run_preset"} <= set(names[1:])
