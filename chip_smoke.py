@@ -97,7 +97,19 @@
    a seeded 192/70/70 list corpus (eval batch 32, ragged), 2 epochs of
    updates, patience 1: validation and test lines, the best `.pth`; (d)
    `classifier_engine` on that `.pth` against `ClassificationTask.eval_step`
-   plus a sigmoid (2e-2).
+   plus a sigmoid (2e-2); (e) `preempt_drill`: (c)'s command in a fresh
+   output directory with ECAMP_PREEMPT_AT_STEP at micro-step 3 (epoch 1,
+   batch 1, after the first validation): exit 0, the message,
+   `preempt/checkpoint-step-3.pth`, no test line; then again without the
+   variable: the resume line, the test line, `preempt/` gone; the
+   validations, the test metric and the best `.pth` against (c)'s: bit for
+   bit, or, where they are not, within PREEMPT_SPREAD times the distance
+   of (c)'s command run once more uninterrupted (the segmentation and
+   detection runs do not repeat bit for bit on the card; their repeat runs
+   beside the resumed run, started once that has timed its read); which
+   held is printed; each validation's launches as (c) counts them (from the
+   resume, after it), the save's, the resume's and the phase's seconds
+   and the file's bytes.
 8. The segmentation fine-tune at full width (SegViT: ViT-B/16 at 224,
    seg_head, decoder 512/256/128/64, bf16, the encoder frozen; recipe
    seg_SIIM_100: B = 512, AdamW lr 5e-4 wd 0.05, warmup 50 of 3000, clip
@@ -117,7 +129,8 @@
    B = 32, eval batch 32, ragged), 2 epochs of updates, patience 1; (d)
    `segmenter_engine` on its best `.pth` against
    `SegmentationTask.eval_step` (2e-2) and one POST through the HTTP
-   server with task segmentation.
+   server with task segmentation; (e) (c) preempted at micro-step 4 (epoch
+   1, batch 1) and resumed, as 7 (e).
 9. The detection fine-tune at full width (the ViT-B/16 detector: det_head
    768 -> 768, the Bottleneck neck at expansion 4 to 28^2 x 512, 14^2 x
    1024 and 7^2 x 2048, the YOLOv3 head with 1 class; bf16, the encoder
@@ -141,7 +154,8 @@
    against `DetectionTask.eval_step` (the boxes 2e-2 of their scale, the
    probabilities 2e-2 absolute), the same boxes from its NMS and the
    task's on one candidate set, and one POST through the HTTP server with
-   task detection. The phase prints its seconds.
+   task detection; (e) (c) preempted at micro-step 4 (epoch 1, batch 1)
+   and resumed, as 7 (e). The phase prints its seconds.
 10. The ResNet-50 UNet segmentation baseline (`ResNetUNet`: torchvision
    ResNet-50 encoder, decoder 256/128/64/32/16, 224 px, bf16, trained end
    to end; seg_SIIM_100's AdamW lr 5e-4 wd 0.05 clip 1.0 with the warmup
@@ -157,7 +171,7 @@
    device busy and peak memory; (b) `python -m
    ecamp_tpu_torch.cli.finetune_seg --task SIIM --model resnet50` on (8)'s
    SIIM corpus with its encoder from a seeded torchvision-layout `.pth`
-   (265 tensors loaded), 2 epochs, patience 1: validation lines with their
+   (265 tensors loaded), 1 epoch, patience 1: validation lines with their
    AdamW launches, the best `.pth`, the test dice line.
 11. The ResNet-50 detector baseline (`DetectionModel(backbone="resnet50")`:
    the frozen ResNet-50's layer2/3/4 maps into the YOLOv3 head, 224 px,
@@ -168,7 +182,7 @@
    the backbone's weights bit-unchanged while its BatchNorm statistics
    move, the head changed, step time, images/s, device busy and peak memory; (b) `python
    -m ecamp_tpu_torch.cli.finetune_det --task RSNA --model resnet50` on
-   (9)'s RSNA corpus from the same `.pth`, 2 epochs, patience 1.
+   (9)'s RSNA corpus from the same `.pth`, 1 epoch, patience 1.
 12. The visualizer: `cli.visualize.main` in this process at full width
    (ViT-B/16 and the 6-layer BERT, fp32, 224 px, L = 256) on the pretrain
    CLI's `checkpoint-2.pth`, a seeded PNG and
@@ -205,8 +219,9 @@
    engines on the exported files serve the originals' outputs bit for
    bit.
 14. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
-   lines of the results, of every kernel shape timed and of the kernels
-   and, last, the device line.
+   lines of the results, of every kernel shape timed, of each phase's end
+   (seconds after the build, `phase_end_seconds`; also printed as each
+   phase ends) and of the kernels and, last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
 at once; it never runs on the CPU.
@@ -247,6 +262,9 @@ CLI_ACCUM = 2        # (6b), (6c): an update every 2 micro-steps
 CLI_PREEMPT_AT = 3   # (6c): epoch 1, batch 1, the cycle's micro-step 1
 PREEMPT_TOL = 1e-3   # (6c) against (6b) where not bit for bit: of each
                      # leaf's movement from the initial weights
+PREEMPT_SPREAD = 3   # (7e)-(9e) where not bit for bit: the resumed run's
+                     # distance from (c) against (c) repeated (best .pth L2,
+                     # metrics)
 # -- the recipe's micro-batch (pretrain_mimic: B = 256, accum 8) ----------
 RECIPE_B = 256
 RECIPE_ACCUM = 8     # micro-steps an update
@@ -276,9 +294,9 @@ DET_STEPS = 5        # steps of (a) from the end of the warmup; all but the
                      # first are timed
 DET10_B = 256
 DET10_STEPS = 3
-DET_SPLITS = (96, 70, 40)  # RSNA rows; val and test read the 70
+DET_SPLITS = (96, 38, 40)  # RSNA rows; val and test read the 38
 DET_CLI_B = 32
-DET_EVAL_B = 32      # 70 = 2 * 32 + 6: a ragged last eval batch
+DET_EVAL_B = 32      # 38 = 32 + 6: a ragged last eval batch
 DET_IMG = 512        # the corpus's PNG size
 # -- the ResNet-50 baselines (seg_SIIM_100's and det_RSNA_100's batches) --
 RSEG_B = 512         # halved until a step fits
@@ -2034,6 +2052,228 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
                        "epochs": recs_d}}
 
 
+def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
+                  per_step: dict, n_eval: int, metric: str,
+                  test_key: str, marker: str, repeat: bool = False) -> dict:
+    """(7e), (8e), (9e): the (c) step's fine-tune command `cmd` again in a
+    fresh --output_dir with ECAMP_PREEMPT_AT_STEP at the second epoch's
+    second micro-step (mid-epoch, after the first validation, so the early
+    stopper's state and the best .pth are part of what is restored): exit
+    0, JAX's message, the file, no test line; then the same command
+    without the variable: the resume line, the test line, `preempt/` gone.
+    Held against (c)'s uninterrupted run in `ref_out`: the validation
+    steps equal; the best .pth and the validation and test metrics equal
+    bit for bit, or, where they are not, no farther from (c)'s than
+    PREEMPT_SPREAD times the spread of `cmd` run once more uninterrupted
+    (the best .pth's L2 distance; the largest metric difference of that
+    repeat and of (e)'s validations before the save): a run whose
+    gradients go through `F.interpolate`'s backward (atomic adds) or a
+    nondeterministic cuDNN algorithm does not repeat itself. The launches
+    of each validation line as (c) counts them, the first after the resume
+    counting from the resume. Returns the figures, the save's and the
+    resume's seconds and the file's bytes among them."""
+    import torch
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    at = per_epoch + 1
+    out = ref_out + "_preempt"
+    i = cmd.index("--output_dir")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+
+    def start(extra_env, where):
+        """The command with --output_dir `where`, its output in a file."""
+        f = open(where + ".stdout", "w")
+        p = subprocess.Popen(cmd[:i + 1] + [where] + cmd[i + 2:], cwd=repo,
+                             stdout=f, stderr=subprocess.STDOUT, text=True,
+                             env={**env, **extra_env})
+        procs.append(p)
+        return p, f, where + ".stdout", time.perf_counter()
+
+    def wait(what, run):
+        p, f, path, t = run
+        try:
+            p.wait(timeout=max(1.0, CLI_TIMEOUT - (time.perf_counter() - t)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        f.close()
+        printed = text(path)
+        check(p.returncode == 0,
+              f"({tag}) {what} exited {p.returncode}:\n{printed[-4000:]}")
+        return printed, time.perf_counter() - t
+
+    def text(path):
+        with open(path) as f:
+            return f.read()
+
+    def log(path):
+        return [json.loads(line)
+                for line in text(os.path.join(path, "log.txt")).splitlines()]
+
+    def vals(recs):
+        return [(r["step"], r[metric], r["best"]) for r in recs
+                if "step" in r]
+
+    procs = []
+    again = ref_out + "_again"
+
+    def drill():
+        printed, save_run_s = wait("the preempted run", start(
+            {"ECAMP_PREEMPT_AT_STEP": str(at)}, out))
+        msg = (f"preemption checkpoint saved @ micro {at} (optimizer step "
+               f"{at}); rerun with the same --output_dir to resume")
+        check(msg in printed, f"({tag}) no '{msg}' in:\n{printed[-2000:]}")
+        check(marker not in printed, f"({tag}) a test line after the save")
+        path = os.path.join(out, "preempt", f"checkpoint-step-{at}.pth")
+        check(os.path.exists(path), f"({tag}) no {path}")
+        got = re.search(r"wrote .* \((\d+) bytes\) in ([\d.]+) s", printed)
+        nbytes, save_s = int(got[1]), float(got[2])
+        meta = torch.load(path, map_location="cpu",
+                          weights_only=True)["meta"]
+        check((meta["micro"], meta["step"], meta["has_best"])
+              == (at, at, True), f"({tag}) the file's counters {meta}")
+        recs_saved = log(out)
+        resumed = start({}, out)
+        repeat_run = None
+        if repeat:  # beside the resumed run, once it has timed its read
+            t = time.perf_counter()
+            while (resumed[0].poll() is None and time.perf_counter() - t < 120
+                   and "  read " not in text(resumed[2])):
+                time.sleep(0.2)
+            repeat_run = start({}, again)
+        printed, resume_run_s = wait("the resumed run", resumed)
+        line = (f"resuming from preemption checkpoint: micro {at} (optimizer "
+                f"step {at}, epoch {at // per_epoch})")
+        check(line in printed, f"({tag}) no '{line}' in:\n{printed[-2000:]}")
+        got = re.search(r"read .* \(\d+ bytes\) in ([\d.]+) s", printed)
+        resume_s = float(got[1])
+        check(marker in printed, f"({tag}) no test line after the resume")
+        check(not os.path.exists(os.path.join(out, "preempt")),
+              f"({tag}) preempt/ left after the end")
+        ref_recs, recs = log(ref_out), log(out)
+
+        # each validation line's launches: (c)'s before the save, from the
+        # resume after it
+        done = at
+        for r in recs[len(vals(recs_saved)):]:
+            if "step" not in r:
+                continue
+            want = {k: per_step[k] * (r["step"] - done + n_eval)
+                    for k in ("layer_norm", "attention")}
+            if "adamw" in per_step:  # one an update; a validation runs none
+                want["adamw"] = per_step["adamw"] * (r["step"] - done)
+            check(r["kernel_launches"] == want, f"({tag}) launches "
+                  f"{r['kernel_launches']} != {want} after the resume")
+            done = r["step"]
+        n_saved = len(vals(recs_saved))
+        check([r["kernel_launches"] for r in recs_saved if "step" in r]
+              == [r["kernel_launches"] for r in ref_recs[:n_saved]],
+              f"({tag}) launches before the save differ from (c)'s")
+
+        def best(path):
+            return torch.load(
+                os.path.join(path, "best", "checkpoint-best.pth"),
+                map_location="cpu", weights_only=True)["model"]
+
+        def metrics(recs):  # each validation's, then the test's
+            test = recs[-1][test_key]
+            return [v[1] for v in vals(recs)] + [
+                test[metric] if test_key == "test" else test]
+
+        def best_step(recs):  # the validation whose .pth the run kept
+            v = vals(recs)
+            return next(st for st, m, _ in v if m == v[-1][2])
+
+        def l2(a, b):
+            return float(sum(float(((a[k].double() - b[k].double()) ** 2)
+                                   .sum()) for k in a) ** 0.5)
+
+        ref_best, got_best = best(ref_out), best(out)
+        check(ref_best.keys() == got_best.keys(), f"({tag}) best .pth keys")
+        bitwise = all(torch.equal(ref_best[k], got_best[k]) for k in ref_best)
+        diffs = [abs(a - b) for a, b in zip(metrics(recs), metrics(ref_recs))]
+        steps_equal = ([v[0] for v in vals(recs)]
+                       == [v[0] for v in vals(ref_recs)])
+        d_e = l2(got_best, ref_best)
+        spread = {}
+        if bitwise:
+            held, within = "bit for bit", max(diffs) == 0.0
+            if repeat_run is not None:
+                wait("the repeat of (c)", repeat_run)
+        else:
+            # (c) itself does not repeat on the card (its first validation
+            # differs between two runs before any save): its spread, from the
+            # same command once more, uninterrupted; (e)'s validations before
+            # the save are samples of it too
+            _, again_s = wait("the repeat of (c)", repeat_run
+                              or start({}, again))
+            again_recs = log(again)
+            noise = [abs(a - b) for a, b in zip(metrics(again_recs),
+                                                metrics(ref_recs))]
+            noise = max(noise + diffs[:n_saved])
+            steps = {"c": best_step(ref_recs), "e": best_step(recs),
+                     "repeat": best_step(again_recs)}
+            spread = {"repeat_seconds": again_s,
+                      "metric_max_diff_repeat": noise, "best_steps": steps}
+            metrics_ok = max(diffs[n_saved:]) <= PREEMPT_SPREAD * noise
+            if len(set(steps.values())) == 1:
+                d_n = l2(best(again), ref_best)
+                spread["best_l2_repeat"] = d_n
+                within = metrics_ok and d_e <= PREEMPT_SPREAD * d_n
+                held = (f"within {PREEMPT_SPREAD:g}x the spread of (c) "
+                        f"repeated (best .pth L2 {d_e:.3e}, the repeat's "
+                        f"{d_n:.3e})")
+            else:
+                # the runs kept the best .pth of different steps: in every run
+                # the validations at those steps lie within the spread, so the
+                # choice between them is the card's noise, and the .pth files
+                # are of different steps
+                by_step = [{st: m for st, m, _ in vals(rr)}
+                           for rr in (ref_recs, recs, again_recs)]
+                gap = max(abs(v[a] - v[b]) for v in by_step
+                          for a in steps.values() for b in steps.values())
+                spread["best_step_gap"] = gap
+                within = metrics_ok and gap <= PREEMPT_SPREAD * noise
+                held = (f"within {PREEMPT_SPREAD:g}x the spread of (c) "
+                        f"repeated (the best .pth of steps {steps}: in "
+                        f"each run their validations {gap:.3e} apart)")
+            held = held if within else f"neither: {held}"
+            shutil.rmtree(again, ignore_errors=True)
+        phase_s = time.perf_counter() - t_phase
+        print(f"  ({tag}) preempted at micro-step {at} (epoch "
+              f"{at // per_epoch}, batch {at % per_epoch}, after the first "
+              f"validation): the save "
+              f"{save_s:.3f} s for {nbytes} bytes, the resume's read "
+              f"{resume_s:.3f} s; the runs {save_run_s:.1f} s and "
+              f"{resume_run_s:.1f} s, the phase {phase_s:.1f} s")
+        print(f"  ({tag}) against (c): {held}; validations {vals(recs)} "
+              f"against {vals(ref_recs)}, test {metrics(recs)[-1]} against "
+              f"{metrics(ref_recs)[-1]} (metric differences {diffs}"
+              + (f", the repeat's largest "
+                 f"{spread['metric_max_diff_repeat']:.3e}" if spread else "")
+              + ")")
+        check(steps_equal and within, f"({tag}) the resumed run is not (c)'s: "
+              f"{held}")
+        shutil.rmtree(out, ignore_errors=True)
+        return {"at_micro_step": at, "epoch": at // per_epoch,
+                "batch": at % per_epoch, "save_seconds": save_s,
+                "resume_read_seconds": resume_s, "checkpoint_bytes": nbytes,
+                "preempted_run_seconds": save_run_s,
+                "resumed_run_seconds": resume_run_s, "phase_seconds": phase_s,
+                "held": held, "best_l2": d_e, "metric_diffs": diffs,
+                "validations": vals(recs), "test": metrics(recs)[-1], **spread}
+
+    try:
+        return drill()
+    finally:
+        for p in procs:  # a failed check leaves no run behind
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def finetune_kernel_phase(card: str, rows: list) -> dict:
     """LayerNorm and attention at the fine-tune step's shapes (B = FT_B,
     bf16): the trunk's (B * 197, 768) and fc_norm's (B, 768) LayerNorm and
@@ -2321,6 +2561,10 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     del task, model, engine
     gc.collect()
     torch.cuda.empty_cache()
+    # (e) the same CLI preempted after its first validation and resumed
+    result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
+                                         n_val, "auc", "test",
+                                         "TEST mean AUROC:")
     return result
 
 
@@ -2763,6 +3007,10 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     del etask, engine
     gc.collect()
     torch.cuda.empty_cache()
+    # (e) the same CLI preempted after its first validation and resumed
+    result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
+                                         n_val, "dice", "test_dice",
+                                         "TEST dice:", repeat=True)
     return result
 
 
@@ -3125,12 +3373,17 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     result.update(cli_seconds=cli_s, cli_log=recs,
                   served_box_max_err=box_err, served_prob_max_err=prob_err,
                   served_boxes=[None if b is None else len(b)
-                                for b in boxes_e], http_reply=pred,
-                  phase_seconds=time.perf_counter() - t_phase)
-    print(f"  detection phase: {result['phase_seconds']:.1f} s")
+                                for b in boxes_e], http_reply=pred)
     del etask, engine
     gc.collect()
     torch.cuda.empty_cache()
+    # (e) the same CLI preempted after its first validation and resumed
+    result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
+                                         n_eval, "mAP", "test_map",
+                                         "TEST mAP@[.40:.05:.75]:",
+                                         repeat=True)
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"  detection phase: {result['phase_seconds']:.1f} s")
     return result
 
 
@@ -3390,7 +3643,7 @@ def resnet_phase(card: str, kind: str, work: str, pretrained: str,
            "--dataset_path", data, "--pretrained", pretrained,
            "--batch_size", str(cli_b), "--eval_batch_size", str(eval_b),
            "--lr", "5e-4", "--weight_decay", "0.05", "--warmup_steps",
-           str(RESNET_WARMUP), "--num_steps", str(2 * per_epoch),
+           str(RESNET_WARMUP), "--num_steps", str(per_epoch),
            "--patience", "1", "--output_dir", out, "--seed", str(SEED)]
     if not seg:
         cmd += ["--start_eval", "1"]
@@ -3916,37 +4169,63 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
+    clock = {}  # each phase's end, seconds from here
+
+    def mark(name):
+        clock[name] = time.perf_counter() - t_main
+        print(f"[{clock[name]:.1f} s] {name} done", flush=True)
+
+    t_main = time.perf_counter()
     shape_rows = []
     kernel_phase(card, shape_rows)
+    mark("kernels")
     main_times = train_kernel_phase(card, shape_rows)
+    mark("train_kernels")
     main_times.update(fused_ce_phase(card))
+    mark("fused_ce")
     serve_launches, prob_err, p50, serve_busy = slice_phase(card)
+    mark("serving")
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
+    mark("pretrain")
     recipe = recipe_phase(card)
+    mark("recipe")
     ft_times = finetune_kernel_phase(card, shape_rows)
+    mark("finetune_kernels")
     work = tempfile.mkdtemp(prefix="ecamp_cli_")
     try:
         cli_per_step = {k: v // PRE_STEPS for k, v in flaunches.items()}
         cli, ckpt = cli_phase(card, cli_per_step, work)
+        mark("pretrain_cli")
         recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
+        mark("pretrain_cli_accum")
         finetune = finetune_phase(card, ckpt, work)
+        mark("finetune")
         seg_kernels = segmentation_kernel_phase(card, shape_rows)
+        mark("segmentation_kernels")
         segmentation = segmentation_phase(card, ckpt, work, seg_kernels,
                                           shape_rows)
+        mark("segmentation")
         det_kernels = detection_kernel_phase(card, shape_rows)
+        mark("detection_kernels")
         detection = detection_phase(card, ckpt, work, det_kernels,
                                     shape_rows)
+        mark("detection")
         tv_pth = write_torchvision_resnet50(work)
         resnet_kernels = {"resnet_seg": {}, "resnet_det": {}}
         resnet_seg = resnet_phase(card, "seg", work, tv_pth,
                                   resnet_kernels["resnet_seg"], shape_rows)
+        mark("resnet_seg")
         resnet_det = resnet_phase(card, "det", work, tv_pth,
                                   resnet_kernels["resnet_det"], shape_rows)
+        mark("resnet_det")
         viz = visualize_phase(card, ckpt, work, shape_rows)
+        mark("visualize")
         main_times["int8_linear"] = int8_kernel_phase(card, shape_rows)
+        mark("int8_kernels")
         serving = serving_rest_phase(
             card, ckpt, os.path.join(work, "ft_out", "best",
                                      "checkpoint-best.pth"), work)
+        mark("serving_rest")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4066,6 +4345,7 @@ def main() -> int:
     print(json.dumps({"fused_ce_mainloop":
                       main_times["fused_ce_bwd"]["mainloop"]}))
     print(json.dumps({"device_ms_by_events": BY_EVENTS}))
+    print(json.dumps({"phase_end_seconds": clock}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

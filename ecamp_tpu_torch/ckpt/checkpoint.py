@@ -15,12 +15,20 @@ resumes with an empty cycle.
 A preemption checkpoint (`save_preemption_checkpoint`,
 `checkpoint-step-<step>.pth`) holds the same keys with the micro-step
 `step` in place of `epoch`: the CLI resumes it mid-epoch.
+
+The fine-tune CLIs' preemption file (`save_finetune_preemption`,
+`<output_dir>/preempt/checkpoint-step-<micro>.pth`, the counterpart of the
+JAX CLIs' orbax step directory under `<output_dir>/preempt`) holds
+{"model": state dict, with the BatchNorm running statistics as buffers,
+"opt_state": `train/state.py::opt_state_dict`, "meta": the counters and
+the early stopper's state}; `latest_step_file` finds the newest.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Mapping, Tuple
+import re
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,6 +72,32 @@ def save_preemption_checkpoint(output_dir: str, step: int, model: nn.Module,
     fall mid-epoch and mid-cycle; returns its path."""
     return _save(os.path.join(output_dir, f"checkpoint-step-{step}.pth"),
                  model, state, weight_decay, step=step)
+
+
+def save_finetune_preemption(directory: str, micro: int, model: nn.Module,
+                             opt_state: Mapping[str, Any],
+                             meta: Mapping[str, Any]) -> str:
+    """Write `<directory>/checkpoint-step-<micro>.pth` with the model's
+    state dict, `opt_state` (a state dict) and `meta`, through a temporary
+    file; returns its path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"checkpoint-step-{micro}.pth")
+    tmp = path + ".tmp"
+    torch.save({"model": {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()},
+                "opt_state": opt_state, "meta": dict(meta)}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_step_file(directory: str) -> Optional[str]:
+    """The `checkpoint-step-<n>.pth` of the highest n in `directory`, or
+    None (JAX `latest_step`)."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [(int(m[1]), name) for name in os.listdir(directory)
+             if (m := re.fullmatch(r"checkpoint-step-(\d+)\.pth", name))]
+    return os.path.join(directory, max(steps)[1]) if steps else None
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

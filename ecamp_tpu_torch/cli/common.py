@@ -1,6 +1,6 @@
-"""Shared CLI plumbing (counterpart of `ecamp_tpu/cli/common.py:14-97`):
-common arguments, the run directory's provenance, checkpoint cadence and
-early stopping.
+"""Shared CLI plumbing (counterpart of `ecamp_tpu/cli/common.py:14-97,
+307-426`): common arguments, the run directory's provenance, checkpoint
+cadence, early stopping and the fine-tune CLIs' preemption.
 
 The JAX package's `pad_eval_batch` has no counterpart: XLA compiles one
 program per input shape, so JAX pads the ragged last eval batch to the
@@ -10,10 +10,19 @@ static shape, while PyTorch runs eagerly and takes that batch as it is.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import os
 import shutil
+import time
 from typing import Optional
+
+from ..ckpt.checkpoint import (latest_step_file, load_checkpoint,
+                               save_finetune_preemption)
+from ..core.metrics import MetricLogger
+from ..core.preemption import PreemptionGuard
+from ..train.state import load_opt_state_dict, opt_state_dict
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -89,3 +98,174 @@ class EarlyStopper:
     @property
     def should_stop(self) -> bool:
         return self.bad >= self.patience
+
+
+class FinetunePreemption:
+    """Preemption-safe mid-run state for the fine-tune CLIs (JAX
+    `FinetunePreemption`).
+
+    SIGTERM, the injected fault ECAMP_PREEMPT_AT_STEP (counted in
+    micro-steps) or host RSS over ECAMP_RSS_LIMIT_GB writes the model
+    (its BatchNorm statistics included), the optimizer state, the
+    counters and the early stopper's state to
+    `<output_dir>/preempt/checkpoint-step-<micro>.pth`, and the CLI exits
+    0; a rerun with the same --output_dir resumes at that micro-step,
+    an open accumulation cycle included. Every epoch takes `loader_len`
+    micro-batches in an order fixed by (seed, epoch), so the micro-step
+    alone fixes the epoch and the place in it.
+
+    The guard holds the SIGTERM handler from construction until `finish`
+    or a save; a caller's `finally` uninstalls it on every other exit.
+    """
+
+    def __init__(self, task, output_dir: str, loader_len: int,
+                 accum: int = 1):
+        self.task = task
+        self.guard = PreemptionGuard()
+        self.dir = os.path.join(os.path.abspath(output_dir), "preempt")
+        self.loader_len = max(1, int(loader_len))
+        self.accum = max(1, int(accum))
+
+    def resume(self, state, stopper: EarlyStopper, micro: int = 0,
+               step: int = 0, epoch: int = 0):
+        """-> (state, micro, step, epoch, skip_micro). Without a
+        preemption file the caller's counters pass through unchanged (so
+        detection's --resume fast-forward survives); with one, the model,
+        the optimizer state and the stopper are restored in place and
+        `state.step` is set to the micro-step, as the schedules read it."""
+        path = latest_step_file(self.dir)
+        if path is None:
+            return state, micro, step, epoch, 0
+        t = time.perf_counter()
+        ckpt = load_checkpoint(path)
+        self.task.model.load_state_dict(ckpt["model"])
+        opt = load_opt_state_dict(state.opt_state, ckpt["opt_state"])
+        meta = ckpt["meta"]
+        micro, step = int(meta["micro"]), int(meta["step"])
+        if meta["has_best"]:
+            stopper.best = float(meta["best"])
+            stopper.bad = int(meta["bad"])
+        state.step.fill_(micro)
+        state = dataclasses.replace(state, opt_state=opt)
+        epoch, skip_micro = divmod(micro, self.loader_len)
+        print(f"resuming from preemption checkpoint: micro {micro} "
+              f"(optimizer step {step}, epoch {epoch})")
+        print(f"  read {path} ({os.path.getsize(path)} bytes) in "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        return state, micro, step, epoch, skip_micro
+
+    def maybe_save(self, state, micro: int, step: int,
+                   stopper: EarlyStopper) -> bool:
+        """Poll once a micro-step; on a preemption request write the file
+        and return True (the caller leaves the CLI). The saved optimizer
+        step is micro // accum, the updates taken, not the caller's `step`
+        (JAX's docstring: a loop variable not yet incremented for a cycle
+        that just closed made a resumed run take one update too many)."""
+        if not self.guard.should_save(micro):
+            return False
+        t = time.perf_counter()
+        path = save_finetune_preemption(
+            self.dir, micro, self.task.model, opt_state_dict(state.opt_state),
+            {"micro": micro, "step": micro // self.accum,
+             "best": float(stopper.best if stopper.best is not None
+                           else 0.0),
+             "bad": int(stopper.bad), "has_best": stopper.best is not None})
+        self.guard.uninstall()
+        print(f"preemption checkpoint saved @ micro {micro} (optimizer step "
+              f"{step}); rerun with the same --output_dir to resume")
+        print(f"  wrote {path} ({os.path.getsize(path)} bytes) in "
+              f"{time.perf_counter() - t:.3f} s [{self.guard.reason}]",
+              flush=True)
+        return True
+
+    def finish(self) -> None:
+        """Training ended normally: drop the preemption state, so a rerun
+        in this output_dir does not skip straight to the test."""
+        self.guard.uninstall()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def skip_micro_batches(batch_iter, skip: int):
+    """Fast-forward a deterministic epoch iterator after a mid-epoch
+    resume: the skipped batches are built and dropped, as in JAX."""
+    if skip:
+        return itertools.islice(batch_iter, skip, None)
+    return batch_iter
+
+
+class LaunchCounts:
+    """The kernels' launches since the last `take` (the fine-tune CLIs'
+    `kernel_launches` field). The counters live in the process, so after a
+    resume the first reading counts from the resume."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.last = {k: c.value for k, c in counters.items()}
+
+    def take(self):
+        now = {k: c.value for k, c in self.counters.items()}
+        out = {k: now[k] - self.last[k] for k in now}
+        self.last = now
+        return out
+
+
+def train_finetune(args, task, state, loader, stopper: EarlyStopper,
+                   step_fn, validate, micro: int = 0, step: int = 0,
+                   epoch: int = 0):
+    """The fine-tune CLIs' training loop (JAX `finetune_{cls,seg,det}.py`):
+    `step_fn(state, batch) -> (state, metrics)` a micro-step, an update
+    every `args.gradient_accumulation_steps`, and `validate(state, step,
+    epoch, logger)` every epoch's worth of updates (`len(loader) //
+    accum`) until `args.num_steps` updates or the stopper ends it, from
+    the given counters, or from a preemption file under
+    `args.output_dir`. A task that folds its RNG by a host step
+    (`ClassificationTask.step`) has it set to the micro-step. Returns
+    (state, preempted): True when a save ended the run mid-way."""
+    accum = max(1, args.gradient_accumulation_steps)
+    eval_every = max(1, len(loader) // accum)
+    preempt = FinetunePreemption(task, args.output_dir, len(loader), accum)
+    try:
+        state, micro, step, epoch, skip = preempt.resume(
+            state, stopper, micro=micro, step=step, epoch=epoch)
+        if isinstance(getattr(task, "step", None), int):
+            task.step = micro
+        logger = MetricLogger()
+        pending = None  # read a step's metrics once the next is issued
+        while step < args.num_steps and not stopper.should_stop:
+            loader.set_epoch(epoch)
+            t0, n0 = time.perf_counter(), micro
+            batches = iter(loader)
+            try:
+                for batch in skip_micro_batches(batches, skip):
+                    state, m = step_fn(state, batch)
+                    if pending is not None:
+                        logger.update(**pending)
+                    pending = m
+                    micro += 1
+                    if micro % accum == 0:
+                        step += 1
+                        if step % eval_every == 0:
+                            logger.update(**pending)
+                            pending = None
+                            validate(state, step, epoch, logger)
+                            if stopper.should_stop or step >= args.num_steps:
+                                break
+                    # after the validation: a save at an update that
+                    # validates keeps that validation (JAX polls before it,
+                    # and its resumed run skips it)
+                    if preempt.maybe_save(state, micro, step, stopper):
+                        if pending is not None:
+                            logger.update(**pending)
+                        return state, True
+            finally:
+                batches.close()  # leaving mid-epoch stops its threads
+            skip = 0
+            dt, dn = time.perf_counter() - t0, micro - n0
+            if dn > 0:
+                print(f"Epoch [{epoch}]  Total time: {dt:.1f}s "
+                      f"({dt / dn:.4f} s/it)", flush=True)
+            epoch += 1
+        preempt.finish()
+        return state, False
+    finally:
+        preempt.guard.uninstall()

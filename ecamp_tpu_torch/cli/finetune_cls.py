@@ -17,8 +17,17 @@ single-label task), writes the best model to
 reference's timm namespace (what `cli/serve.py --checkpoint` serves), then
 reloads it and tests: per-class AUROC and `TEST mean AUROC`, or `TEST
 accuracy`. `<output_dir>/log.txt` gets one JSON line a validation and one
-for the test. `--device cuda` (the default) needs a card; `--device cpu`
-runs the kernels' plain versions.
+for the test; its `kernel_launches` are the LayerNorm and attention
+launches since the last line, and after a resume the first counts from the
+resume (the counters live in the process). `--device cuda` (the default)
+needs a card; `--device cpu` runs the kernels' plain versions.
+
+Preemption (`cli/common.py::FinetunePreemption`): SIGTERM,
+`ECAMP_PREEMPT_AT_STEP=N` (micro-step N) or `ECAMP_RSS_LIMIT_GB` writes
+`<output_dir>/preempt/checkpoint-step-N.pth` and exits 0 before the test;
+a rerun with the same `--output_dir` (the variable unset) resumes at
+micro-step N, bit for bit with the uninterrupted run on the CPU, and
+deletes `preempt/` when training ends.
 """
 
 from __future__ import annotations
@@ -26,21 +35,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
 
 from ..ckpt.convert import load_reference_pth, load_reference_state
 from ..core import config as cfg
-from ..core.metrics import JsonlLogger, MetricLogger
+from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import ClassificationListDataset
 from ..data.loader import DataLoader
 from ..data.transforms import EvalTransform, TrainTransform
 from ..kernels import flash_attention, layer_norm
 from ..train.classification import ClassificationTask
-from .common import EarlyStopper, add_common_args, setup_output
+from .common import (EarlyStopper, LaunchCounts, add_common_args,
+                     setup_output, train_finetune)
 
 _VIT_FACTORY = {"tiny": cfg.vit_tiny, "base": cfg.vit_base,
                 "base_singlechannel": cfg.vit_base_singlechannel,
@@ -118,12 +127,13 @@ def get_args(argv=None):
 
 
 def refuse_what_is_not_ported(args) -> None:
-    """What waits for the pretrain CLI's preemption saves (ROADMAP Queue 1
-    item 8) raises; nothing is ignored silently."""
+    """What the port leaves out raises, naming ROADMAP's "Not to port"
+    list; nothing is ignored silently. `--resume`: the JAX CLI parses it
+    and reads it nowhere; a classification or segmentation run resumes by
+    a rerun with the same --output_dir (its preemption file)."""
     refused = [
-        (bool(args.resume), "--resume (fine-tune preemption state)"),
-        (bool(os.environ.get("ECAMP_PREEMPT_AT_STEP")),
-         "ECAMP_PREEMPT_AT_STEP (fine-tune preemption saves)"),
+        (bool(args.resume), "--resume (the JAX CLI reads it nowhere; rerun "
+         "with the same --output_dir to resume from its preemption file)"),
         (bool(args.pretrained) and not args.pretrained.endswith(".pth"),
          f"{args.pretrained!r}: orbax checkpoint directories (only "
          f"reference .pth files are read)"),
@@ -132,7 +142,7 @@ def refuse_what_is_not_ported(args) -> None:
         if bad:
             raise NotImplementedError(f"{what} is not ported to "
                                       f"ecamp_tpu_torch (ROADMAP Queue 1, "
-                                      f"item 8)")
+                                      f"\"Not to port\")")
 
 
 def evaluate(task: ClassificationTask, state, loader) -> dict:
@@ -216,54 +226,33 @@ def main(argv=None):
         val_loader = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
         metric_key = "auc" if multilabel else "acc"
-        eval_every = max(1, len(train_loader) // accum)
-        step = micro = epoch = 0
-        logger = MetricLogger()
-        launches = {k: c.value for k, c in _COUNTERS.items()}
-        pending = None  # read a step's metrics once the next is issued
-        while step < args.num_steps and not stopper.should_stop:
-            train_loader.set_epoch(epoch)
-            t0, n0 = time.perf_counter(), micro
-            for batch in train_loader:
-                labels = batch["label"]
-                if not multilabel:
-                    labels = labels.argmax(-1).astype(np.int64)
-                state, m = task.train_step(state, task.put(batch["image"]),
-                                           task.put(labels))
-                if pending is not None:
-                    logger.update(**pending)
-                pending = m
-                micro += 1
-                if micro % accum != 0:
-                    continue  # the optimizer updates every accum micro-steps
-                step += 1
-                if step % eval_every != 0:
-                    continue
-                logger.update(**pending)
-                pending = None
-                metrics = evaluate(task, state, val_loader)
-                val = metrics[metric_key]
-                is_best = stopper.update(val)
-                # the launches since the last validation: its steps' and
-                # this validation's
-                now = {k: c.value for k, c in _COUNTERS.items()}
-                jsonl.write({"step": step, metric_key: val,
-                             "best": stopper.best,
-                             "loss": logger.meters["loss"].global_avg,
-                             "kernel_launches": {k: now[k] - launches[k]
-                                                 for k in now}})
-                launches = now
-                print(f"step {step}: val {metric_key}={val:.4f} "
-                      f"(best {stopper.best:.4f})", flush=True)
-                if is_best:
-                    save_best(best_path, task.model)
-                if stopper.should_stop or step >= args.num_steps:
-                    break
-            dt, dn = time.perf_counter() - t0, micro - n0
-            if dn > 0:
-                print(f"Epoch [{epoch}]  Total time: {dt:.1f}s "
-                      f"({dt / dn:.4f} s/it)", flush=True)
-            epoch += 1
+        launches = LaunchCounts(_COUNTERS)
+
+        def step_fn(state, batch):
+            labels = batch["label"]
+            if not multilabel:
+                labels = labels.argmax(-1).astype(np.int64)
+            return task.train_step(state, task.put(batch["image"]),
+                                   task.put(labels))
+
+        def validate(state, step, epoch, logger):
+            metrics = evaluate(task, state, val_loader)
+            val = metrics[metric_key]
+            is_best = stopper.update(val)
+            # the launches since the last validation: its steps' and this
+            # validation's
+            jsonl.write({"step": step, metric_key: val, "best": stopper.best,
+                         "loss": logger.meters["loss"].global_avg,
+                         "kernel_launches": launches.take()})
+            print(f"step {step}: val {metric_key}={val:.4f} "
+                  f"(best {stopper.best:.4f})", flush=True)
+            if is_best:
+                save_best(best_path, task.model)
+
+        state, preempted = train_finetune(args, task, state, train_loader,
+                                          stopper, step_fn, validate)
+        if preempted:
+            return None
 
     # test phase: reload the best model, per-class report (train.py:267-361)
     if os.path.exists(best_path):

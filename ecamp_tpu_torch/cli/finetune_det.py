@@ -26,7 +26,8 @@ to `<output_dir>/best/checkpoint-best.pth` as `{"model": state_dict,
 detection --checkpoint` serves), then reloads it and prints `TEST
 mAP@[.40:.05:.75]:`. `<output_dir>/log.txt` gets the JAX CLI's JSON lines
 (`step`, `mAP`, `best` a validation, with the mean training loss and the
-LayerNorm, attention and AdamW launches since the last one; `test_map`).
+LayerNorm, attention and AdamW launches since the last one, the first
+after a resume counting from the resume; `test_map`).
 
 `--resume` is the reference trainer's best-checkpoint re-entry
 (Detection/train.py:176-182), as the JAX CLI does it: the best `.pth` (or
@@ -34,11 +35,12 @@ the output directory holding it) gives the weights and BatchNorm
 statistics, and the step counter is fast-forwarded to its step (the
 epoch and the validations follow it). The optimizer starts afresh, its
 update count at 0 with its zero moments, so the lr warms up again and the
-bias correction fits the fresh moments. `--device cuda` (the default)
+bias correction fits the fresh moments. Preemption as in
+`cli/finetune_cls.py`: a preemption file under `--output_dir` supersedes
+`--resume` (it restores the optimizer too). `--device cuda` (the default)
 needs a card; `--device cpu` runs the kernels' plain versions.
 
-Refused, each naming its ROADMAP item: the preemption saves
-(`ECAMP_PREEMPT_AT_STEP`) and multi-process evaluation (item 8), and a
+Refused: multi-process evaluation (ROADMAP's "Not to port" list), and a
 training split too small for one micro-batch (the JAX CLI's loop would
 wait forever for a step).
 """
@@ -47,20 +49,20 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
 
 from ..ckpt.convert import load_reference_state
 from ..core import config as cfg
-from ..core.metrics import JsonlLogger, MetricLogger
+from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import ObjectCXRDetectionDataset, RSNADetectionDataset
 from ..data.loader import DataLoader
 from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.detection import DetectionTask
-from .common import EarlyStopper, add_common_args, setup_output
+from .common import (EarlyStopper, LaunchCounts, add_common_args,
+                     setup_output, train_finetune)
 from .finetune_cls import BEST, _VIT_FACTORY, refuse_what_is_not_ported
 
 DATASETS = {"RSNA": RSNADetectionDataset,
@@ -170,7 +172,7 @@ def main(argv=None):
     if _multi_process():
         raise NotImplementedError(
             "multi-process evaluation (ShardedEval) is not ported to "
-            "ecamp_tpu_torch (ROADMAP Queue 1, item 8)")
+            "ecamp_tpu_torch (ROADMAP Queue 1, \"Not to port\")")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
@@ -228,7 +230,6 @@ def main(argv=None):
                 f"here); lower --batch_size")
         val_loader = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
-        eval_every = max(1, len(train_loader) // accum)
         step = epoch = 0
         if args.resume:
             path = args.resume if args.resume.endswith(".pth") else \
@@ -236,50 +237,34 @@ def main(argv=None):
             step = load_best(path, task.model)
             # state.step counts micro-steps; the optimizer keeps its init
             state.step.fill_(step * accum)
-            epoch = step // eval_every
+            epoch = step // max(1, len(train_loader) // accum)
             print(f"resumed from step {step} ({path})")
-        micro = step * accum
-        logger = MetricLogger()
-        launches = {k: c.value for k, c in _COUNTERS.items()}
-        pending = None  # read a step's metrics once the next is issued
-        while step < args.num_steps and not stopper.should_stop:
-            train_loader.set_epoch(epoch)
-            t0, n0 = time.perf_counter(), micro
-            for batch in train_loader:
-                state, m = task.train_step(state, task.put(batch["image"]),
-                                           task.put(batch["target"]))
-                if pending is not None:
-                    logger.update(**pending)
-                pending = {"loss": m["loss"]}
-                micro += 1
-                if micro % accum != 0:
-                    continue  # the optimizer updates every accum micro-steps
-                step += 1
-                if step % eval_every != 0:
-                    continue
-                logger.update(**pending)
-                pending = None
-                if epoch + 1 >= args.start_eval:
-                    ap = evaluate(task, state, val_loader, args.img_size)
-                    is_best = stopper.update(ap)
-                    now = {k: c.value for k, c in _COUNTERS.items()}
-                    jsonl.write({"step": step, "mAP": ap,
-                                 "best": stopper.best,
-                                 "loss": logger.meters["loss"].global_avg,
-                                 "kernel_launches": {k: now[k] - launches[k]
-                                                     for k in now}})
-                    launches = now
-                    print(f"step {step}: val mAP={ap:.4f} "
-                          f"(best {stopper.best:.4f})", flush=True)
-                    if is_best:
-                        save_best(best_path, task.model, step)
-                if stopper.should_stop or step >= args.num_steps:
-                    break
-            dt, dn = time.perf_counter() - t0, micro - n0
-            if dn > 0:
-                print(f"Epoch [{epoch}]  Total time: {dt:.1f}s "
-                      f"({dt / dn:.4f} s/it)", flush=True)
-            epoch += 1
+        launches = LaunchCounts(_COUNTERS)
+
+        def step_fn(state, batch):
+            state, m = task.train_step(state, task.put(batch["image"]),
+                                       task.put(batch["target"]))
+            return state, {"loss": m["loss"]}
+
+        def validate(state, step, epoch, logger):
+            if epoch + 1 < args.start_eval:
+                return
+            ap = evaluate(task, state, val_loader, args.img_size)
+            is_best = stopper.update(ap)
+            jsonl.write({"step": step, "mAP": ap, "best": stopper.best,
+                         "loss": logger.meters["loss"].global_avg,
+                         "kernel_launches": launches.take()})
+            print(f"step {step}: val mAP={ap:.4f} "
+                  f"(best {stopper.best:.4f})", flush=True)
+            if is_best:
+                save_best(best_path, task.model, step)
+
+        # a preemption file under --output_dir supersedes --resume
+        state, preempted = train_finetune(
+            args, task, state, train_loader, stopper, step_fn, validate,
+            micro=step * accum, step=step, epoch=epoch)
+        if preempted:
+            return None
 
     if os.path.exists(best_path):
         load_best(best_path, task.model)

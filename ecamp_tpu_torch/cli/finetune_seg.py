@@ -23,9 +23,12 @@ state_dict}` in the reference namespace (what `cli/serve.py --task
 segmentation --checkpoint` serves), then reloads it and prints `TEST
 dice:`. `<output_dir>/log.txt` gets the JAX CLI's JSON lines (`step`,
 `dice`, `best` a validation, with the mean training loss and the
-LayerNorm, attention and AdamW launches since the last one; `test_dice`).
-`--device cuda` (the default) needs a card; `--device cpu` runs the
-kernels' plain versions.
+LayerNorm, attention and AdamW launches since the last one, the first
+after a resume counting from the resume; `test_dice`). `--device cuda`
+(the default) needs a card; `--device cpu` runs the kernels' plain
+versions. Preemption and resume: as `cli/finetune_cls.py` (a rerun with
+the same `--output_dir`; `--resume` is refused, as the JAX CLI reads it
+nowhere).
 
 A training split too small for one batch raises: the JAX CLI's loop would
 wait forever for a step (SIIM's 1% and 10% lists balance to 50 and 444
@@ -36,21 +39,21 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
 
 from ..ckpt.convert import load_reference_pth, load_reference_state
 from ..core import config as cfg
-from ..core.metrics import JsonlLogger, MetricLogger
+from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import (RIGASegmentationDataset, RSNASegmentationDataset,
                              SIIMSegmentationDataset)
 from ..data.loader import DataLoader
 from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.segmentation import SegmentationTask
-from .common import EarlyStopper, add_common_args, setup_output
+from .common import (EarlyStopper, LaunchCounts, add_common_args,
+                     setup_output, train_finetune)
 from .finetune_cls import (BEST, _VIT_FACTORY, refuse_what_is_not_ported,
                            save_best)
 
@@ -187,48 +190,27 @@ def main(argv=None):
                 f"here); lower --batch_size")
         val_loader = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
-        eval_every = max(1, len(train_loader) // accum)
-        step = micro = epoch = 0
-        logger = MetricLogger()
-        launches = {k: c.value for k, c in _COUNTERS.items()}
-        pending = None  # read a step's metrics once the next is issued
-        while step < args.num_steps and not stopper.should_stop:
-            train_loader.set_epoch(epoch)
-            t0, n0 = time.perf_counter(), micro
-            for batch in train_loader:
-                state, m = task.train_step(state, task.put(batch["image"]),
-                                           task.put(batch["mask"]))
-                if pending is not None:
-                    logger.update(**pending)
-                pending = m
-                micro += 1
-                if micro % accum != 0:
-                    continue  # the optimizer updates every accum micro-steps
-                step += 1
-                if step % eval_every != 0:
-                    continue
-                logger.update(**pending)
-                pending = None
-                dice = evaluate(task, state, val_loader)
-                is_best = stopper.update(dice)
-                now = {k: c.value for k, c in _COUNTERS.items()}
-                jsonl.write({"step": step, "dice": dice,
-                             "best": stopper.best,
-                             "loss": logger.meters["loss"].global_avg,
-                             "kernel_launches": {k: now[k] - launches[k]
-                                                 for k in now}})
-                launches = now
-                print(f"step {step}: val dice={dice:.4f} "
-                      f"(best {stopper.best:.4f})", flush=True)
-                if is_best:
-                    save_best(best_path, task.model)
-                if stopper.should_stop or step >= args.num_steps:
-                    break
-            dt, dn = time.perf_counter() - t0, micro - n0
-            if dn > 0:
-                print(f"Epoch [{epoch}]  Total time: {dt:.1f}s "
-                      f"({dt / dn:.4f} s/it)", flush=True)
-            epoch += 1
+        launches = LaunchCounts(_COUNTERS)
+
+        def step_fn(state, batch):
+            return task.train_step(state, task.put(batch["image"]),
+                                   task.put(batch["mask"]))
+
+        def validate(state, step, epoch, logger):
+            dice = evaluate(task, state, val_loader)
+            is_best = stopper.update(dice)
+            jsonl.write({"step": step, "dice": dice, "best": stopper.best,
+                         "loss": logger.meters["loss"].global_avg,
+                         "kernel_launches": launches.take()})
+            print(f"step {step}: val dice={dice:.4f} "
+                  f"(best {stopper.best:.4f})", flush=True)
+            if is_best:
+                save_best(best_path, task.model)
+
+        state, preempted = train_finetune(args, task, state, train_loader,
+                                          stopper, step_fn, validate)
+        if preempted:
+            return None
 
     if os.path.exists(best_path):
         load_reference_state(task.model, load_reference_pth(best_path))

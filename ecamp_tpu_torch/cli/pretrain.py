@@ -115,7 +115,7 @@ def get_args(argv=None):
 
 def refuse_what_is_not_ported(args) -> None:
     """Options of the JAX CLI that the port does not have raise; none is
-    ignored silently (ROADMAP Queue 1 item 8)."""
+    ignored silently (ROADMAP Queue 1, "Not to port")."""
     refused = [
         (args.steps_per_call > 1, "--steps_per_call > 1 (a scan of steps)"),
         (args.shard_optimizer, "--shard_optimizer (ZeRO-1)"),
@@ -129,7 +129,7 @@ def refuse_what_is_not_ported(args) -> None:
         if bad:
             raise NotImplementedError(f"{what} is not ported to "
                                       f"ecamp_tpu_torch (ROADMAP Queue 1, "
-                                      f"item 8)")
+                                      f"\"Not to port\")")
 
 
 def main(argv=None):

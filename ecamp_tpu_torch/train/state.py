@@ -11,6 +11,13 @@ import_ecamp_adamw_state` reads. Under gradient accumulation that layout
 holds the inner AdamW (its step the update count); the open cycle
 (`MultiStepsState.mini_step` and the running mean `acc_grads`) has a
 state dict of its own (`cycle_state_dict`).
+
+`opt_state_dict` / `load_opt_state_dict` round-trip every fine-tune
+optimizer state whole (the fine-tune CLIs' preemption files): SGD's count
+and trace, AdamW's count and moments, and under accumulation the open
+cycle around either. `Masked` keeps state for the trainable leaves only
+and `LayerwiseScaled` none of its own, so the state of either is its
+inner optimizer's.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch
 from torch import nn
 
 from ..kernels.fused_adamw import AdamWState
-from .optim import MultiStepsState
+from .optim import MultiStepsState, SGDState
 
 
 def reference_param_order(params: Mapping[str, torch.Tensor]
@@ -165,3 +172,73 @@ class TrainState:
         return TrainState(step=self.step, params=self.params,
                           opt_state=MultiStepsState(mini, st.inner_opt_state,
                                                     acc))
+
+
+def _leaves_sd(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+
+def opt_state_dict(opt_state) -> Dict[str, Any]:
+    """A fine-tune optimizer state as a dict of CPU tensors, ints and
+    strings, which `torch.load(weights_only=True)` reads: `kind` names the
+    state, the count is an int, and each per-leaf tree is keyed by
+    parameter name."""
+    if isinstance(opt_state, MultiStepsState):
+        return {"kind": "multi_steps", "mini_step": int(opt_state.mini_step),
+                "inner": opt_state_dict(opt_state.inner_opt_state),
+                "acc_grads": _leaves_sd(opt_state.acc_grads)}
+    if isinstance(opt_state, AdamWState):
+        return {"kind": "adamw", "count": int(opt_state.count),
+                "mu": _leaves_sd(opt_state.mu), "nu": _leaves_sd(opt_state.nu)}
+    if isinstance(opt_state, SGDState):
+        return {"kind": "sgd", "count": int(opt_state.count),
+                "trace": _leaves_sd(opt_state.trace)}
+    raise TypeError(f"no state dict for {type(opt_state).__name__}")
+
+
+def _pairs(opt_state, sd: Mapping[str, Any], out: list):
+    """(what, the optimizer's tree, the file's tree) of every per-leaf tree
+    of `opt_state`, after checking that `sd` holds the same kind."""
+    kinds = {MultiStepsState: "multi_steps", AdamWState: "adamw",
+             SGDState: "sgd"}
+    kind = kinds.get(type(opt_state))
+    if kind is None or sd.get("kind") != kind:
+        raise ValueError(f"the file holds a {sd.get('kind')!r} state, the "
+                         f"optimizer a {type(opt_state).__name__}")
+    if kind == "multi_steps":
+        _pairs(opt_state.inner_opt_state, sd["inner"], out)
+        out.append(("acc_grads", opt_state.acc_grads, sd["acc_grads"]))
+    for name in {"adamw": ("mu", "nu"), "sgd": ("trace",)}.get(kind, ()):
+        out.append((name, getattr(opt_state, name), sd[name]))
+    return out
+
+
+def load_opt_state_dict(opt_state, sd: Mapping[str, Any]):
+    """The inverse of `opt_state_dict`: copies `sd` into the tensors of
+    `opt_state` in place (the fused AdamW's pointer table and the running
+    mean stay valid) and returns the state, the count always together with
+    its moments or trace. A different kind, leaf name or shape raises
+    before anything is copied."""
+    pairs = _pairs(opt_state, sd, [])
+    for what, dst, src in pairs:
+        if set(dst) != set(src):
+            raise ValueError(
+                f"{what}: the file's leaves differ from the optimizer's: "
+                f"missing {sorted(set(dst) - set(src))}, unexpected "
+                f"{sorted(set(src) - set(dst))}")
+        for k, t in dst.items():
+            if tuple(src[k].shape) != tuple(t.shape):
+                raise ValueError(f"{what} {k}: shape {tuple(src[k].shape)} "
+                                 f"in the file, {tuple(t.shape)} in the "
+                                 f"optimizer")
+    with torch.no_grad():
+        for _, dst, src in pairs:
+            for k, t in dst.items():
+                t.copy_(src[k])
+        if isinstance(opt_state, MultiStepsState):
+            opt_state.inner_opt_state.count.fill_(int(sd["inner"]["count"]))
+            return MultiStepsState(int(sd["mini_step"]),
+                                   opt_state.inner_opt_state,
+                                   opt_state.acc_grads)
+        opt_state.count.fill_(int(sd["count"]))
+    return opt_state

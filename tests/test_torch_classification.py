@@ -364,15 +364,18 @@ def test_cli_trains_stops_early_and_tests(tmp_path, tiny_cli, capsys,
 
 def test_cli_refuses_what_waits_for_preemption(tmp_path, tiny_cli,
                                                monkeypatch):
+    """`--resume` (the JAX CLI reads it nowhere) and orbax directories
+    raise, naming ROADMAP's "Not to port" list; ECAMP_PREEMPT_AT_STEP is
+    honoured now (`tests/test_torch_finetune_preemption.py` drives it)."""
     base = ["--dataset_path", str(tmp_path), "--device", "cpu",
             "--output_dir", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="--resume"):
+    with pytest.raises(NotImplementedError,
+                       match="--resume .*same --output_dir.*Not to port"):
         tiny_cli.main(base + ["--resume", "x.pth"])
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(NotImplementedError, match="orbax.*Not to port"):
         tiny_cli.main(base + ["--pretrained", str(tmp_path)])
     monkeypatch.setenv("ECAMP_PREEMPT_AT_STEP", "3")
-    with pytest.raises(NotImplementedError, match="ECAMP_PREEMPT_AT_STEP"):
-        tiny_cli.main(base)
+    tiny_cli.refuse_what_is_not_ported(tiny_cli.get_args(base))
 
 
 def test_early_stopper_matches_jax():

@@ -682,8 +682,10 @@ def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
         tmp_path, tiny_cli, monkeypatch):
     """A training split smaller than one batch raises (the JAX CLI would
     spin without a step); the ResNet-50 baseline on RIGA raises (it has
-    one decoder, as in JAX); `--resume` and `ECAMP_PREEMPT_AT_STEP` raise
-    as not ported."""
+    one decoder, as in JAX); `--resume` raises, naming ROADMAP's "Not to
+    port" list (the JAX CLI reads it nowhere: a rerun with the same
+    --output_dir resumes); `ECAMP_PREEMPT_AT_STEP` is honoured, so the
+    empty epoch is what raises under it."""
     from ecamp_tpu_torch.data.synthetic import write_segmentation_corpus
 
     root = write_segmentation_corpus(str(tmp_path / "data"), "SIIM", 3, 2,
@@ -694,11 +696,12 @@ def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
     with pytest.raises(ValueError, match="single-decoder"):
         tiny_cli.main(["--task", "RIGA"] + _cli_args(root, out)
                       + ["--model", "resnet50"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="same --output_dir.*Not to port"):
         tiny_cli.main(["--task", "SIIM", "--resume", "x"]
                       + _cli_args(root, out))
     monkeypatch.setenv("ECAMP_PREEMPT_AT_STEP", "3")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(["--task", "SIIM"] + _cli_args(root, out))
 
 

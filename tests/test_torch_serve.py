@@ -396,4 +396,6 @@ print(len(names), *names)
             "ecamp_tpu_torch.serve.quantize",
             "ecamp_tpu_torch.kernels.int8_linear",
             "ecamp_tpu_torch.core.presets", "ecamp_tpu_torch.core.preemption",
-            "ecamp_tpu_torch.cli.run_preset"} <= set(names[1:])
+            "ecamp_tpu_torch.cli.run_preset", "ecamp_tpu_torch.cli.common",
+            "ecamp_tpu_torch.data.preprocess",
+            "ecamp_tpu_torch.data.split_tools"} <= set(names[1:])
