@@ -81,8 +81,34 @@
    with the max difference); (6d) `python -m
    ecamp_tpu_torch.cli.run_preset pretrain_mimic --batch_size 32 --epochs
    1 --fused_mlm_ce`: the preset's accumulation 8 over 2 micro-steps, 0
-   updates, no AdamW launch. The `pretrain_recipe` JSON line holds 4b's
-   figures and these results.
+   updates, no AdamW launch; (6b), (6c)'s first run and (6d) side by
+   side. The `pretrain_recipe` JSON line holds 4b's figures and these
+   results.
+6e. Data-parallel pretraining (`dp_phase`), at full width, bf16, dropout
+   off, injected noise, AdamW lr 1.5e-4: one process at B = 32 on a seeded
+   global batch for 3 steps (the reference), then `torchrun` of this
+   script's `--dp-worker` mode: on two or more cards 2 NCCL ranks of B =
+   16, on one card NCCL at world size 1 (B = 32) and 2 gloo ranks of B =
+   16 sharing the card. Each: (a) every step's losses within 2e-2, the
+   first averaged gradient's norm and the 3 steps' parameter update's norm
+   within 5% of the reference's (the update's cosine printed), the
+   materialised step's launches a step on every rank; (b) a ZeRO-1 AdamW
+   fed the same averaged gradients after every step equal to plain data
+   parallelism's parameters bit for bit; (c) the ranks' parameter
+   checksums equal; at 2 ranks a ZeRO-1 run: (d) each rank's peak memory
+   with and without ZeRO-1, the saving within 10% of the moments' share
+   it drops; (e) ZeRO-1 preempted at step 2 (the ranks agree), saved,
+   loaded by a new task on every rank (the loaded parameters, moment
+   pieces and count equal the saved ones bit for bit) and resumed, its
+   loss within 2e-2 of the uninterrupted run's; host ms a step. The step
+   itself is not bit-reproducible on the card (its upsample and scatter
+   backwards add atomically): ZeRO-1 is held to plain data parallelism
+   bit for bit on the same averaged gradients, and two runs' parameters
+   are compared by distance (printed). Then `torchrun -m ecamp_tpu_torch.cli.pretrain
+   --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) of B =
+   16 for an epoch of 6's corpus: one log line, rank 0's, with every
+   kernel's launches a micro-step, and whole moments in its checkpoint.
+   The `data_parallel` JSON line holds the figures.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
    momentum 0.9, lr 3e-2, warmup 50, clip 1.0, drop-path 0.1), after the
@@ -104,9 +130,10 @@
    variable: the resume line, the test line, `preempt/` gone; the
    validations, the test metric and the best `.pth` against (c)'s: bit for
    bit, or, where they are not, within PREEMPT_SPREAD times the distance
-   of (c)'s command run once more uninterrupted (the segmentation and
-   detection runs do not repeat bit for bit on the card; their repeat runs
-   beside the resumed run, started once that has timed its read); which
+   of (c)'s command run once more uninterrupted, run only where they are
+   not (the segmentation and detection runs repeat bit for bit on the
+   card since their align-corners upsample's backward is two products,
+   not `F.interpolate`'s atomic adds: `tools/repeat_probe.py`); which
    held is printed; each validation's launches as (c) counts them (from the
    resume, after it), the save's, the resume's and the phase's seconds
    and the file's bytes.
@@ -221,7 +248,9 @@
 14. Per-bucket p50 latency and the device time of a bucket-64 call, JSON
    lines of the results, of every kernel shape timed, of each phase's end
    (seconds after the build, `phase_end_seconds`; also printed as each
-   phase ends) and of the kernels and, last, the device line.
+   phase ends) and of the kernels (with each kernel's launches in (6e)'s
+   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`) and,
+   last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
 at once; it never runs on the CPU.
@@ -270,6 +299,10 @@ RECIPE_B = 256
 RECIPE_ACCUM = 8     # micro-steps an update
 ACCUM_HALF_B = 16    # two micro-steps of this against one step of PRE_B
 ACCUM_TOL = 1e-2     # their mean gradient against the whole's, relative L2
+DP_STEPS = 3         # data-parallel steps of (6e)
+DP_PREEMPT_AT = 2    # (6e): the ranks stop after this step
+DP_B = 16            # rows a rank of the torchrun CLI run
+DP_TIMEOUT = 300     # seconds for one torchrun launch
 # the fine-tune: recipe cls_ft_ChestX-ray14_1 (ecamp_tpu/core/presets.py:
 # 32-48): batch 96, SGD momentum 0.9, lr 3e-2, warmup 50 of 3000 steps,
 # clip 1.0, drop-path 0.1, ViT-B/16 at 224, 14 multilabel findings
@@ -1895,7 +1928,9 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
     lie within PREEMPT_TOL of each leaf's movement from the initial
     weights. (6d) `python -m ecamp_tpu_torch.cli.run_preset pretrain_mimic`
     with B = PRE_B, 1 epoch: the preset's accumulation (8) over 2
-    micro-steps, 0 updates, no AdamW launch."""
+    micro-steps, 0 updates, no AdamW launch. (6b), (6c)'s preempted run
+    and (6d) start together, (6c)'s resume once its preempted run has
+    ended: each process counts its own launches."""
     import numpy as np
     import torch
 
@@ -1909,22 +1944,39 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
     env = {k: v for k, v in os.environ.items()
            if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
 
-    def run(tag, args, out, extra_env=None):
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", *args], cwd=repo,
-                           capture_output=True, text=True,
-                           timeout=CLI_TIMEOUT, env={**env,
-                                                     **(extra_env or {})})
-        check(r.returncode == 0, f"({tag}) {args} exited {r.returncode}:\n"
-              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    procs = []
+
+    def start(args, extra_env=None):
+        """`python -m args` in the background, its output in a file."""
+        f = tempfile.TemporaryFile("w+")
+        p = subprocess.Popen([sys.executable, "-m", *args], cwd=repo,
+                             stdout=f, stderr=subprocess.STDOUT, text=True,
+                             env={**env, **(extra_env or {})})
+        procs.append(p)
+        return args, p, f, time.perf_counter()
+
+    def finish(tag, run, out):
+        """Wait for a `start`ed run (CLI_TIMEOUT from its start); its
+        output and the records of `out`/log.txt."""
+        args, p, f, t = run
+        try:
+            p.wait(timeout=max(1.0, CLI_TIMEOUT - (time.perf_counter() - t)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        f.seek(0)
+        printed = f.read()
+        f.close()
+        check(p.returncode == 0, f"({tag}) {args} exited {p.returncode}:\n"
+              f"{printed[-6000:]}")
         log = os.path.join(out, "log.txt")
         recs = []
         if os.path.exists(log):
-            with open(log) as f:
-                recs = [json.loads(line) for line in f]
+            with open(log) as fl:
+                recs = [json.loads(line) for line in fl]
         print(f"  ({tag}) {' '.join(args[1:])}: "
               f"{time.perf_counter() - t:.1f} s")
-        return r.stdout, recs
+        return printed, recs
 
     def pretrain(out, *extra):
         return ["ecamp_tpu_torch.cli.pretrain", "--data_path", data,
@@ -1961,36 +2013,60 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
     def load(path):
         return torch.load(path, map_location="cpu", weights_only=True)
 
-    # (6b)
     out_b = os.path.join(work, "accum_out")
-    _, recs_b = run("6b", pretrain(out_b), out_b)
-    updates = check_epochs("6b", recs_b, [0, 1], CLI_ACCUM)
-    final_b = load(os.path.join(out_b, "checkpoint-1.pth"))
-    steps_b = {int(s["step"]) for s in final_b["optimizer"]["state"].values()}
-    check(final_b["epoch"] == 1 and steps_b == {updates},
-          f"(6b) checkpoint-1: epoch {final_b['epoch']}, AdamW steps "
-          f"{steps_b} for {updates} updates")
-    cycle_b = final_b.get("accum_cycle")
-
-    # (6c)
     out_c = os.path.join(work, "preempt_out")
+    out_d = os.path.join(work, "preset_out")
     at = CLI_PREEMPT_AT
-    printed, recs_c = run("6c", pretrain(out_c), out_c,
-                          {"ECAMP_PREEMPT_AT_STEP": str(at)})
-    mid = os.path.join(out_c, f"checkpoint-step-{at}.pth")
-    epoch, skip = divmod(at, steps)
-    msg = (f"preemption checkpoint saved @ step {at} (epoch {epoch}); "
-           f"resume with --resume {mid} [injected @ {at}]")
-    check(msg in printed, f"(6c) no '{msg}' in:\n{printed[-2000:]}")
-    check_epochs("6c", recs_c, list(range(epoch)), CLI_ACCUM)
-    saved = load(mid)
-    check(saved["step"] == at and "epoch" not in saved
-          and saved["accum_cycle"]["mini_step"] == at % CLI_ACCUM,
-          f"(6c) {mid}: step {saved.get('step')}, cycle "
-          f"{saved.get('accum_cycle', {}).get('mini_step')}")
-    del saved
-    printed, recs_c = run("6c resume", pretrain(out_c, "--resume", mid),
-                          out_c)
+    try:
+        run_b = start(pretrain(out_b))
+        run_c = start(pretrain(out_c), {"ECAMP_PREEMPT_AT_STEP": str(at)})
+        run_d = start(["ecamp_tpu_torch.cli.run_preset", "pretrain_mimic",
+                       "--data_path", data, "--batch_size", str(PRE_B),
+                       "--epochs", "1", "--fused_mlm_ce", "--output_dir",
+                       out_d])
+
+        # (6b)
+        _, recs_b = finish("6b", run_b, out_b)
+        updates = check_epochs("6b", recs_b, [0, 1], CLI_ACCUM)
+        final_b = load(os.path.join(out_b, "checkpoint-1.pth"))
+        steps_b = {int(s["step"])
+                   for s in final_b["optimizer"]["state"].values()}
+        check(final_b["epoch"] == 1 and steps_b == {updates},
+              f"(6b) checkpoint-1: epoch {final_b['epoch']}, AdamW steps "
+              f"{steps_b} for {updates} updates")
+        cycle_b = final_b.get("accum_cycle")
+
+        # (6c)
+        printed, recs_c = finish("6c", run_c, out_c)
+        mid = os.path.join(out_c, f"checkpoint-step-{at}.pth")
+        epoch, skip = divmod(at, steps)
+        msg = (f"preemption checkpoint saved @ step {at} (epoch {epoch}); "
+               f"resume with --resume {mid} [injected @ {at}]")
+        check(msg in printed, f"(6c) no '{msg}' in:\n{printed[-2000:]}")
+        check_epochs("6c", recs_c, list(range(epoch)), CLI_ACCUM)
+        saved = load(mid)
+        check(saved["step"] == at and "epoch" not in saved
+              and saved["accum_cycle"]["mini_step"] == at % CLI_ACCUM,
+              f"(6c) {mid}: step {saved.get('step')}, cycle "
+              f"{saved.get('accum_cycle', {}).get('mini_step')}")
+        del saved
+        run_c = start(pretrain(out_c, "--resume", mid))
+
+        # (6d), beside (6c)'s resume
+        _, recs_d = finish("6d", run_d, out_d)
+        accum = PRESETS["pretrain_mimic"]["args"]["accum_iter"]
+        check_epochs("6d", recs_d, [0], accum)
+        check(recs_d[0]["updates"] == 0
+              and recs_d[0]["kernel_launches"]["adamw"] == 0,
+              f"(6d) {recs_d[0]['updates']} updates")
+        shutil.rmtree(out_d, ignore_errors=True)
+
+        printed, recs_c = finish("6c resume", run_c, out_c)
+    finally:
+        for p in procs:  # a failed check leaves no run behind
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     check(f"resuming at epoch {epoch}, batch {skip}" in printed,
           f"(6c) the resume did not report epoch {epoch}, batch {skip}")
     check_epochs("6c resume", recs_c[epoch:], list(range(epoch, 2)),
@@ -2030,19 +2106,6 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
     del final_b, final_c, init
     shutil.rmtree(out_b, ignore_errors=True)
     shutil.rmtree(out_c, ignore_errors=True)
-
-    # (6d)
-    out_d = os.path.join(work, "preset_out")
-    accum = PRESETS["pretrain_mimic"]["args"]["accum_iter"]
-    _, recs_d = run("6d", ["ecamp_tpu_torch.cli.run_preset", "pretrain_mimic",
-                           "--data_path", data, "--batch_size", str(PRE_B),
-                           "--epochs", "1", "--fused_mlm_ce",
-                           "--output_dir", out_d], out_d)
-    check_epochs("6d", recs_d, [0], accum)
-    check(recs_d[0]["updates"] == 0
-          and recs_d[0]["kernel_launches"]["adamw"] == 0,
-          f"(6d) {recs_d[0]['updates']} updates")
-    shutil.rmtree(out_d, ignore_errors=True)
     return {"accum": {"epochs": recs_b, "updates": updates},
             "preemption": {"at_step": at, "epoch": epoch, "batch": skip,
                            "cycle_micro_step": at % CLI_ACCUM,
@@ -2052,9 +2115,551 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
                        "epochs": recs_d}}
 
 
+def _run_group(cmd, env, timeout, what):
+    """Run `cmd` (a launcher and its ranks) from the repository root in a
+    process group of its own; on a timeout kill the whole group. Returns
+    its stdout and stderr; a non-zero exit fails the check."""
+    import signal
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        check(False, f"{what} outlived {timeout} s:\n{out[-3000:]}\n"
+              f"{err[-3000:]}")
+    check(p.returncode == 0, f"{what} exited {p.returncode}:\n"
+          f"{out[-3000:]}\n{err[-3000:]}")
+    return out, err
+
+
+def _torchrun(n: int, port: int) -> list:
+    return [sys.executable, "-m", "torch.distributed.run",
+            f"--nproc_per_node={n}", "--master_addr=127.0.0.1",
+            f"--master_port={port}"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_config(shard: bool):
+    from ecamp_tpu_torch.core.config import (MeshConfig, OptimizerConfig,
+                                             PretrainConfig)
+
+    return PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
+                                                    lr=1.5e-4),
+                          mesh=MeshConfig(shard_optimizer=shard), seed=SEED)
+
+
+def _dp_inputs(cfg, device):
+    """The global batch of PRE_B rows and its masking noise, from a seed:
+    the same on every rank and in the one-process reference."""
+    import torch
+
+    from ecamp_tpu_torch.train.pretrain import synthetic_batch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    batch = synthetic_batch(cfg, PRE_B, gen)
+    noise = torch.rand(PRE_B, cfg.vit.num_patches, device=device,
+                       generator=gen)
+    return batch, noise
+
+
+def _not_key_bias(name: str, p):
+    """False on the attention key biases' elements (BERT's `key.bias`, the
+    middle third of a fused `qkv.bias`): softmax is invariant to them, so
+    their gradient is rounding noise that AdamW turns into lr-sized steps
+    of either sign on any two runs that round differently."""
+    import torch
+
+    keep = torch.ones_like(p, dtype=torch.bool)
+    if name.endswith("key.bias"):
+        keep[:] = False
+    elif name.endswith("qkv.bias"):
+        d = p.numel() // 3
+        keep[d:2 * d] = False
+    return keep
+
+
+def dp_worker(spec: dict) -> int:
+    """One rank of `dp_phase`'s torchrun launch (`chip_smoke.py --dp-worker
+    SPEC`): the full-width `PretrainTask` on this rank's PRE_B / ranks rows
+    of the seeded global batch, injected noise, dropout off, bf16, AdamW
+    lr 1.5e-4, DP_STEPS steps a run, the kernel launch counters set to 0
+    before a run and read after it, host ms a step, each run's peak
+    device memory. Run "plain": plain data parallelism, the first averaged
+    gradient's norm, the parameter update against the one-process
+    reference's (spec["ref"]); beside it a ZeRO-1 AdamW over a copy of the
+    parameters takes the same averaged gradients after every step, and
+    its parameters are compared with the task's bit for bit (b) (its copy
+    and optimizer state, allocated before the steps, are left out of the
+    peak, as is what the comparisons hold). The step's backward is not
+    bit-reproducible on the card (its upsample and scatter backwards add
+    atomically), so two runs are compared by distance. Run "zero1", at two
+    or more ranks (at one, ZeRO-1 keeps every moment): ZeRO-1 with
+    ECAMP_PREEMPT_AT_STEP = DP_PREEMPT_AT and the ranks agreeing every step
+    (e): the guard stops
+    every rank there, `save_preemption_checkpoint` (rank 0 writes the
+    gathered moments), a new task on every rank loads the file (its share
+    of the moments), the loaded state is compared with the saved one, and
+    the run takes its remaining steps; its parameters' distance from
+    "plain" is the spread of two runs. Writes its results as JSON to
+    spec["out"] with the rank's number; a failed check exits non-zero."""
+    import gc
+
+    import torch
+
+    from ecamp_tpu_torch.ckpt.checkpoint import (load_checkpoint,
+                                                 load_model_state,
+                                                 save_preemption_checkpoint)
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.core.preemption import PreemptionGuard
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.kernels import sr_head as sr
+    from ecamp_tpu_torch.train.optim import make_optimizer
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(distributed.initialize_distributed("cuda"),
+          "no launcher environment")
+    rank, world = distributed.rank(), distributed.world_size()
+    dev = distributed.rank_device("cuda")
+    b = PRE_B // world
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "sr_conv_stack": sr.launches,
+                "sr_conv_stack_tma": sr.launches_tma, "adamw": adamw.launches}
+    batch, noise = _dp_inputs(_dp_config(False), dev)
+    local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+    ref = torch.load(spec["ref"], map_location=dev, weights_only=True)
+
+    def build(shard):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return PretrainTask(_dp_config(shard), device=dev)
+
+    class Shadow:
+        """A copy of the task's parameters in its flat layout, and a ZeRO-1
+        AdamW over it that takes the task's averaged gradients."""
+
+        def __init__(self, task):
+            self.layout = task.dp.layout
+            self.params_flat = task.dp.params_flat.clone()
+            self.params = {k: self.layout.view(self.params_flat, k)
+                           for k, _ in task.model.named_parameters()}
+            self.tx = make_optimizer(
+                task.cfg.optimizer, zero1=distributed.Zero1(
+                    self.layout, rank, self))
+            self.state = self.tx.init(self.params)
+
+        def exchange_params_(self):
+            distributed.broadcast_spans_(self.params_flat, self.layout)
+
+        def step(self, task):
+            before = adamw.launches.value
+            self.state = self.tx.apply(
+                self.params, {k: p.grad for k, p in
+                              task.model.named_parameters()}, self.state)
+            return adamw.launches.value - before
+
+    def steps(task, state, n, guard=None, shadow=None):
+        times, losses, gnorm, equal, extra = [], [], None, [], 0
+        for _ in range(n):
+            t = time.perf_counter()
+            state, m = task.train_step(state, local, noise=noise,
+                                       deterministic=True)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+            if gnorm is None:
+                gnorm = float(adamw.global_norm(
+                    [p.grad for p in state.params.values()]))
+            if shadow is not None:
+                extra += shadow.step(task)
+                equal.append(bool(torch.equal(shadow.params_flat,
+                                              task.dp.params_flat)))
+            if guard is not None and guard.should_save(task.step):
+                break
+        return state, {"losses": losses, "step_ms": times,
+                       "grad_norm": gnorm, "zero1_bit_equal": equal,
+                       "shadow_launches": extra}
+
+    def snap(params):
+        """A copy on the card (the comparisons run there, not on the
+        host's cores, which the ranks share)."""
+        return {k: p.detach().clone() for k, p in params.items()}
+
+    def finish(out):
+        with open(f"{spec['out']}{rank}.json", "w") as f:
+            json.dump(out, f)
+        distributed.shutdown_distributed()
+        return 0
+
+    def distance(a, c):
+        """(max |a - c|, L2 of a - c) over every parameter."""
+        mx = l2 = 0.0
+        for k, p in a.items():
+            d = (p - c[k]).double().abs()
+            if d.numel():  # a moment piece is empty outside the rank's span
+                mx, l2 = max(mx, float(d.max())), l2 + float((d * d).sum())
+        return mx, l2 ** 0.5
+
+    out = {"rank": rank, "world": world,
+           "backend": torch.distributed.get_backend(),
+           "rows": b, "card": torch.cuda.get_device_name(dev),
+           "leaves": len(ref)}
+
+    def start(task):
+        """Reset the peak memory and the launch counters."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for ctr in counters.values():
+            ctr.reset()
+
+    # "plain": plain data parallelism with the ZeRO-1 shadow beside it; the
+    # memory the comparisons hold outside the task stays out of its peak
+    outside = torch.cuda.memory_allocated(dev)
+    task = build(False)
+    state = task.init_state()
+    before = torch.cuda.memory_allocated(dev)
+    init = snap(state.params)
+    shadow = Shadow(task)
+    aside = torch.cuda.memory_allocated(dev) - before  # the copy, the shadow
+    start(task)
+    state, res = steps(task, state, DP_STEPS, shadow=shadow)
+    launches = {k: ctr.value for k, ctr in counters.items()}
+    launches["adamw"] -= res.pop("shadow_launches")
+    plain = snap(state.params)
+    # (a): the update against the one-process run's
+    dot = nd = nr = diff = 0.0
+    for k, p in plain.items():
+        keep = _not_key_bias(k, p)
+        du = (p - init[k])[keep].double()
+        dr = (ref[k] - init[k])[keep].double()
+        dot += float((du * dr).sum())
+        nd += float((du * du).sum())
+        nr += float((dr * dr).sum())
+        diff += float(((du - dr) ** 2).sum())
+    out["plain"] = dict(
+        res, launches=launches, aside_bytes=aside,
+        peak_bytes=torch.cuda.max_memory_allocated(dev) - outside - aside,
+        moment_elements=sum(t.numel() for t in state.opt_state.mu.values()),
+        update_norm=nd ** 0.5, ref_update_norm=nr ** 0.5,
+        update_cosine=dot / (nd * nr) ** 0.5, update_rel_l2=(diff / nr) ** 0.5,
+        bit_equal_to_one_process=all(torch.equal(p, ref[k])
+                                     for k, p in plain.items()))
+    out["checksum"] = float(sum(p.double().sum() for p in plain.values()))
+    del task, state, shadow
+    gc.collect()
+    if world == 1:  # one rank: ZeRO-1 keeps every moment; (e) runs at 2
+        return finish(out)
+
+    # "zero1": ZeRO-1, preempted at DP_PREEMPT_AT (e), resumed from the file
+    outside = torch.cuda.memory_allocated(dev)
+    os.environ["ECAMP_PREEMPT_AT_STEP"] = str(DP_PREEMPT_AT)
+    guard = PreemptionGuard(sync_every=1)
+    del os.environ["ECAMP_PREEMPT_AT_STEP"]
+    try:
+        task = build(True)
+        state = task.init_state()
+        start(task)
+        state, res = steps(task, state, DP_STEPS, guard)
+    finally:
+        guard.uninstall()
+    check(task.step == DP_PREEMPT_AT,
+          f"(e) rank {rank} stopped at step {task.step}")
+    peak = torch.cuda.max_memory_allocated(dev) - outside
+    moments = sum(t.numel() for t in state.opt_state.mu.values())
+    saved = [snap(state.params), snap(state.opt_state.mu),
+             snap(state.opt_state.nu)]
+    t = time.perf_counter()
+    path = save_preemption_checkpoint(spec["work"], task.step, task.model,
+                                      state, task.cfg.optimizer.weight_decay)
+    save_s = time.perf_counter() - t
+    del task, state
+    task = build(True)
+    state = task.init_state()
+    t = time.perf_counter()
+    ck = load_checkpoint(path)
+    load_model_state(task.model, ck["model"])
+    state = state.load_optimizer_state_dict(ck["optimizer"])
+    state.step = torch.full_like(state.step, int(ck["step"]))
+    task.step = int(ck["step"])
+    load_s = time.perf_counter() - t
+    # the resume restores what was saved: the parameters, this rank's
+    # moment pieces and the count, bit for bit
+    loaded = [snap(state.params), snap(state.opt_state.mu),
+              snap(state.opt_state.nu)]
+    restored = [distance(a, c) for a, c in zip(loaded, saved)]
+    count = int(state.opt_state.count)
+    state, after = steps(task, state, DP_STEPS - task.step)
+    out["zero1"] = {
+        "losses": res["losses"] + after["losses"],
+        "step_ms": res["step_ms"] + after["step_ms"],
+        "grad_norm": res["grad_norm"],
+        "launches": {k: ctr.value for k, ctr in counters.items()},
+        "peak_bytes": peak, "moment_elements": moments}
+    # the resumed run against the plain one: the spread of two runs of the
+    # same function on the card (ZeRO-1 changes no bit of it, (b))
+    out["repeat_distance"] = distance(snap(state.params), plain)
+    out["preempt"] = {"at": DP_PREEMPT_AT, "reason": guard.reason,
+                      "save_s": save_s, "load_s": load_s,
+                      "restored_distance": restored, "count": count}
+    del task, state
+    return finish(out)
+
+
+def dp_zero1_checks(r: dict, who: str, n: int, launches: dict,
+                    moment_bytes: int) -> None:
+    """`dp_phase`'s checks of one rank's ZeRO-1 run (preempted at
+    DP_PREEMPT_AT and resumed): its launches, its share of the moments,
+    (d) its peak against plain's, (e) the restored state and the losses."""
+    from ecamp_tpu_torch.core.distributed import ALIGN
+
+    z, plain = r["zero1"], r["plain"]
+    check(z["launches"] == launches,
+          f"{who} ZeRO-1 launches {z['launches']} != {launches}")
+    # a rank's span is 1/n of the flat layout, which pads every leaf to
+    # ALIGN elements
+    check(abs(z["moment_elements"] * n - plain["moment_elements"])
+          <= n * ALIGN * r["leaves"],
+          f"(b) {who}: {z['moment_elements']} moment elements of "
+          f"{plain['moment_elements']}")
+    saving = plain["peak_bytes"] - z["peak_bytes"]
+    want = moment_bytes * (1 - 1 / n)
+    check(abs(saving - want) <= 0.1 * moment_bytes,
+          f"(d) {who}: ZeRO-1 saved {saving} bytes of peak, expected "
+          f"{want:.0f}")
+    # (e): the resume restores the saved state bit for bit; the steps are
+    # (a)'s, whose runs on the card differ by a repeat's spread (printed),
+    # so the losses are held to plain's by (a)'s bound
+    pre = r["preempt"]
+    check(pre["restored_distance"] == [[0.0, 0.0]] * 3
+          and pre["count"] == DP_PREEMPT_AT,
+          f"(e) {who}: restored (params, mu, nu) {pre['restored_distance']} "
+          f"from the saved state, count {pre['count']}")
+    for i, (got, ref) in enumerate(zip(z["losses"], plain["losses"])):
+        check(abs(got["loss"] - ref["loss"]) <= LOSS_TOL * abs(ref["loss"]),
+              f"(e) {who}: step {i} of the preempted and resumed ZeRO-1 "
+              f"run, loss {got['loss']:.6g} against plain "
+              f"{ref['loss']:.6g}")
+
+
+def dp_phase(card: str, per_step: dict, cli_per_step: dict,
+             work: str) -> dict:
+    """Data-parallel pretraining (`torchrun`, `core/distributed.py`) at full
+    width. First one process at B = PRE_B on the seeded global batch
+    (DP_STEPS steps, the reference); then `dp_worker` under torchrun: on
+    two or more cards 2 NCCL ranks, on one card NCCL at world size 1 and 2
+    gloo ranks sharing the card (NCCL takes one rank a card). Each launch:
+    (a) the losses of every step within LOSS_TOL and the first averaged
+    gradient's norm within GNORM_TOL of the reference's, the parameter
+    update's norm within GNORM_TOL of its, `per_step` launches a step of
+    every kernel on every rank; (b) a ZeRO-1 AdamW on plain data
+    parallelism's averaged gradients equal to its update bit for bit after
+    every step; (c) the ranks' parameter checksums equal; at two ranks a
+    ZeRO-1 run too (`dp_zero1_checks`): 1/ranks of the moment elements a
+    rank, (d) each rank's peak memory with and without ZeRO-1, the saving
+    within 10% of the moments' share it drops, (e) the run stopped at
+    DP_PREEMPT_AT on every rank, its resume restoring the saved
+    parameters, moment pieces and count bit for bit, every step's loss
+    within LOSS_TOL of plain's (the step is not bit-reproducible on the
+    card; the runs' distance is printed).
+    Then `torchrun -m ecamp_tpu_torch.cli.pretrain --shard_optimizer
+    --fused_mlm_ce` on 2 ranks (gloo on one card) at DP_B a rank for an
+    epoch of `cli_phase`'s corpus: one log line, from rank 0, with
+    `cli_per_step` launches a micro-step, and a checkpoint whose moments
+    are whole. Returns the `data_parallel` JSON line's content."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    task = PretrainTask(_dp_config(False), device="cuda")
+    n_params = sum(p.numel() for p in task.model.parameters())
+    batch, noise = _dp_inputs(task.cfg, task.device)
+    state = task.init_state()
+    ref = {"losses": [], "step_ms": []}
+    for i in range(DP_STEPS):
+        t = time.perf_counter()
+        state, m = task.train_step(state, batch, noise=noise,
+                                   deterministic=True)
+        torch.cuda.synchronize()
+        ref["step_ms"].append((time.perf_counter() - t) * 1e3)
+        ref["losses"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            ref["grad_norm"] = float(adamw.global_norm(
+                [p.grad for p in state.params.values()]))
+    ref_path = os.path.join(work, "dp_reference.pt")
+    torch.save({k: p.detach().cpu() for k, p in state.params.items()},
+               ref_path)
+    del task, state, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"data parallel on {card}: one process at B = {PRE_B} (the "
+          f"reference), {DP_STEPS} steps: losses "
+          f"{[round(r['loss'], 5) for r in ref['losses']]}, grad norm "
+          f"{ref['grad_norm']:.6g}, step ms "
+          f"{[round(t, 1) for t in ref['step_ms']]}")
+
+    cards = torch.cuda.device_count()
+    # the backend follows from ranks and cards: NCCL where every rank has a
+    # card of its own, gloo where ranks share one
+    plan = [2] if cards >= 2 else [1, 2]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
+    moment_bytes = 2 * 4 * n_params
+    runs = {}
+    for n in plan:
+        backend = "nccl" if n <= cards else "gloo"
+        tag = f"{backend}{n}"
+        spec = {"work": os.path.join(work, tag),
+                "ref": ref_path, "out": os.path.join(work, f"dp_{tag}_rank")}
+        os.makedirs(spec["work"], exist_ok=True)
+        t = time.perf_counter()
+        _run_group(_torchrun(n, _free_port())
+                   + [os.path.abspath(__file__), "--dp-worker",
+                      json.dumps(spec)], env, DP_TIMEOUT,
+                   f"torchrun {n} x {backend}")
+        wall = time.perf_counter() - t
+        res = []
+        for r in range(n):
+            with open(f"{spec['out']}{r}.json") as f:
+                res.append(json.load(f))
+        for r in res:
+            who = f"{tag} rank {r['rank']}"
+            check(r["backend"] == backend,
+                  f"{who}: backend {r['backend']}, expected {backend}")
+            for i, (got, want) in enumerate(zip(r["plain"]["losses"],
+                                                ref["losses"])):
+                for k in ("loss", "mim_loss", "res_loss", "mlm_loss"):
+                    rel = abs(got[k] - want[k]) / abs(want[k])
+                    check(np.isfinite(got[k]) and rel <= LOSS_TOL,
+                          f"(a) {who} step {i} {k} {got[k]:.6g} against "
+                          f"{want[k]:.6g}")
+            g = r["plain"]["grad_norm"]
+            check(abs(g - ref["grad_norm"]) <= GNORM_TOL * ref["grad_norm"],
+                  f"(a) {who} grad norm {g:.6g} against "
+                  f"{ref['grad_norm']:.6g}")
+            u, ur = r["plain"]["update_norm"], r["plain"]["ref_update_norm"]
+            check(abs(u - ur) <= GNORM_TOL * ur,
+                  f"(a) {who} update norm {u:.6g} against {ur:.6g}")
+            want = {k: v * DP_STEPS for k, v in per_step.items()}
+            check(r["plain"]["launches"] == want,
+                  f"{who} launches {r['plain']['launches']} != {want}")
+            check(r["plain"]["zero1_bit_equal"] == [True] * DP_STEPS,
+                  f"(b) {who}: ZeRO-1 on the same gradients differs from "
+                  f"plain DP after steps {r['plain']['zero1_bit_equal']}")
+            if "zero1" in r:
+                dp_zero1_checks(r, who, n, want, moment_bytes)
+        check(len({r["checksum"] for r in res}) == 1,
+              f"(c) {tag}: checksums {[r['checksum'] for r in res]}")
+        shutil.rmtree(spec["work"], ignore_errors=True)
+        r0 = res[0]
+        runs[tag] = {
+            "backend": backend, "ranks": n, "rows_a_rank": r0["rows"],
+            "launch_s": wall,
+            "losses": [x["loss"] for x in r0["plain"]["losses"]],
+            "grad_norm": r0["plain"]["grad_norm"],
+            "update_cosine": r0["plain"]["update_cosine"],
+            "update_rel_l2": r0["plain"]["update_rel_l2"],
+            "bit_equal_to_one_process":
+                r0["plain"]["bit_equal_to_one_process"],
+            "zero1_shadow_bit_equal": r0["plain"]["zero1_bit_equal"],
+            "checksum": r0["checksum"]}
+        runs[tag].update({f: {run: [x[run][f] for x in res]
+                              for run in ("plain", "zero1") if run in r0}
+                          for f in ("step_ms", "peak_bytes", "launches")})
+        if "zero1" in r0:
+            runs[tag].update(repeat_distance=r0["repeat_distance"],
+                             preempt=r0["preempt"])
+        scaling = ("" if backend == "nccl" and n > 1 else
+                   "; no scaling figure: "
+                   + ("one rank" if n == 1 else "the ranks share one card"))
+        print(f"  {n} rank(s), {backend}, {r0['rows']} rows a rank: step ms "
+              f"{runs[tag]['step_ms']}{scaling}; losses "
+              f"{[round(x, 5) for x in runs[tag]['losses']]}, grad norm "
+              f"{r0['plain']['grad_norm']:.6g}, update cosine "
+              f"{r0['plain']['update_cosine']:.6f} (rel L2 "
+              f"{r0['plain']['update_rel_l2']:.4g}), bit-equal to one "
+              f"process: {r0['plain']['bit_equal_to_one_process']}; peak "
+              f"bytes {runs[tag]['peak_bytes']}; ZeRO-1 on the same "
+              f"gradients bit-equal; checksums equal; {wall:.1f} s")
+        if "zero1" in r0:
+            pre = r0["preempt"]
+            print(f"    ZeRO-1 preempted at {DP_PREEMPT_AT} ({pre['reason']}; "
+                  f"save {pre['save_s']:.2f} s, load {pre['load_s']:.2f} s), "
+                  f"the saved state restored bit for bit, resumed: (max, "
+                  f"L2) {r0['repeat_distance']} from the plain run")
+
+    # the entry point itself: torchrun -m ecamp_tpu_torch.cli.pretrain
+    n = 2
+    backend = "nccl" if n <= cards else "gloo"
+    out = os.path.join(work, "dp_cli")
+    cmd = (_torchrun(n, _free_port())
+           + ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
+              os.path.join(work, "mimic"), "--fused_mlm_ce",
+              "--shard_optimizer", "--batch_size", str(DP_B), "--epochs",
+              "1", "--output_dir", out, "--seed", str(SEED),
+              "--print_freq", "1"])
+    t = time.perf_counter()
+    printed, _ = _run_group(cmd, env, DP_TIMEOUT, "torchrun cli.pretrain")
+    cli_s = time.perf_counter() - t
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = CLI_IMAGES // (n * DP_B)
+    want = {k: v * steps for k, v in cli_per_step.items()}
+    check(len(recs) == 1 and recs[0]["epoch"] == 0,
+          f"CLI log lines {recs}: rank 0 alone writes one an epoch")
+    rec = recs[0]
+    check(all(np.isfinite(rec[k]) for k in ("loss", "mim_loss", "res_loss",
+                                             "mlm_loss")),
+          f"CLI: non-finite loss {rec}")
+    check(rec["kernel_launches"] == want,
+          f"CLI launches {rec['kernel_launches']} != {want}")
+    check(rec["micro_steps"] == steps and rec["updates"] == steps,
+          f"CLI micro-steps {rec['micro_steps']}, updates {rec['updates']}")
+    ck = torch.load(os.path.join(out, "checkpoint-0.pth"), weights_only=True)
+    whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
+                .values())
+    check(whole == n_params, f"CLI checkpoint: {whole} moment elements")
+    del ck
+    shutil.rmtree(out, ignore_errors=True)
+    os.remove(ref_path)
+    print(f"  torchrun --nproc_per_node={n} -m ecamp_tpu_torch.cli.pretrain "
+          f"--shard_optimizer --fused_mlm_ce ({backend}), {DP_B} a rank: "
+          f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
+          f"max_mem_mb {rec['max_mem_mb']:.1f}, whole moments in "
+          f"checkpoint-0.pth; {cli_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"reference": ref, "runs": runs,
+            "predicted_saving_bytes": moment_bytes / 2,
+            "cli": {"backend": backend, "ranks": n, "rows_a_rank": DP_B,
+                    "log": rec, "seconds": cli_s},
+            "seconds": time.perf_counter() - t_phase}
+
+
 def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
                   per_step: dict, n_eval: int, metric: str,
-                  test_key: str, marker: str, repeat: bool = False) -> dict:
+                  test_key: str, marker: str) -> dict:
     """(7e), (8e), (9e): the (c) step's fine-tune command `cmd` again in a
     fresh --output_dir with ECAMP_PREEMPT_AT_STEP at the second epoch's
     second micro-step (mid-epoch, after the first validation, so the early
@@ -2067,8 +2672,8 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
     PREEMPT_SPREAD times the spread of `cmd` run once more uninterrupted
     (the best .pth's L2 distance; the largest metric difference of that
     repeat and of (e)'s validations before the save): a run whose
-    gradients go through `F.interpolate`'s backward (atomic adds) or a
-    nondeterministic cuDNN algorithm does not repeat itself. The launches
+    gradients go through an atomic backward (`F.interpolate`'s, or a
+    nondeterministic cuDNN algorithm's) does not repeat itself. The launches
     of each validation line as (c) counts them, the first after the resume
     counting from the resume. Returns the figures, the save's and the
     resume's seconds and the file's bytes among them."""
@@ -2135,15 +2740,7 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
         check((meta["micro"], meta["step"], meta["has_best"])
               == (at, at, True), f"({tag}) the file's counters {meta}")
         recs_saved = log(out)
-        resumed = start({}, out)
-        repeat_run = None
-        if repeat:  # beside the resumed run, once it has timed its read
-            t = time.perf_counter()
-            while (resumed[0].poll() is None and time.perf_counter() - t < 120
-                   and "  read " not in text(resumed[2])):
-                time.sleep(0.2)
-            repeat_run = start({}, again)
-        printed, resume_run_s = wait("the resumed run", resumed)
+        printed, resume_run_s = wait("the resumed run", start({}, out))
         line = (f"resuming from preemption checkpoint: micro {at} (optimizer "
                 f"step {at}, epoch {at // per_epoch})")
         check(line in printed, f"({tag}) no '{line}' in:\n{printed[-2000:]}")
@@ -2200,15 +2797,12 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
         spread = {}
         if bitwise:
             held, within = "bit for bit", max(diffs) == 0.0
-            if repeat_run is not None:
-                wait("the repeat of (c)", repeat_run)
         else:
-            # (c) itself does not repeat on the card (its first validation
-            # differs between two runs before any save): its spread, from the
-            # same command once more, uninterrupted; (e)'s validations before
+            # where (c) itself does not repeat on the card (an atomic
+            # backward): its spread, from the same command once more,
+            # uninterrupted; (e)'s validations before
             # the save are samples of it too
-            _, again_s = wait("the repeat of (c)", repeat_run
-                              or start({}, again))
+            _, again_s = wait("the repeat of (c)", start({}, again))
             again_recs = log(again)
             noise = [abs(a - b) for a, b in zip(metrics(again_recs),
                                                 metrics(ref_recs))]
@@ -3010,7 +3604,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     # (e) the same CLI preempted after its first validation and resumed
     result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
                                          n_val, "dice", "test_dice",
-                                         "TEST dice:", repeat=True)
+                                         "TEST dice:")
     return result
 
 
@@ -3380,8 +3974,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     # (e) the same CLI preempted after its first validation and resumed
     result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
                                          n_eval, "mAP", "test_map",
-                                         "TEST mAP@[.40:.05:.75]:",
-                                         repeat=True)
+                                         "TEST mAP@[.40:.05:.75]:")
     result["phase_seconds"] = time.perf_counter() - t_phase
     print(f"  detection phase: {result['phase_seconds']:.1f} s")
     return result
@@ -4198,6 +4791,9 @@ def main() -> int:
         mark("pretrain_cli")
         recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
         mark("pretrain_cli_accum")
+        dp = dp_phase(card, {k: v // PRE_STEPS for k, v in launches.items()},
+                      cli_per_step, work)
+        mark("data_parallel")
         finetune = finetune_phase(card, ckpt, work)
         mark("finetune")
         seg_kernels = segmentation_kernel_phase(card, shape_rows)
@@ -4297,6 +4893,20 @@ def main() -> int:
             n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
             if n:
                 entry[f"recipe_{tag}_launches"] = n
+        # the data-parallel phase (6e): a rank's DP_STEPS steps of its
+        # multi-rank run (plain, ZeRO-1), the torchrun CLI's rank 0 epoch
+        dp_run = dp["runs"][max(dp["runs"], key=lambda t: dp["runs"][t]
+                                ["ranks"])]["launches"]
+        cli_dp = dp["cli"]["log"]["kernel_launches"]
+        n = sum(dp_run["plain"][0].get(k, 0) for k in parts.get(name, (name,)))
+        if n:
+            entry["dp_launches"] = n
+            entry["dp_zero1_launches"] = sum(
+                dp_run["zero1"][0].get(k, 0)
+                for k in parts.get(name, (name,)))
+        n = sum(cli_dp.get(k, 0) for k in parts.get(name, (name,)))
+        if n:
+            entry["dp_cli_launches"] = n
         if name in viz["launches"]:  # one visualizer forward's
             entry["visualize_launches"] = viz["launches"][name]
         if name in int8_cls:  # one forward of each int8 engine
@@ -4333,6 +4943,7 @@ def main() -> int:
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"cli_epochs": cli}))
     print(json.dumps({"pretrain_recipe": recipe}))
+    print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))
     print(json.dumps({"segmentation": segmentation,
                       "segmentation_kernels": seg_kernels}))
@@ -4354,4 +4965,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -16,6 +16,12 @@ A preemption checkpoint (`save_preemption_checkpoint`,
 `checkpoint-step-<step>.pth`) holds the same keys with the micro-step
 `step` in place of `epoch`: the CLI resumes it mid-epoch.
 
+Under data parallelism every rank calls the save (ZeRO-1's moments and
+running mean are gathered from every rank first, so the file has the
+layout above), rank 0 alone writes, and all ranks wait for the write
+before going on. Every rank loads a file, whoever wrote it, and takes its
+share (`TrainState.load_optimizer_state_dict`).
+
 The fine-tune CLIs' preemption file (`save_finetune_preemption`,
 `<output_dir>/preempt/checkpoint-step-<micro>.pth`, the counterpart of the
 JAX CLIs' orbax step directory under `<output_dir>/preempt`) holds
@@ -33,6 +39,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core import distributed
+
 
 def checkpoint_path(output_dir: str, epoch: int) -> str:
     return os.path.join(output_dir, f"checkpoint-{epoch}.pth")
@@ -45,17 +53,19 @@ def _save(path: str, model: nn.Module, state, weight_decay: float,
           **extra) -> str:
     """Write the model, the AdamW state and the open cycle, if any, with
     `extra` through a temporary file, so a reader never sees half of one;
-    returns `path`."""
-    payload = {"model": {k: v.detach().cpu()
-                         for k, v in model.state_dict().items()},
-               "optimizer": state.optimizer_state_dict(weight_decay),
-               **extra}
+    returns `path`. Every rank calls it; rank 0 writes."""
+    optimizer = state.optimizer_state_dict(weight_decay)
     cycle = state.cycle_state_dict()
-    if cycle is not None:
-        payload[CYCLE_KEY] = cycle
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if distributed.rank() == 0:
+        payload = {"model": {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()},
+                   "optimizer": optimizer, **extra}
+        if cycle is not None:
+            payload[CYCLE_KEY] = cycle
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    distributed.barrier()
     return path
 
 

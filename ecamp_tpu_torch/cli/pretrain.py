@@ -7,6 +7,21 @@ python -m ecamp_tpu_torch.cli.pretrain \\
   --max_epoch 200 --warmup_epochs 40 --lr 1.5e-4 --weight_decay 0.05 \\
   --mask_ratio 0.75 --fused_mlm_ce --output_dir ./out
 
+or data-parallel on N cards of a host, one process each:
+
+torchrun --nproc_per_node=N -m ecamp_tpu_torch.cli.pretrain \\
+  --data_path /data/mimic --batch_size 32 [--shard_optimizer] ...
+
+Under a launcher (torchrun, or OpenMPI / SLURM with MASTER_ADDR and
+MASTER_PORT; `core/distributed.py`) `--batch_size` is per rank, as in the
+JAX package (the global batch is N times it): each rank reads its shard
+of every epoch's order and steps on it, the gradients and the logged
+losses are averaged over the ranks (NCCL on CUDA, gloo with `--device
+cpu` or where a host runs more ranks than it has cards), and only rank 0
+prints, writes `log.txt` and writes checkpoints. `--shard_optimizer`
+keeps each rank's share of the AdamW moments only (ZeRO-1); a checkpoint
+has the same layout either way and loads into any number of ranks.
+
 (`python -m ecamp_tpu_torch.cli.run_preset pretrain_mimic` gives the
 recipe's flags.) `--data_path` holds the two MIMIC-CXR CSVs, the images
 they name and `mimic_wordpiece.json` (`data/datasets.py`). Every epoch
@@ -27,13 +42,16 @@ and count and the cycle, and continues at epoch e + 1. On SIGTERM,
 (`core/preemption.py`) the run writes `checkpoint-step-<step>.pth` at the
 exact micro-step and exits 0; `--resume` on it replays the interrupted
 epoch's loader order, skips the batches already taken and continues bit
-for bit. `--device cuda` (the default) needs a card; `--device cpu` runs
-the kernels' plain versions.
+for bit. Data-parallel ranks agree on the step every 50 micro-steps
+(`core/preemption.py::SYNC_EVERY`), and each skips its own batches.
+`--device cuda` (the default) needs a card; `--device cpu` runs the
+kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import os
 
@@ -42,6 +60,7 @@ import torch
 from ..ckpt.checkpoint import (CYCLE_KEY, load_checkpoint, load_model_state,
                                save_checkpoint, save_preemption_checkpoint)
 from ..core import config as cfg
+from ..core import distributed
 from ..core.metrics import JsonlLogger, MetricLogger, device_memory_mb
 from ..core.preemption import PreemptionGuard
 from ..data.datasets import PretrainReportDataset
@@ -93,7 +112,9 @@ def get_args(argv=None):
                         "probabilities (plain attention) instead of the "
                         "same-rate dropout of its output (attention kernel)")
     p.add_argument("--steps_per_call", type=int, default=1)
-    p.add_argument("--shard_optimizer", action="store_true")
+    p.add_argument("--shard_optimizer", action="store_true",
+                   help="ZeRO-1: each data-parallel rank keeps and updates "
+                        "its share of the AdamW moments only")
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--rss_limit_gb", type=float, default=0.0,
                    help="host-RSS watchdog: above this many GiB of RSS, "
@@ -118,7 +139,6 @@ def refuse_what_is_not_ported(args) -> None:
     ignored silently (ROADMAP Queue 1, "Not to port")."""
     refused = [
         (args.steps_per_call > 1, "--steps_per_call > 1 (a scan of steps)"),
-        (args.shard_optimizer, "--shard_optimizer (ZeRO-1)"),
         (args.fsdp, "--fsdp"),
     ]
     for path in (args.resume, args.pretrained):
@@ -139,14 +159,35 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
                            "runs the kernels' plain versions)")
-    setup_output(args.output_dir, args)
+    # join the launcher's ranks, if any, before the first device use
+    joined = (not distributed.is_distributed()
+              and distributed.initialize_distributed(device.type))
+    try:
+        with contextlib.ExitStack() as quiet:
+            if distributed.rank() != 0:  # rank 0 alone prints
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            run(args, distributed.rank_device(device.type)
+                if distributed.is_distributed() else device)
+    finally:
+        if joined:
+            distributed.shutdown_distributed()
+
+
+def run(args, device: torch.device) -> None:
+    """Build the task, resume and train on `device` (the rank's)."""
+    if distributed.rank() == 0:
+        setup_output(args.output_dir, args)
+    distributed.barrier()
 
     dataset = PretrainReportDataset(
         args.data_path, img_size=args.input_size,
         max_caption_length=args.max_caption_length, seed=args.seed,
         output_u8=args.u8_pipe)
     loader = DataLoader(dataset, batch_size=args.batch_size, seed=args.seed,
-                        num_workers=args.num_workers)
+                        num_workers=args.num_workers,
+                        process_index=distributed.rank(),
+                        process_count=distributed.world_size())
     steps_per_epoch = max(1, len(loader))
     pconf = cfg.PretrainConfig(
         bert=cfg.BertConfig(exact_attn_dropout=args.exact_attn_dropout),
@@ -157,6 +198,7 @@ def main(argv=None):
             accum_steps=args.accum_iter),
         data=cfg.DataConfig(img_size=args.input_size,
                             batch_size=args.batch_size),
+        mesh=cfg.MeshConfig(shard_optimizer=args.shard_optimizer),
         mask_ratio=args.mask_ratio, epochs=args.epochs,
         max_epoch=args.max_epoch, bf16=not args.no_bf16, seed=args.seed,
         max_caption_length=args.max_caption_length,
@@ -208,7 +250,8 @@ def train(args, task: PretrainTask, state, loader: DataLoader,
           start_epoch: int, skip: int, guard: PreemptionGuard) -> None:
     """Epochs `start_epoch` to `args.epochs`, the first without its `skip`
     batches; stops at the micro-step where `guard` asks for a save."""
-    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
+                        enabled=distributed.rank() == 0)
     ckpt_epochs = pretrain_ckpt_epochs(args.epochs)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)

@@ -10,6 +10,13 @@ run.sh recipe) through the port's CLI for it:
 The preset's arguments come first and the ones given here after them, so
 a flag given here overrides the preset's (`--batch_size 32`) and adds the
 paths and the device (`--device cpu`).
+
+A pretraining preset also runs data-parallel under a launcher, one rank a
+card, the preset's batch per rank (`cli/pretrain.py`, which joins the
+ranks before it touches a device):
+
+    torchrun --nproc_per_node=8 -m ecamp_tpu_torch.cli.run_preset \
+        pretrain_mimic --data_path /data/mimic [--shard_optimizer]
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Configuration tree, field for field the same as `ecamp_tpu.core.config`.
 
 Ported: `ViTConfig` and its factories, `BertConfig`, `MAEDecoderConfig`,
-`OptimizerConfig`, `DataConfig`, `PretrainConfig`, `ClassificationConfig`,
-`SegmentationConfig` and `DetectionConfig`. Left out: `MeshConfig` (the
-GSPMD data/model mesh, TPU-only; ROADMAP "Not ported"), and with it the
-configs' `mesh` fields.
+`OptimizerConfig`, `DataConfig`, `MeshConfig` (its data-parallel fields:
+the data axis over torchrun's ranks, `core/distributed.py`, and ZeRO-1's
+`shard_optimizer`), `PretrainConfig`, `ClassificationConfig`,
+`SegmentationConfig` and `DetectionConfig`. Left out: `MeshConfig.
+shard_params` (FSDP) and the fine-tune configs' `mesh` fields (their
+data-parallel training is not ported; ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -128,6 +130,23 @@ class OptimizerConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel layout (`ecamp_tpu.core.config.MeshConfig` up to
+    `shard_optimizer`). The data axis is torchrun's ranks, one card each;
+    the model axis (tensor parallelism) is not ported and must stay 1."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data: int = -1  # -1 = all ranks
+    model: int = 1
+    # ZeRO-1: each rank keeps the AdamW moments (and accumulation buffers)
+    # of its span of the parameters only and updates that span; the ranks
+    # then exchange the spans (`core/distributed.py::Zero1`). Saves
+    # 2 x params x 4 B x (1 - 1/N) a rank.
+    shard_optimizer: bool = False
+
+
+@dataclass(frozen=True)
 class DataConfig:
     root: str = ""
     batch_size: int = 256
@@ -143,13 +162,14 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class PretrainConfig:
-    """`ecamp_tpu.core.config.PretrainConfig` without `mesh`, with
-    `fused_mlm_ce` in place of the JAX package's environment switch."""
+    """`ecamp_tpu.core.config.PretrainConfig`, with `fused_mlm_ce` in place
+    of the JAX package's environment switch."""
 
     vit: ViTConfig = field(default_factory=vit_base)
     decoder: MAEDecoderConfig = field(default_factory=MAEDecoderConfig)
     bert: BertConfig = field(default_factory=BertConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=lambda: DataConfig(img_size=448))
     mask_ratio: float = 0.75
     sr_scale: int = 2

@@ -1,6 +1,7 @@
 """Host-side training metrics (counterpart of `ecamp_tpu/core/metrics.py`;
-reference MetricLogger / SmoothedValue, util/misc.py:24-167), for one
-process."""
+reference MetricLogger / SmoothedValue, util/misc.py:24-167), each
+process's own: a data-parallel step hands over its metrics already
+averaged over the ranks, and rank 0 alone writes the run log."""
 
 from __future__ import annotations
 
@@ -111,11 +112,16 @@ class MetricLogger:
 
 
 class JsonlLogger:
-    """Append-only JSON-lines run log (reference main_pretrain.py:297-304)."""
+    """Append-only JSON-lines run log (reference main_pretrain.py:297-304);
+    a disabled one (every rank but 0 of a data-parallel run) writes
+    nothing."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, enabled: bool = True):
         self.path = path
+        self.enabled = enabled
 
     def write(self, record: dict) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")

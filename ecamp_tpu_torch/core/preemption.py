@@ -1,6 +1,5 @@
-"""Preemption-safe training (counterpart of `ecamp_tpu/core/preemption.py`,
-one process): turn a preemption notice into a step-exact checkpoint and a
-clean exit.
+"""Preemption-safe training (counterpart of `ecamp_tpu/core/preemption.py`):
+turn a preemption notice into a step-exact checkpoint and a clean exit.
 
 - A SIGTERM handler records the request (it only sets a flag).
 - The train loop polls `should_save(step)` after every micro-step.
@@ -16,9 +15,13 @@ RSS above the limit as a preemption notice, so a run whose host memory
 grows checkpoints and exits cleanly instead of being killed by the
 kernel's OOM killer.
 
-The JAX package's multi-host agreement (its preemption sync point and an
-all-gather of the hosts' flags) has no counterpart: the port trains in one
-process.
+Data parallelism: every rank must agree on the exit step, or the others
+wait forever in the next collective. A single process acts on its own
+flag at once; in a process group of more than one rank the guard answers
+only at `sync_every`-step boundaries (`SYNC_EVERY`, 50, by default), with
+the maximum of the ranks' flags (an all-reduce, a host synchronisation),
+so a notice that reaches one rank stops all of them at the same step.
+JAX's TPU-runtime preemption notice has no counterpart.
 """
 
 from __future__ import annotations
@@ -27,13 +30,19 @@ import os
 import signal
 from typing import Optional
 
+from . import distributed
+
+SYNC_EVERY = 50  # micro-steps between the ranks' agreements (JAX's default)
+
 
 class PreemptionGuard:
     """Polls for a preemption request; cheap enough to call every step.
     Call `uninstall` when done: it restores the previous SIGTERM
     handler."""
 
-    def __init__(self, rss_limit_mb: Optional[float] = None):
+    def __init__(self, rss_limit_mb: Optional[float] = None,
+                 sync_every: Optional[int] = None):
+        self.sync_every = max(1, int(sync_every or SYNC_EVERY))
         self._flag = False
         self._previous = None
         self.reason: Optional[str] = None
@@ -72,7 +81,19 @@ class PreemptionGuard:
 
     def should_save(self, step: int) -> bool:
         """True when training must checkpoint and exit at `step`; `reason`
-        then says why."""
+        then says why. Every rank of a process group calls it at every
+        step and gets the same answer."""
+        local = self._local(step)
+        if distributed.world_size() == 1:
+            return local
+        if step % self.sync_every:
+            return False
+        if distributed.any_rank(local):
+            self.reason = self.reason or "another rank's request"
+            return True
+        return False
+
+    def _local(self, step: int) -> bool:
         if self._preempt_at is not None and step >= self._preempt_at:
             self.reason = self.reason or f"injected @ {self._preempt_at}"
             return True

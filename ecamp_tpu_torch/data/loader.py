@@ -14,8 +14,14 @@ Each worker puts its batches, in order, on a queue of its own that holds
 two, and the consumer takes batch i from the queue of worker i % K. A
 worker that runs ahead blocks on its own full queue, so at most K * 2
 batches wait in the queues and one more in each worker's hands, however
-slow one worker is. One process only: the JAX package's multi-process
-sharding and worker processes are not ported.
+slow one worker is.
+
+Under data parallelism each rank reads its own shard of the epoch's order
+(`process_index` of `process_count`, DistributedSampler semantics, as the
+JAX package's loader): the order is padded by wrapping round to a multiple
+of the ranks, so every rank sees ceil(n / ranks) samples and the same
+number of batches, and rank r takes every ranks-th sample from r on. The
+JAX package's worker processes are not ported.
 """
 
 from __future__ import annotations
@@ -38,20 +44,24 @@ QUEUE_SIZE = 2  # batches a worker may have waiting for the consumer
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_workers: int = 8,
-                 drop_last: bool = True):
+                 drop_last: bool = True, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self) -> int:
-        n, b = len(self.dataset), self.batch_size
+        n = -(-len(self.dataset) // self.process_count)  # the padded shard
+        b = self.batch_size
         return n // b if self.drop_last else -(-n // b)
 
     def _worker_dataset(self, wid: int):
@@ -68,8 +78,15 @@ class DataLoader:
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            idx = np.random.default_rng(self.seed + self.epoch).permutation(n)
+        else:
+            idx = np.arange(n)
+        if self.process_count > 1:
+            total = -(-n // self.process_count) * self.process_count
+            if total > n:  # wrap round so every rank has as many samples
+                idx = np.concatenate([idx, idx[:total - n]])
+            idx = idx[self.process_index::self.process_count]
+        return idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._indices()

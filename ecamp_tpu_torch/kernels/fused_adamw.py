@@ -18,6 +18,15 @@ it runs the plain version, `_leaf_update_plain` leaf by leaf (JAX
 `_leaf_update_jnp`); `plain = True` routes CUDA tensors there too, as the
 on-card reference. The v5e-measured opt-in (`fused_adamw` config flag,
 `ECAMP_FUSED_ADAMW`) is not carried over.
+
+Under ZeRO-1 (`zero1`, a `core/distributed.py::Zero1`) the moments hold
+this rank's piece of each leaf only (a flat tensor, empty for a leaf
+outside its span), the update (kernel or plain) runs on those pieces of
+the parameters and gradients, contiguous views, and the ranks then
+exchange their spans of the parameters (JAX `_zero1_update`). The
+gradients are averaged and whole on every rank, so the clip's global norm
+stays local, as in JAX. Every element sees the same arithmetic as
+unsharded, so the parameters equal the unsharded update's bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..core.distributed import Zero1
 from . import _build
 
 SOURCE = "ecamp_tpu_torch/csrc/adamw.cu"
@@ -115,21 +125,31 @@ class FusedAdamW:
     def __init__(self, schedule: Callable[[torch.Tensor], torch.Tensor],
                  b1: float, b2: float, eps: float, weight_decay: float,
                  mask_fn: Optional[Callable] = None,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None,
+                 zero1: Optional[Zero1] = None):
         self.schedule = schedule
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.weight_decay = float(weight_decay)
         self.mask_fn = mask_fn
         self.grad_clip = grad_clip
         self.plain = False  # see set_plain
+        self.zero1 = zero1
         self._table: Optional[_LeafTable] = None
+
+    def _zeros(self, params: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """A zero moment for every leaf: whole, or under ZeRO-1 the rank's
+        piece."""
+        if self.zero1 is None:
+            return {k: torch.zeros_like(p) for k, p in params.items()}
+        return {k: self.zero1.local(torch.zeros_like(p), k).clone()
+                for k, p in params.items()}
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
         dev = next(iter(params.values())).device
         return AdamWState(
             count=torch.zeros((), dtype=torch.int32, device=dev),
-            mu={k: torch.zeros_like(p) for k, p in params.items()},
-            nu={k: torch.zeros_like(p) for k, p in params.items()})
+            mu=self._zeros(params), nu=self._zeros(params))
 
     def scalars(self, count: torch.Tensor,
                 grads: List[torch.Tensor]) -> torch.Tensor:
@@ -158,21 +178,36 @@ class FusedAdamW:
 
     def apply(self, params: Mapping[str, torch.Tensor],
               grads: Mapping[str, torch.Tensor],
-              state: AdamWState) -> AdamWState:
+              state: AdamWState, sharded: bool = False) -> AdamWState:
         """One update: p, mu and nu in place; returns the state with the
-        count advanced."""
+        count advanced. Under ZeRO-1 `grads` are whole, or with `sharded`
+        already the rank's pieces (`MultiSteps`' running mean)."""
         names = list(params)
-        ps = [params[k] for k in names]
-        gs = [grads[k] for k in names]
-        ms = [state.mu[k] for k in names]
-        vs = [state.nu[k] for k in names]
-        scal = self.scalars(state.count, gs)
-        wd = self._decays(params)
-        if ps[0].device.type not in ("cpu", "cuda"):
-            raise ValueError(f"no AdamW kernel for {ps[0].device}")
+        if sharded and self.grad_clip is not None:
+            raise ValueError("the clip's global norm needs whole gradients: "
+                             "ZeRO-1 with accumulation takes no grad_clip")
+        dev = params[names[0]].device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"no AdamW kernel for {dev}")
+        scal = self.scalars(state.count, [grads[k] for k in names])
+        z = self.zero1
         with torch.no_grad():
-            if ps[0].is_cuda and not self.plain:
-                self._apply_cuda(ps, gs, ms, vs, wd, scal)
+            ps, gs, ms, vs, wd = [], [], [], [], []
+            for k, w in zip(names, self._decays(params)):
+                p, g = params[k], grads[k]
+                if z is not None:
+                    p = z.local(p, k)
+                    g = g if sharded else z.local(g, k)
+                    if not p.numel():
+                        continue  # outside this rank's span
+                ps.append(p)
+                gs.append(g)
+                ms.append(state.mu[k])
+                vs.append(state.nu[k])
+                wd.append(w)
+            if dev.type == "cuda" and not self.plain:
+                if ps:
+                    self._apply_cuda(ps, gs, ms, vs, wd, scal)
             else:
                 lr, bc1, bc2, gdiv, gmul = scal.unbind()
                 for p, g, m, v, w in zip(ps, gs, ms, vs, wd):
@@ -182,6 +217,8 @@ class FusedAdamW:
                     p.copy_(p_new)
                     m.copy_(m_new)
                     v.copy_(v_new)
+            if z is not None:
+                z.exchange_params()
         return AdamWState(count=state.count + 1, mu=state.mu, nu=state.nu)
 
     def _apply_cuda(self, ps, gs, ms, vs, wd, scal) -> None:

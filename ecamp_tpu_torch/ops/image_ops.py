@@ -11,7 +11,12 @@ neck is the exception: the JAX package writes it as two dense fp32 (out,
 in) products because a gather's backward is slow on the TPU; on the card
 those products would cost ~0.7 TFLOP of fp32 work at B = 512, so it is
 `F.interpolate`, which computes the same function. So is the YOLO head's
-nearest upsample (a `repeat` in JAX).
+nearest upsample (a `repeat` in JAX). `F.interpolate`'s bilinear backward
+adds into the input's gradient atomically, so on the card two runs of a
+step differ. The align-corners upsample's backward here is the transposed
+resize as two dense fp32 products instead (as the JAX package's backward
+is), which cuBLAS computes in a fixed order, so a seg or det fine-tune
+repeats itself bit for bit, and so does its resume.
 """
 
 from __future__ import annotations
@@ -84,14 +89,69 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return _resize_matmul(x, size, "bilinear")
 
 
+@functools.lru_cache(maxsize=None)
+def _align_corners_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) fp32 matrix of the align-corners bilinear resize src ->
+    dst along one axis, with `F.interpolate`'s own fp32 weights: output o
+    reads input i = int(s) and i + 1 (i itself at the last input) at s =
+    o * float32((src - 1) / (dst - 1))."""
+    scale = (np.float32(src - 1) / np.float32(dst - 1) if dst > 1
+             else np.float32(0.0))
+    m = np.zeros((dst, src), np.float32)
+    for o in range(dst):
+        s = scale * np.float32(o)
+        i = int(s)
+        lam1 = s - np.float32(i)
+        m[o, i] += np.float32(1.0) - lam1
+        m[o, i + (1 if i < src - 1 else 0)] += lam1
+    return m
+
+
+_MATRICES_ON_DEVICE = {}
+
+
+def _transposed_matrix(src: int, dst: int, device) -> torch.Tensor:
+    """`_align_corners_matrix(src, dst)`ᵀ, (src, dst), on `device`, made
+    once a shape."""
+    key = (src, dst, device)
+    if key not in _MATRICES_ON_DEVICE:
+        _MATRICES_ON_DEVICE[key] = torch.from_numpy(
+            np.ascontiguousarray(_align_corners_matrix(src, dst).T)
+        ).to(device)
+    return _MATRICES_ON_DEVICE[key]
+
+
+class _UpsampleAlignCorners(torch.autograd.Function):
+    """fp32 NCHW bilinear upsample, align_corners=True: `F.interpolate`
+    forward; backward the transposed resize as two batched fp32 products
+    on the NHWC view (channels_last memory), W then H (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: int) -> torch.Tensor:
+        ctx.hw = x.shape[-2:]
+        return F.interpolate(x, scale_factor=scale, mode="bilinear",
+                             align_corners=True)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        h, w = ctx.hw
+        b, c, ho, wo = g.shape
+        t = g.float().permute(0, 2, 3, 1).reshape(b * ho, wo, c)
+        mw = _transposed_matrix(w, wo, g.device)  # (w, wo)
+        t = torch.bmm(mw.expand(b * ho, w, wo), t)  # (b ho, w, c)
+        mh = _transposed_matrix(h, ho, g.device)  # (h, ho)
+        t = torch.bmm(mh.expand(b, h, ho), t.view(b, ho, w * c))
+        return t.view(b, h, w, c).permute(0, 3, 1, 2), None
+
+
 def upsample_align_corners(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Bilinear upsample with align_corners=True (the seg decoder's
     nn.Upsample, Segmentation/models_vit.py:77) of an NCHW tensor, in fp32
     and cast back to x's dtype, as `ecamp_tpu/ops/image_ops.py::
-    upsample_align_corners` computes it (there on NHWC)."""
-    y = F.interpolate(x.float(), scale_factor=scale, mode="bilinear",
-                      align_corners=True)
-    return y.to(x.dtype)
+    upsample_align_corners` computes it (there on NHWC). Its backward is
+    deterministic (module docstring)."""
+    return _UpsampleAlignCorners.apply(x.float(), scale).to(x.dtype)
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 
 from ..core.config import OptimizerConfig
+from ..core.distributed import Zero1
 from ..kernels.fused_adamw import FusedAdamW, clip_scale
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -235,26 +236,41 @@ class MultiSteps:
     call folds its gradients into the running mean acc + (g - acc) / (n + 1)
     (Welford); the k-th call applies the inner optimizer to that mean, and
     the others leave the parameters alone. Counts are host ints, so no call
-    synchronises."""
+    synchronises.
+
+    Under data parallelism the gradients a call folds are already averaged
+    over the ranks (every micro-step reduces them; the mean of means is the
+    same linear mean). Under ZeRO-1 (the inner `FusedAdamW`'s `zero1`) the
+    running mean holds the rank's piece of each leaf only, as JAX's
+    `shard_opt_state_zero1` shards `acc_grads`, and the inner update takes
+    it as pieces."""
 
     def __init__(self, inner, every_k: int):
         self.inner = inner
         self.every_k = int(every_k)
+        self.zero1 = getattr(inner, "zero1", None)
 
     def init(self, params) -> MultiStepsState:
+        z = self.zero1
         return MultiStepsState(0, self.inner.init(params),
-                               {k: torch.zeros_like(p)
+                               {k: torch.zeros_like(p) if z is None
+                                else z.local(torch.zeros_like(p), k).clone()
                                 for k, p in params.items()})
 
     def apply(self, params, grads, state: MultiStepsState) -> MultiStepsState:
         n = state.mini_step
         acc = state.acc_grads
+        z = self.zero1
         with torch.no_grad():
             for k, a in acc.items():
-                a.add_((grads[k].to(a.dtype) - a) / (n + 1))
+                g = grads[k] if z is None else z.local(grads[k], k)
+                a.add_((g.to(a.dtype) - a) / (n + 1))
         if n < self.every_k - 1:
             return MultiStepsState(n + 1, state.inner_opt_state, acc)
-        inner = self.inner.apply(params, acc, state.inner_opt_state)
+        inner = (self.inner.apply(params, acc, state.inner_opt_state)
+                 if z is None else
+                 self.inner.apply(params, acc, state.inner_opt_state,
+                                  sharded=True))
         for a in acc.values():
             a.zero_()
         return MultiStepsState(0, inner, acc)
@@ -263,7 +279,8 @@ class MultiSteps:
 def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int = 1,
                    max_epoch: Optional[float] = None,
                    freeze_mask: Optional[Mapping[str, bool]] = None,
-                   lr_scales: Optional[Mapping[str, float]] = None):
+                   lr_scales: Optional[Mapping[str, float]] = None,
+                   zero1: Optional[Zero1] = None):
     """The optimizer of `cfg`: `FusedAdamW` for adamw, `SGD` for sgd, with
     the global-norm clip inside; then the layer-wise lr scales, the freeze
     mask (True = trainable; the reference's requires_grad_(False),
@@ -273,7 +290,13 @@ def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int = 1,
     updates are the same, and no running mean is kept for a frozen leaf.
     Under accumulation a step schedule counts updates, and the epoch
     cosine is read at each cycle's first micro-step, as in the JAX
-    package (`ecamp_tpu/train/optim.py:153-165`)."""
+    package (`ecamp_tpu/train/optim.py:153-165`). `zero1` shards AdamW's
+    moments and the running mean over the data-parallel ranks (pretraining:
+    no freeze mask, no lr scales)."""
+    if zero1 is not None and (cfg.name != "adamw" or freeze_mask is not None
+                              or lr_scales is not None):
+        raise ValueError("ZeRO-1 shards AdamW without a freeze mask or "
+                         "layer-wise lr scales only")
     sched = make_schedule(cfg, steps_per_epoch, max_epoch)
     if cfg.accum_steps > 1 and cfg.schedule == "warmup_cosine_epoch":
         inner_sched, accum = sched, cfg.accum_steps
@@ -281,7 +304,7 @@ def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int = 1,
     if cfg.name == "adamw":
         tx = FusedAdamW(sched, b1=cfg.betas[0], b2=cfg.betas[1], eps=1e-8,
                         weight_decay=cfg.weight_decay, mask_fn=_decay_mask,
-                        grad_clip=cfg.grad_clip or None)
+                        grad_clip=cfg.grad_clip or None, zero1=zero1)
     elif cfg.name == "sgd":
         tx = SGD(sched, cfg.momentum, cfg.weight_decay,
                  grad_clip=cfg.grad_clip or None)

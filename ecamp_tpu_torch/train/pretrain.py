@@ -8,9 +8,19 @@ CE (materialised logits, or the fused CE kernels with
 `PretrainConfig.fused_mlm_ce`) -> loss = mim + res + mlm -> backward ->
 AdamW, with the lr the step applies reported beside the losses.
 Parameters and optimizer state are fp32; activations and matmuls bf16
-under the default policy (`core/dtypes.py`). PyTorch runs it eagerly on
-one device: the JAX package's jit, mesh, ZeRO and scan-of-steps have no
-counterpart here.
+under the default policy (`core/dtypes.py`). PyTorch runs it eagerly;
+the JAX package's jit, tensor-parallel mesh axis and scan of steps have
+no counterpart here.
+
+Data parallelism (a process group from `core/distributed.py`, one rank a
+card): each rank steps on its own rows of the global batch, the batch
+size B is per rank, and N ranks x B compute the function that 1 process
+at N * B does. The masking noise is drawn for the global batch from the
+shared fold and each rank takes its rows; after the backward pass the
+gradients are averaged over the ranks (`DataParallel.all_reduce_grads_`,
+in place, so the AdamW kernel's pointer table holds), and so are the
+metrics. `cfg.mesh.shard_optimizer` shards AdamW's moments (ZeRO-1,
+`kernels/fused_adamw.py`).
 
 Randomness comes from explicit generators on the task's device:
 `masking_generator` for the MAE noise (or noise injected by the caller)
@@ -18,7 +28,9 @@ and `dropout_generator` for every dropout site. Each step reseeds both in
 place from (`cfg.seed`, step) (`fold_seed`), as the JAX package folds its
 key by step, so a run resumed at a step draws what the uninterrupted run
 drew there. The step is a host int (`PretrainTask.step`): reading the
-device step would synchronise every step.
+device step would synchronise every step. Rank r > 0 of a data-parallel
+run folds its dropout stream with r, so ranks draw different masks; rank
+0's is the single process's.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core import distributed
 from ..core.config import PretrainConfig
 from ..core.dtypes import policy
 from ..nn.layers import set_generator, set_plain
@@ -124,16 +137,31 @@ class PretrainTask:
                 generator=torch.Generator(self.device).manual_seed(cfg.seed)
             ).to(self.device)  # the sin-cos buffers are made on the host
         set_generator(self.model, self.dropout_generator)
+        if cfg.mesh.model != 1:
+            raise NotImplementedError("tensor parallelism (MeshConfig.model "
+                                      "> 1) is not ported to ecamp_tpu_torch")
+        # the data axis: every rank of the process group, if there is one
+        self.dp = (distributed.DataParallel(self.model)
+                   if distributed.is_distributed() else None)
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        if cfg.mesh.data not in (-1, self.world):
+            raise ValueError(f"MeshConfig.data = {cfg.mesh.data}, but "
+                             f"{self.world} ranks train")
+        zero1 = (distributed.Zero1(self.dp.layout, self.rank, self.dp)
+                 if self.dp is not None and cfg.mesh.shard_optimizer
+                 else None)
         self.schedule = make_schedule(cfg.optimizer, steps_per_epoch,
                                       max_epoch=cfg.max_epoch)
         self.tx = make_optimizer(cfg.optimizer, steps_per_epoch,
-                                 max_epoch=cfg.max_epoch)
+                                 max_epoch=cfg.max_epoch, zero1=zero1)
 
     def fold_rng(self, step: int) -> None:
-        """Reseed the masking and dropout generators from (seed, step)."""
+        """Reseed the masking and dropout generators from (seed, step), the
+        dropout one also from the rank (stream 1 + rank)."""
         seed = self.cfg.seed
         self.masking_generator.manual_seed(fold_seed(seed, step, 0))
-        self.dropout_generator.manual_seed(fold_seed(seed, step, 1))
+        self.dropout_generator.manual_seed(
+            fold_seed(seed, step, 1 + distributed.rank()))
 
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> TrainState:
@@ -176,10 +204,14 @@ class PretrainTask:
                    deterministic: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step on a batch on the task's device. `noise`
-        (B, grid**2) injects the masking noise; `deterministic` turns
-        dropout off. Returns the new state and device-scalar metrics
-        (loss, mim_loss, res_loss, mlm_loss, lr)."""
+        (B, grid**2) injects the masking noise (under data parallelism it
+        may be the global batch's, world * B rows, of which the rank takes
+        its own); `deterministic` turns dropout off. Returns the new state
+        and device-scalar metrics (loss, mim_loss, res_loss, mlm_loss, lr),
+        under data parallelism their means over the ranks."""
         self.fold_rng(self.step)
+        if self.dp is not None:
+            noise = self._rank_noise(batch["ids"].shape[0], noise)
         batch = device_normalize(batch, self.cfg.data.mean, self.cfg.data.std)
         self.model.train(not deterministic)
         # zero the grads in place: their addresses stay fixed, so the AdamW
@@ -189,13 +221,36 @@ class PretrainTask:
                          generator=self.masking_generator)
         loss = out["mim_loss"] + out["res_loss"] + out["mlm_loss"]
         loss.backward()
+        if self.dp is not None:
+            self.dp.all_reduce_grads_()
         # the lr this update applies: the schedule at the cycle-start step
         # (the step itself while the CLI refuses --accum_iter > 1)
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule((state.step // accum) * accum)
         new_state = state.apply_gradients(self.tx)
         self.step += 1
-        metrics = {"loss": loss.detach(), "lr": lr}
-        for k in ("mim_loss", "res_loss", "mlm_loss"):
-            metrics[k] = out[k].detach()
+        names = ("loss", "mim_loss", "res_loss", "mlm_loss")
+        values = [loss.detach()] + [out[k].detach() for k in names[1:]]
+        if self.dp is not None:
+            values = distributed.all_reduce_mean_(torch.stack(values)).unbind()
+        metrics = {"loss": values[0], "lr": lr}
+        metrics.update(zip(names[1:], values[1:]))
         return new_state, metrics
+
+    def _rank_noise(self, b: int, noise: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """This rank's rows of the global batch's masking noise: `noise`
+        when it has B rows, its rows of world * B, or the global draw from
+        the masking generator (the draw one process makes at world * B)."""
+        if self.cfg.mask_ratio <= 0:
+            return noise
+        if noise is None:
+            noise = torch.rand((b * self.world, self.cfg.vit.num_patches),
+                               generator=self.masking_generator,
+                               device=self.device)
+        if noise.shape[0] == b:
+            return noise
+        if noise.shape[0] != b * self.world:
+            raise ValueError(f"noise of {noise.shape[0]} rows for a batch of "
+                             f"{b} a rank on {self.world} ranks")
+        return noise[self.rank * b:(self.rank + 1) * b]

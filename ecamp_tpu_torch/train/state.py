@@ -10,7 +10,11 @@ group, then the decay group), the layout `ecamp_tpu/ckpt/torch_import.py::
 import_ecamp_adamw_state` reads. Under gradient accumulation that layout
 holds the inner AdamW (its step the update count); the open cycle
 (`MultiStepsState.mini_step` and the running mean `acc_grads`) has a
-state dict of its own (`cycle_state_dict`).
+state dict of its own (`cycle_state_dict`). Under ZeRO-1 (`zero1`) the
+moments and the running mean hold this rank's pieces: their state dicts
+gather the whole leaves from every rank first (a collective every rank
+calls), and loading one takes the rank's pieces, so a file has the same
+layout whatever wrote it and loads into any number of ranks.
 
 `opt_state_dict` / `load_opt_state_dict` round-trip every fine-tune
 optimizer state whole (the fine-tune CLIs' preemption files): SGD's count
@@ -22,12 +26,13 @@ inner optimizer's.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..core.distributed import Zero1
 from ..kernels.fused_adamw import AdamWState
 from .optim import MultiStepsState, SGDState
 
@@ -77,20 +82,37 @@ class TrainState:
     step: torch.Tensor                 # int32 device scalar
     params: Dict[str, torch.Tensor]    # the model's parameters, by name
     opt_state: Any                     # AdamWState or SGDState
+    zero1: Optional[Zero1] = None      # the optimizer's ZeRO-1 share
 
     @classmethod
     def create(cls, model: nn.Module, tx) -> "TrainState":
         params = dict(model.named_parameters())
         dev = next(iter(params.values())).device
         return cls(step=torch.zeros((), dtype=torch.int32, device=dev),
-                   params=params, opt_state=tx.init(params))
+                   params=params, opt_state=tx.init(params),
+                   zero1=getattr(tx, "zero1", None))
 
     def apply_gradients(self, tx) -> "TrainState":
         """One optimizer update from the parameters' `.grad` (a missing
         gradient counts as zero, as JAX's would be)."""
-        return TrainState(step=self.step + 1, params=self.params,
-                          opt_state=tx.apply(self.params, _Grads(self.params),
-                                             self.opt_state))
+        return replace(self, step=self.step + 1,
+                       opt_state=tx.apply(self.params, _Grads(self.params),
+                                          self.opt_state))
+
+    def _whole(self, tree: Mapping[str, torch.Tensor]
+               ) -> Mapping[str, torch.Tensor]:
+        """Per-leaf optimizer tensors as whole leaves (under ZeRO-1 gathered
+        from every rank)."""
+        return tree if self.zero1 is None else self.zero1.gather(tree)
+
+    def _mine(self, whole: Mapping[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """Whole leaves of a file as this state's fp32 tensors on the
+        parameters' devices (under ZeRO-1 the rank's pieces)."""
+        if self.zero1 is not None:
+            return self.zero1.take(whole, self.step.device)
+        return {k: v.to(self.params[k].device, torch.float32).reshape(
+            self.params[k].shape) for k, v in whole.items()}
 
     def optimizer_state_dict(self, weight_decay: float = 0.0
                              ) -> Dict[str, Any]:
@@ -100,10 +122,11 @@ class TrainState:
         st = adamw_state(self.opt_state)
         order, n_nd = reference_param_order(self.params)
         step = st.count.detach().float().cpu()
+        mu, nu = self._whole(st.mu), self._whole(st.nu)
         return {
             "state": {i: {"step": step.clone(),
-                          "exp_avg": st.mu[k].detach().cpu().clone(),
-                          "exp_avg_sq": st.nu[k].detach().cpu().clone()}
+                          "exp_avg": mu[k].detach().cpu().clone(),
+                          "exp_avg_sq": nu[k].detach().cpu().clone()}
                       for i, k in enumerate(order)},
             "param_groups": [
                 {"params": list(range(n_nd)), "weight_decay": 0.0},
@@ -120,21 +143,17 @@ class TrainState:
         if sizes != [n_nd, len(order) - n_nd]:
             raise ValueError(f"param-group sizes {sizes} do not match "
                              f"[{n_nd}, {len(order) - n_nd}]")
-        mu, nu, steps = {}, {}, []
-        for i, k in enumerate(order):
-            p = self.params[k]
-            st = sd["state"][i]
-            mu[k] = st["exp_avg"].to(p.device, torch.float32).reshape(p.shape)
-            nu[k] = st["exp_avg_sq"].to(p.device,
-                                        torch.float32).reshape(p.shape)
-            steps.append(int(st["step"]))
-        count = torch.full((), max(steps, default=0), dtype=torch.int32,
-                           device=self.step.device)
+        states = [sd["state"][i] for i in range(len(order))]
+        mu = self._mine({k: st["exp_avg"] for k, st in zip(order, states)})
+        nu = self._mine({k: st["exp_avg_sq"] for k, st in zip(order, states)})
+        count = torch.full((), max((int(st["step"]) for st in states),
+                                   default=0),
+                           dtype=torch.int32, device=self.step.device)
         adam = AdamWState(count=count, mu=mu, nu=nu)
         st = self.opt_state
         if isinstance(st, MultiStepsState):
             adam = MultiStepsState(st.mini_step, adam, st.acc_grads)
-        return TrainState(step=self.step, params=self.params, opt_state=adam)
+        return replace(self, opt_state=adam)
 
     def cycle_state_dict(self) -> Optional[Dict[str, Any]]:
         """The open accumulation cycle (None without accumulation):
@@ -146,7 +165,7 @@ class TrainState:
         sd: Dict[str, Any] = {"mini_step": st.mini_step}
         if st.mini_step:
             sd["acc_grads"] = {k: v.detach().cpu().clone()
-                               for k, v in st.acc_grads.items()}
+                               for k, v in self._whole(st.acc_grads).items()}
         return sd
 
     def load_cycle_state_dict(self, sd: Optional[Mapping[str, Any]],
@@ -163,15 +182,15 @@ class TrainState:
         if not isinstance(st, MultiStepsState):
             return self
         acc = st.acc_grads
+        src = self._mine(sd["acc_grads"]) if mini else {}
         with torch.no_grad():
             for k, a in acc.items():
                 if mini:
-                    a.copy_(sd["acc_grads"][k].reshape(a.shape))
+                    a.copy_(src[k])
                 else:
                     a.zero_()
-        return TrainState(step=self.step, params=self.params,
-                          opt_state=MultiStepsState(mini, st.inner_opt_state,
-                                                    acc))
+        return replace(self, opt_state=MultiStepsState(
+            mini, st.inner_opt_state, acc))
 
 
 def _leaves_sd(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -212,7 +212,6 @@ def test_cli_trains_checkpoints_and_resumes(cli_run):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
     for extra, msg in ((["--steps_per_call", "2"], "steps_per_call"),
-                       (["--shard_optimizer"], "shard_optimizer"),
                        (["--fsdp"], "fsdp"),
                        (["--resume", str(tmp_path)], "orbax")):
         with pytest.raises(NotImplementedError, match=msg):
@@ -223,6 +222,27 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     assert pretrain_ckpt_epochs(3) == {0, 2}
     assert pretrain_ckpt_epochs(120) == (
         {0, 60, 70, 80, 90} | set(range(100, 120, 5)) | {119})
+
+
+def test_cli_shard_optimizer_runs(tmp_path):
+    """`--shard_optimizer` (ZeRO-1) is accepted; in one process there is one
+    rank to shard over, so the run equals the run without it bit for bit
+    (2 ranks: tests/test_torch_distributed.py)."""
+    from test_torch_accum import _corpus, cli_argv, tiny_cli
+
+    root = _corpus(tmp_path, 8)
+    with tiny_cli():
+        for out, extra in (("plain", ()), ("zero1", ("--shard_optimizer",))):
+            cli.main(cli_argv(root, tmp_path / out, "--epochs", "1", *extra))
+    a, b = (torch.load(tmp_path / d / "checkpoint-0.pth", weights_only=True)
+            for d in ("plain", "zero1"))
+    assert json.loads((tmp_path / "zero1" / "args.json").read_text())[
+        "shard_optimizer"] is True
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    for i, st in a["optimizer"]["state"].items():
+        for f in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[f], b["optimizer"]["state"][i][f])
 
 
 def test_cli_checkpoint_reads_into_jax(cli_run):

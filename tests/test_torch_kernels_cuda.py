@@ -294,6 +294,58 @@ def test_adamw_kernel_on_card(cuda):
                                    atol=1e-9)
 
 
+def test_adamw_zero1_shards_on_card(cuda):
+    """ZeRO-1 on the card in one process: the kernel run on each of 3
+    ranks' pieces of the leaves in turn (one launch a rank, the clip from
+    the whole gradients) leaves the parameters the unsharded kernel update
+    leaves, bit for bit, and each rank's moment pieces equal those
+    elements of the unsharded moments. The ranks' pieces are disjoint, so
+    updating them in turn on one set of parameters stands in for the
+    exchange."""
+    from ecamp_tpu_torch.core.distributed import FlatLayout, Zero1
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = {"w": (768, 3072), "emb": (30000, 48), "b": (3,),
+              "pos": (1, 1, 768), "odd": (7, 13), "big": (200003,)}
+    params = {k: torch.randn(s, device=cuda, generator=g)
+              for k, s in shapes.items()}
+    grads = {k: torch.randn(s, device=cuda, generator=g)
+             for k, s in shapes.items()}
+    mu0 = {k: 0.1 * torch.randn(s, device=cuda, generator=g)
+           for k, s in shapes.items()}
+    nu0 = {k: 0.01 * torch.rand(s, device=cuda, generator=g)
+           for k, s in shapes.items()}
+    count = torch.full((), 2, dtype=torch.int32, device=cuda)
+
+    def make(zero1=None):
+        return adamw_mod.FusedAdamW(
+            lambda c: 1e-3 * (1 + c.float()), 0.9, 0.95, 1e-8, 0.05,
+            mask_fn=lambda p: {k: v.ndim > 1 for k, v in p.items()},
+            grad_clip=1.0, zero1=zero1)
+
+    whole = {k: p.clone() for k, p in params.items()}
+    w_state = adamw_mod.AdamWState(
+        count=count, mu={k: t.clone() for k, t in mu0.items()},
+        nu={k: t.clone() for k, t in nu0.items()})
+    make().apply(whole, grads, w_state)
+    layout = FlatLayout({k: p.shape for k, p in params.items()}, 3)
+    sharded = {k: p.clone() for k, p in params.items()}
+    for r in range(3):
+        z = Zero1(layout, r)
+        st = adamw_mod.AdamWState(count=count, mu=z.take(mu0, cuda),
+                                  nu=z.take(nu0, cuda))
+        before = adamw_mod.launches.value
+        new = make(z).apply(sharded, grads, st)
+        torch.cuda.synchronize()
+        assert adamw_mod.launches.value == before + 1
+        assert int(new.count) == 3
+        for k in params:
+            assert torch.equal(st.mu[k], z.local(w_state.mu[k], k)), (r, k)
+            assert torch.equal(st.nu[k], z.local(w_state.nu[k], k)), (r, k)
+    for k in params:
+        assert torch.equal(sharded[k], whole[k]), k
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["logits", "fused_ce"])
 def test_pretrain_step_on_card_matches_plain(cuda, fused):
     """A tiny PretrainTask step launches every kernel the step has and
@@ -925,3 +977,28 @@ def test_detection_step_on_card_matches_plain(cuda, expansion):
     box_scale = max(1.0, float(ep[..., :4].abs().max()))
     assert float((ek[..., :4] - ep[..., :4]).abs().max()) <= 2e-2 * box_scale
     assert float((ek[..., 4:] - ep[..., 4:]).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [(64, 512, 14, 14), (16, 64, 112, 112)])
+def test_upsample_backward_repeats_on_card(cuda, shape):
+    """The align-corners upsample's backward (two fp32 products) gives the
+    same bits twice and agrees with `F.interpolate`'s atomic backward on
+    the card: bf16 channels_last in, as the seg decoder and the det neck
+    call it."""
+    from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, device=cuda, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b, c, h, w = shape
+    up = torch.randn(b, c, 2 * h, 2 * w, device=cuda, generator=g)
+    grads = []
+    for _ in range(2):
+        t = x.clone().requires_grad_(True)
+        upsample_align_corners(t, 2).float().backward(up)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = x.float().requires_grad_(True)
+    torch.nn.functional.interpolate(ref, scale_factor=2, mode="bilinear",
+                                    align_corners=True).backward(up)
+    _close(grads[0], ref.grad.to(torch.bfloat16), torch.bfloat16)

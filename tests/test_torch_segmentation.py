@@ -203,7 +203,8 @@ def test_batch_norm_is_flax_not_torch():
 @pytest.mark.parametrize("shape,scale", [((2, 5, 7, 3), 2), ((1, 3, 4, 2), 3),
                                          ((2, 1, 6, 4), 2)])
 def test_upsample_matches_jax(shape, scale):
-    """`F.interpolate(align_corners=True)` on NCHW against the JAX
+    """The port's upsample on NCHW (`F.interpolate(align_corners=True)`
+    forward, the fixed-order transposed taps backward) against the JAX
     package's two dense products on NHWC, forward and gradient: 1e-6."""
     from ecamp_tpu.ops.image_ops import upsample_align_corners as jax_up
     from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
@@ -221,6 +222,37 @@ def test_upsample_matches_jax(shape, scale):
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(),
                                np.asarray(gx_want), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,dtype,channels_last", [
+    ((2, 6, 14, 14), torch.float32, True), ((3, 4, 7, 5), torch.float32, False),
+    ((2, 8, 1, 3), torch.float32, True), ((2, 16, 28, 28), torch.bfloat16, True)])
+def test_upsample_backward_matches_interpolate(shape, dtype, channels_last):
+    """The upsample's deterministic backward against `F.interpolate`'s own
+    (atomic on the card) on the same fp32 upstream gradient: the same
+    linear map summed in another order, 2e-6 (fp32) relative to the
+    gradient's scale; bf16 inputs get a bf16 gradient, channels_last in,
+    channels_last out."""
+    from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(shape[0], shape[1], 2 * shape[2], 2 * shape[3],
+                    generator=gen)
+    ours = x.clone().requires_grad_(True)
+    upsample_align_corners(ours, 2).float().backward(g)
+    ref = x.float().clone().requires_grad_(True)
+    torch.nn.functional.interpolate(ref, scale_factor=2, mode="bilinear",
+                                    align_corners=True).backward(g)
+    assert ours.grad.dtype == dtype
+    assert ours.grad.is_contiguous(memory_format=torch.channels_last) \
+        or not channels_last
+    want = ref.grad.to(dtype).float()
+    tol = 2e-6 if dtype == torch.float32 else 1e-2
+    assert float((ours.grad.float() - want).abs().max()) <= \
+        tol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("name", ["focal_loss", "dice_coefficient",
