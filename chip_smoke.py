@@ -104,10 +104,11 @@
    itself is not bit-reproducible on the card (its upsample and scatter
    backwards add atomically): ZeRO-1 is held to plain data parallelism
    bit for bit on the same averaged gradients, and two runs' parameters
-   are compared by distance (printed). Then `torchrun -m ecamp_tpu_torch.cli.pretrain
-   --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) of B =
-   16 for an epoch of 6's corpus: one log line, rank 0's, with every
-   kernel's launches a micro-step, and whole moments in its checkpoint.
+   are compared by distance (printed). Beside those launches, `torchrun
+   -m ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce` on 2
+   ranks (gloo on one card) of B = 16 for an epoch of 6's corpus: one log
+   line, rank 0's, with every kernel's launches a micro-step, and whole
+   moments in its checkpoint.
    The `data_parallel` JSON line holds the figures.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
@@ -125,7 +126,8 @@
    `classifier_engine` on that `.pth` against `ClassificationTask.eval_step`
    plus a sigmoid (2e-2); (e) `preempt_drill`: (c)'s command in a fresh
    output directory with ECAMP_PREEMPT_AT_STEP at micro-step 3 (epoch 1,
-   batch 1, after the first validation): exit 0, the message,
+   batch 1, after the first validation), started beside (c) (it reads
+   nothing of (c)'s): exit 0, the message,
    `preempt/checkpoint-step-3.pth`, no test line; then again without the
    variable: the resume line, the test line, `preempt/` gone; the
    validations, the test metric and the best `.pth` against (c)'s: bit for
@@ -183,6 +185,30 @@
    task's on one candidate set, and one POST through the HTTP server with
    task detection; (e) (c) preempted at micro-step 4 (epoch 1, batch 1)
    and resumed, as 7 (e). The phase prints its seconds.
+9f. Data-parallel fine-tunes (`torchrun`; `core/distributed.py`, the
+   global-batch BatchNorm and dice, `cli/common.py::ShardedEval`), full
+   width, bf16, AdamW at a constant lr 5e-4: (a) SegViT (SIIM) at a
+   global batch of DPF_SEG_B = 32 and the ViT detector at DPF_DET_B = 64
+   (16 and 32 a rank at 2 ranks), 3 steps each from the seeded weights on
+   the rank's rows of a seeded global batch, under torchrun
+   (`chip_smoke.py --dp-ft-worker SPEC`): 2 NCCL ranks on two or more
+   cards; on one card NCCL at one rank and 2 gloo ranks sharing it; each
+   launch against one process at the global
+   batch: every step's loss within LOSS_TOL, the first averaged
+   gradient's norm within GNORM_TOL, the BatchNorm running statistics
+   within DPF_BN_TOL, the ranks' parameter and BatchNorm-buffer checksums
+   equal, 24 LayerNorm, 12 attention and 1 AdamW launches a step on every
+   rank, host ms a step and each rank's peak memory printed; (b) started
+   before (a) and running beside it: `torchrun --nproc_per_node=2 -m
+   ecamp_tpu_torch.cli.finetune_seg --task SIIM` and `... finetune_det
+   --task RSNA --start_eval 1` on (8)'s and (9)'s corpora from the
+   pretrain CLI's checkpoint, DPF_CLI_B = 16 rows a rank, 1 epoch: one
+   `log.txt` (one validation and one test line, from rank 0), a best
+   `.pth`, and the test metric the 2 ranks' ShardedEval gave within
+   DPF_TEST_TOL of the same CLI's `--stage test` in this process (one
+   process) on that `.pth`, the difference printed; (c) the
+   `data_parallel_finetune` JSON line; `dp_seg_launches` and
+   `dp_det_launches` in the `kernels` line.
 10. The ResNet-50 UNet segmentation baseline (`ResNetUNet`: torchvision
    ResNet-50 encoder, decoder 256/128/64/32/16, 224 px, bf16, trained end
    to end; seg_SIIM_100's AdamW lr 5e-4 wd 0.05 clip 1.0 with the warmup
@@ -249,8 +275,9 @@
    lines of the results, of every kernel shape timed, of each phase's end
    (seconds after the build, `phase_end_seconds`; also printed as each
    phase ends) and of the kernels (with each kernel's launches in (6e)'s
-   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`) and,
-   last, the device line.
+   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`, and in
+   (9f)'s: `dp_seg_launches`, `dp_det_launches`) and, last, the device
+   line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
 at once; it never runs on the CPU.
@@ -259,6 +286,7 @@ at once; it never runs on the CPU.
 from __future__ import annotations
 
 import base64
+import contextlib
 import io
 import json
 import os
@@ -332,6 +360,13 @@ DET_CLI_B = 32
 DET_EVAL_B = 32      # 38 = 32 + 6: a ragged last eval batch
 DET_IMG = 512        # the corpus's PNG size
 # -- the ResNet-50 baselines (seg_SIIM_100's and det_RSNA_100's batches) --
+DPF_SEG_B = 32       # (9f) (a): the global batch of SegViT (16 a rank
+DPF_DET_B = 64       # at 2 ranks) and of the ViT detector (32 a rank)
+DPF_STEPS = 3
+DPF_BN_TOL = 2e-2    # BatchNorm running statistics against one process
+DPF_CLI_B = 16       # (b): rows a rank of the torchrun CLIs
+DPF_TEST_TOL = 1e-3  # (b): the 2-rank test metric against one process's
+
 RSEG_B = 512         # halved until a step fits
 RDET_B = 1024
 RESNET_PROBE_B = 16  # the batch whose peak memory sets the first try
@@ -2115,26 +2150,47 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
                        "epochs": recs_d}}
 
 
-def _run_group(cmd, env, timeout, what):
-    """Run `cmd` (a launcher and its ranks) from the repository root in a
-    process group of its own; on a timeout kill the whole group. Returns
-    its stdout and stderr; a non-zero exit fails the check."""
-    import signal
+_STARTED = []  # processes started to run beside a phase; main stops any
 
+
+def _start_group(cmd, env):
+    """Start `cmd` (a launcher and its ranks) from the repository root in a
+    process group of its own, its output piped."""
     repo = os.path.dirname(os.path.abspath(__file__))
     p = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.PIPE, text=True,
                          start_new_session=True)
-    try:
-        out, err = p.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    _STARTED.append(p)
+    return p
+
+
+def _stop(p) -> None:
+    """Kill a started process (its whole group) if it still runs."""
+    import signal
+
+    if p.poll() is None:
         os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+
+
+def _wait_group(p, what: str, timeout: float):
+    """Wait for a `_start_group` process; on a timeout kill its group.
+    Returns its stdout and stderr; a non-zero exit fails the check."""
+    try:
+        out, err = p.communicate(timeout=max(1.0, timeout))
+    except subprocess.TimeoutExpired:
+        _stop(p)
         out, err = p.communicate()
-        check(False, f"{what} outlived {timeout} s:\n{out[-3000:]}\n"
-              f"{err[-3000:]}")
+        check(False, f"{what} outlived its {timeout:.0f} s:\n"
+              f"{out[-3000:]}\n{err[-3000:]}")
     check(p.returncode == 0, f"{what} exited {p.returncode}:\n"
           f"{out[-3000:]}\n{err[-3000:]}")
     return out, err
+
+
+def _run_group(cmd, env, timeout, what):
+    """`cmd` started (`_start_group`) and waited for (`_wait_group`)."""
+    return _wait_group(_start_group(cmd, env), what, timeout)
 
 
 def _torchrun(n: int, port: int) -> list:
@@ -2476,11 +2532,11 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     parameters, moment pieces and count bit for bit, every step's loss
     within LOSS_TOL of plain's (the step is not bit-reproducible on the
     card; the runs' distance is printed).
-    Then `torchrun -m ecamp_tpu_torch.cli.pretrain --shard_optimizer
-    --fused_mlm_ce` on 2 ranks (gloo on one card) at DP_B a rank for an
-    epoch of `cli_phase`'s corpus: one log line, from rank 0, with
-    `cli_per_step` launches a micro-step, and a checkpoint whose moments
-    are whole. Returns the `data_parallel` JSON line's content."""
+    Beside the launches, `torchrun -m ecamp_tpu_torch.cli.pretrain
+    --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) at DP_B
+    a rank for an epoch of `cli_phase`'s corpus: one log line, from rank
+    0, with `cli_per_step` launches a micro-step, and a checkpoint whose
+    moments are whole. Returns the `data_parallel` JSON line's content."""
     import gc
 
     import numpy as np
@@ -2526,7 +2582,68 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     env = {k: v for k, v in os.environ.items()
            if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
-    moment_bytes = 2 * 4 * n_params
+    # the entry point itself, torchrun -m ecamp_tpu_torch.cli.pretrain,
+    # runs beside the launches (their step times are taken beside it)
+    n_cli = 2
+    cli_backend = "nccl" if n_cli <= cards else "gloo"
+    out = os.path.join(work, "dp_cli")
+    t_cli = time.perf_counter()
+    cli = _start_group(
+        _torchrun(n_cli, _free_port())
+        + ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
+           os.path.join(work, "mimic"), "--fused_mlm_ce",
+           "--shard_optimizer", "--batch_size", str(DP_B), "--epochs", "1",
+           "--output_dir", out, "--seed", str(SEED), "--print_freq", "1"],
+        env)
+    try:
+        runs = _dp_launches(plan, cards, env, work, ref_path, ref,
+                            per_step, moment_bytes=2 * 4 * n_params)
+        _wait_group(cli, "torchrun cli.pretrain",
+                    DP_TIMEOUT - (time.perf_counter() - t_cli))
+    finally:
+        _stop(cli)
+    cli_s = time.perf_counter() - t_cli
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = CLI_IMAGES // (n_cli * DP_B)
+    want = {k: v * steps for k, v in cli_per_step.items()}
+    check(len(recs) == 1 and recs[0]["epoch"] == 0,
+          f"CLI log lines {recs}: rank 0 alone writes one an epoch")
+    rec = recs[0]
+    check(all(np.isfinite(rec[k]) for k in ("loss", "mim_loss", "res_loss",
+                                             "mlm_loss")),
+          f"CLI: non-finite loss {rec}")
+    check(rec["kernel_launches"] == want,
+          f"CLI launches {rec['kernel_launches']} != {want}")
+    check(rec["micro_steps"] == steps and rec["updates"] == steps,
+          f"CLI micro-steps {rec['micro_steps']}, updates {rec['updates']}")
+    ck = torch.load(os.path.join(out, "checkpoint-0.pth"), weights_only=True)
+    whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
+                .values())
+    check(whole == n_params, f"CLI checkpoint: {whole} moment elements")
+    del ck
+    shutil.rmtree(out, ignore_errors=True)
+    os.remove(ref_path)
+    print(f"  torchrun --nproc_per_node={n_cli} -m "
+          f"ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce "
+          f"({cli_backend}), {DP_B} a rank: "
+          f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
+          f"max_mem_mb {rec['max_mem_mb']:.1f}, whole moments in "
+          f"checkpoint-0.pth; {cli_s:.1f} s beside the launches; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"reference": ref, "runs": runs,
+            "predicted_saving_bytes": 4 * n_params,
+            "cli": {"backend": cli_backend, "ranks": n_cli,
+                    "rows_a_rank": DP_B, "log": rec, "seconds": cli_s},
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
+                 moment_bytes):
+    """(6e)'s `dp_worker` launches, one a world size of `plan`, each held
+    against the one-process reference `ref`; returns their figures."""
+    import numpy as np
+
     runs = {}
     for n in plan:
         backend = "nccl" if n <= cards else "gloo"
@@ -2610,60 +2727,41 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
                   f"the saved state restored bit for bit, resumed: (max, "
                   f"L2) {r0['repeat_distance']} from the plain run")
 
-    # the entry point itself: torchrun -m ecamp_tpu_torch.cli.pretrain
-    n = 2
-    backend = "nccl" if n <= cards else "gloo"
-    out = os.path.join(work, "dp_cli")
-    cmd = (_torchrun(n, _free_port())
-           + ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
-              os.path.join(work, "mimic"), "--fused_mlm_ce",
-              "--shard_optimizer", "--batch_size", str(DP_B), "--epochs",
-              "1", "--output_dir", out, "--seed", str(SEED),
-              "--print_freq", "1"])
-    t = time.perf_counter()
-    printed, _ = _run_group(cmd, env, DP_TIMEOUT, "torchrun cli.pretrain")
-    cli_s = time.perf_counter() - t
-    with open(os.path.join(out, "log.txt")) as f:
-        recs = [json.loads(line) for line in f]
-    steps = CLI_IMAGES // (n * DP_B)
-    want = {k: v * steps for k, v in cli_per_step.items()}
-    check(len(recs) == 1 and recs[0]["epoch"] == 0,
-          f"CLI log lines {recs}: rank 0 alone writes one an epoch")
-    rec = recs[0]
-    check(all(np.isfinite(rec[k]) for k in ("loss", "mim_loss", "res_loss",
-                                             "mlm_loss")),
-          f"CLI: non-finite loss {rec}")
-    check(rec["kernel_launches"] == want,
-          f"CLI launches {rec['kernel_launches']} != {want}")
-    check(rec["micro_steps"] == steps and rec["updates"] == steps,
-          f"CLI micro-steps {rec['micro_steps']}, updates {rec['updates']}")
-    ck = torch.load(os.path.join(out, "checkpoint-0.pth"), weights_only=True)
-    whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
-                .values())
-    check(whole == n_params, f"CLI checkpoint: {whole} moment elements")
-    del ck
-    shutil.rmtree(out, ignore_errors=True)
-    os.remove(ref_path)
-    print(f"  torchrun --nproc_per_node={n} -m ecamp_tpu_torch.cli.pretrain "
-          f"--shard_optimizer --fused_mlm_ce ({backend}), {DP_B} a rank: "
-          f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
-          f"max_mem_mb {rec['max_mem_mb']:.1f}, whole moments in "
-          f"checkpoint-0.pth; {cli_s:.1f} s; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return {"reference": ref, "runs": runs,
-            "predicted_saving_bytes": moment_bytes / 2,
-            "cli": {"backend": backend, "ranks": n, "rows_a_rank": DP_B,
-                    "log": rec, "seconds": cli_s},
-            "seconds": time.perf_counter() - t_phase}
+    return runs
+
+
+def _start_run(cmd: list, where: str, extra_env: dict):
+    """A fine-tune CLI command `cmd` with --output_dir `where` started in
+    the background, its output in `where`.stdout, the preemption variables
+    cleared but for `extra_env`; (process, file, path, start time)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    i = cmd.index("--output_dir")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+    f = open(where + ".stdout", "w")
+    p = subprocess.Popen(cmd[:i + 1] + [where] + cmd[i + 2:], cwd=repo,
+                         stdout=f, stderr=subprocess.STDOUT, text=True,
+                         env={**env, **extra_env}, start_new_session=True)
+    _STARTED.append(p)
+    return p, f, where + ".stdout", time.perf_counter()
+
+
+def start_preempted(cmd: list, ref_out: str, per_epoch: int):
+    """(7e)-(9e)'s preempted run, started beside (c)'s run of `cmd`, which
+    it does not read: `cmd` in `ref_out`_preempt with ECAMP_PREEMPT_AT_STEP
+    at the second epoch's second micro-step."""
+    return _start_run(cmd, ref_out + "_preempt",
+                      {"ECAMP_PREEMPT_AT_STEP": str(per_epoch + 1)})
 
 
 def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
                   per_step: dict, n_eval: int, metric: str,
-                  test_key: str, marker: str) -> dict:
+                  test_key: str, marker: str, first) -> dict:
     """(7e), (8e), (9e): the (c) step's fine-tune command `cmd` again in a
     fresh --output_dir with ECAMP_PREEMPT_AT_STEP at the second epoch's
     second micro-step (mid-epoch, after the first validation, so the early
-    stopper's state and the best .pth are part of what is restored): exit
+    stopper's state and the best .pth are part of what is restored; the
+    run `first`, which `start_preempted` started beside (c)): exit
     0, JAX's message, the file, no test line; then the same command
     without the variable: the resume line, the test line, `preempt/` gone.
     Held against (c)'s uninterrupted run in `ref_out`: the validation
@@ -2680,21 +2778,13 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
     import torch
 
     t_phase = time.perf_counter()
-    repo = os.path.dirname(os.path.abspath(__file__))
     at = per_epoch + 1
     out = ref_out + "_preempt"
-    i = cmd.index("--output_dir")
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
 
     def start(extra_env, where):
-        """The command with --output_dir `where`, its output in a file."""
-        f = open(where + ".stdout", "w")
-        p = subprocess.Popen(cmd[:i + 1] + [where] + cmd[i + 2:], cwd=repo,
-                             stdout=f, stderr=subprocess.STDOUT, text=True,
-                             env={**env, **extra_env})
-        procs.append(p)
-        return p, f, where + ".stdout", time.perf_counter()
+        run = _start_run(cmd, where, extra_env)
+        procs.append(run[0])
+        return run
 
     def wait(what, run):
         p, f, path, t = run
@@ -2721,12 +2811,11 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
         return [(r["step"], r[metric], r["best"]) for r in recs
                 if "step" in r]
 
-    procs = []
+    procs = [first[0]]
     again = ref_out + "_again"
 
     def drill():
-        printed, save_run_s = wait("the preempted run", start(
-            {"ECAMP_PREEMPT_AT_STEP": str(at)}, out))
+        printed, save_run_s = wait("the preempted run", first)
         msg = (f"preemption checkpoint saved @ micro {at} (optimizer step "
                f"{at}); rerun with the same --output_dir to resume")
         check(msg in printed, f"({tag}) no '{msg}' in:\n{printed[-2000:]}")
@@ -3090,6 +3179,8 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
            str(FT_EVAL_B), "--lr", "3e-2", "--warmup_steps", "50",
            "--num_steps", str(2 * per_epoch), "--patience", "1",
            "--output_dir", out, "--seed", str(SEED)]
+    # (e)'s preempted run starts now and runs beside (c) and (d)
+    first = start_preempted(cmd, out, per_epoch)
     t = time.perf_counter()
     r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
                        timeout=CLI_TIMEOUT)
@@ -3158,7 +3249,7 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     # (e) the same CLI preempted after its first validation and resumed
     result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
                                          n_val, "auc", "test",
-                                         "TEST mean AUROC:")
+                                         "TEST mean AUROC:", first)
     return result
 
 
@@ -3522,6 +3613,8 @@ def segmentation_phase(card: str, pretrained: str, work: str,
            str(SEG_EVAL_B), "--lr", "5e-4", "--warmup_steps", "50",
            "--num_steps", str(2 * per_epoch), "--patience", "1",
            "--output_dir", out, "--seed", str(SEED)]
+    # (e)'s preempted run starts now and runs beside (c) and (d)
+    first = start_preempted(cmd, out, per_epoch)
     t = time.perf_counter()
     r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
                        timeout=CLI_TIMEOUT)
@@ -3604,7 +3697,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     # (e) the same CLI preempted after its first validation and resumed
     result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
                                          n_val, "dice", "test_dice",
-                                         "TEST dice:")
+                                         "TEST dice:", first)
     return result
 
 
@@ -3871,6 +3964,8 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
            "--warmup_steps", "2", "--num_steps", str(2 * per_epoch),
            "--patience", "1", "--start_eval", "1", "--output_dir", out,
            "--seed", str(SEED)]
+    # (e)'s preempted run starts now and runs beside (c) and (d)
+    first = start_preempted(cmd, out, per_epoch)
     t = time.perf_counter()
     r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
                        timeout=CLI_TIMEOUT)
@@ -3974,10 +4069,336 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     # (e) the same CLI preempted after its first validation and resumed
     result["preemption"] = preempt_drill("e", cmd, out, per_epoch, per_step,
                                          n_eval, "mAP", "test_map",
-                                         "TEST mAP@[.40:.05:.75]:")
+                                         "TEST mAP@[.40:.05:.75]:", first)
     result["phase_seconds"] = time.perf_counter() - t_phase
     print(f"  detection phase: {result['phase_seconds']:.1f} s")
     return result
+
+
+def _dpf_cfg(kind: str):
+    """(9f)'s configuration: SegViT SIIM or the ViT detector (expansion 4)
+    at full width, bf16, AdamW at a constant lr (wd 0.05, clip 1.0), so
+    that the first steps move the decoder or the neck: 5e-4 for SegViT,
+    1e-4 for the detector (at 5e-4 its first sign-like Adam step takes the
+    loss from 1.18 to 6.0, and the runs' bf16 roundings part further)."""
+    from ecamp_tpu_torch.core import config as c
+
+    opt = c.OptimizerConfig(name="adamw", lr=5e-4 if kind == "seg" else 1e-4,
+                            weight_decay=0.05, betas=(0.9, 0.999),
+                            schedule="constant", grad_clip=1.0)
+    if kind == "seg":
+        return c.SegmentationConfig(optimizer=opt, task="SIIM", seed=SEED)
+    return c.DetectionConfig(optimizer=opt, seed=SEED)
+
+
+def _dpf_run(kind: str, dev, batch: int, rank: int, world: int,
+             stats_path: str = "") -> dict:
+    """DPF_STEPS steps of (9f)'s `kind` task on `dev` on this rank's rows
+    (batch / world of them) of the seeded global batch of `batch` rows
+    (one process: rank 0 of 1): each step's loss, the first update's averaged
+    gradient norm over the trained leaves, host ms a step, the peak
+    device memory, the kernels' launches, the checksums of the parameters
+    and of the BatchNorm buffers; the running statistics after the first
+    and the last step written to `stats_path` if given."""
+    import gc
+
+    import torch
+
+    from ecamp_tpu_torch.data.synthetic import detection_batch
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.train.detection import DetectionTask
+    from ecamp_tpu_torch.train.segmentation import SegmentationTask
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _dpf_cfg(kind)
+    task = (SegmentationTask if kind == "seg" else DetectionTask)(
+        cfg, device=dev)
+    state = task.init_state()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    if kind == "seg":
+        images, targets = _seg_batch(batch, 1, gen)
+    else:
+        images, targets = detection_batch(batch, cfg.max_objects, gen)
+    rows = batch // world
+    lo = rank * rows
+    images, targets = images[lo:lo + rows], targets[lo:lo + rows]
+    mask = task.freeze_mask()
+    trained = [p for k, p in task.model.named_parameters() if mask[k]]
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "adamw": adamw.launches}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for ctr in counters.values():
+        ctr.reset()
+    def running_stats():
+        return {k: v.detach().float().cpu()
+                for k, v in task.model.state_dict().items()
+                if "running_" in k}
+
+    losses, step_ms, gnorm, first = [], [], None, None
+    for _ in range(DPF_STEPS):
+        t = time.perf_counter()
+        state, m = task.train_step(state, images, targets)
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        if gnorm is None:
+            gnorm = float(sum(p.grad.double().square().sum()
+                              for p in trained) ** 0.5)
+            first = running_stats()
+    stats = running_stats()
+    if stats_path:
+        torch.save({"first": first, "last": stats}, stats_path)
+    out = {"rows": rows, "losses": losses, "grad_norm": gnorm,
+           "step_ms": step_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": {k: ctr.value for k, ctr in counters.items()},
+           "param_checksum": float(sum(p.detach().double().sum()
+                                       for p in task.model.parameters())),
+           "bn_checksum": float(sum(v.double().sum()
+                                    for v in stats.values())),
+           "trained_elements": sum(p.numel() for p in trained)}
+    del task, state, images, targets
+    return out
+
+
+def dp_ft_worker(spec: dict) -> int:
+    """One rank of (9f) (a)'s torchrun launch (`chip_smoke.py
+    --dp-ft-worker SPEC`): `_dpf_run` of SegViT and of the ViT detector on
+    this rank's share of the seeded global batch of DPF_SEG_B or
+    DPF_DET_B rows; rank 0 writes the running statistics. Writes its results
+    as JSON to spec["out"] with the rank's number; a failed check exits
+    non-zero."""
+    import torch
+
+    from ecamp_tpu_torch.core import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(distributed.initialize_distributed("cuda"),
+          "no launcher environment")
+    rank, world = distributed.rank(), distributed.world_size()
+    dev = distributed.rank_device("cuda")
+    out = {"rank": rank, "world": world,
+           "backend": torch.distributed.get_backend(),
+           "card": torch.cuda.get_device_name(dev)}
+    for kind, batch in (("seg", DPF_SEG_B), ("det", DPF_DET_B)):
+        out[kind] = _dpf_run(kind, dev, batch, rank, world,
+                             f"{spec['out']}{kind}.pt" if rank == 0 else "")
+    with open(f"{spec['out']}{rank}.json", "w") as f:
+        json.dump(out, f)
+    distributed.shutdown_distributed()
+    return 0
+
+
+def _dpf_cli(kind: str, work: str, pretrained: str, env: dict):
+    """Start (9f) (b)'s torchrun launch of the `kind` fine-tune CLI on 2
+    ranks for 1 epoch of DPF_CLI_B rows a rank on (8)'s or (9)'s corpus;
+    returns (the process, its command, its output directory, the updates
+    of the epoch)."""
+    from ecamp_tpu_torch.data.datasets import (RSNADetectionDataset,
+                                               SIIMSegmentationDataset)
+
+    data = os.path.join(work, "siim" if kind == "seg" else "rsna_det")
+    ds = (SIIMSegmentationDataset if kind == "seg" else
+          RSNADetectionDataset)(data, data, "train")
+    per_epoch = -(-len(ds) // 2) // DPF_CLI_B
+    check(per_epoch >= 1, f"(9f b) the {kind} corpus fills no batch")
+    out = os.path.join(work, f"dpf_{kind}")
+    cmd = (_torchrun(2, _free_port())
+           + ["-m", f"ecamp_tpu_torch.cli.finetune_{kind}",
+              "--task", "SIIM" if kind == "seg" else "RSNA",
+              "--dataset_path", data, "--batch_size", str(DPF_CLI_B),
+              "--eval_batch_size", str(SEG_EVAL_B), "--lr", "5e-4",
+              "--num_steps", str(per_epoch), "--patience", "1",
+              "--num_workers", "2", "--output_dir", out, "--seed",
+              str(SEED)]
+           + (["--pretrained", pretrained] if pretrained else [])
+           + (["--warmup_steps", "2", "--weight_decay", "0.05",
+               "--start_eval", "1"] if kind == "det" else
+              ["--warmup_steps", "50"]))
+    return _start_group(cmd, env), cmd, out, per_epoch
+
+
+def dp_finetune_phase(card: str, pretrained: str, work: str) -> dict:
+    """(9f) Data-parallel fine-tunes (module docstring). Returns the
+    `data_parallel_finetune` JSON line's content."""
+    t_phase = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
+    # (b) starts first and runs beside (a)
+    clis = {}
+    try:
+        for kind in ("seg", "det"):
+            clis[kind] = _dpf_cli(kind, work, pretrained, env)
+        return _dpf_checks(card, work, env, clis, t_phase)
+    finally:
+        for p, *_ in clis.values():  # a failed check leaves none running
+            _stop(p)
+
+
+def _dpf_checks(card: str, work: str, env: dict, clis: dict,
+                t_phase: float) -> dict:
+    """(9f) (a), then (b)'s CLIs, which `dp_finetune_phase` started."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    t_cli = time.perf_counter()
+
+    # (a): one process at the global batch, then the ranks
+    depth = _dpf_cfg("seg").vit.depth
+    per_step = {"layer_norm": 2 * depth, "attention": depth, "adamw": 1}
+    ref = {}
+    for kind, batch in (("seg", DPF_SEG_B), ("det", DPF_DET_B)):
+        ref[kind] = _dpf_run(kind, torch.device("cuda"), batch, 0, 1,
+                             os.path.join(work, f"dpf_ref_{kind}.pt"))
+        r = ref[kind]
+        print(f"data-parallel fine-tune on {card}: {kind} one process at B "
+              f"= {batch}: losses {[round(x, 5) for x in r['losses']]}, "
+              f"grad norm {r['grad_norm']:.6g}, step ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, peak "
+              f"{r['peak_bytes']} bytes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    plan = [2] if cards >= 2 else [1, 2]
+    runs = {}
+    for n in plan:
+        backend = "nccl" if n <= cards else "gloo"
+        tag = f"{backend}{n}"
+        spec = {"out": os.path.join(work, f"dpf_{tag}_rank")}
+        t = time.perf_counter()
+        _run_group(_torchrun(n, _free_port())
+                   + [os.path.abspath(__file__), "--dp-ft-worker",
+                      json.dumps(spec)], env, DP_TIMEOUT,
+                   f"(9f a) torchrun {n} x {backend}")
+        wall = time.perf_counter() - t
+        res = []
+        for r in range(n):
+            with open(f"{spec['out']}{r}.json") as f:
+                res.append(json.load(f))
+        runs[tag] = {"backend": backend, "ranks": n, "launch_s": wall}
+        for kind, batch in (("seg", DPF_SEG_B), ("det", DPF_DET_B)):
+            rows = batch // n
+            want = ref[kind]
+            stats = torch.load(f"{spec['out']}{kind}.pt", weights_only=True)
+            ref_stats = torch.load(os.path.join(work, f"dpf_ref_{kind}.pt"),
+                                   weights_only=True)
+            # each running statistic's distance over its own scale
+            bn_err = {when: max(
+                float((v - ref_stats[when][k]).abs().max())
+                / max(1.0, float(ref_stats[when][k].abs().max()))
+                for k, v in stats[when].items()) for when in stats}
+            r0 = res[0][kind]
+            runs[tag][kind] = {
+                "rows_a_rank": rows, "losses": r0["losses"],
+                "grad_norm": r0["grad_norm"], "bn_stats_rel_err": bn_err,
+                "step_ms": [r[kind]["step_ms"] for r in res],
+                "peak_bytes": [r[kind]["peak_bytes"] for r in res],
+                "launches": [r[kind]["launches"] for r in res],
+                "param_checksum": r0["param_checksum"],
+                "bn_checksum": r0["bn_checksum"],
+                "trained_elements": r0["trained_elements"]}
+            scaling = ("" if backend == "nccl" and n > 1 else
+                       "; no scaling figure: " + ("one rank" if n == 1
+                                                  else "the ranks share "
+                                                  "one card"))
+            losses = [[round(x, 5) for x in r[kind]["losses"]] for r in res]
+            sums = [(r[kind]["param_checksum"], r[kind]["bn_checksum"])
+                    for r in res]
+            print(f"  {n} rank(s), {backend}, {kind} at {rows} rows a rank: "
+                  f"losses {losses}, grad norm {r0['grad_norm']:.6g}, "
+                  f"BatchNorm statistics {bn_err['first']:.3e} / "
+                  f"{bn_err['last']:.3e} of their scale from one process's "
+                  f"after step 1 / {DPF_STEPS}; checksums (parameters, "
+                  f"BatchNorm) {sums}; host "
+                  f"ms a step {runs[tag][kind]['step_ms']}{scaling}; peak "
+                  f"bytes {runs[tag][kind]['peak_bytes']}; launches "
+                  f"{r0['launches']}")
+            for r in res:
+                who = f"(9f a) {tag} rank {r['rank']} {kind}"
+                check(r["backend"] == backend,
+                      f"{who}: backend {r['backend']}, expected {backend}")
+                got = r[kind]
+                for i, (a, b) in enumerate(zip(got["losses"],
+                                               want["losses"])):
+                    check(np.isfinite(a) and abs(a - b) <= LOSS_TOL * abs(b),
+                          f"{who} step {i}: loss {a:.6g} against {b:.6g}")
+                g, gr = got["grad_norm"], want["grad_norm"]
+                check(abs(g - gr) <= GNORM_TOL * gr,
+                      f"{who}: grad norm {g:.6g} against {gr:.6g}")
+                steps = {k: v * DPF_STEPS for k, v in per_step.items()}
+                check(got["launches"] == steps,
+                      f"{who}: launches {got['launches']} != {steps}")
+            for key in ("param_checksum", "bn_checksum"):
+                check(len({r[kind][key] for r in res}) == 1,
+                      f"(9f a) {tag} {kind}: {key}s "
+                      f"{[r[kind][key] for r in res]} differ")
+            # after the first step the statistics are those of the global
+            # batch through the same weights; later steps add the updates'
+            # spread (printed)
+            check(bn_err["first"] <= DPF_BN_TOL,
+                  f"(9f a) {tag} {kind}: BatchNorm statistics "
+                  f"{bn_err['first']:.3e} of their scale from one "
+                  f"process's after the first step")
+        print(f"  {tag}: launch {wall:.1f} s (beside (b)'s CLIs)")
+
+    # (b): the CLIs' logs, then one process scores each best .pth
+    from ecamp_tpu_torch.cli import finetune_det, finetune_seg
+
+    cli = {}
+    for kind, (p, cmd, out, per_epoch) in clis.items():
+        printed, _ = _wait_group(p, f"(9f b) torchrun cli.finetune_{kind}",
+                                 DP_TIMEOUT - (time.perf_counter() - t_cli))
+        cli_s = time.perf_counter() - t_cli
+        with open(os.path.join(out, "log.txt")) as f:
+            recs = [json.loads(line) for line in f]
+        key, test_key = (("dice", "test_dice") if kind == "seg" else
+                         ("mAP", "test_map"))
+        vals = [rec for rec in recs if "step" in rec]
+        check(len(recs) == 2 and [rec["step"] for rec in vals] == [per_epoch]
+              and test_key in recs[-1],
+              f"(9f b) {kind} log {recs}: rank 0 alone writes one "
+              f"validation and one test line")
+        best = os.path.join(out, "best", "checkpoint-best.pth")
+        check(os.path.exists(best), f"(9f b) {kind}: no best .pth")
+        check(printed.count(f"step {per_epoch}: val") == 1,
+              f"(9f b) {kind}: rank 0 alone prints")
+        one_out = os.path.join(work, f"dpf_{kind}_one")
+        os.makedirs(os.path.join(one_out, "best"))
+        os.link(best, os.path.join(one_out, "best", "checkpoint-best.pth"))
+        argv = cmd[cmd.index("--task"):]
+        argv[argv.index("--output_dir") + 1] = one_out
+        if "--pretrained" in argv:
+            i = argv.index("--pretrained")
+            del argv[i:i + 2]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = (finetune_seg if kind == "seg" else finetune_det).main(
+                argv + ["--stage", "test"])
+        one_s = time.perf_counter() - t
+        two = recs[-1][test_key]
+        diff = abs(two - one)
+        print(f"  (b) torchrun --nproc_per_node=2 cli.finetune_{kind}: "
+              f"{cli_s:.1f} s, validation {key} {vals[0][key]:.6f}, test "
+              f"{key} on 2 ranks (ShardedEval) {two:.6f}, one process on "
+              f"the same .pth {one:.6f} ({one_s:.1f} s): |diff| {diff:.3e}")
+        check(diff <= DPF_TEST_TOL, f"(9f b) {kind}: the 2-rank test "
+              f"{key} {two:.6f} against one process's {one:.6f}")
+        cli[kind] = {"seconds": cli_s, "log": recs, "updates": per_epoch,
+                     "test_two_ranks": two, "test_one_process": one,
+                     "test_abs_diff": diff, "one_process_s": one_s}
+        shutil.rmtree(one_out, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"  (9f) phase {seconds:.1f} s")
+    return {"reference": ref, "runs": runs, "cli": cli,
+            "per_step": per_step, "seconds": seconds}
 
 
 def write_torchvision_resnet50(work: str) -> str:
@@ -4806,6 +5227,8 @@ def main() -> int:
         detection = detection_phase(card, ckpt, work, det_kernels,
                                     shape_rows)
         mark("detection")
+        dpf = dp_finetune_phase(card, ckpt, work)
+        mark("data_parallel_finetune")
         tv_pth = write_torchvision_resnet50(work)
         resnet_kernels = {"resnet_seg": {}, "resnet_det": {}}
         resnet_seg = resnet_phase(card, "seg", work, tv_pth,
@@ -4823,6 +5246,8 @@ def main() -> int:
                                      "checkpoint-best.pth"), work)
         mark("serving_rest")
     finally:
+        for p in _STARTED:  # a failed check leaves no run behind
+            _stop(p)
         shutil.rmtree(work, ignore_errors=True)
 
     # launches: the materialised step's (d) for the first four kernels, the
@@ -4907,6 +5332,14 @@ def main() -> int:
         n = sum(cli_dp.get(k, 0) for k in parts.get(name, (name,)))
         if n:
             entry["dp_cli_launches"] = n
+        # (9f) (a): a rank's DPF_STEPS steps of SegViT and of the ViT
+        # detector in its multi-rank run
+        dpf_run = dpf["runs"][max(dpf["runs"], key=lambda t: dpf["runs"][t]
+                                  ["ranks"])]
+        for kind in ("seg", "det"):
+            n = dpf_run[kind]["launches"][0].get(name, 0)
+            if n:
+                entry[f"dp_{kind}_launches"] = n
         if name in viz["launches"]:  # one visualizer forward's
             entry["visualize_launches"] = viz["launches"][name]
         if name in int8_cls:  # one forward of each int8 engine
@@ -4949,6 +5382,7 @@ def main() -> int:
                       "segmentation_kernels": seg_kernels}))
     print(json.dumps({"detection": detection,
                       "detection_kernels": det_kernels}))
+    print(json.dumps({"data_parallel_finetune": dpf}))
     print(json.dumps({"resnet_seg": resnet_seg, "resnet_det": resnet_det,
                       "resnet_kernels": resnet_kernels}))
     print(json.dumps({"visualize": viz}))
@@ -4967,4 +5401,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
         sys.exit(dp_worker(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-ft-worker":
+        sys.exit(dp_ft_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,24 +49,41 @@ def checkpoint_path(output_dir: str, epoch: int) -> str:
 CYCLE_KEY = "accum_cycle"
 
 
-def _save(path: str, model: nn.Module, state, weight_decay: float,
-          **extra) -> str:
-    """Write the model, the AdamW state and the open cycle, if any, with
-    `extra` through a temporary file, so a reader never sees half of one;
-    returns `path`. Every rank calls it; rank 0 writes."""
-    optimizer = state.optimizer_state_dict(weight_decay)
-    cycle = state.cycle_state_dict()
+def cpu_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict on the host, for a file."""
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def save_on_rank0(path: str, payload: Callable[[], Dict[str, Any]]) -> str:
+    """`torch.save(payload())` to `path` through a temporary file, so a
+    reader never sees half of one; returns `path`. Every rank calls it;
+    rank 0 alone builds the payload and writes, and all wait for the
+    write."""
     if distributed.rank() == 0:
-        payload = {"model": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
-                   "optimizer": optimizer, **extra}
-        if cycle is not None:
-            payload[CYCLE_KEY] = cycle
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp"
-        torch.save(payload, tmp)
+        torch.save(payload(), tmp)
         os.replace(tmp, path)
     distributed.barrier()
     return path
+
+
+def _save(path: str, model: nn.Module, state, weight_decay: float,
+          **extra) -> str:
+    """Write the model, the AdamW state and the open cycle, if any, with
+    `extra` (`save_on_rank0`); returns `path`. The optimizer state is
+    gathered on every rank first (a collective under ZeRO-1)."""
+    optimizer = state.optimizer_state_dict(weight_decay)
+    cycle = state.cycle_state_dict()
+
+    def payload():
+        out = {"model": cpu_state_dict(model), "optimizer": optimizer,
+               **extra}
+        if cycle is not None:
+            out[CYCLE_KEY] = cycle
+        return out
+
+    return save_on_rank0(path, payload)
 
 
 def save_checkpoint(output_dir: str, epoch: int, model: nn.Module, state,
@@ -88,16 +105,12 @@ def save_finetune_preemption(directory: str, micro: int, model: nn.Module,
                              opt_state: Mapping[str, Any],
                              meta: Mapping[str, Any]) -> str:
     """Write `<directory>/checkpoint-step-<micro>.pth` with the model's
-    state dict, `opt_state` (a state dict) and `meta`, through a temporary
-    file; returns its path."""
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"checkpoint-step-{micro}.pth")
-    tmp = path + ".tmp"
-    torch.save({"model": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()},
-                "opt_state": opt_state, "meta": dict(meta)}, tmp)
-    os.replace(tmp, path)
-    return path
+    state dict, `opt_state` (a state dict) and `meta` (`save_on_rank0`:
+    the ranks' states are equal); returns its path."""
+    return save_on_rank0(
+        os.path.join(directory, f"checkpoint-step-{micro}.pth"),
+        lambda: {"model": cpu_state_dict(model), "opt_state": opt_state,
+                 "meta": dict(meta)})
 
 
 def latest_step_file(directory: str) -> Optional[str]:

@@ -1,15 +1,24 @@
 """Shared CLI plumbing (counterpart of `ecamp_tpu/cli/common.py:14-97,
-307-426`): common arguments, the run directory's provenance, checkpoint
-cadence, early stopping and the fine-tune CLIs' preemption.
+157-251, 307-426`): common arguments, the run directory's provenance,
+checkpoint cadence, early stopping, the fine-tune CLIs' ranks, sharded
+evaluation and preemption.
 
 The JAX package's `pad_eval_batch` has no counterpart: XLA compiles one
 program per input shape, so JAX pads the ragged last eval batch to the
 static shape, while PyTorch runs eagerly and takes that batch as it is.
+Nor has `eval_state_and_sharder`: a rank's eval forward runs on its own
+card with no collective (BatchNorm in eval mode calls none).
+
+Under a launcher (torchrun; `core/distributed.py`) every fine-tune rank
+trains on its shard of the epoch and evaluates its shard of the split
+(`ShardedEval`); rank 0 alone writes the run directory, the logs and the
+checkpoints (each write followed by a barrier) and prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -18,10 +27,15 @@ import shutil
 import time
 from typing import Optional
 
+import numpy as np
+import torch
+
 from ..ckpt.checkpoint import (latest_step_file, load_checkpoint,
                                save_finetune_preemption)
+from ..core import distributed
 from ..core.metrics import MetricLogger
 from ..core.preemption import PreemptionGuard
+from ..data.loader import DataLoader
 from ..train.state import load_opt_state_dict, opt_state_dict
 
 
@@ -41,7 +55,14 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def setup_output(output_dir: str, args: argparse.Namespace) -> None:
     """Create the run directory and record its provenance (reference
     main_pretrain.py:214-216,258): the arguments as args.json and
-    config.yaml, and a copy of the port's source under code/."""
+    config.yaml, and a copy of the port's source under code/. Rank 0
+    writes; every rank waits for it."""
+    if distributed.rank() == 0:
+        _write_output(output_dir, args)
+    distributed.barrier()
+
+
+def _write_output(output_dir: str, args: argparse.Namespace) -> None:
     os.makedirs(output_dir, exist_ok=True)
     kv = {k: v if isinstance(v, (int, float, bool, type(None))) else str(v)
           for k, v in vars(args).items()}
@@ -60,6 +81,27 @@ def setup_output(output_dir: str, args: argparse.Namespace) -> None:
     if not os.path.exists(dst):
         shutil.copytree(pkg_root, dst, ignore=shutil.ignore_patterns(
             "__pycache__", "*.pyc", "*.so"))
+
+
+@contextlib.contextmanager
+def launched(device: torch.device):
+    """The fine-tune CLIs' ranks: join the launcher's process group, if
+    any, before the first device use (the rank's card for CUDA, gloo on
+    the CPU), silence every rank's stdout but rank 0's, and leave the
+    group at the end. Yields the device to run on: the rank's, or
+    `device` outside a launch."""
+    joined = (not distributed.is_distributed()
+              and distributed.initialize_distributed(device.type))
+    try:
+        with contextlib.ExitStack() as quiet:
+            if distributed.rank() != 0:  # rank 0 alone prints
+                quiet.enter_context(contextlib.redirect_stdout(
+                    quiet.enter_context(open(os.devnull, "w"))))
+            yield (distributed.rank_device(device.type)
+                   if distributed.is_distributed() else device)
+    finally:
+        if joined:
+            distributed.shutdown_distributed()
 
 
 def pretrain_ckpt_epochs(epochs: int, mid_every: int = 10,
@@ -100,6 +142,93 @@ class EarlyStopper:
         return self.bad >= self.patience
 
 
+class Subset:
+    """A dataset restricted to an index array (a rank's eval shard; the
+    eval datasets and transforms draw no random numbers, so the loader's
+    workers may share them)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[int(self.indices[i])]
+
+
+class ShardedEval:
+    """An eval split over the ranks, and the per-sample results gathered
+    back (JAX `ShardedEval`): rank p scores the interleaved shard whose
+    position k holds sample (p + k * P) mod n, padded by wrapping so that
+    every rank runs as many samples (n_local = ceil(n / P)); `gather`
+    restores dataset order on every rank, so the metrics are computed from
+    the same arrays everywhere. One process: the identity and a no-op."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.pid = distributed.rank()
+        self.P = distributed.world_size()
+        self.n_local = -(-n // self.P) if self.P > 1 else n
+
+    @property
+    def distributed(self) -> bool:
+        return self.P > 1
+
+    def local_indices(self) -> np.ndarray:
+        if not self.distributed:
+            return np.arange(self.n)
+        # sample i < n sits at (rank i % P, position i // P), which gather
+        # reassembles; the mod wraps the padding onto real samples, also
+        # where n < P
+        k = np.arange(self.n_local)
+        return (self.pid + k * self.P) % self.n
+
+    def gather(self, arr) -> np.ndarray:
+        """(n_local, ...) per-sample results -> (n, ...) in dataset order
+        (a collective every rank calls)."""
+        arr = np.asarray(arr)
+        if not self.distributed:
+            return arr[:self.n]
+        if arr.shape[0] != self.n_local:
+            raise ValueError(f"{arr.shape[0]} rows from a shard of "
+                             f"{self.n_local}")
+        g = distributed.all_gather_rows(arr)  # (P, n_local, ...)
+        return np.swapaxes(g, 0, 1).reshape((-1,) + g.shape[2:])[:self.n]
+
+    def gather_ragged(self, items, cols: int):
+        """A list of (k_i, >= cols) arrays or None, one a local sample ->
+        the global list in dataset order, each cut to `cols` columns as
+        float32: the lengths are gathered first, so every rank pads to the
+        same k, then the (n_local, k, cols) blocks."""
+        if not self.distributed:
+            return list(items)[:self.n]
+        lengths = np.asarray([0 if it is None else len(it) for it in items],
+                             np.int32)
+        all_len = self.gather(lengths)
+        # the wrap-padding rows repeat real samples, so the trimmed
+        # maximum bounds them too
+        k = max(int(all_len.max()) if len(all_len) else 0, 1)
+        packed = np.zeros((self.n_local, k, cols), np.float32)
+        for i, it in enumerate(items):
+            if it is not None and len(it):
+                packed[i, :len(it)] = np.asarray(it, np.float32)[:, :cols]
+        g = self.gather(packed)
+        return [g[i, :all_len[i]] if all_len[i] else None
+                for i in range(self.n)]
+
+
+def sharded_eval_loader(dataset, batch_size: int, num_workers: int):
+    """(an unshuffled loader over this rank's eval shard, keeping the
+    ragged last batch, its `ShardedEval`)."""
+    se = ShardedEval(len(dataset))
+    loader = DataLoader(Subset(dataset, se.local_indices()), batch_size,
+                        shuffle=False, drop_last=False,
+                        num_workers=num_workers)
+    return loader, se
+
+
 class FinetunePreemption:
     """Preemption-safe mid-run state for the fine-tune CLIs (JAX
     `FinetunePreemption`).
@@ -116,6 +245,8 @@ class FinetunePreemption:
 
     The guard holds the SIGTERM handler from construction until `finish`
     or a save; a caller's `finally` uninstalls it on every other exit.
+    Data-parallel ranks agree on the micro-step (`PreemptionGuard`); every
+    rank calls the save (rank 0 writes, all wait) and every rank loads.
     """
 
     def __init__(self, task, output_dir: str, loader_len: int,
@@ -182,7 +313,8 @@ class FinetunePreemption:
         """Training ended normally: drop the preemption state, so a rerun
         in this output_dir does not skip straight to the test."""
         self.guard.uninstall()
-        shutil.rmtree(self.dir, ignore_errors=True)
+        if distributed.rank() == 0:
+            shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def skip_micro_batches(batch_iter, skip: int):

@@ -7,6 +7,15 @@ python -m ecamp_tpu_torch.cli.finetune_cls \\
   --pretrained ECAMP.pth --batch_size 96 --lr 3e-2 --warmup_steps 50 \\
   --num_steps 3000 --output_dir ./out
 
+or data parallel, one card a rank (`core/distributed.py`; `torchrun
+--nproc_per_node=N -m ecamp_tpu_torch.cli.finetune_cls ...`): the batch is
+per rank, so the global batch is N times it; each rank trains on its
+shard of every epoch (the gradients averaged over the ranks) and scores
+its shard of the validation and test splits, whose per-sample results are
+gathered (`cli/common.py::ShardedEval`), so every rank computes the same
+metrics; rank 0 alone writes `log.txt`, the best `.pth` and the run
+directory, and prints.
+
 Images are `<dataset_path>/<path in the list>`; the split lists come from
 `--list_path`, else `<dataset_path>/<task>/`, else the ones shipped in the
 repository (`data/assets.py`). It validates every epoch's worth of
@@ -35,12 +44,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ckpt.checkpoint import cpu_state_dict, save_on_rank0
 from ..ckpt.convert import load_reference_pth, load_reference_state
 from ..core import config as cfg
+from ..core import distributed
 from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import ClassificationListDataset
@@ -48,8 +60,9 @@ from ..data.loader import DataLoader
 from ..data.transforms import EvalTransform, TrainTransform
 from ..kernels import flash_attention, layer_norm
 from ..train.classification import ClassificationTask
-from .common import (EarlyStopper, LaunchCounts, add_common_args,
-                     setup_output, train_finetune)
+from .common import (EarlyStopper, LaunchCounts, ShardedEval,
+                     add_common_args, launched, setup_output,
+                     sharded_eval_loader, train_finetune)
 
 _VIT_FACTORY = {"tiny": cfg.vit_tiny, "base": cfg.vit_base,
                 "base_singlechannel": cfg.vit_base_singlechannel,
@@ -145,9 +158,11 @@ def refuse_what_is_not_ported(args) -> None:
                                       f"\"Not to port\")")
 
 
-def evaluate(task: ClassificationTask, state, loader) -> dict:
-    """Metrics over one pass of an unshuffled loader; the ragged last
-    batch runs as it is."""
+def evaluate(task: ClassificationTask, state, loader,
+             se: Optional[ShardedEval] = None) -> dict:
+    """Metrics over one pass of an unshuffled loader (the ragged last batch
+    as it is); with `se`, the loader's shard's logits and labels are
+    gathered from every rank first."""
     logits_all, labels_all = [], []
     for batch in loader:
         logits = task.eval_step(state, task.put(batch["image"]))
@@ -155,6 +170,8 @@ def evaluate(task: ClassificationTask, state, loader) -> dict:
         labels_all.append(batch["label"])
     logits = np.concatenate(logits_all)
     labels = np.concatenate(labels_all)
+    if se is not None:
+        logits, labels = se.gather(logits), se.gather(labels)
     if not task.cfg.is_multilabel:
         labels = labels.astype(np.int32).ravel() if labels.ndim == 1 else \
             labels.argmax(-1)
@@ -163,12 +180,8 @@ def evaluate(task: ClassificationTask, state, loader) -> dict:
 
 def save_best(path: str, model: torch.nn.Module) -> None:
     """`{"model": state_dict}` through a temporary file, so a reader never
-    sees half of one."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"model": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()}}, tmp)
-    os.replace(tmp, path)
+    sees half of one; rank 0 writes, every rank waits."""
+    save_on_rank0(path, lambda: {"model": cpu_state_dict(model)})
 
 
 def main(argv=None):
@@ -178,6 +191,12 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
                            "runs the kernels' plain versions)")
+    with launched(device) as device:
+        return run(args, device)
+
+
+def run(args, device: torch.device):
+    """Train, validate and test on `device` (the rank's)."""
     setup_output(args.output_dir, args)
     list_path = resolve_list_root(args.list_path, args.dataset_path,
                                   "Classification",
@@ -206,14 +225,14 @@ def main(argv=None):
     task = ClassificationTask(ccfg, device=device)
     state = task.init_state(pretrained=args.pretrained)
     best_path = os.path.join(args.output_dir, BEST)
-    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
+                        enabled=distributed.rank() == 0)
 
     def eval_loader(split):
         ds = ClassificationListDataset(list_path, args.dataset_path,
                                        args.task, split, args.data_volume, et)
-        return DataLoader(ds, args.eval_batch_size, shuffle=False,
-                          seed=args.seed, num_workers=args.num_workers,
-                          drop_last=False)
+        return sharded_eval_loader(ds, args.eval_batch_size,
+                                   args.num_workers)
 
     if args.stage == "train":
         train_ds = ClassificationListDataset(list_path, args.dataset_path,
@@ -222,8 +241,10 @@ def main(argv=None):
         # micro-batch = batch // accum (reference train.py:369)
         train_loader = DataLoader(train_ds, max(1, args.batch_size // accum),
                                   shuffle=True, seed=args.seed,
-                                  num_workers=args.num_workers)
-        val_loader = eval_loader("val")
+                                  num_workers=args.num_workers,
+                                  process_index=distributed.rank(),
+                                  process_count=distributed.world_size())
+        val_loader, val_se = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
         metric_key = "auc" if multilabel else "acc"
         launches = LaunchCounts(_COUNTERS)
@@ -236,7 +257,7 @@ def main(argv=None):
                                    task.put(labels))
 
         def validate(state, step, epoch, logger):
-            metrics = evaluate(task, state, val_loader)
+            metrics = evaluate(task, state, val_loader, val_se)
             val = metrics[metric_key]
             is_best = stopper.update(val)
             # the launches since the last validation: its steps' and this
@@ -258,7 +279,7 @@ def main(argv=None):
     if os.path.exists(best_path):
         load_reference_state(task.model, load_reference_pth(best_path))
         print(f"loaded {best_path}")
-    metrics = evaluate(task, state, eval_loader("test"))
+    metrics = evaluate(task, state, *eval_loader("test"))
     if multilabel:
         names = CLASS_NAMES.get(args.task,
                                 [f"class_{i}" for i in range(num_classes)])

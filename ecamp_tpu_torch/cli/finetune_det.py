@@ -40,29 +40,39 @@ bias correction fits the fresh moments. Preemption as in
 `--resume` (it restores the optimizer too). `--device cuda` (the default)
 needs a card; `--device cpu` runs the kernels' plain versions.
 
-Refused: multi-process evaluation (ROADMAP's "Not to port" list), and a
-training split too small for one micro-batch (the JAX CLI's loop would
-wait forever for a step).
+Refused: a training split too small for one micro-batch (the JAX CLI's
+loop would wait forever for a step).
+
+Data parallel (`torchrun --nproc_per_node=N -m
+ecamp_tpu_torch.cli.finetune_det ...`) as `cli/finetune_cls.py`: the
+batch is per rank, the BatchNorm statistics are the global batch's
+(`train/detection.py`), each rank scores its shard of the validation and
+test splits and the boxes are gathered (`ShardedEval.gather_ragged`);
+`--resume`'s fast-forward and a preemption file act on every rank alike.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..ckpt.checkpoint import cpu_state_dict, save_on_rank0
 from ..ckpt.convert import load_reference_state
 from ..core import config as cfg
+from ..core import distributed
 from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import ObjectCXRDetectionDataset, RSNADetectionDataset
 from ..data.loader import DataLoader
 from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.detection import DetectionTask
-from .common import (EarlyStopper, LaunchCounts, add_common_args,
-                     setup_output, train_finetune)
+from .common import (EarlyStopper, LaunchCounts, ShardedEval,
+                     add_common_args, launched, setup_output,
+                     sharded_eval_loader, train_finetune)
 from .finetune_cls import BEST, _VIT_FACTORY, refuse_what_is_not_ported
 
 DATASETS = {"RSNA": RSNADetectionDataset,
@@ -129,26 +139,30 @@ def _gt_xyxy(targets: np.ndarray, img_size: int):
     return out
 
 
-def evaluate(task: DetectionTask, state, loader, img_size: int) -> float:
+def evaluate(task: DetectionTask, state, loader, img_size: int,
+             se: Optional[ShardedEval] = None) -> float:
     """mAP@[.40:.05:.75] over one pass of an unshuffled loader; the ragged
-    last batch runs as it is."""
+    last batch runs as it is. With `se` the loader's shard's detections
+    (their boxes and confidences) and ground truth are gathered from every
+    rank first."""
     all_dets, all_gts = [], []
     for batch in loader:
         preds = task.eval_step(state, task.put(batch["image"]))
         all_dets.extend(task.detections(preds))
         all_gts.extend(_gt_xyxy(batch["target"], img_size))
+    if se is not None:
+        all_dets = se.gather_ragged(all_dets, cols=5)
+        all_gts = [g if g is not None else np.zeros((0, 4), np.float32)
+                   for g in se.gather_ragged(all_gts, cols=4)]
     return task.compute_map(all_dets, all_gts)
 
 
 def save_best(path: str, model: torch.nn.Module, step: int) -> None:
     """`{"model": state_dict, "step": updates}` through a temporary file,
-    so a reader never sees half of one."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"model": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()},
-                "step": int(step)}, tmp)
-    os.replace(tmp, path)
+    so a reader never sees half of one; rank 0 writes, every rank
+    waits."""
+    save_on_rank0(path, lambda: {"model": cpu_state_dict(model),
+                                 "step": int(step)})
 
 
 def load_best(path: str, model: torch.nn.Module) -> int:
@@ -158,25 +172,21 @@ def load_best(path: str, model: torch.nn.Module) -> int:
     return int(ckpt.get("step", 0))
 
 
-def _multi_process() -> bool:
-    env = os.environ
-    return any(int(env.get(k) or 1) > 1
-               for k in ("WORLD_SIZE", "OMPI_COMM_WORLD_SIZE", "SLURM_NTASKS"))
-
-
 def main(argv=None):
     args = get_args(argv)
     # --resume is this CLI's own best-checkpoint re-entry
     refuse_what_is_not_ported(argparse.Namespace(**{**vars(args),
                                                     "resume": ""}))
-    if _multi_process():
-        raise NotImplementedError(
-            "multi-process evaluation (ShardedEval) is not ported to "
-            "ecamp_tpu_torch (ROADMAP Queue 1, \"Not to port\")")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
                            "runs the kernels' plain versions)")
+    with launched(device) as device:
+        return run(args, device)
+
+
+def run(args, device: torch.device):
+    """Train, validate and test on `device` (the rank's)."""
     setup_output(args.output_dir, args)
     list_path = resolve_list_root(args.list_path, args.dataset_path,
                                   "Detection", f"{args.task}/test_list.csv")
@@ -202,7 +212,8 @@ def main(argv=None):
     task = DetectionTask(dcfg, device=device)
     state = task.init_state(pretrained=args.pretrained)
     best_path = os.path.join(args.output_dir, BEST)
-    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
+                        enabled=distributed.rank() == 0)
     ds_cls = DATASETS[args.task]
 
     def make_ds(split):
@@ -211,9 +222,8 @@ def main(argv=None):
                       output_u8=args.u8_pipe)
 
     def eval_loader(split):
-        return DataLoader(make_ds(split), args.eval_batch_size,
-                          shuffle=False, seed=args.seed,
-                          num_workers=args.num_workers, drop_last=False)
+        return sharded_eval_loader(make_ds(split), args.eval_batch_size,
+                                   args.num_workers)
 
     if args.stage == "train":
         # micro-batch = batch // accum (reference train.py semantics)
@@ -221,14 +231,19 @@ def main(argv=None):
         micro_bs = max(1, args.batch_size // accum)
         train_loader = DataLoader(train_ds, micro_bs, shuffle=True,
                                   seed=args.seed,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers,
+                                  process_index=distributed.rank(),
+                                  process_count=distributed.world_size())
         if len(train_loader) == 0:
+            world = distributed.world_size()
+            shard = (f" ({-(-len(train_ds) // world)} a rank of {world})"
+                     if world > 1 else "")
             raise ValueError(
                 f"the {args.task} training split holds {len(train_ds)} "
-                f"images, fewer than one micro-batch of {micro_bs}: an "
-                f"epoch would have no step (the JAX CLI waits forever "
+                f"images{shard}, fewer than one micro-batch of {micro_bs}: "
+                f"an epoch would have no step (the JAX CLI waits forever "
                 f"here); lower --batch_size")
-        val_loader = eval_loader("val")
+        val_loader, val_se = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
         step = epoch = 0
         if args.resume:
@@ -249,7 +264,7 @@ def main(argv=None):
         def validate(state, step, epoch, logger):
             if epoch + 1 < args.start_eval:
                 return
-            ap = evaluate(task, state, val_loader, args.img_size)
+            ap = evaluate(task, state, val_loader, args.img_size, val_se)
             is_best = stopper.update(ap)
             jsonl.write({"step": step, "mAP": ap, "best": stopper.best,
                          "loss": logger.meters["loss"].global_avg,
@@ -269,7 +284,8 @@ def main(argv=None):
     if os.path.exists(best_path):
         load_best(best_path, task.model)
         print(f"loaded {best_path}")
-    ap = evaluate(task, state, eval_loader("test"), args.img_size)
+    test_loader, test_se = eval_loader("test")
+    ap = evaluate(task, state, test_loader, args.img_size, test_se)
     print(f"TEST mAP@[.40:.05:.75]: {ap:.4f}")
     jsonl.write({"test_map": ap})
     return ap

@@ -33,18 +33,26 @@ nowhere).
 A training split too small for one batch raises: the JAX CLI's loop would
 wait forever for a step (SIIM's 1% and 10% lists balance to 50 and 444
 images, under the recipes' 512 and 1024).
+
+Data parallel (`torchrun --nproc_per_node=N -m
+ecamp_tpu_torch.cli.finetune_seg ...`) as `cli/finetune_cls.py`: the
+batch is per rank, the BatchNorm statistics and the soft dice are the
+global batch's (`train/segmentation.py`), each rank scores its shard of
+the validation and test splits and the per-sample dice is gathered.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ckpt.convert import load_reference_pth, load_reference_state
 from ..core import config as cfg
+from ..core import distributed
 from ..core.metrics import JsonlLogger
 from ..data.assets import resolve_list_root
 from ..data.datasets import (RIGASegmentationDataset, RSNASegmentationDataset,
@@ -52,8 +60,9 @@ from ..data.datasets import (RIGASegmentationDataset, RSNASegmentationDataset,
 from ..data.loader import DataLoader
 from ..kernels import flash_attention, fused_adamw, layer_norm
 from ..train.segmentation import SegmentationTask
-from .common import (EarlyStopper, LaunchCounts, add_common_args,
-                     setup_output, train_finetune)
+from .common import (EarlyStopper, LaunchCounts, ShardedEval,
+                     add_common_args, launched, setup_output,
+                     sharded_eval_loader, train_finetune)
 from .finetune_cls import (BEST, _VIT_FACTORY, refuse_what_is_not_ported,
                            save_best)
 
@@ -110,10 +119,12 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def evaluate(task: SegmentationTask, state, loader) -> float:
+def evaluate(task: SegmentationTask, state, loader,
+             se: Optional[ShardedEval] = None) -> float:
     """Mean per-sample dice over one pass of an unshuffled loader (RIGA:
     the mean of disc and cup, train_RIGA.py:264-327); the ragged last
-    batch runs as it is."""
+    batch runs as it is. With `se` the per-sample dice of the loader's
+    shard is gathered from every rank first."""
     dices = []
     for batch in loader:
         probs = task.eval_step(state, task.put(batch["image"]))
@@ -125,7 +136,10 @@ def evaluate(task: SegmentationTask, state, loader) -> float:
         else:
             dices.append(task.compute_dice(probs.cpu().numpy()[..., 0],
                                            mask[..., 0]))
-    return float(np.concatenate(dices).mean())
+    per_sample = np.concatenate(dices)
+    if se is not None:
+        per_sample = se.gather(per_sample)
+    return float(per_sample.mean())
 
 
 def main(argv=None):
@@ -135,6 +149,12 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
                            "runs the kernels' plain versions)")
+    with launched(device) as device:
+        return run(args, device)
+
+
+def run(args, device: torch.device):
+    """Train, validate and test on `device` (the rank's)."""
     setup_output(args.output_dir, args)
     list_path = resolve_list_root(args.list_path, args.dataset_path,
                                   "Segmentation",
@@ -163,7 +183,8 @@ def main(argv=None):
     task = SegmentationTask(scfg, device=device)
     state = task.init_state(pretrained=args.pretrained, flavor=args.name)
     best_path = os.path.join(args.output_dir, BEST)
-    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"))
+    jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
+                        enabled=distributed.rank() == 0)
 
     def make_ds(split):
         return ds_cls(list_path, args.dataset_path, split,
@@ -171,9 +192,8 @@ def main(argv=None):
                       seed=args.seed, output_u8=args.u8_pipe)
 
     def eval_loader(split):
-        return DataLoader(make_ds(split), args.eval_batch_size,
-                          shuffle=False, seed=args.seed,
-                          num_workers=args.num_workers, drop_last=False)
+        return sharded_eval_loader(make_ds(split), args.eval_batch_size,
+                                   args.num_workers)
 
     if args.stage == "train":
         # micro-batch = batch // accum (reference train.py:308)
@@ -181,14 +201,19 @@ def main(argv=None):
         micro_bs = max(1, args.batch_size // accum)
         train_loader = DataLoader(train_ds, micro_bs, shuffle=True,
                                   seed=args.seed,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers,
+                                  process_index=distributed.rank(),
+                                  process_count=distributed.world_size())
         if len(train_loader) == 0:
+            world = distributed.world_size()
+            shard = (f" ({-(-len(train_ds) // world)} a rank of {world})"
+                     if world > 1 else "")
             raise ValueError(
                 f"the {args.task} training split holds {len(train_ds)} "
-                f"images, fewer than one micro-batch of {micro_bs}: an "
-                f"epoch would have no step (the JAX CLI waits forever "
+                f"images{shard}, fewer than one micro-batch of {micro_bs}: "
+                f"an epoch would have no step (the JAX CLI waits forever "
                 f"here); lower --batch_size")
-        val_loader = eval_loader("val")
+        val_loader, val_se = eval_loader("val")
         stopper = EarlyStopper(args.patience, mode="max")
         launches = LaunchCounts(_COUNTERS)
 
@@ -197,7 +222,7 @@ def main(argv=None):
                                    task.put(batch["mask"]))
 
         def validate(state, step, epoch, logger):
-            dice = evaluate(task, state, val_loader)
+            dice = evaluate(task, state, val_loader, val_se)
             is_best = stopper.update(dice)
             jsonl.write({"step": step, "dice": dice, "best": stopper.best,
                          "loss": logger.meters["loss"].global_avg,
@@ -215,7 +240,7 @@ def main(argv=None):
     if os.path.exists(best_path):
         load_reference_state(task.model, load_reference_pth(best_path))
         print(f"loaded {best_path}")
-    dice = evaluate(task, state, eval_loader("test"))
+    dice = evaluate(task, state, *eval_loader("test"))
     print(f"TEST dice: {dice:.4f}")
     jsonl.write({"test_dice": dice})
     return dice

@@ -51,7 +51,6 @@ kernels' plain versions.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import itertools
 import os
 
@@ -69,7 +68,8 @@ from ..kernels import (flash_attention, fused_adamw, fused_mlm_loss,
                        layer_norm, sr_head)
 from ..train.pretrain import PretrainTask
 from ..train.state import adamw_state
-from .common import add_common_args, pretrain_ckpt_epochs, setup_output
+from .common import (add_common_args, launched, pretrain_ckpt_epochs,
+                     setup_output)
 
 # the launch counters an epoch's log line reports
 _COUNTERS = {"layer_norm": layer_norm.launches,
@@ -159,26 +159,13 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card (--device cpu "
                            "runs the kernels' plain versions)")
-    # join the launcher's ranks, if any, before the first device use
-    joined = (not distributed.is_distributed()
-              and distributed.initialize_distributed(device.type))
-    try:
-        with contextlib.ExitStack() as quiet:
-            if distributed.rank() != 0:  # rank 0 alone prints
-                quiet.enter_context(contextlib.redirect_stdout(
-                    quiet.enter_context(open(os.devnull, "w"))))
-            run(args, distributed.rank_device(device.type)
-                if distributed.is_distributed() else device)
-    finally:
-        if joined:
-            distributed.shutdown_distributed()
+    with launched(device) as device:
+        run(args, device)
 
 
 def run(args, device: torch.device) -> None:
     """Build the task, resume and train on `device` (the rank's)."""
-    if distributed.rank() == 0:
-        setup_output(args.output_dir, args)
-    distributed.barrier()
+    setup_output(args.output_dir, args)
 
     dataset = PretrainReportDataset(
         args.data_path, img_size=args.input_size,

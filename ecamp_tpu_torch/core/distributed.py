@@ -13,10 +13,17 @@ more than one task; MASTER_ADDR and MASTER_PORT give the rendezvous. With
 none of them it does nothing, and every function here then reads one
 process: rank 0 of 1.
 
-`DataParallel` moves a model's parameters and gradients into two flat fp32
-buffers of one layout (`FlatLayout`), so the gradient all-reduce is a few
-bucketed calls on one buffer (`all_reduce_grads_`) and the gradients stay
-where the optimizer's pointer table expects them.
+`DataParallel` moves a model's trained parameters and their gradients into
+two flat buffers of one layout (`FlatLayout`), so the gradient all-reduce
+is a few bucketed calls on one buffer (`all_reduce_grads_`) and the
+gradients stay where the optimizer's pointer table expects them; frozen
+leaves (a fine-tune's trunk) stay where they are and are not reduced.
+
+Statistics over the global batch (the flax BatchNorm's and the soft dice's,
+which JAX takes over the whole batch under GSPMD) go through
+`all_reduce_sum`, an all-reduce that autograd sees: its backward sums the
+incoming gradients over the ranks. `all_gather_rows` gathers host arrays
+(the sharded evaluation's per-sample results).
 
 ZeRO-1 (`Zero1`): the flat layout is cut into `world` equal spans; rank r
 keeps the AdamW moments (and the accumulation buffers) of the elements in
@@ -35,6 +42,7 @@ import math
 import os
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -152,6 +160,45 @@ def all_reduce_mean_(flat: torch.Tensor, bucket: int = BUCKET
     return flat.div_(world_size())
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """y = the sum of x over the ranks, on every rank. Each rank's loss
+    reads y, so dL/dx on a rank is the sum of the ranks' dL/dy: the
+    backward is the same all-reduce of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.contiguous().clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a (small) tensor over the ranks, differentiable; outside
+    a process group `x` itself. Every rank must call it at the same point
+    of its step."""
+    if not is_distributed():
+        return x
+    return _AllReduceSum.apply(x)
+
+
+def all_gather_rows(arr: np.ndarray) -> np.ndarray:
+    """(W, n, ...): every rank's `arr`, whose shapes are equal, stacked in
+    rank order (a collective); outside a process group `arr[None]`."""
+    arr = np.ascontiguousarray(arr)
+    if not is_distributed():
+        return arr[None]
+    t = torch.from_numpy(arr).to(_comm_device())
+    out = [torch.empty_like(t) for _ in range(world_size())]
+    dist.all_gather(out, t)
+    return torch.stack(out).cpu().numpy()
+
+
 def any_rank(flag: bool) -> bool:
     """True on every rank when `flag` is True on any (an all-reduce of the
     maximum); a host synchronisation."""
@@ -205,24 +252,34 @@ def broadcast_spans_(flat: torch.Tensor, layout: FlatLayout) -> None:
 
 
 class DataParallel:
-    """One rank's share of data-parallel training of `model`: its fp32
-    parameters and their gradients moved into flat buffers of one
-    `FlatLayout` (each parameter's `.data` and `.grad` become views, which
-    `zero_grad(set_to_none=False)` and the backward pass keep), the
-    gradient average over the ranks, and ZeRO-1's parameter exchange."""
+    """One rank's share of data-parallel training of `model`: its trained
+    parameters (those `trainable` marks True, every one without it) and
+    their gradients moved into flat buffers of one `FlatLayout` (each such
+    parameter's `.data` and `.grad` become views, which `zero_grad(
+    set_to_none=False)`, the backward pass and `load_state_dict`'s in-place
+    copies keep), the gradient average over the ranks, and ZeRO-1's
+    parameter exchange. The trained parameters share one floating dtype
+    (fp32 for the kernels; the CPU tests' float64 models too)."""
 
-    def __init__(self, model: nn.Module):
-        params = dict(model.named_parameters())
-        dev = next(iter(params.values())).device
+    def __init__(self, model: nn.Module,
+                 trainable: Optional[Mapping[str, bool]] = None):
+        params = {k: p for k, p in model.named_parameters()
+                  if trainable is None or trainable[k]}
+        first = next(iter(params.values()))
+        dev, dtype = first.device, first.dtype
         for k, p in params.items():
-            if p.dtype != torch.float32 or p.device != dev:
-                raise ValueError(f"data parallelism takes fp32 parameters "
-                                 f"on one device: {k} is {p.dtype} on "
-                                 f"{p.device}")
+            if p.dtype != dtype or p.device != dev or \
+                    not p.is_floating_point():
+                raise ValueError(f"data parallelism takes floating "
+                                 f"parameters of one dtype on one device: "
+                                 f"{k} is {p.dtype} on {p.device}, the "
+                                 f"first {dtype} on {dev}")
         self.layout = FlatLayout({k: p.shape for k, p in params.items()},
                                  world_size())
-        self.params_flat = torch.zeros(self.layout.total, device=dev)
-        self.grads_flat = torch.zeros(self.layout.total, device=dev)
+        self.params_flat = torch.zeros(self.layout.total, dtype=dtype,
+                                       device=dev)
+        self.grads_flat = torch.zeros(self.layout.total, dtype=dtype,
+                                      device=dev)
         with torch.no_grad():
             for k, p in params.items():
                 view = self.layout.view(self.params_flat, k)
@@ -237,6 +294,18 @@ class DataParallel:
     def exchange_params_(self) -> None:
         """Give every rank the parameters each rank updated in its span."""
         broadcast_spans_(self.params_flat, self.layout)
+
+
+def reduce_step(dp: Optional[DataParallel], metrics: torch.Tensor
+                ) -> torch.Tensor:
+    """A fine-tune step's collectives after its backward pass: the
+    gradients averaged over the ranks in place and the ranks' mean of
+    `metrics` (a detached tensor) returned. Without `dp`, `metrics` as it
+    is."""
+    if dp is None:
+        return metrics
+    dp.all_reduce_grads_()
+    return all_reduce_mean_(metrics.clone())
 
 
 class Zero1:

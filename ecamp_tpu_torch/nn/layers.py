@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import distributed
 from ..kernels import dot_product_attention, fused_layer_norm
 from ..kernels.flash_attention import _attention_reference
 from ..kernels.int8_linear import (_int8_linear_reference, dequantize_int8,
@@ -291,7 +292,14 @@ class BatchNorm(nn.Module):
 
     `forward(x, train)`: with `train` the batch statistics normalise, and
     the running ones are updated in place; otherwise the running ones
-    normalise. The module's `training` flag plays no part, as in flax."""
+    normalise. The module's `training` flag plays no part, as in flax.
+
+    In a data-parallel process group the batch statistics are the global
+    batch's, as flax's under GSPMD: each rank's fp32 mean and mean of
+    squares are summed over the ranks by the differentiable all-reduce
+    and divided by the world size (the loader gives every rank as many
+    rows), so the running statistics stay equal on every rank. `train=
+    False` calls no collective: ranks evaluate shards of their own."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32):
@@ -319,8 +327,12 @@ class BatchNorm(nn.Module):
             axes = [0] + list(range(2, x.ndim))
             # flax's `_compute_stats`: at least fp32 (float64 stays)
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, mean_sq = xf.mean(axes), (xf * xf).mean(axes)
+            if distributed.is_distributed():
+                mean, mean_sq = (distributed.all_reduce_sum(
+                    torch.stack([mean, mean_sq]))
+                    / distributed.world_size()).unbind()
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

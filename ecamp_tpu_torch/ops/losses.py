@@ -9,6 +9,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core import distributed
+
 
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
@@ -73,11 +75,21 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
 def dice_coefficient(logits: torch.Tensor, targets: torch.Tensor,
                      smooth: float = 1.0) -> torch.Tensor:
     """Soft dice over the whole batch (segmentation_loss.py:7-24): the
-    reference flattens across the batch, not per sample."""
+    reference flattens across the batch, not per sample.
+
+    In a data-parallel process group the whole batch is the global one, as
+    in JAX under GSPMD: the three sums go through the differentiable
+    all-reduce before the ratio, so every rank computes the global dice.
+    The other losses here (focal, BCE, CE) and the YOLO loss are means
+    over shards of equal size, so averaging the ranks' gradients already
+    gives the global batch's; a ratio of sums is not such a mean."""
     p = torch.sigmoid(logits.float()).reshape(-1)
     t = targets.float().reshape(-1)
-    inter = (p * t).sum()
-    return (2.0 * inter + smooth) / (p.sum() + t.sum() + smooth)
+    inter, p_sum, t_sum = (p * t).sum(), p.sum(), t.sum()
+    if distributed.is_distributed():
+        inter, p_sum, t_sum = distributed.all_reduce_sum(
+            torch.stack([inter, p_sum, t_sum])).unbind()
+    return (2.0 * inter + smooth) / (p_sum + t_sum + smooth)
 
 
 def mixed_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -13,6 +13,14 @@ from `dropout_generator`, reseeded in place every micro-step from
 (`cfg.seed`, step) (`train/pretrain.py::fold_seed`), as the JAX package
 folds its key by `state.step`; the step is a host int
 (`ClassificationTask.step`), so reading it never synchronises.
+
+Data parallelism (a process group from `core/distributed.py`, one rank a
+card; the batch is per rank): the trained leaves and their gradients live
+in `DataParallel`'s flat buffers (the linear probe's frozen trunk stays
+out), the gradients are averaged over the ranks after the backward pass,
+so the clip and SGD read the global batch's, the logged loss is the
+ranks' mean, and rank r > 0 folds its dropout and drop-path stream with
+r (rank 0 draws what one process draws).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core.config import ClassificationConfig
 from ..core.dtypes import policy
 from ..nn.layers import set_generator, set_plain
@@ -52,10 +61,13 @@ class ClassificationTask:
         set_generator(self.model, self.dropout_generator)
         self.schedule = make_schedule(cfg.optimizer)
         self.tx = None
+        self.dp = None  # the ranks' DataParallel, made by init_state
 
     def fold_rng(self, step: int) -> None:
-        """Reseed the dropout and drop-path generator from (seed, step)."""
-        self.dropout_generator.manual_seed(fold_seed(self.cfg.seed, step, 1))
+        """Reseed the dropout and drop-path generator from (seed, step) and
+        the rank (stream 1 + rank)."""
+        self.dropout_generator.manual_seed(
+            fold_seed(self.cfg.seed, step, 1 + distributed.rank()))
 
     def freeze_mask(self) -> Optional[Dict[str, bool]]:
         """The linear probe's mask (True = trainable: `head.*` only), or
@@ -78,6 +90,8 @@ class ClassificationTask:
             loaded, missing = import_vit_classifier(self.model, pretrained)
             print(f"{pretrained}: loaded {len(loaded)} tensors, "
                   f"{len(missing)} left at init")
+        if self.dp is None and distributed.is_distributed():
+            self.dp = distributed.DataParallel(self.model, self.freeze_mask())
         self.tx = make_optimizer(self.cfg.optimizer,
                                  freeze_mask=self.freeze_mask())
         self.step = 0
@@ -109,19 +123,21 @@ class ClassificationTask:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One micro-step (one update without accumulation) on a batch on
         the task's device; returns the new state and device-scalar metrics
-        (loss, and the lr of the current update)."""
+        (loss, and the lr of the current update); under data parallelism
+        the loss is the ranks' mean."""
         self.fold_rng(self.step)
         self.model.train()
         self.model.zero_grad(set_to_none=False)
         loss, _ = self.loss(images, labels)
         loss.backward()
+        loss = distributed.reduce_step(self.dp, loss.detach())
         # step schedules count optimizer updates; state.step counts
         # micro-steps under accumulation
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule(state.step // accum)
         new_state = state.apply_gradients(self.tx)
         self.step += 1
-        return new_state, {"loss": loss.detach(), "lr": lr}
+        return new_state, {"loss": loss, "lr": lr}
 
     def eval_step(self, state: TrainState, images: torch.Tensor
                   ) -> torch.Tensor:

@@ -18,6 +18,13 @@ not `deterministic`, so the trunk's dropout and drop-path stay off. The
 model is kept in eval mode and only the BatchNorms take the batch
 statistics (`train=True`), updating their running statistics every
 micro-step, as `apply_gradients(batch_stats=...)` does.
+
+Data parallelism (a process group from `core/distributed.py`, one rank a
+card; the batch is per rank): the BatchNorms take the global batch's
+statistics (`nn/layers.py::BatchNorm`, the frozen ResNet-50's too), the
+trained leaves' gradients live in `DataParallel`'s flat buffers and are
+averaged after the backward pass, and the logged losses are the ranks'
+means. The YOLO targets are built per image, as in one process.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core.config import DetectionConfig
 from ..core.dtypes import policy
 from ..nn.det import YOLO_ANCHORS, DetectionModel
@@ -64,6 +72,7 @@ class DetectionTask:
         self.schedule = make_schedule(cfg.optimizer)
         self.tx = None
         self.plain = False  # see set_plain
+        self.dp = None  # the ranks' DataParallel, made by init_state
 
     def freeze_mask(self) -> Optional[Dict[str, bool]]:
         c = self.cfg
@@ -86,6 +95,8 @@ class DetectionTask:
                                               self.cfg.backbone)
             print(f"{pretrained}: loaded {len(loaded)} tensors, "
                   f"{len(missing)} left at init")
+        if self.dp is None and distributed.is_distributed():
+            self.dp = distributed.DataParallel(self.model, self.freeze_mask())
         self.tx = make_optimizer(self.cfg.optimizer,
                                  freeze_mask=self.freeze_mask())
         self.set_plain(self.plain)
@@ -132,15 +143,18 @@ class DetectionTask:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One micro-step (one update without accumulation) on a batch on
         the task's device; returns the new state and device-scalar metrics
-        (loss, each scale's loss, and the lr of the current update)."""
+        (loss, each scale's loss, and the lr of the current update); under
+        data parallelism the losses are the ranks' means."""
         self.model.eval()  # the trunk deterministic; BatchNorm in train
         self.model.zero_grad(set_to_none=False)
         loss, parts = self.loss(images, targets, train=True)
         loss.backward()
+        values = distributed.reduce_step(
+            self.dp, torch.stack([loss.detach(), *parts.values()]))
+        metrics = dict(zip(["loss", *parts], values.unbind()))
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule(state.step // accum)
-        return state.apply_gradients(self.tx), dict(
-            parts, loss=loss.detach(), lr=lr)
+        return state.apply_gradients(self.tx), dict(metrics, lr=lr)
 
     def eval_step(self, state: TrainState, images: torch.Tensor
                   ) -> torch.Tensor:

@@ -20,6 +20,15 @@ not `deterministic`, so the trunk's dropout and drop-path stay off. The
 model is kept in eval mode and only the BatchNorms take the batch
 statistics (`train=True`), updating their running statistics every
 micro-step, as `apply_gradients(batch_stats=...)` does.
+
+Data parallelism (a process group from `core/distributed.py`, one rank a
+card; the batch is per rank) computes what one process computes at the
+global batch, as JAX does under GSPMD: the BatchNorms' statistics and the
+soft dice's sums are the global batch's (`nn/layers.py::BatchNorm`,
+`ops/losses.py::dice_coefficient`; RIGA takes two such dice terms), the
+trained leaves' gradients live in `DataParallel`'s flat buffers (the
+frozen trunk stays out) and are averaged after the backward pass, and the
+logged loss is the ranks' mean.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core.config import SegmentationConfig
 from ..core.dtypes import policy
 from ..nn.layers import set_plain
@@ -77,6 +87,7 @@ class SegmentationTask:
         self.schedule = make_schedule(cfg.optimizer)
         self.tx = None
         self.plain = False  # see set_plain
+        self.dp = None  # the ranks' DataParallel, made by init_state
 
     def freeze_mask(self) -> Optional[Dict[str, bool]]:
         """The ViT's frozen trunk; the ResNet-50 UNet trains every leaf."""
@@ -104,6 +115,8 @@ class SegmentationTask:
                                                  from_pretrain, flavor)
             print(f"{pretrained}: loaded {len(loaded)} tensors, "
                   f"{len(missing)} left at init")
+        if self.dp is None and distributed.is_distributed():
+            self.dp = distributed.DataParallel(self.model, self.freeze_mask())
         self.tx = make_optimizer(self.cfg.optimizer,
                                  freeze_mask=self.freeze_mask())
         self.set_plain(self.plain)
@@ -147,15 +160,16 @@ class SegmentationTask:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One micro-step (one update without accumulation) on a batch on
         the task's device; returns the new state and device-scalar metrics
-        (loss, and the lr of the current update)."""
+        (loss, and the lr of the current update); under data parallelism
+        the loss is the ranks' mean."""
         self.model.eval()  # the trunk deterministic; BatchNorm in train
         self.model.zero_grad(set_to_none=False)
         loss = self.loss(images, masks, train=True)
         loss.backward()
+        loss = distributed.reduce_step(self.dp, loss.detach())
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule(state.step // accum)
-        return state.apply_gradients(self.tx), {"loss": loss.detach(),
-                                                 "lr": lr}
+        return state.apply_gradients(self.tx), {"loss": loss, "lr": lr}
 
     def eval_step(self, state: TrainState, images: torch.Tensor):
         """fp32 sigmoid masks (B, H, W, 1), or the (disc, cup) pair, from

@@ -906,10 +906,10 @@ def test_cli_resume_fast_forwards_to_the_best_step(tmp_path, tiny_cli,
 def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
         tmp_path, tiny_cli, monkeypatch):
     """A training split smaller than one batch raises (the JAX CLI would
-    spin without a step), on the ResNet-50 baseline too; multi-process
-    evaluation raises, naming ROADMAP's "Not to port" list;
+    spin without a step), on the ResNet-50 baseline too;
     `ECAMP_PREEMPT_AT_STEP` is honoured, so the empty epoch is what raises
-    under it."""
+    under it. (A multi-process launch now trains:
+    tests/test_torch_dp_finetune.py.)"""
     from ecamp_tpu_torch.data.synthetic import write_detection_corpus
 
     root = write_detection_corpus(str(tmp_path / "data"), "RSNA", 3, 2, 2,
@@ -919,10 +919,6 @@ def test_cli_refuses_an_empty_epoch_and_what_is_not_ported(
         tiny_cli.main(_cli_args(root, out))
     with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(_cli_args(root, out) + ["--model", "resnet50"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ShardedEval.*Not to port"):
-        tiny_cli.main(_cli_args(root, out))
-    monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setenv("ECAMP_PREEMPT_AT_STEP", "3")
     with pytest.raises(ValueError, match="fewer than one micro-batch"):
         tiny_cli.main(_cli_args(root, out))
