@@ -58,6 +58,22 @@
    two micro-steps of B = 16 against one step of B = 32 on the same
    images and noise, dropout off, through the kernels: the mean gradient
    that reaches AdamW within 1e-2 of the whole batch's (relative L2).
+4c. (g) `--steps_per_call`, after the pretraining slice: CUDA graphs of
+   the full-width step (B = 32, bf16, dropout on, the masking noise from
+   the generator, accumulation 2, an epoch cosine), materialised and
+   fused CE: 2 calls of K = 4 micro-steps from the same weights as 8
+   eager micro-steps, under deterministic algorithms (where the eager
+   step repeats bit for bit): losses and parameters equal bit for bit,
+   lr, step, AdamW count and cycle equal, each kernel's launches equal
+   (the replays counted), a call's stacked metrics unchanged by the
+   next; then in the default mode the eager run-to-run spread (two
+   runs), and ms a micro-step graphed against eager (host clock), device
+   ms and busy time, capture seconds, peak memory, with the card. Beside
+   (6): the pretrain CLI's `main` with `--steps_per_call 3` and
+   with 1 (`--accum_iter 2 --fused_mlm_ce --u8_pipe`, B = 16, one epoch:
+   a graphed call of 3 and a tail of 1, deterministic algorithms), their
+   `log.txt` lines equal bit for bit. The `graphed` JSON line holds the
+   figures.
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
    in bf16, at a ragged fp32 shape, and at a ragged bf16 shape (V = 3001:
@@ -276,8 +292,9 @@
    (seconds after the build, `phase_end_seconds`; also printed as each
    phase ends) and of the kernels (with each kernel's launches in (6e)'s
    runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`, and in
-   (9f)'s: `dp_seg_launches`, `dp_det_launches`) and, last, the device
-   line.
+   (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
+   micro-steps and CLI epoch: `graphed_launches`, `graphed_cli_launches`)
+   and, last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
 at once; it never runs on the CPU.
@@ -323,6 +340,12 @@ PREEMPT_SPREAD = 3   # (7e)-(9e) where not bit for bit: the resumed run's
                      # distance from (c) against (c) repeated (best .pth L2,
                      # metrics)
 # -- the recipe's micro-batch (pretrain_mimic: B = 256, accum 8) ----------
+GRAPH_K = 4          # (g): micro-steps a graphed call
+GRAPH_CALLS = 2      # (g): calls held against eager micro-steps
+GRAPH_ACCUM = 2      # (g): the cycle of the graphed micro-steps
+GRAPH_TIMED_CALLS = 3  # (g): calls of replays only, timed
+SPC_K = 3            # (g): the CLI's --steps_per_call
+SPC_B = 16           # (g): its batch: 4 micro-steps an epoch, 3 + 1
 RECIPE_B = 256
 RECIPE_ACCUM = 8     # micro-steps an update
 ACCUM_HALF_B = 16    # two micro-steps of this against one step of PRE_B
@@ -1549,6 +1572,262 @@ def pretrain_phase(card: str):
     return launches, flaunches, adamw_times, result
 
 
+def graph_phase(card: str, eager_busy: dict = None) -> dict:
+    """(g) `--steps_per_call` on the card: CUDA graphs of the full-width
+    pretraining step (B = PRE_B, bf16, dropout on, the masking noise from
+    the generator, accumulation GRAPH_ACCUM, an epoch cosine whose lr moves
+    every cycle), materialised (e) and fused CE (f). From the same
+    weights, GRAPH_CALLS calls of GRAPH_K micro-steps (the first call's
+    first micro-steps run eagerly, as warm-up; then each kind of
+    micro-step is captured and replayed) against the same micro-steps
+    eager. The eager step does not repeat bit for bit on the card (an
+    atomic order now and then moves a loss by ~1e-6 and a parameter by an
+    Adam step), so the comparison runs under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, where it
+    does: every micro-step's losses and the parameters equal bit for bit
+    (a bound of 0, no looser than twice any spread); lr, the step,
+    AdamW's count and the cycle equal and advancing across the replays;
+    each kernel launched as often as eagerly (the replays count what
+    their capture recorded); a call's stacked metrics unchanged by the
+    next. Then in the default mode, as the CLI runs: two eager runs (their
+    spread printed) and a graphed run against them (printed), then
+    GRAPH_TIMED_CALLS more calls of replays only: ms a micro-step (host
+    clock, synchronised) against eager's, the device time of a graphed
+    micro-step (CUDA events around a call) and its busy time (profiler)
+    beside the eager step's (`eager_busy`, (e) and (f) of
+    `pretrain_phase`, where given), the capture seconds and each run's
+    peak memory above what it started with. Returns the `graphed`
+    results."""
+    import dataclasses
+    import gc
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core.config import OptimizerConfig, PretrainConfig
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.kernels import sr_head as sr
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "sr_conv_stack": sr.launches,
+                "sr_conv_stack_tma": sr.launches_tma, "adamw": adamw.launches,
+                "fused_ce_fwd": mlm.launches_fwd,
+                "fused_ce_merge": mlm.launches_merge,
+                "fused_ce_dl": mlm.launches_dl, "fused_ce_dx": mlm.launches_dx,
+                "fused_ce_dw": mlm.launches_dw}
+    k, n = GRAPH_K, GRAPH_K * GRAPH_CALLS
+    cfg = PretrainConfig(optimizer=OptimizerConfig(
+        lr=1.5e-4, warmup_epochs=1, accum_steps=GRAPH_ACCUM), max_epoch=4,
+        seed=SEED)
+    print(f"(g) graphed steps on {card}: B = {PRE_B}, {GRAPH_CALLS} calls of "
+          f"K = {k} micro-steps, accumulation {GRAPH_ACCUM}, dropout on, the "
+          f"masking noise from the generator")
+    result = {"batch": PRE_B, "k": k, "calls": GRAPH_CALLS,
+              "accum": GRAPH_ACCUM, "card": card}
+    for tag, fused in (("e", False), ("f", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"(g{tag}) {'fused CE' if fused else 'materialised'}"
+        task = PretrainTask(dataclasses.replace(cfg, fused_mlm_ce=fused),
+                            device="cuda", steps_per_epoch=n)
+        init = {name: v.detach().clone()
+                for name, v in task.model.state_dict().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        batches = [{name: v.contiguous() for name, v in
+                    synthetic_batch(cfg, PRE_B, gen).items()}
+                   for _ in range(n)]
+        supers = [{name: torch.stack([b[name] for b in batches[c * k:
+                                                                (c + 1) * k]])
+                   for name in batches[0]} for c in range(GRAPH_CALLS)]
+
+        base = [0]
+
+        def start():
+            task.model.load_state_dict(init)
+            state = task.init_state()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base[0] = torch.cuda.memory_allocated()
+            for ctr in counters.values():
+                ctr.reset()
+            return state
+
+        def finish(state, rows, times):
+            torch.cuda.synchronize()
+            # the run's peak above what was held before it (the weights,
+            # the batches and the parameters kept for the comparison)
+            peak = torch.cuda.max_memory_allocated() - base[0]
+            return {"rows": rows, "ms": times,
+                    "launches": {name: ctr.value
+                                 for name, ctr in counters.items()},
+                    "counters": (int(state.step), task.step,
+                                 int(adamw_state(state.opt_state).count),
+                                 state.opt_state.mini_step),
+                    "params": {name: v.detach().clone() for name, v in
+                               task.model.state_dict().items()},
+                    "peak": peak}
+
+        def eager():
+            state = start()
+            rows, times = [], []
+            for b in batches:
+                t = time.perf_counter()
+                state, m = task.train_step(state, b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                rows.append({name: float(v) for name, v in m.items()})
+            return finish(state, rows, times), state
+
+        def graphed():
+            state = start()
+            scan = task.make_train_step_scan(state, k)
+            rows, times, calls = [], [], []
+            for c in range(GRAPH_CALLS):
+                t = time.perf_counter()
+                state, m = scan(state, supers[c])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3 / k)
+                calls.append((m, {name: v.clone() for name, v in m.items()}))
+                rows += [{name: float(v[i]) for name, v in m.items()}
+                         for i in range(k)]
+                check((int(state.step), task.step) == ((c + 1) * k,) * 2,
+                      f"{what}: step {int(state.step)} / {task.step} after "
+                      f"call {c + 1}")
+            check(all(torch.equal(v, kept[name]) for m, kept in calls
+                      for name, v in m.items()),
+                  f"{what}: a call's stacked metrics changed after the next")
+            return finish(state, rows, times), state, scan
+
+        def spread(a, b):
+            """(largest relative loss difference over the micro-steps,
+            largest parameter difference)."""
+            rel = max(abs(x[name] - y[name]) / abs(y[name])
+                      for x, y in zip(a["rows"], b["rows"])
+                      for name in ("loss", "mim_loss", "res_loss",
+                                   "mlm_loss"))
+            par = max(float((a["params"][name] - v).abs().max())
+                      for name, v in b["params"].items())
+            return rel, par
+
+        # deterministic algorithms: the eager step repeats bit for bit
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                e1, _ = eager()
+                g, state, scan = graphed()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        nondet = sorted({str(w.message)[:160] for w in caught
+                         if "deterministic" in str(w.message)})
+        graph_diff = spread(g, e1)
+        moved = max(float((v - init[name]).abs().max())
+                    for name, v in e1["params"].items())
+        lrs = [r["lr"] for r in g["rows"]]
+        print(f"  {what}, deterministic algorithms: losses "
+              f"{[round(r['loss'], 5) for r in g['rows']]}; graphed against "
+              f"eager: losses {graph_diff[0]:.3e} relative, parameters "
+              f"{graph_diff[1]:.3e}; largest "
+              f"movement from init {moved:.3e}; {scan.eager_steps} warm-up "
+              f"micro-steps eager, {len(scan.graphs)} graphs; ops without "
+              f"a deterministic version: {nondet or 'none'}")
+        print(f"  {what}: lr {lrs}; step, task step, AdamW count, cycle "
+              f"{g['counters']}; launches {g['launches']} (eager "
+              f"{e1['launches']})")
+        check(all(np.isfinite(r["loss"]) for r in g["rows"]),
+              f"{what}: non-finite loss")
+        check(graph_diff == (0.0, 0.0),
+              f"{what}: graphed against eager {graph_diff} under "
+              f"deterministic algorithms: not bit for bit")
+        check(lrs == [r["lr"] for r in e1["rows"]] and len(set(lrs)) > 1,
+              f"{what}: lr {lrs} against eager "
+              f"{[r['lr'] for r in e1['rows']]}")
+        want = (n, n, n // GRAPH_ACCUM, n % GRAPH_ACCUM)
+        check(g["counters"] == e1["counters"] == want,
+              f"{what}: step, task step, count, cycle {g['counters']}, "
+              f"eager {e1['counters']}, want {want}")
+        check(g["launches"] == e1["launches"]
+              and all(g["launches"][name] for name in counters
+                      if fused or not name.startswith("fused_ce")),
+              f"{what}: launches {g['launches']} against eager "
+              f"{e1['launches']}")
+        row = {"losses": [r["loss"] for r in g["rows"]], "lr": lrs,
+               "graph_vs_eager": {"loss_rel": graph_diff[0],
+                                  "param_abs": graph_diff[1]},
+               "nondeterministic_ops": nondet, "max_movement": moved,
+               "counters": g["counters"], "launches": g["launches"]}
+        del e1, g, state, scan
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the default mode, as the CLI runs: spread, then the times
+        (d1, _), (d2, _) = eager(), eager()
+        gd, state, scan = graphed()
+        default_spread, default_diff = spread(d2, d1), spread(gd, d1)
+        print(f"  {what}, default algorithms: eager against eager (the "
+              f"run-to-run spread) {default_spread[0]:.3e}, "
+              f"{default_spread[1]:.3e}; graphed against eager "
+              f"{default_diff[0]:.3e}, {default_diff[1]:.3e}")
+        graph_ms = []
+        for c in range(GRAPH_TIMED_CALLS):
+            t = time.perf_counter()
+            state, _ = scan(state, supers[c % GRAPH_CALLS])
+            torch.cuda.synchronize()
+            graph_ms.append((time.perf_counter() - t) * 1e3 / k)
+        box = [state]
+
+        def graphed_call():
+            box[0], _ = scan(box[0], supers[0])
+
+        # a graph launch returns at once, so CUDA events around a call time
+        # the device; the stream cannot be held for them (`queued_ms`): the
+        # calls' ~4400 kernels a micro-step fill the launch queue
+        graph_device = median_ms(graphed_call, 3, 1) / k
+        graph_busy = device_ms(graphed_call, "", 1, f"{what} graphed call",
+                               alone=False)
+        graph_busy = None if graph_busy is None else graph_busy / k
+        eager_ms = float(np.median(d1["ms"][1:]))
+        row.update({
+            "default_eager_spread": {"loss_rel": default_spread[0],
+                                     "param_abs": default_spread[1]},
+            "default_graph_vs_eager": {"loss_rel": default_diff[0],
+                                       "param_abs": default_diff[1]},
+            "capture_s": scan.capture_seconds, "graphs": len(scan.graphs),
+            "warmup_eager_micro_steps": scan.eager_steps,
+            "graph_ms_a_micro_step": float(np.median(graph_ms)),
+            "graph_ms": graph_ms, "first_calls_ms": gd["ms"],
+            "eager_ms_a_micro_step": eager_ms, "eager_ms": d1["ms"],
+            "graph_device_ms_a_micro_step": graph_device,
+            "graph_device_busy_ms": graph_busy,
+            "eager_device_busy_ms": (eager_busy or {}).get(tag),
+            "seconds": time.perf_counter() - t0,
+            "graph_peak_bytes": gd["peak"], "eager_peak_bytes": d1["peak"],
+            "reserved_bytes": torch.cuda.memory_reserved()})
+        print(f"  {what} on {card}: {row['graph_ms_a_micro_step']:.3f} ms a "
+              f"micro-step graphed (median of {GRAPH_TIMED_CALLS} calls of "
+              f"{k}) against {eager_ms:.3f} eager (host clock, "
+              f"synchronised); device {graph_device:.3f} ms a graphed "
+              f"micro-step (CUDA events), busy {_ms(graph_busy)} graphed "
+              f"against {_ms(row['eager_device_busy_ms'])} eager "
+              f"(profiler); capture "
+              f"{scan.capture_seconds:.2f} s; peak memory above the run's "
+              f"start {gd['peak'] / 2 ** 30:.3f} GiB graphed (captures "
+              f"included) against {d1['peak'] / 2 ** 30:.3f} eager")
+        result[tag] = row
+        del box, state, scan, task, init, batches, supers, d1, d2, gd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def recipe_phase(card: str) -> dict:
     """The recipe's micro-batch (pretrain_mimic: B = RECIPE_B, accumulation
     over RECIPE_ACCUM micro-steps; `PretrainTask` at full width, bf16, AdamW
@@ -1873,19 +2152,10 @@ def slice_phase(card: str):
     return {"layer_norm": n_ln, "attention": n_attn}, worst, p50, busy
 
 
-def cli_phase(card: str, per_step, work: str):
-    """The pretraining entry point at full width: a seeded MIMIC-style
-    corpus (CLI_IMAGES gray PNGs at CLI_IMG px, reports of words of the
-    repository's 30000-word vocabulary) in `work`, then `python -m
-    ecamp_tpu_torch.cli.pretrain --fused_mlm_ce` for 2 epochs at B = PRE_B
-    and a resume from its checkpoint-1.pth for a third. Each epoch's log
-    line must be finite and count `per_step` launches of every kernel a
-    step; the resume must restore the epoch and the AdamW moments and
-    step. Returns the epochs' log lines and the path of the last
-    checkpoint, which the fine-tune starts from."""
-    import numpy as np
-    import torch
-
+def write_cli_corpus(card: str, work: str) -> str:
+    """The pretraining CLIs' seeded MIMIC-style corpus (CLI_IMAGES gray
+    PNGs at CLI_IMG px, reports of words of the repository's 30000-word
+    vocabulary) in `work`/mimic; returns its path."""
     from ecamp_tpu_torch.core.config import PretrainConfig
     from ecamp_tpu_torch.data.synthetic import write_mimic_corpus
 
@@ -1896,9 +2166,26 @@ def cli_phase(card: str, per_step, work: str):
         os.path.join(work, "mimic"),
         os.path.join(repo, "ecamp_tpu", "assets", "mimic_wordpiece.json"),
         CLI_IMAGES, CLI_IMG, cfg.vit.grid_size - cfg.sr_window, seed=SEED)
-    out = os.path.join(work, "out")
     print(f"CLI on {card}: {CLI_IMAGES} images at {CLI_IMG} px written "
           f"in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def cli_phase(card: str, per_step, work: str):
+    """The pretraining entry point at full width on `write_cli_corpus`'s
+    corpus in `work`: `python -m ecamp_tpu_torch.cli.pretrain
+    --fused_mlm_ce` for 2 epochs at B = PRE_B and a resume from its
+    checkpoint-1.pth for a third. Each epoch's log line must be finite
+    and count `per_step` launches of every kernel a step; the resume must
+    restore the epoch and the AdamW moments and step. Returns the epochs'
+    log lines and the path of the last checkpoint, which the fine-tune
+    starts from."""
+    import numpy as np
+    import torch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(work, "mimic")
+    out = os.path.join(work, "out")
     base = [sys.executable, "-m", "ecamp_tpu_torch.cli.pretrain",
             "--data_path", data, "--fused_mlm_ce", "--batch_size",
             str(PRE_B), "--output_dir", out, "--seed", str(SEED),
@@ -2148,6 +2435,79 @@ def cli_accum_phase(card: str, per_step, work: str) -> dict:
                            "max_movement": move},
             "preset": {"name": "pretrain_mimic", "accum_iter": accum,
                        "epochs": recs_d}}
+
+
+# the pretrain CLI's `main` under deterministic algorithms, on sys.argv
+DETERMINISTIC_CLI = (
+    "import sys, torch; torch.use_deterministic_algorithms(True, "
+    "warn_only=True); from ecamp_tpu_torch.cli.pretrain import main; "
+    "main(sys.argv[1:])")
+
+
+def steps_per_call_cli_start(work: str) -> dict:
+    """(g) the CLI: the pretrain CLI's `main` (`python -m
+    ecamp_tpu_torch.cli.pretrain`) with `--steps_per_call SPC_K` and with
+    `--steps_per_call 1`, each with `--accum_iter 2 --fused_mlm_ce
+    --u8_pipe` at B = SPC_B for one epoch of `write_cli_corpus`'s corpus (in
+    `work`): 4 micro-steps, one graphed call of 3 (warm-up, capture,
+    replay) and a tail of 1. Both run under deterministic algorithms
+    (`DETERMINISTIC_CLI`), as (g)'s comparison does. Started beside (6);
+    `steps_per_call_cli_finish` checks them."""
+    data = os.path.join(work, "mimic")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+    runs = {}
+    for k in (SPC_K, 1):
+        out = os.path.join(work, f"spc{k}_out")
+        cmd = [sys.executable, "-c", DETERMINISTIC_CLI,
+               "--data_path", data, "--batch_size", str(SPC_B),
+               "--accum_iter", "2", "--steps_per_call", str(k), "--epochs",
+               "1", "--fused_mlm_ce", "--u8_pipe", "--output_dir", out,
+               "--seed", str(SEED), "--print_freq", "1"]
+        runs[k] = (_start_group(cmd, env), out, time.perf_counter())
+    return runs
+
+
+def steps_per_call_cli_finish(card: str, runs: dict, per_step: dict
+                              ) -> dict:
+    """Wait for `steps_per_call_cli_start`'s runs: both exit 0, their
+    `log.txt` lines hold the same micro-steps (4), updates (2), lr and
+    kernel launches (4 micro-steps' `per_step`, AdamW once an update: the
+    graphed run's replays counted), and their losses equal bit for bit, as
+    (g)'s graphed and eager micro-steps under deterministic algorithms."""
+    import numpy as np
+
+    recs = {}
+    for k, (p, out, t) in runs.items():
+        _wait_group(p, f"(g) CLI --steps_per_call {k}",
+                    CLI_TIMEOUT - (time.perf_counter() - t))
+        with open(os.path.join(out, "log.txt")) as f:
+            recs[k] = [json.loads(line) for line in f]
+        print(f"  (g) CLI --steps_per_call {k}: "
+              f"{time.perf_counter() - t:.1f} s after its start, {recs[k]}")
+        shutil.rmtree(out, ignore_errors=True)
+    steps = CLI_IMAGES // SPC_B
+    want = {name: v * steps for name, v in per_step.items()}
+    want["adamw"] = steps // 2
+    one, many = recs[1], recs[SPC_K]
+    check(len(one) == len(many) == 1, f"(g) CLI log lines {one}, {many}")
+    one, many = one[0], many[0]
+    for r in (one, many):
+        check((r["micro_steps"], r["updates"]) == (steps, steps // 2)
+              and r["kernel_launches"] == want,
+              f"(g) CLI micro-steps {r['micro_steps']}, updates "
+              f"{r['updates']}, launches {r['kernel_launches']} != {want}")
+    diff = max(abs(many[k] - one[k]) / abs(one[k])
+               for k in ("loss", "mim_loss", "res_loss", "mlm_loss"))
+    print(f"  (g) CLI on {card}: --steps_per_call {SPC_K} against 1, losses "
+          f"{diff:.3e} relative (bound 0), lr {many['lr']!r} against "
+          f"{one['lr']!r}")
+    check(np.isfinite(many["loss"]) and many["lr"] == one["lr"]
+          and diff == 0.0,
+          f"(g) CLI --steps_per_call {SPC_K} against 1: losses {diff:.3e} "
+          f"apart, lr {many['lr']} against {one['lr']}")
+    return {"steps_per_call": SPC_K, "batch": SPC_B, "log": many,
+            "log_single_step": one, "loss_rel": diff}
 
 
 _STARTED = []  # processes started to run beside a phase; main stops any
@@ -5201,6 +5561,10 @@ def main() -> int:
     mark("serving")
     launches, flaunches, main_times["adamw"], pretrain = pretrain_phase(card)
     mark("pretrain")
+    graphed = graph_phase(card, {
+        "e": pretrain["device_busy_ms"],
+        "f": pretrain["fused_ce"]["device_busy_ms"]})
+    mark("graphed")
     recipe = recipe_phase(card)
     mark("recipe")
     ft_times = finetune_kernel_phase(card, shape_rows)
@@ -5208,7 +5572,10 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="ecamp_cli_")
     try:
         cli_per_step = {k: v // PRE_STEPS for k, v in flaunches.items()}
+        write_cli_corpus(card, work)
+        spc = steps_per_call_cli_start(work)  # beside (6)
         cli, ckpt = cli_phase(card, cli_per_step, work)
+        graphed["cli"] = steps_per_call_cli_finish(card, spc, cli_per_step)
         mark("pretrain_cli")
         recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
         mark("pretrain_cli_accum")
@@ -5340,6 +5707,16 @@ def main() -> int:
             n = dpf_run[kind]["launches"][0].get(name, 0)
             if n:
                 entry[f"dp_{kind}_launches"] = n
+        # (g): GRAPH_CALLS graphed calls of GRAPH_K micro-steps, the
+        # replays counted as their captures recorded ((e)'s run, (f)'s for
+        # the fused CE), and the --steps_per_call CLI's epoch
+        for key, run in (("graphed_launches", graphed[
+                "f" if name.startswith("fused_ce") else "e"]["launches"]),
+                         ("graphed_cli_launches",
+                          graphed["cli"]["log"]["kernel_launches"])):
+            n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
+            if n:
+                entry[key] = n
         if name in viz["launches"]:  # one visualizer forward's
             entry["visualize_launches"] = viz["launches"][name]
         if name in int8_cls:  # one forward of each int8 engine
@@ -5374,6 +5751,7 @@ def main() -> int:
                       f"serve_device_ms_b{BUCKETS[-1]}": serve_busy,
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
+    print(json.dumps({"graphed": graphed}))
     print(json.dumps({"cli_epochs": cli}))
     print(json.dumps({"pretrain_recipe": recipe}))
     print(json.dumps({"data_parallel": dp}))

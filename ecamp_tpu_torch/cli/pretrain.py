@@ -36,6 +36,14 @@ each update applies the lr of its cycle's first micro-step. An epoch may
 end mid-cycle; the checkpoint carries the open cycle
 (`ckpt/checkpoint.py::CYCLE_KEY`).
 
+`--steps_per_call K` runs K micro-steps a call
+(`PretrainTask.make_train_step_scan`): on a card CUDA graphs of the step,
+replayed once a micro-step over a (K, B, ...) superbatch placed through
+pinned memory one call ahead; on the CPU the K steps in order. An epoch's
+last group of fewer than K batches runs through the single step, a
+preemption is asked for once a call, and the log is the single step's.
+Under a process group it is refused (ROADMAP item 18b).
+
 `--resume checkpoint-<e>.pth` restores the parameters, the AdamW moments
 and count and the cycle, and continues at epoch e + 1. On SIGTERM,
 `ECAMP_PREEMPT_AT_STEP=N` or host RSS above `--rss_limit_gb`
@@ -136,9 +144,12 @@ def get_args(argv=None):
 
 def refuse_what_is_not_ported(args) -> None:
     """Options of the JAX CLI that the port does not have raise; none is
-    ignored silently (ROADMAP Queue 1, "Not to port")."""
+    ignored silently (ROADMAP Queue 1, "Not to port"). `run` asks again
+    once a launched rank has joined its process group."""
     refused = [
-        (args.steps_per_call > 1, "--steps_per_call > 1 (a scan of steps)"),
+        (args.steps_per_call > 1 and distributed.is_distributed(),
+         "--steps_per_call > 1 under a process group (CUDA graphs of the "
+         "data-parallel step, item 18b)"),
         (args.fsdp, "--fsdp"),
     ]
     for path in (args.resume, args.pretrained):
@@ -165,6 +176,7 @@ def main(argv=None):
 
 def run(args, device: torch.device) -> None:
     """Build the task, resume and train on `device` (the rank's)."""
+    refuse_what_is_not_ported(args)
     setup_output(args.output_dir, args)
 
     dataset = PretrainReportDataset(
@@ -233,13 +245,45 @@ def run(args, device: torch.device) -> None:
         guard.uninstall()
 
 
+def superbatches(task: PretrainTask, batches, k: int):
+    """Group K host batches into placed (K, B, ...) superbatches, one
+    placed ahead of the one being trained; a last group of fewer than K is
+    yielded as its list of host batches, for the single step (JAX
+    `cli/pretrain.py::_superbatches`)."""
+    ahead, group = None, []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            placed, group = task.put_superbatch(group), []
+            if ahead is not None:
+                yield ahead
+            ahead = placed
+    if ahead is not None:
+        yield ahead
+    if group:
+        yield group
+
+
+def log_metrics(logger: MetricLogger, metrics) -> None:
+    """One logger update a micro-step: `metrics` holds a step's device
+    scalars or a call's (K,) stacks."""
+    rows = {k: torch.as_tensor(v).reshape(-1).tolist()
+            for k, v in metrics.items()}
+    for i in range(len(rows["loss"])):
+        logger.update(**{k: v[i] for k, v in rows.items()})
+
+
 def train(args, task: PretrainTask, state, loader: DataLoader,
           start_epoch: int, skip: int, guard: PreemptionGuard) -> None:
     """Epochs `start_epoch` to `args.epochs`, the first without its `skip`
-    batches; stops at the micro-step where `guard` asks for a save."""
+    batches; stops at the micro-step (with `--steps_per_call K`, the call)
+    where `guard` asks for a save."""
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
                         enabled=distributed.rank() == 0)
     ckpt_epochs = pretrain_ckpt_epochs(args.epochs)
+    per_call = max(1, args.steps_per_call)
+    scan = (task.make_train_step_scan(state, per_call) if per_call > 1
+            else None)
     for epoch in range(start_epoch, args.epochs):
         loader.set_epoch(epoch)
         logger = MetricLogger()
@@ -251,23 +295,40 @@ def train(args, task: PretrainTask, state, loader: DataLoader,
         # drop what the interrupted run took
         source = (itertools.islice(batches, skip, None)
                   if epoch == start_epoch and skip else batches)
+        if scan is not None:
+            source = superbatches(task, source, per_call)
         steps = logger.log_every(source, args.print_freq,
                                  header=f"Epoch [{epoch}]")
         try:
-            for batch in steps:
-                state, metrics = task.train_step(state, task.put_batch(batch))
-                if pending is not None:
-                    logger.update(**pending)
-                pending = metrics
-                if guard.should_save(task.step):
-                    preempted = True
+            for item in steps:
+                if scan is None or isinstance(item, list):
+                    # a micro-step a batch: K = 1, or an epoch's short group
+                    for batch in item if isinstance(item, list) else [item]:
+                        state, metrics = task.train_step(
+                            state, task.put_batch(batch))
+                        if pending is not None:
+                            log_metrics(logger, pending)
+                        pending = metrics
+                        preempted = guard.should_save(task.step)
+                        if preempted:
+                            break
+                else:
+                    # K micro-steps; a preemption is asked for once a call
+                    state, metrics = scan(state, item)
+                    if pending is not None:
+                        log_metrics(logger, pending)
+                    pending = metrics
+                    preempted = guard.should_save(task.step)
+                if preempted:
                     break
         finally:
             # leaving mid-epoch: stop the loader's worker threads now
             steps.close()
+            if scan is not None:
+                source.close()
             batches.close()
         if pending is not None:
-            logger.update(**pending)
+            log_metrics(logger, pending)
         if preempted:
             path = save_preemption_checkpoint(
                 args.output_dir, task.step, task.model, state,

@@ -58,19 +58,25 @@ SIGNATURES = {
 }
 
 
+COUNTERS = []  # every LaunchCounter, in the order they were made
+
+
 class LaunchCounter:
     """Kernel launches since the last `reset()`; one per wrapper.
 
     A wrapper adds one where it launches its kernel and nowhere else, so a
-    run can show that its main path went through the kernel."""
+    run can show that its main path went through the kernel. A CUDA graph
+    launches what its capture recorded at each replay, which the host
+    does not see: `GraphLaunches` adds those."""
 
     def __init__(self):
         self._n = 0
         self._lock = threading.Lock()
+        COUNTERS.append(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -80,6 +86,30 @@ class LaunchCounter:
     def value(self) -> int:
         with self._lock:
             return self._n
+
+
+class GraphLaunches:
+    """The launches that a CUDA graph's capture recorded, by counter.
+
+    Made around the capture: the wrappers called under it count their
+    launches as they record them, and `__exit__` takes those back, since
+    a capture runs nothing; `replay()` adds them once each time the graph
+    runs."""
+
+    def __enter__(self) -> "GraphLaunches":
+        self._before = [c.value for c in COUNTERS]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.deltas = [(c, c.value - n)
+                       for c, n in zip(COUNTERS, self._before)
+                       if c.value != n]
+        for c, n in self.deltas:
+            c.add(-n)
+
+    def replay(self) -> None:
+        for c, n in self.deltas:
+            c.add(n)
 
 
 def _nvcc() -> str:

@@ -59,14 +59,24 @@ def _leaf_update_plain(g, m, v, p, lr, bc1, bc2, gdiv, gmul, b1: float,
             v_new.to(v.dtype))
 
 
+def _not_capturing(dev: torch.device, what: str) -> None:
+    """A blocking host-to-device copy cannot be captured into a CUDA graph,
+    and a graph that skipped it would read stale addresses: raise."""
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"AdamW kernel: {what} under CUDA graph capture; "
+                           f"run an eager step on these tensors first")
+
+
 class _LeafTable:
     """The kernel's device tables for one parameter set: per leaf the p, g,
     mu, nu addresses, size and weight decay; per chunk its leaf and start.
     Built once; the address table is rebuilt only when an address changes
-    (a gradient freed and allocated anew)."""
+    (a gradient freed and allocated anew), which a CUDA graph's capture
+    refuses."""
 
     def __init__(self, params, grads, mu, nu, wd: List[float]):
         dev = params[0].device
+        _not_capturing(dev, "the leaf table built")
         self.numel = torch.tensor([p.numel() for p in params],
                                   dtype=torch.int64, device=dev)
         self.wd_host = list(wd)
@@ -87,6 +97,8 @@ class _LeafTable:
         addresses = tuple(t.data_ptr() for leaf in zip(params, grads, mu, nu)
                           for t in leaf)
         if addresses != self.addresses:
+            if self.addresses:
+                _not_capturing(params[0].device, "a leaf's address changed")
             self.ptrs = torch.tensor(addresses, dtype=torch.int64).to(
                 params[0].device)
             self.addresses = addresses
@@ -109,7 +121,9 @@ def _check_leaves(params, grads, mu, nu) -> None:
 @dataclass
 class AdamWState:
     """optax ScaleByAdamState: the update count (a device int32 scalar)
-    and the moments, keyed like the parameters."""
+    and the moments, keyed like the parameters. An update advances all
+    three in place, so a CUDA graph of it reads the current count at
+    every replay."""
 
     count: torch.Tensor
     mu: Dict[str, torch.Tensor]
@@ -179,8 +193,8 @@ class FusedAdamW:
     def apply(self, params: Mapping[str, torch.Tensor],
               grads: Mapping[str, torch.Tensor],
               state: AdamWState, sharded: bool = False) -> AdamWState:
-        """One update: p, mu and nu in place; returns the state with the
-        count advanced. Under ZeRO-1 `grads` are whole, or with `sharded`
+        """One update: p, mu, nu and the count in place; returns the
+        state. Under ZeRO-1 `grads` are whole, or with `sharded`
         already the rank's pieces (`MultiSteps`' running mean)."""
         names = list(params)
         if sharded and self.grad_clip is not None:
@@ -219,7 +233,8 @@ class FusedAdamW:
                     v.copy_(v_new)
             if z is not None:
                 z.exchange_params()
-        return AdamWState(count=state.count + 1, mu=state.mu, nu=state.nu)
+            state.count.add_(1)
+        return state
 
     def _apply_cuda(self, ps, gs, ms, vs, wd, scal) -> None:
         _check_leaves(ps, gs, ms, vs)

@@ -65,15 +65,28 @@ def _resize_matrix(src: int, dst: int, method: str) -> np.ndarray:
     return m.astype(np.float32)
 
 
+_MATRICES_ON_DEVICE = {}
+
+
+def _resize_matrix_on(src: int, dst: int, method: str, device,
+                      dtype) -> torch.Tensor:
+    """`_resize_matrix(src, dst, method)` on `device` in `dtype`, made once
+    a shape: a step copies nothing from the host, which a CUDA graph of it
+    could not capture."""
+    key = (src, dst, method, device, dtype)
+    if key not in _MATRICES_ON_DEVICE:
+        _MATRICES_ON_DEVICE[key] = torch.from_numpy(
+            _resize_matrix(src, dst, method)).to(device, dtype)
+    return _MATRICES_ON_DEVICE[key]
+
+
 def _resize_matmul(x: torch.Tensor, size: Tuple[int, int],
                    method: str) -> torch.Tensor:
     """Separable resize of an NHWC tensor as two products over the h and w
     axes, in x's dtype (bf16 products accumulate in fp32)."""
     n, h, w, c = x.shape
-    mh = torch.from_numpy(_resize_matrix(h, size[0], method)).to(x.device,
-                                                                  x.dtype)
-    mw = torch.from_numpy(_resize_matrix(w, size[1], method)).to(x.device,
-                                                                 x.dtype)
+    mh = _resize_matrix_on(h, size[0], method, x.device, x.dtype)
+    mw = _resize_matrix_on(w, size[1], method, x.device, x.dtype)
     y = torch.matmul(mh, x.permute(0, 3, 1, 2))        # (n, c, H', w)
     return torch.matmul(y, mw.t()).permute(0, 2, 3, 1)  # (n, H', W', c)
 
@@ -105,9 +118,6 @@ def _align_corners_matrix(src: int, dst: int) -> np.ndarray:
         m[o, i] += np.float32(1.0) - lam1
         m[o, i + (1 if i < src - 1 else 0)] += lam1
     return m
-
-
-_MATRICES_ON_DEVICE = {}
 
 
 def _transposed_matrix(src: int, dst: int, device) -> torch.Tensor:

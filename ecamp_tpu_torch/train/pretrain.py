@@ -9,8 +9,10 @@ CE (materialised logits, or the fused CE kernels with
 AdamW, with the lr the step applies reported beside the losses.
 Parameters and optimizer state are fp32; activations and matmuls bf16
 under the default policy (`core/dtypes.py`). PyTorch runs it eagerly;
-the JAX package's jit, tensor-parallel mesh axis and scan of steps have
-no counterpart here.
+the JAX package's jit and tensor-parallel mesh axis have no counterpart
+here. Its scan of K steps a dispatch (`make_train_step_scan`) is, on a
+CUDA card, a CUDA graph of the step replayed K times a call
+(`train/graphed.py`); on the CPU the K steps run in order.
 
 Data parallelism (a process group from `core/distributed.py`, one rank a
 card): each rank steps on its own rows of the global batch, the batch
@@ -35,7 +37,7 @@ run folds its dropout stream with r, so ranks draw different masks; rank
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,6 +47,7 @@ from ..core.dtypes import policy
 from ..nn.layers import set_generator, set_plain
 from ..nn.mae import ECAMP
 from ..ops.image_ops import device_normalize_image
+from .graphed import GraphedSteps, PinnedStager
 from .optim import make_optimizer, make_schedule
 from .state import TrainState
 
@@ -126,6 +129,7 @@ class PretrainTask:
         # reseeded in place every step (`fold_rng`): the dropout generator
         # stays the object `set_generator` hands to the model
         self.step = 0
+        self.plain = False  # see set_plain
         self.masking_generator = torch.Generator(self.device)
         self.dropout_generator = torch.Generator(self.device)
         self.fold_rng(0)
@@ -154,6 +158,7 @@ class PretrainTask:
                                       max_epoch=cfg.max_epoch)
         self.tx = make_optimizer(cfg.optimizer, steps_per_epoch,
                                  max_epoch=cfg.max_epoch, zero1=zero1)
+        self._stager: Optional[PinnedStager] = None
 
     def fold_rng(self, step: int) -> None:
         """Reseed the masking and dropout generators from (seed, step), the
@@ -176,6 +181,7 @@ class PretrainTask:
         """Route every kernel of the step (LayerNorm, attention, SR, the
         fused CE, AdamW) to its plain version (the on-card reference), or
         back."""
+        self.plain = plain
         set_plain(self.model, plain)
         if hasattr(self.tx, "plain"):
             self.tx.plain = plain
@@ -199,6 +205,44 @@ class PretrainTask:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
+    def put_superbatch(self, batches: Sequence[Dict]
+                       ) -> Dict[str, torch.Tensor]:
+        """K host batches -> one (K, B, ...) superbatch on the task's
+        device, for `make_train_step_scan` (JAX `shard_superbatch`). On a
+        card the batches are stacked into pinned host memory and copied
+        without blocking on the current stream (`graphed.PinnedStager`)."""
+        if self.device.type != "cuda":
+            return {k: torch.stack([torch.as_tensor(b[k]) for b in batches])
+                    for k in batches[0]}
+        if self._stager is None:
+            self._stager = PinnedStager(self.device)
+        return self._stager.put(batches)
+
+    def make_train_step_scan(self, state: TrainState, k: int):
+        """K optimizer steps a call (JAX `make_train_step_scan`): returns
+        `scan(state, superbatch, noise=None, deterministic=False) ->
+        (state, metrics)`, the superbatch (K, B, ...) (`put_superbatch`),
+        `noise` (K, B, grid**2) or None, the metrics stacked (K,) a key.
+        The K steps equal K `train_step` calls. On a card they are CUDA
+        graphs of the step (`graphed.GraphedSteps`): a failed capture or
+        replay raises; nothing falls back to eager steps."""
+        if k < 1:
+            raise ValueError(f"steps per call must be >= 1, not {k}")
+        if self.device.type == "cuda":
+            return GraphedSteps(self, state, k)
+
+        def scan(state, superbatch, noise=None, deterministic=False):
+            rows = []
+            for i in range(k):
+                state, m = self.train_step(
+                    state, {key: v[i] for key, v in superbatch.items()},
+                    None if noise is None else noise[i], deterministic)
+                rows.append(m)
+            return state, {key: torch.stack([m[key] for m in rows])
+                           for key in rows[0]}
+
+        return scan
+
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    noise: Optional[torch.Tensor] = None,
                    deterministic: bool = False
@@ -210,6 +254,16 @@ class PretrainTask:
         and device-scalar metrics (loss, mim_loss, res_loss, mlm_loss, lr),
         under data parallelism their means over the ranks."""
         self.fold_rng(self.step)
+        state, metrics = self.step_body(state, batch, noise, deterministic)
+        self.step += 1
+        return state, metrics
+
+    def step_body(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                  noise: Optional[torch.Tensor], deterministic: bool
+                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """`train_step` without the host's part: no reseed of the
+        generators and no count of `self.step`, so that a CUDA graph can
+        capture it."""
         if self.dp is not None:
             noise = self._rank_noise(batch["ids"].shape[0], noise)
         batch = device_normalize(batch, self.cfg.data.mean, self.cfg.data.std)
@@ -228,7 +282,6 @@ class PretrainTask:
         accum = max(1, self.cfg.optimizer.accum_steps)
         lr = self.schedule((state.step // accum) * accum)
         new_state = state.apply_gradients(self.tx)
-        self.step += 1
         names = ("loss", "mim_loss", "res_loss", "mlm_loss")
         values = [loss.detach()] + [out[k].detach() for k in names[1:]]
         if self.dp is not None:

@@ -94,10 +94,13 @@ class TrainState:
 
     def apply_gradients(self, tx) -> "TrainState":
         """One optimizer update from the parameters' `.grad` (a missing
-        gradient counts as zero, as JAX's would be)."""
-        return replace(self, step=self.step + 1,
-                       opt_state=tx.apply(self.params, _Grads(self.params),
-                                          self.opt_state))
+        gradient counts as zero, as JAX's would be). The step advances in
+        place, as the parameters do, so a CUDA graph of the update reads
+        the current step at every replay."""
+        opt_state = tx.apply(self.params, _Grads(self.params), self.opt_state)
+        with torch.no_grad():
+            self.step.add_(1)
+        return replace(self, opt_state=opt_state)
 
     def _whole(self, tree: Mapping[str, torch.Tensor]
                ) -> Mapping[str, torch.Tensor]:

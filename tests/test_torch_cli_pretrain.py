@@ -209,13 +209,21 @@ def test_cli_trains_checkpoints_and_resumes(cli_run):
                for k in c1["model"])
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """--fsdp, orbax directories, and --steps_per_call > 1 under a process
+    group (CUDA graphs of the data-parallel step; in one process it runs:
+    tests/test_torch_steps_per_call.py) raise."""
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
-    for extra, msg in ((["--steps_per_call", "2"], "steps_per_call"),
+    steps = ["--steps_per_call", "2"]
+    cli.refuse_what_is_not_ported(cli.get_args(base + steps))
+    for extra, msg in ((steps, "steps_per_call > 1 under a process group"),
                        (["--fsdp"], "fsdp"),
                        (["--resume", str(tmp_path)], "orbax")):
-        with pytest.raises(NotImplementedError, match=msg):
-            cli.main(base + extra)
+        with monkeypatch.context() as mp:
+            if extra is steps:
+                mp.setattr(cli.distributed, "is_distributed", lambda: True)
+            with pytest.raises(NotImplementedError, match=msg):
+                cli.main(base + extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             cli.main(["--data_path", str(tmp_path)])

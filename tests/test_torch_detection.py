@@ -878,13 +878,15 @@ def test_cli_resume_fast_forwards_to_the_best_step(tmp_path, tiny_cli,
     real_step = DetectionTask.train_step
 
     def spy(self, state, images, targets):
+        # the step and count the first update starts from (both advance
+        # in place), then the parameters it leaves
+        count = state.opt_state.count
+        start = (int(state.step), int(count),
+                 float(self.tx.inner.schedule(count)))
         new, m = real_step(self, state, images, targets)
         if not seen:
-            count = state.opt_state.count
-            seen.append((int(state.step), int(count),
-                         float(self.tx.inner.schedule(count)),
-                         {k: p.detach().clone()
-                          for k, p in self.model.named_parameters()}))
+            seen.append(start + ({k: p.detach().clone()
+                                  for k, p in self.model.named_parameters()},))
         return new, m
 
     monkeypatch.setattr(DetectionTask, "train_step", spy)

@@ -245,11 +245,13 @@ def test_zero1_pieces_in_turn_equal_the_whole_update():
                                                    for k, v in p.items()},
                           grad_clip=clip, zero1=zero1)
 
-    def state(z=None):
+    def state(z=None):  # the count advances in place: one a state
         if z is None:
-            return AdamWState(count, {k: t.clone() for k, t in mu0.items()},
+            return AdamWState(count.clone(),
+                              {k: t.clone() for k, t in mu0.items()},
                               {k: t.clone() for k, t in nu0.items()})
-        return AdamWState(count, z.take(mu0, "cpu"), z.take(nu0, "cpu"))
+        return AdamWState(count.clone(), z.take(mu0, "cpu"),
+                          z.take(nu0, "cpu"))
 
     whole = {k: p.clone() for k, p in params.items()}
     w_state = state()

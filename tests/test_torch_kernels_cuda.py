@@ -6,11 +6,14 @@ machine without JAX:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from ecamp_tpu_torch.kernels import _build  # noqa: E402
 from ecamp_tpu_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import fused_adamw as adamw_mod  # noqa: E402
 from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm_mod  # noqa: E402
@@ -266,9 +269,9 @@ def test_adamw_kernel_on_card(cuda):
                               grad_clip=1.0)
     count = torch.full((), 2, dtype=torch.int32, device=cuda)
 
-    def state(m, v):
+    def state(m, v):  # the count advances in place: one a state
         return adamw_mod.AdamWState(
-            count=count, mu={k: t.clone() for k, t in zip(params, m)},
+            count=count.clone(), mu={k: t.clone() for k, t in zip(params, m)},
             nu={k: t.clone() for k, t in zip(params, v)})
 
     k_params = {k: p.clone() for k, p in params.items()}
@@ -292,6 +295,48 @@ def test_adamw_kernel_on_card(cuda):
                                    atol=1e-7)
         torch.testing.assert_close(k_state.nu[k], p_state.nu[k], rtol=1e-6,
                                    atol=1e-9)
+
+
+def test_adamw_refuses_new_addresses_under_capture(cuda):
+    """The kernel's leaf table holds the addresses it was built on; a
+    CUDA graph captures them. An update captured on a leaf allocated anew
+    raises (its table's refresh is a blocking host-to-device copy, which a
+    capture cannot record, so a graph would read the old leaf), and one
+    on the same leaves captures and replays as the eager update does."""
+    params = {"w": torch.randn(64, 48, device=cuda), "b": torch.zeros(
+        48, device=cuda)}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    tx = adamw_mod.FusedAdamW(lambda c: 1e-3 * (1 + c.float()), 0.9, 0.95,
+                              1e-8, 0.05)
+    st = tx.init(params)
+    tx.apply(params, grads, st)  # builds the table outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="under CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=side):
+            tx.apply(params, dict(grads, b=grads["b"].clone()), st)
+    torch.cuda.synchronize()
+    want = {k: p.clone() for k, p in params.items()}
+    twin = adamw_mod.AdamWState(st.count.clone(), {k: m.clone() for k, m in
+                                                   st.mu.items()},
+                                {k: v.clone() for k, v in st.nu.items()})
+    tx.plain = True
+    tx.apply(want, grads, twin)
+    tx.plain = False
+    graph = torch.cuda.CUDAGraph()
+    before = adamw_mod.launches.value
+    with _build.GraphLaunches() as recorded:
+        with torch.cuda.graph(graph, stream=side):
+            tx.apply(params, grads, st)
+    assert adamw_mod.launches.value == before  # a capture runs nothing
+    graph.replay()
+    recorded.replay()
+    torch.cuda.synchronize()
+    assert adamw_mod.launches.value == before + 1
+    assert int(st.count) == int(twin.count) == 2  # in place, at the replay
+    for k, p in params.items():
+        torch.testing.assert_close(p, want[k], rtol=1e-6, atol=1e-7)
 
 
 def test_adamw_zero1_shards_on_card(cuda):
@@ -324,15 +369,15 @@ def test_adamw_zero1_shards_on_card(cuda):
             grad_clip=1.0, zero1=zero1)
 
     whole = {k: p.clone() for k, p in params.items()}
-    w_state = adamw_mod.AdamWState(
-        count=count, mu={k: t.clone() for k, t in mu0.items()},
+    w_state = adamw_mod.AdamWState(  # the count advances in place
+        count=count.clone(), mu={k: t.clone() for k, t in mu0.items()},
         nu={k: t.clone() for k, t in nu0.items()})
     make().apply(whole, grads, w_state)
     layout = FlatLayout({k: p.shape for k, p in params.items()}, 3)
     sharded = {k: p.clone() for k, p in params.items()}
     for r in range(3):
         z = Zero1(layout, r)
-        st = adamw_mod.AdamWState(count=count, mu=z.take(mu0, cuda),
+        st = adamw_mod.AdamWState(count=count.clone(), mu=z.take(mu0, cuda),
                                   nu=z.take(nu0, cuda))
         before = adamw_mod.launches.value
         new = make(z).apply(sharded, grads, st)
@@ -398,6 +443,155 @@ def test_pretrain_step_on_card_matches_plain(cuda, fused):
     for k in ("mim_loss", "res_loss", "mlm_loss"):
         assert abs(losses[False][k] - losses[True][k]) <= 2e-2 * abs(
             losses[True][k]), k
+
+
+def _graph_cfg(fused: bool, accum: int):
+    """The tiny pretraining config of the step test above, dropout on, an
+    epoch cosine that moves every micro-step, accumulation `accum`."""
+    from ecamp_tpu_torch.core import config as c
+
+    return c.PretrainConfig(
+        vit=c.ViTConfig(img_size=64, patch_size=16, embed_dim=128, depth=2,
+                        num_heads=2),
+        decoder=c.MAEDecoderConfig(embed_dim=64, depth=1, num_heads=2),
+        bert=c.BertConfig(vocab_size=300, hidden_size=256,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=32),
+        optimizer=c.OptimizerConfig(lr=1e-3, warmup_epochs=1,
+                                    accum_steps=accum),
+        data=c.DataConfig(img_size=128), max_caption_length=32, sr_window=2,
+        max_epoch=4, fused_mlm_ce=fused)
+
+
+def test_graph_replays_draw_the_eager_draws(cuda):
+    """A CUDA graph of draws from the task's two generators, registered
+    with it and reseeded by `fold_rng` before each replay, draws what the
+    eager draws at each step draw (the masking noise and the dropout of a
+    graphed step), and another step's draws differ."""
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    task = PretrainTask(_graph_cfg(False, 1), device=cuda)
+    gens = (task.masking_generator, task.dropout_generator)
+
+    def draw():
+        return torch.stack([torch.rand(4096, device=cuda, generator=g)
+                            for g in gens])
+
+    eager = []
+    for step in range(4):
+        task.fold_rng(step)
+        eager.append(draw())
+    graph = torch.cuda.CUDAGraph()
+    for g in gens:
+        graph.register_generator_state(g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph, stream=side):
+        out = draw()
+    for step in (2, 0, 3, 1):
+        task.fold_rng(step)
+        graph.replay()
+        assert torch.equal(out, eager[step]), step
+    assert not torch.equal(eager[0], eager[1])
+
+
+@pytest.mark.parametrize("fused,accum", [(False, 1), (True, 2)],
+                         ids=["logits", "fused_ce_accum2"])
+def test_graphed_steps_on_card_match_eager(cuda, fused, accum):
+    """Two calls of K = 3 graphed micro-steps (dropout on, the masking
+    noise from the generator) against 6 eager micro-steps from the same
+    weights and batches, under deterministic algorithms (the eager step
+    then repeats bit for bit on the card): every micro-step's metrics and
+    the parameters equal bit for bit (another mask or dropout moves the
+    losses: the eager steps at another seed do); the step, AdamW's count
+    and the cycle advance across the replays; call 1's stacked metrics
+    survive call 2; each kernel launches as often as in the eager steps
+    (the replays count what their capture recorded)."""
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    k = 3
+    cfg = _graph_cfg(fused, accum)
+    task = PretrainTask(cfg, device=cuda, steps_per_epoch=3)
+    init = {n: v.clone() for n, v in task.model.state_dict().items()}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batches = [{n: v.contiguous() for n, v in
+                synthetic_batch(cfg, 4, gen).items()} for _ in range(2 * k)]
+    counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
+                adamw_mod.launches, mlm_mod.launches_fwd,
+                mlm_mod.launches_merge, mlm_mod.launches_dl,
+                mlm_mod.launches_dx, mlm_mod.launches_dw)
+
+    def eager(seed):
+        task.model.load_state_dict(init)
+        task.cfg = dataclasses.replace(cfg, seed=seed)  # what fold_rng reads
+        state = task.init_state()
+        for ctr in counters:
+            ctr.reset()
+        rows = []
+        for b in batches:
+            state, m = task.train_step(state, b)
+            rows.append({n: float(v) for n, v in m.items()})
+        torch.cuda.synchronize()
+        return rows, [ctr.value for ctr in counters], {
+            n: v.clone() for n, v in task.model.state_dict().items()}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        other, _, _ = eager(cfg.seed + 1)
+        want, want_n, want_p = eager(cfg.seed)
+        assert want_n[3] == 2 * k // accum and all(want_n[:3])
+
+        task.model.load_state_dict(init)
+        state = task.init_state()
+        scan = task.make_train_step_scan(state, k)
+        for ctr in counters:
+            ctr.reset()
+        got, calls = [], []
+        for c in range(2):
+            group = batches[c * k:(c + 1) * k]
+            state, m = scan(state, {n: torch.stack([b[n] for b in group])
+                                    for n in group[0]})
+            torch.cuda.synchronize()
+            calls.append((m, {n: v.clone() for n, v in m.items()}))
+            got += [{n: float(v[i]) for n, v in m.items()} for i in range(k)]
+            done = (c + 1) * k
+            assert int(state.step) == task.step == done
+            assert int(adamw_state(state.opt_state).count) == done // accum
+            if accum > 1:
+                assert state.opt_state.mini_step == done % accum
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for m, kept in calls:  # call 1's metrics survive call 2
+        assert all(torch.equal(v, kept[n]) for n, v in m.items())
+    assert [ctr.value for ctr in counters] == want_n
+    assert scan.graphs and scan.eager_steps < 2 * k
+    assert got == want
+    assert all(o["loss"] != w["loss"] for o, w in zip(other, want))
+    for n, w in want_p.items():
+        assert torch.equal(task.model.state_dict()[n], w), n
+
+
+def test_graphed_steps_refuse_plain_kernels(cuda):
+    """With the kernels routed to their plain versions the graphed call
+    raises (the fused CE's plain backward sizes a tensor on the host); it
+    never falls back to eager steps."""
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+
+    cfg = _graph_cfg(True, 1)
+    task = PretrainTask(cfg, device=cuda)
+    task.set_plain(True)
+    state = task.init_state()
+    scan = task.make_train_step_scan(state, 2)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = synthetic_batch(cfg, 4, gen)
+    superbatch = {n: torch.stack([v, v]) for n, v in batch.items()}
+    with pytest.raises(RuntimeError, match="plain"):
+        scan(state, superbatch)
+    assert task.step == 0 and int(state.step) == 0 and not scan.graphs
 
 
 @pytest.mark.parametrize("layout", [0, 1, 2], ids=["dl", "dx", "dw"])
