@@ -74,6 +74,21 @@
    a graphed call of 3 and a tail of 1, deterministic algorithms), their
    `log.txt` lines equal bit for bit. The `graphed` JSON line holds the
    figures.
+4d. (h) activation checkpointing (the three configs' `remat`), after 4b,
+   on (g)'s configuration, (e) materialised and (f) fused CE: under
+   deterministic algorithms 4 eager remat micro-steps against the same
+   plain ones (losses, lr, parameters, step, AdamW count and cycle bit
+   for bit), 95 LayerNorm and 46 attention launches a micro-step (51 and
+   24 plain; every other kernel as plain), and one graphed call of K = 4
+   remat micro-steps against the eager remat ones bit for bit; then in the
+   default mode ms a micro-step eager (plain and remat in turns) and
+   graphed, the graphed micro-step's device and busy time and the peak
+   memory beside (g)'s plain figures, and two remat micro-steps at the
+   recipe's B = 256 with their peak against 4b's; then the classification
+   fine-tune at its recipe (B = 96, drop-path 0.1): one remat step against
+   one plain step bit for bit, 49 LayerNorm and 24 attention launches, both
+   peaks. Every remat peak must be below plain's. The `remat` JSON line
+   holds the figures.
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
    in bf16, at a ragged fp32 shape, and at a ragged bf16 shape (V = 3001:
@@ -293,7 +308,9 @@
    phase ends) and of the kernels (with each kernel's launches in (6e)'s
    runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`, and in
    (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
-   micro-steps and CLI epoch: `graphed_launches`, `graphed_cli_launches`)
+   micro-steps and CLI epoch: `graphed_launches`, `graphed_cli_launches`,
+   and in (h)'s eager remat micro-steps and classification step:
+   `remat_launches`, `remat_finetune_launches`)
    and, last, the device line.
 
 Any failed check or exception exits non-zero. Without a CUDA card it fails
@@ -346,6 +363,14 @@ GRAPH_ACCUM = 2      # (g): the cycle of the graphed micro-steps
 GRAPH_TIMED_CALLS = 3  # (g): calls of replays only, timed
 SPC_K = 3            # (g): the CLI's --steps_per_call
 SPC_B = 16           # (g): its batch: 4 micro-steps an epoch, 3 + 1
+REMAT_K = 4          # (h): eager micro-steps held against plain, and the
+                     # graphed call's K
+REMAT_TIMED_CALLS = 2  # (h): graphed calls of replays only, timed
+# (h): a micro-step's launches with the three remat flags set: every
+# encoder, decoder and BERT block is run again in the backward, so its
+# LayerNorms and attentions launch twice
+REMAT_LAUNCHES = {"layer_norm": 95, "attention": 46}
+REMAT_FT_LAUNCHES = {"layer_norm": 49, "attention": 24}  # a fine-tune step
 RECIPE_B = 256
 RECIPE_ACCUM = 8     # micro-steps an update
 ACCUM_HALF_B = 16    # two micro-steps of this against one step of PRE_B
@@ -1825,6 +1850,394 @@ def graph_phase(card: str, eager_busy: dict = None) -> dict:
         del box, state, scan, task, init, batches, supers, d1, d2, gd
     gc.collect()
     torch.cuda.empty_cache()
+    return result
+
+
+def remat_phase(card: str, graphed: dict, recipe: dict) -> dict:
+    """(h) activation checkpointing on the card, on (g)'s configuration
+    (full width, B = PRE_B, bf16, dropout on, the masking noise from the
+    generator, accumulation GRAPH_ACCUM, an epoch cosine), (e)
+    materialised and (f) fused CE, the three remat flags set against none.
+    Under deterministic algorithms (where the eager step repeats bit for
+    bit): (a) REMAT_K eager remat micro-steps against the same plain ones
+    from the same weights and batches: losses, lr and parameters equal bit
+    for bit, and the step, the task's step, AdamW's count and the cycle;
+    (b) each kernel's launches a micro-step: LayerNorm and attention as
+    REMAT_LAUNCHES, every other kernel as plain; (c) one graphed call of
+    K = REMAT_K remat micro-steps (warm-ups, captures, replays) against
+    (a)'s eager remat run bit for bit, launches equal (the replays counted).
+    (d) In the default mode: ms a micro-step, eager plain and remat
+    interleaved, and graphed remat (REMAT_TIMED_CALLS calls of replays)
+    beside (g)'s graphed plain figure; the device time of a graphed remat
+    micro-step (events) and its busy time (profiler); the peak above each
+    run's start, eager plain and remat and graphed remat; at the recipe's
+    B = RECIPE_B two remat micro-steps (no update) and their peak against
+    4b's plain peak (`recipe`). (e) The classification fine-tune at its
+    recipe (cls_ft_ChestX-ray14_1: B = FT_B, drop-path 0.1, SGD; the warmup
+    set to 0 so the step updates): one step with `ViTConfig(remat=True)`
+    against one without, bit for bit under deterministic algorithms,
+    REMAT_FT_LAUNCHES and the plain step's launches, and both peaks.
+    Every remat peak must be below its plain one. Returns the `remat`
+    results."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ecamp_tpu_torch.core import config as c
+    from ecamp_tpu_torch.kernels import flash_attention as fa
+    from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import fused_mlm_loss as mlm
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.kernels import sr_head as sr
+    from ecamp_tpu_torch.train.classification import ClassificationTask
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                "sr_conv_stack": sr.launches,
+                "sr_conv_stack_tma": sr.launches_tma, "adamw": adamw.launches,
+                "fused_ce_fwd": mlm.launches_fwd,
+                "fused_ce_merge": mlm.launches_merge,
+                "fused_ce_dl": mlm.launches_dl, "fused_ce_dx": mlm.launches_dx,
+                "fused_ce_dw": mlm.launches_dw}
+
+    def remat(cfg, on=True):
+        return dataclasses.replace(
+            cfg, vit=dataclasses.replace(cfg.vit, remat=on),
+            decoder=dataclasses.replace(cfg.decoder, remat=on),
+            bert=dataclasses.replace(cfg.bert, remat=on))
+
+    def deterministic(fn):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    k = REMAT_K
+    t0 = time.perf_counter()
+    cfg = c.PretrainConfig(optimizer=c.OptimizerConfig(
+        lr=1.5e-4, warmup_epochs=1, accum_steps=GRAPH_ACCUM), max_epoch=4,
+        seed=SEED)
+    v, dc, bc = cfg.vit, cfg.decoder, cfg.bert
+    blocks = v.depth + dc.depth + bc.num_hidden_layers
+    plain_micro = {"layer_norm": (2 * v.depth + 1) + (2 * dc.depth + 1)
+                   + (1 + 3 + 2 * bc.num_hidden_layers + 1),
+                   "attention": v.depth + dc.depth + 2 + bc.num_hidden_layers}
+    check({"layer_norm": plain_micro["layer_norm"] + 2 * blocks,
+           "attention": plain_micro["attention"] + blocks} == REMAT_LAUNCHES,
+          f"remat launches {REMAT_LAUNCHES} against the model's blocks")
+    print(f"(h) remat on {card}: B = {PRE_B}, {k} micro-steps, accumulation "
+          f"{GRAPH_ACCUM}, dropout on, the three remat flags against none")
+    result = {"batch": PRE_B, "k": k, "accum": GRAPH_ACCUM, "card": card}
+    for tag, fused in (("e", False), ("f", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"(h{tag}) {'fused CE' if fused else 'materialised'}"
+        pcfg = dataclasses.replace(cfg, fused_mlm_ce=fused)
+        tasks = {on: PretrainTask(remat(pcfg, on), device="cuda",
+                                  steps_per_epoch=k) for on in (False, True)}
+        init = {name: t.detach().clone()
+                for name, t in tasks[False].model.state_dict().items()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+        batches = [{name: t.contiguous() for name, t in
+                    synthetic_batch(cfg, PRE_B, gen).items()}
+                   for _ in range(k)]
+        superbatch = {name: torch.stack([b[name] for b in batches])
+                      for name in batches[0]}
+        base = [0]
+
+        def start(task):
+            task.model.load_state_dict(init)
+            state = task.init_state()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base[0] = torch.cuda.memory_allocated()
+            for ctr in counters.values():
+                ctr.reset()
+            return state
+
+        def finish(task, state, rows, times):
+            torch.cuda.synchronize()
+            return {"rows": rows, "ms": times,
+                    "peak": torch.cuda.max_memory_allocated() - base[0],
+                    "launches": {name: ctr.value
+                                 for name, ctr in counters.items()},
+                    "counters": (int(state.step), task.step,
+                                 int(adamw_state(state.opt_state).count),
+                                 state.opt_state.mini_step),
+                    "params": {name: t.detach().clone() for name, t in
+                               task.model.state_dict().items()}}
+
+        def eager(on):
+            task = tasks[on]
+            state = start(task)
+            rows, times = [], []
+            for b in batches:
+                t = time.perf_counter()
+                state, m = task.train_step(state, b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                rows.append({name: float(x) for name, x in m.items()})
+            return finish(task, state, rows, times)
+
+        def graphed_run():
+            task = tasks[True]
+            state = start(task)
+            scan = task.make_train_step_scan(state, k)
+            t = time.perf_counter()
+            state, m = scan(state, superbatch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / k
+            rows = [{name: float(x[i]) for name, x in m.items()}
+                    for i in range(k)]
+            return finish(task, state, rows, [ms]), state, scan
+
+        def same(a, b):
+            return (a["rows"] == b["rows"] and a["counters"] == b["counters"]
+                    and all(torch.equal(t, b["params"][name])
+                            for name, t in a["params"].items()))
+
+        # (a)-(c) under deterministic algorithms
+        plain, eager_r, (graph_r, _, scan) = deterministic(
+            lambda: (eager(False), eager(True), graphed_run()))
+        per_micro = {name: eager_r["launches"][name] / k
+                     for name in REMAT_LAUNCHES}
+        plain_micro_n = {name: plain["launches"][name] / k
+                         for name in REMAT_LAUNCHES}
+        want = dict(plain["launches"])
+        want.update({name: n * k for name, n in REMAT_LAUNCHES.items()})
+        print(f"  {what}, deterministic algorithms: losses "
+              f"{[round(r['loss'], 5) for r in eager_r['rows']]}; remat "
+              f"against plain bit for bit: {same(eager_r, plain)}; graphed "
+              f"remat against eager remat: {same(graph_r, eager_r)} "
+              f"({scan.eager_steps} warm-up micro-steps eager, "
+              f"{len(scan.graphs)} graphs); LayerNorm and attention a "
+              f"micro-step {per_micro}, plain {plain_micro_n}; launches in "
+              f"{k} micro-steps {eager_r['launches']}")
+        check(all(np.isfinite(r["loss"]) for r in eager_r["rows"]),
+              f"{what}: non-finite loss")
+        check(len({r["lr"] for r in plain["rows"]}) > 1,
+              f"{what}: the lr did not move")
+        check(plain["counters"] == (k, k, k // GRAPH_ACCUM, k % GRAPH_ACCUM),
+              f"{what}: step, task step, count, cycle {plain['counters']}")
+        check(same(eager_r, plain), f"{what}: remat against plain under "
+              f"deterministic algorithms: not bit for bit")
+        check(same(graph_r, eager_r), f"{what}: graphed remat against eager "
+              f"remat: not bit for bit")
+        check(plain_micro_n == {name: float(n) for name, n in
+                                plain_micro.items()},
+              f"{what}: plain LayerNorm and attention a micro-step "
+              f"{plain_micro_n}, want {plain_micro}")
+        check(eager_r["launches"] == want,
+              f"{what}: launches {eager_r['launches']} in {k} micro-steps, "
+              f"want {want}")
+        check(graph_r["launches"] == eager_r["launches"],
+              f"{what}: graphed launches {graph_r['launches']} against eager "
+              f"{eager_r['launches']}")
+        row = {"losses": [r["loss"] for r in eager_r["rows"]],
+               "lr": [r["lr"] for r in eager_r["rows"]],
+               "counters": eager_r["counters"],
+               "launches": eager_r["launches"],
+               "launches_a_micro_step": per_micro,
+               "plain_launches": plain["launches"],
+               "graphed_launches": graph_r["launches"]}
+        del plain, eager_r, graph_r, scan
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the default mode: eager plain and remat in turns, then
+        # graphed remat
+        runs = {False: [], True: []}
+        for on in (False, True, False, True):
+            r = eager(on)
+            del r["params"]
+            runs[on].append(r)
+        gd, state, scan = graphed_run()
+        del gd["params"]
+        graph_ms = []
+        for _ in range(REMAT_TIMED_CALLS):
+            t = time.perf_counter()
+            state, _ = scan(state, superbatch)
+            torch.cuda.synchronize()
+            graph_ms.append((time.perf_counter() - t) * 1e3 / k)
+        box = [state]
+
+        def graphed_call():
+            box[0], _ = scan(box[0], superbatch)
+
+        graph_device = median_ms(graphed_call, 2, 1) / k
+        busy = device_ms(graphed_call, "", 1, f"{what} graphed remat call",
+                         alone=False)
+        busy = None if busy is None else busy / k
+        eager_ms = {on: float(np.median([x for r in runs[on]
+                                         for x in r["ms"][1:]]))
+                    for on in (False, True)}
+        peaks = {on: max(r["peak"] for r in runs[on]) for on in (False, True)}
+        g_plain = graphed[tag]
+        row.update({
+            "eager_ms_a_micro_step": eager_ms[True],
+            "eager_plain_ms_a_micro_step": eager_ms[False],
+            "eager_ms": [r["ms"] for r in runs[True]],
+            "eager_plain_ms": [r["ms"] for r in runs[False]],
+            "graph_ms_a_micro_step": float(np.median(graph_ms)),
+            "graph_ms": graph_ms,
+            "graph_plain_ms_a_micro_step": g_plain["graph_ms_a_micro_step"],
+            "graph_device_ms_a_micro_step": graph_device,
+            "graph_plain_device_ms_a_micro_step":
+                g_plain["graph_device_ms_a_micro_step"],
+            "graph_device_busy_ms": busy,
+            "graph_plain_device_busy_ms": g_plain["graph_device_busy_ms"],
+            "eager_peak_bytes": peaks[True],
+            "eager_plain_peak_bytes": peaks[False],
+            "graph_peak_bytes": gd["peak"],
+            "graph_plain_peak_bytes": g_plain["graph_peak_bytes"],
+            "capture_s": scan.capture_seconds})
+        print(f"  {what} on {card}: a micro-step eager {eager_ms[True]:.3f} "
+              f"ms remat against {eager_ms[False]:.3f} plain (host clock, "
+              f"synchronised, medians of micro-steps 2-{k} of two runs each, "
+              f"in turns); graphed remat {row['graph_ms_a_micro_step']:.3f} "
+              f"ms against (g)'s plain "
+              f"{g_plain['graph_ms_a_micro_step']:.3f}; device "
+              f"{graph_device:.3f} ms a graphed remat micro-step (CUDA "
+              f"events; (g) plain "
+              f"{g_plain['graph_device_ms_a_micro_step']:.3f}), busy "
+              f"{_ms(busy)} (profiler; (g) plain "
+              f"{_ms(g_plain['graph_device_busy_ms'])}); peak above the "
+              f"run's start eager {peaks[True] / 2 ** 30:.3f} GiB remat "
+              f"against {peaks[False] / 2 ** 30:.3f} plain, graphed remat "
+              f"{gd['peak'] / 2 ** 30:.3f} (captures included) against "
+              f"(g)'s plain {g_plain['graph_peak_bytes'] / 2 ** 30:.3f}")
+        check(peaks[True] < peaks[False],
+              f"{what}: remat peak {peaks[True]} not below plain's "
+              f"{peaks[False]} at B = {PRE_B}")
+        result[tag] = row
+        del tasks, init, batches, superbatch, runs, gd, state, scan, box
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the recipe's micro-batch, remat: two micro-steps (no update)
+    rcfg = remat(c.PretrainConfig(optimizer=c.OptimizerConfig(
+        schedule="constant", lr=1.5e-4, accum_steps=RECIPE_ACCUM), seed=SEED))
+    for tag, fused in (("e", False), ("f", True)):
+        task = PretrainTask(dataclasses.replace(rcfg, fused_mlm_ce=fused),
+                            device="cuda")
+        state = task.init_state()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(2):
+            batch = synthetic_batch(rcfg, RECIPE_B, torch.Generator(
+                device="cuda").manual_seed(SEED + 100 + i))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = task.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            del batch, m
+        peak = torch.cuda.max_memory_allocated()
+        plain_peak = recipe[tag]["max_memory_allocated_bytes"]
+        print(f"  (h{tag}) B = {RECIPE_B}, remat: 2 micro-steps {times} ms "
+              f"(host clock; 4b plain median "
+              f"{recipe[tag]['micro_step_ms_median']:.3f}), losses "
+              f"{[round(x, 5) for x in losses]}, peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB against 4b's plain "
+              f"{plain_peak / 2 ** 30:.3f} on {card}")
+        check(all(np.isfinite(losses)), f"(h{tag}) B = {RECIPE_B}: "
+              f"non-finite loss")
+        check(peak < plain_peak, f"(h{tag}) remat peak {peak} not below "
+              f"plain's {plain_peak} at B = {RECIPE_B}")
+        result[tag]["recipe"] = {
+            "batch": RECIPE_B, "micro_step_ms": times, "losses": losses,
+            "max_memory_allocated_bytes": peak,
+            "plain_max_memory_allocated_bytes": plain_peak,
+            "plain_micro_step_ms_median":
+                recipe[tag]["micro_step_ms_median"]}
+        del task, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the classification fine-tune at its recipe
+    ccfg = c.ClassificationConfig(
+        vit=c.ViTConfig(drop_path_rate=0.1),
+        optimizer=c.OptimizerConfig(name="sgd", lr=3e-2, weight_decay=0.0,
+                                    momentum=0.9,
+                                    schedule="warmup_cosine_step",
+                                    warmup_steps=0, total_steps=3000,
+                                    grad_clip=1.0), seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    images = torch.randint(0, 256, (FT_B, 224, 224, 1), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = (torch.rand(FT_B, ccfg.num_classes, device="cuda",
+                         generator=gen) < 0.3).float()
+    init, ft = None, {}
+    for on in (False, True):
+        task = ClassificationTask(dataclasses.replace(
+            ccfg, vit=dataclasses.replace(ccfg.vit, remat=on)), device="cuda")
+        if init is None:
+            with torch.no_grad():  # as finetune_phase: a head of std 0.05
+                task.model.head.weight.copy_(0.05 * torch.randn(
+                    task.model.head.weight.shape, generator=torch.Generator()
+                    .manual_seed(SEED + 1)))
+            init = {name: t.detach().clone()
+                    for name, t in task.model.state_dict().items()}
+        task.model.load_state_dict(init)
+
+        def step(task=task):
+            state = task.init_state()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for ctr in counters.values():
+                ctr.reset()
+            state, m = task.train_step(state, images, labels)
+            torch.cuda.synchronize()
+            return {"loss": float(m["loss"]),
+                    "peak": torch.cuda.max_memory_allocated() - held,
+                    "launches": {name: ctr.value for name, ctr in
+                                 counters.items() if ctr.value},
+                    "params": {name: t.detach().clone() for name, t in
+                               task.model.state_dict().items()}}
+
+        ft[on] = deterministic(step)
+        del task
+    moved = any(not torch.equal(t, init[name])
+                for name, t in ft[False]["params"].items())
+    equal = ft[True]["loss"] == ft[False]["loss"] and all(
+        torch.equal(t, ft[False]["params"][name])
+        for name, t in ft[True]["params"].items())
+    print(f"  (h) classification on {card}, B = {FT_B}, drop-path 0.1: one "
+          f"step remat against plain bit for bit: {equal} (loss "
+          f"{ft[True]['loss']:.6g}); launches {ft[True]['launches']} against "
+          f"{ft[False]['launches']}; peak above the step's start "
+          f"{ft[True]['peak'] / 2 ** 30:.3f} GiB against "
+          f"{ft[False]['peak'] / 2 ** 30:.3f}")
+    check(moved and equal, f"(h) classification: remat against plain not bit "
+          f"for bit (parameters moved: {moved})")
+    check(ft[True]["launches"] == REMAT_FT_LAUNCHES and ft[False]["launches"]
+          == {"layer_norm": 2 * ccfg.vit.depth + 1,
+              "attention": ccfg.vit.depth},
+          f"(h) classification launches {ft[True]['launches']}, plain "
+          f"{ft[False]['launches']}")
+    check(ft[True]["peak"] < ft[False]["peak"],
+          f"(h) classification: remat peak {ft[True]['peak']} not below "
+          f"plain's {ft[False]['peak']}")
+    result["classification"] = {
+        "batch": FT_B, "loss": ft[True]["loss"],
+        "launches": ft[True]["launches"],
+        "plain_launches": ft[False]["launches"],
+        "peak_bytes": ft[True]["peak"], "plain_peak_bytes": ft[False]["peak"]}
+    del ft, init, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    print(f"  (h) phase {result['seconds']:.1f} s")
     return result
 
 
@@ -5567,6 +5980,8 @@ def main() -> int:
     mark("graphed")
     recipe = recipe_phase(card)
     mark("recipe")
+    remat = remat_phase(card, graphed, recipe)
+    mark("remat")
     ft_times = finetune_kernel_phase(card, shape_rows)
     mark("finetune_kernels")
     work = tempfile.mkdtemp(prefix="ecamp_cli_")
@@ -5717,6 +6132,15 @@ def main() -> int:
             n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
             if n:
                 entry[key] = n
+        # (h): REMAT_K eager remat micro-steps ((e)'s run, (f)'s for the
+        # fused CE) and one remat classification step
+        n = sum(remat["f" if name.startswith("fused_ce") else "e"]
+                ["launches"].get(k, 0) for k in parts.get(name, (name,)))
+        if n:
+            entry["remat_launches"] = n
+        if name in remat["classification"]["launches"]:
+            entry["remat_finetune_launches"] = \
+                remat["classification"]["launches"][name]
         if name in viz["launches"]:  # one visualizer forward's
             entry["visualize_launches"] = viz["launches"][name]
         if name in int8_cls:  # one forward of each int8 engine
@@ -5752,6 +6176,7 @@ def main() -> int:
                       "max_prob_err": prob_err, "card": card}))
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"graphed": graphed}))
+    print(json.dumps({"remat": remat}))
     print(json.dumps({"cli_epochs": cli}))
     print(json.dumps({"pretrain_recipe": recipe}))
     print(json.dumps({"data_parallel": dp}))

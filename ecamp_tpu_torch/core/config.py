@@ -36,8 +36,8 @@ class ViTConfig:
     attn_drop_rate: float = 0.0
     # stochastic depth, linspace-ramped 0 -> rate across blocks (timm)
     drop_path_rate: float = 0.0
-    # kept for field parity with the JAX config; activation checkpointing
-    # is not ported, and a model built with remat=True raises
+    # activation checkpointing: each block runs under a recompute
+    # (`nn/layers.py::remat`), as JAX wraps it in nn.remat
     remat: bool = False
 
     @property

@@ -33,7 +33,7 @@ from torch import nn
 from ..core.config import BertConfig
 from ..kernels import dot_product_attention
 from ..kernels.flash_attention import _attention_reference
-from .layers import Dense, Dropout, LayerNorm, compute_weight
+from .layers import Dense, Dropout, LayerNorm, compute_weight, remat
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -250,13 +250,14 @@ class MultimodalBert(nn.Module):
     `ops.losses.weighted_mlm_loss`. With `return_mlm_features`, the MLM
     head's (features, decoder weight, decoder bias) for the fused CE
     instead of the logits. With `return_cross_probs`, the pair (that
-    output, the fusion layer's cross-attention probabilities)."""
+    output, the fusion layer's cross-attention probabilities). With
+    `cfg.remat` each encoder layer runs under an activation checkpoint
+    (`layers.remat`); the embeddings, the fusion layer and the MLM head do
+    not, as in the JAX package."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError("BertConfig.remat: activation "
-                                      "checkpointing is not ported")
+        self.remat = cfg.remat
         self.bert = nn.Module()
         self.bert.embeddings = BertEmbeddings(cfg, dtype)
         self.bert.context_fusion_layer = FusionLayer(cfg, dtype)
@@ -280,6 +281,7 @@ class MultimodalBert(nn.Module):
         if return_cross_probs:
             h, probs = h
         for layer in self.bert.encoder.layer:
-            h = layer(h, bias)
+            # JAX nn.remat(BertLayer) per layer: the bias is an argument
+            h = remat(layer, h, bias) if self.remat else layer(h, bias)
         out = self.cls(h, return_features=return_mlm_features)
         return (out, probs) if return_cross_probs else out

@@ -24,12 +24,15 @@ normal patch conv, zero biases, unit LayerNorm) and draws from an explicit
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import distributed
 from ..kernels import dot_product_attention, fused_layer_norm
@@ -154,10 +157,17 @@ class Dropout(nn.Module):
                                f"set_generator")
         return self.generator
 
+    def _thresh(self) -> int:
+        return min(int(round(self.rate * 65536)), 65535)
+
+    def draws(self) -> bool:
+        """Whether a call draws from the generator (training, rate > 0)."""
+        return self.training and self._thresh() > 0
+
     def forward(self, x):
-        thresh = min(int(round(self.rate * 65536)), 65535)
-        if not self.training or thresh == 0:
+        if not self.draws():
             return x
+        thresh = self._thresh()
         keep = torch.randint(0, 65536, x.shape, generator=self._generator(),
                              device=x.device, dtype=torch.int32) >= thresh
         return torch.where(keep, x * (65536.0 / (65536 - thresh)),
@@ -169,8 +179,11 @@ class DropPath(Dropout):
     branch per sample with probability `rate`, scaling kept samples by
     1 / (1 - rate)."""
 
+    def draws(self) -> bool:
+        return self.training and self.rate != 0.0
+
     def forward(self, x):
-        if not self.training or self.rate == 0.0:
+        if not self.draws():
             return x
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         keep = torch.rand(shape, generator=self._generator(),
@@ -424,3 +437,160 @@ def set_generator(module: nn.Module,
         if isinstance(m, Dropout):
             m.generator = generator
     return module
+
+
+# -- activation checkpointing (the JAX package's `nn.remat` per block) -----
+
+def _generators(block: nn.Module) -> List[torch.Generator]:
+    """The distinct generators that `block`'s Dropout and DropPath modules
+    draw from in a call, in module order."""
+    gens: List[torch.Generator] = []
+    for m in block.modules():
+        if isinstance(m, Dropout) and m.draws():
+            g = m._generator()
+            if not any(g is h for h in gens):
+                gens.append(g)
+    return gens
+
+
+class RematTape:
+    """Where each remat block's dropout starts, for CUDA graphs of a step.
+
+    Eagerly, `remat` snapshots each generator of a block with `get_state`
+    and sets that state again for the backward's recompute. A capture
+    cannot: there a generator's position is an offset within the graph,
+    which no host call reads or sets, and a `clone_state` taken in the
+    capture is not registered with the graph, so it cannot draw there. A
+    graph's recomputes therefore draw from replay generators, one a block
+    and generator, registered with the graph before its capture
+    (`register`) and set before each replay (`seed`) to the seed of the
+    generator they stand for and to the offset at which that generator
+    entered the block. The offsets are recorded in an eager run of the
+    same kind of step (`remat_tape(tape, "record")`), which draws the same
+    counts: the step reseeds its generators first, so a block starts at
+    the same offset in every such step. `remat_tape(tape, "replay")` hands
+    the replay generators to the blocks in the order they run."""
+
+    def __init__(self):
+        self.entries: list = []   # (generators, their offsets at entry)
+        self.replays: list = []   # per entry, a replay generator each
+        self.taken = 0
+
+    def register(self, graph) -> None:
+        """Make the replay generators (once) and register each with
+        `graph`, before its capture."""
+        if not self.replays:
+            self.replays = [[torch.Generator(g.device) for g in gens]
+                            for gens, _ in self.entries]
+        for reps in self.replays:
+            for r in reps:
+                graph.register_generator_state(r)
+
+    def seed(self) -> None:
+        """Before a replay, after the step's generators were reseeded: each
+        replay generator at its generator's seed and recorded offset."""
+        for (gens, offsets), reps in zip(self.entries, self.replays):
+            for g, offset, r in zip(gens, offsets, reps):
+                r.manual_seed(g.initial_seed())
+                r.set_offset(offset)
+
+    def take(self, gens) -> List[torch.Generator]:
+        """The replay generators of the next block in a capture."""
+        if self.taken >= len(self.entries):
+            raise RuntimeError("remat under a CUDA graph capture: more "
+                               "blocks draw dropout than the eager step "
+                               "recorded")
+        want, _ = self.entries[self.taken]
+        if len(want) != len(gens) or any(a is not b
+                                         for a, b in zip(want, gens)):
+            raise RuntimeError("remat under a CUDA graph capture: a block "
+                               "draws from other generators than the eager "
+                               "step recorded")
+        self.taken += 1
+        return self.replays[self.taken - 1]
+
+
+_TAPE: Optional[tuple] = None  # (RematTape, "record" or "replay")
+
+
+@contextlib.contextmanager
+def remat_tape(tape: RematTape, mode: str):
+    """Record the remat blocks' dropout offsets in an eager step
+    (`mode="record"`), or hand a capture's blocks their replay generators
+    (`"replay"`; every recorded block must take its own)."""
+    global _TAPE
+    if mode not in ("record", "replay"):
+        raise ValueError(f"remat_tape mode {mode!r}")
+    prev, _TAPE = _TAPE, (tape, mode)
+    tape.taken = 0
+    if mode == "record":
+        tape.entries, tape.replays = [], []
+    try:
+        yield tape
+    finally:
+        _TAPE = prev
+    if mode == "replay" and tape.taken != len(tape.entries):
+        raise RuntimeError(f"remat under a CUDA graph capture: "
+                           f"{tape.taken} blocks drew dropout, the eager "
+                           f"step recorded {len(tape.entries)}")
+
+
+@contextlib.contextmanager
+def _states_set(gens, states, get, put):
+    """`gens` at `states` inside, at what they held before after."""
+    held = [get(g) for g in gens]
+    for g, s in zip(gens, states):
+        put(g, s)
+    try:
+        yield
+    finally:
+        for g, s in zip(gens, held):
+            put(g, s)
+
+
+def _dropout_replay(gens):
+    """`checkpoint`'s context_fn: nothing around the forward, and around
+    the recompute the block's generators where the forward found them.
+    Called at the block's entry, before its forward draws."""
+    none = contextlib.nullcontext()
+    if not gens:
+        return none, none
+    if gens[0].device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        if _TAPE is None or _TAPE[1] != "replay":
+            raise RuntimeError(
+                "remat under a CUDA graph capture replays dropout through "
+                "generators registered with the graph: capture the step "
+                "through train/graphed.py::GraphedSteps")
+        return none, _states_set(
+            gens, _TAPE[0].take(gens), lambda g: g.graphsafe_get_state(),
+            lambda g, s: g.graphsafe_set_state(s))
+    if _TAPE is not None and _TAPE[1] == "record":
+        _TAPE[0].entries.append((list(gens),
+                                 [g.get_offset() for g in gens]))
+    return none, _states_set(gens, [g.get_state() for g in gens],
+                             lambda g: g.get_state(),
+                             lambda g, s: g.set_state(s))
+
+
+def remat(block: nn.Module, *args):
+    """`block(*args)` under an activation checkpoint, as the JAX package's
+    `nn.remat(Block)`: the forward keeps the block's inputs only, and the
+    backward runs the block again from them, through the same kernels
+    (their `autograd.Function`s save through `save_for_backward`, which
+    the non-reentrant checkpoint intercepts) and with the same dropout
+    bits, so gradients and updates equal the plain call's; only peak
+    memory and time change. The default generators are not stashed
+    (`preserve_rng_state=False`): the port draws from explicit ones
+    (`set_generator`), which `_dropout_replay` sets back for the
+    recompute. Without autograd (`torch.no_grad`, an eval step, a
+    `stop_trunk_grad` trunk) or with nothing in the call that requires a
+    gradient, the block runs as it is."""
+    if not torch.is_grad_enabled() or not (
+            any(torch.is_tensor(a) and a.requires_grad for a in args)
+            or any(p.requires_grad for p in block.parameters())):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=functools.partial(_dropout_replay,
+                                                   _generators(block)))

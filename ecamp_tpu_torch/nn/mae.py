@@ -7,6 +7,10 @@ Pre-training/module/model_ecamp.py:49-333).
   * decoder: 512-d, 4 blocks, 16 heads; mask tokens re-inserted and
     unshuffled; pixel head (:240-264)
   * SR head: bilinear x2 + two 3x3 convs + residual (:28-46)
+  * `ViTConfig.remat` / `MAEDecoderConfig.remat` run each encoder /
+    decoder block under an activation checkpoint (`nn/layers.py::remat`),
+    as the JAX package wraps them in `nn.remat`; `BertConfig.remat` does
+    so for the BERT layers
   * losses: MIM + SR-window MSE (:276-300, quirks kept) and the
     entity-weighted MLM through the fusion BERT (:267-273), from
     materialised logits or, with `fused_mlm_ce`, through the fused
@@ -44,7 +48,7 @@ from ..ops.masking import (mask_to_pixel, permute_tokens, random_masking,
                            unpatchify)
 from .bert import MultimodalBert
 from .layers import (Block, Dense, LayerNorm, PatchEmbed, compute_weight,
-                     lecun_normal_)
+                     lecun_normal_, remat)
 from .pos_embed import get_2d_sincos_pos_embed
 
 
@@ -93,11 +97,8 @@ class ECAMP(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  fused_mlm_ce: bool = False):
         super().__init__()
-        if vit.remat or decoder.remat:
-            raise NotImplementedError("remat: activation checkpointing is "
-                                      "not ported")
         c, dc = vit, decoder
-        self.vit = vit
+        self.vit, self.decoder_cfg = vit, decoder
         self.sr_window, self.sr_scale, self.dtype = sr_window, sr_scale, dtype
         self.fused_mlm_ce = fused_mlm_ce
         self.plain = False  # see set_plain; routes the fused CE
@@ -230,7 +231,7 @@ class ECAMP(nn.Module):
         cls = (self.cls_token.to(self.dtype) + pos[:, :1, :]).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat(blk, x) if self.vit.remat else blk(x)
         return self.norm(x), mask, ids_restore, ids_keep
 
     def image_decoder(self, x, ids_restore):
@@ -245,6 +246,6 @@ class ECAMP(nn.Module):
         x = torch.cat([x[:, :1, :], x_], dim=1)
         x = x + self.decoder_pos_embed.to(self.dtype)
         for blk in self.decoder_blocks:
-            x = blk(x)
+            x = remat(blk, x) if self.decoder_cfg.remat else blk(x)
         x = self.decoder_pred(self.decoder_norm(x))
         return x[:, 1:, :]

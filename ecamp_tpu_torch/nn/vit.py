@@ -19,12 +19,14 @@ import torch
 from torch import nn
 
 from ..core.config import ViTConfig
-from .layers import Block, Dense, Dropout, LayerNorm, PatchEmbed
+from .layers import Block, Dense, Dropout, LayerNorm, PatchEmbed, remat
 
 
 class VisionTransformer(nn.Module):
     """Trunk: returns the full token sequence (cls + patches) after the
-    blocks. Heads decide what normalization to apply."""
+    blocks. Heads decide what normalization to apply. With `cfg.remat`
+    each block runs under an activation checkpoint (`layers.remat`, JAX
+    `nn/vit.py:53`); `pos_drop` stays outside."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -63,7 +65,7 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         x = self.pos_drop(x)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat(blk, x) if self.cfg.remat else blk(x)
         return x
 
 

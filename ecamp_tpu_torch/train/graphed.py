@@ -35,6 +35,13 @@ What a replay needs, and how it gets it:
 - Launch counts. A replay runs what its capture recorded, which the
   host's counters do not see: each replay adds those launches
   (`_build.GraphLaunches`).
+- Activation checkpointing (the configs' `remat`). The capture holds the
+  backward's recompute of each block, and the recompute must draw the
+  forward's dropout bits. A capture cannot snapshot a generator, so each
+  kind's eager warm-up records where every remat block's generators
+  stood at its entry (`nn/layers.py::RematTape`), the capture hands each
+  block's recompute replay generators registered with its graph, and each
+  replay first sets them to the step's seed at those offsets.
 
 Nothing falls back to eager steps: a capture or a replay that fails
 raises, and so does a call with the kernels routed to their plain
@@ -50,6 +57,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..kernels import _build
+from ..nn.layers import RematTape, remat_tape
 from .optim import MultiStepsState
 from .state import TrainState
 
@@ -81,11 +89,12 @@ def _address(state: TrainState) -> tuple:
 class _Graph:
     """One captured micro-step: the graph, its metrics' row in the pool,
     the state it leaves (its tensors are the state's own, advanced in
-    place) and the launches it makes."""
+    place), the launches it makes and the tape of its remat blocks'
+    dropout."""
 
-    def __init__(self, graph, out, state, launches):
+    def __init__(self, graph, out, state, launches, tape):
         self.graph, self.out, self.state = graph, out, state
-        self.launches = launches
+        self.launches, self.tape = launches, tape
 
 
 class GraphedSteps:
@@ -116,7 +125,9 @@ class GraphedSteps:
         self.stream = torch.cuda.Stream(task.device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[tuple, _Graph] = {}
-        self.warm = set()  # the kinds of micro-step that ran eagerly
+        # the kinds of micro-step that ran eagerly, each with the tape of
+        # its remat blocks' dropout offsets
+        self.warm: Dict[tuple, RematTape] = {}
         self.batch: Optional[Dict[str, torch.Tensor]] = None
         self.noise: Optional[torch.Tensor] = None
         self.capture_seconds = 0.0
@@ -144,20 +155,23 @@ class GraphedSteps:
             key = (pos,) + kind[1:]
             graph = self.graphs.get(key)
             if graph is None and kind in self.warm:
-                graph = self._capture(key, state, batch, n)
+                graph = self._capture(key, state, batch, n, self.warm[kind])
             if graph is None:
-                state = self._eager(state, batch, n, deterministic, rows[i])
-                self.warm.add(kind)
+                tape = RematTape()
+                state = self._eager(state, batch, n, deterministic, rows[i],
+                                    tape)
+                self.warm[kind] = tape
             else:
                 state = self._replay(graph, state, batch, n, rows[i])
         return state, {name: rows[:, j] for j, name in enumerate(NAMES)}
 
-    def _eager(self, state, batch, noise, deterministic, row):
+    def _eager(self, state, batch, noise, deterministic, row, tape):
         """One eager micro-step on the side stream (a warm-up, and a real
-        micro-step), its metrics into `row`."""
+        micro-step), its metrics into `row`, its remat blocks' dropout
+        offsets into `tape`."""
         cur = torch.cuda.current_stream(self.task.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), remat_tape(tape, "record"):
             state, m = self.task.train_step(state, batch, noise, deterministic)
             out = _stack(m)
         cur.wait_stream(self.stream)
@@ -187,22 +201,24 @@ class GraphedSteps:
         if noise is not None:
             self.noise.copy_(noise, non_blocking=True)
 
-    def _capture(self, key, state, batch, noise) -> _Graph:
+    def _capture(self, key, state, batch, noise, tape) -> _Graph:
         """Capture the micro-step at cycle position key[0] (noise injected
-        or not, deterministic or not) into a graph of the shared pool."""
+        or not, deterministic or not) into a graph of the shared pool; its
+        remat blocks replay the dropout offsets that `tape` recorded."""
         task = self.task
         t0 = time.perf_counter()
         self._fill(batch, noise)
         graph = torch.cuda.CUDAGraph()
         for gen in (task.masking_generator, task.dropout_generator):
             graph.register_generator_state(gen)
-        with _build.GraphLaunches() as launches:
+        tape.register(graph)
+        with _build.GraphLaunches() as launches, remat_tape(tape, "replay"):
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 new_state, m = task.step_body(
                     state, self.batch, None if noise is None else self.noise,
                     key[2])
                 out = _stack(m)
-        captured = _Graph(graph, out, new_state, launches)
+        captured = _Graph(graph, out, new_state, launches, tape)
         self.graphs[key] = captured
         self.capture_seconds += time.perf_counter() - t0
         return captured
@@ -213,6 +229,7 @@ class GraphedSteps:
         task = self.task
         self._fill(batch, noise)
         task.fold_rng(task.step)
+        graph.tape.seed()
         graph.graph.replay()
         graph.launches.replay()
         row.copy_(graph.out)

@@ -575,6 +575,87 @@ def test_graphed_steps_on_card_match_eager(cuda, fused, accum):
         assert torch.equal(task.model.state_dict()[n], w), n
 
 
+def _remat(cfg):
+    """cfg with the three remat flags set."""
+    return dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, remat=True),
+        decoder=dataclasses.replace(cfg.decoder, remat=True),
+        bert=dataclasses.replace(cfg.bert, remat=True))
+
+
+@pytest.mark.parametrize("fused,accum,exact", [(False, 1, False),
+                                               (True, 2, True)],
+                         ids=["logits", "fused_ce_accum2_exact_dropout"])
+def test_remat_steps_on_card_equal_plain(cuda, fused, accum, exact):
+    """With the three remat flags, 4 eager micro-steps (dropout on, the
+    masking noise from the generator) equal the plain micro-steps bit for
+    bit under deterministic algorithms: metrics and parameters, so each
+    block's recompute drew its forward's dropout. Two graphed calls of
+    K = 2 remat micro-steps equal them too: in a capture the recompute
+    draws from the replay generators (`nn/layers.py::RematTape`), set
+    before each replay. Each micro-step launches LayerNorm and attention
+    once more for every norm and kernel attention of a recomputed block,
+    graphed as eager; exact_attn_dropout's BERT attention is the plain
+    one, whose probabilities' dropout is replayed too."""
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+
+    k, n = 2, 4
+    plain_cfg = _graph_cfg(fused, accum)
+    plain_cfg = dataclasses.replace(plain_cfg, bert=dataclasses.replace(
+        plain_cfg.bert, exact_attn_dropout=exact))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batches = [{name: v.contiguous() for name, v in
+                synthetic_batch(plain_cfg, 4, gen).items()}
+               for _ in range(n)]
+    counters = (ln_mod.launches, fa_mod.launches)
+    init = None
+
+    def run(cfg, graphed):
+        nonlocal init
+        task = PretrainTask(cfg, device=cuda, steps_per_epoch=n)
+        if init is None:
+            init = {name: v.clone()
+                    for name, v in task.model.state_dict().items()}
+        task.model.load_state_dict(init)
+        state = task.init_state()
+        for ctr in counters:
+            ctr.reset()
+        rows = []
+        if graphed:
+            scan = task.make_train_step_scan(state, k)
+            for c in range(n // k):
+                group = batches[c * k:(c + 1) * k]
+                state, m = scan(state, {name: torch.stack(
+                    [b[name] for b in group]) for name in group[0]})
+                rows += [{name: float(v[i]) for name, v in m.items()}
+                         for i in range(k)]
+            assert scan.graphs and scan.eager_steps < n
+        else:
+            for b in batches:
+                state, m = task.train_step(state, b)
+                rows.append({name: float(v) for name, v in m.items()})
+        torch.cuda.synchronize()
+        return rows, [ctr.value // n for ctr in counters], {
+            name: v.clone() for name, v in task.model.state_dict().items()}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, want_n, want_p = run(plain_cfg, False)
+        eager = run(_remat(plain_cfg), False)
+        graphed = run(_remat(plain_cfg), True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    c = plain_cfg
+    blocks = c.vit.depth + c.decoder.depth
+    extra = [2 * (blocks + c.bert.num_hidden_layers),
+             blocks + (0 if exact else c.bert.num_hidden_layers)]
+    for rows, launches, params in (eager, graphed):
+        assert rows == want
+        assert launches == [a + b for a, b in zip(want_n, extra)]
+        for name, w in want_p.items():
+            assert torch.equal(params[name], w), name
+
+
 def test_graphed_steps_refuse_plain_kernels(cuda):
     """With the kernels routed to their plain versions the graphed call
     raises (the fused CE's plain backward sizes a tensor on the host); it

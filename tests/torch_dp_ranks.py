@@ -131,6 +131,41 @@ def task_steps(cfg, weights: dict, batch: dict, noise: np.ndarray,
     return out
 
 
+def remat_steps(cfgs: dict, weights: dict, batch: dict, noise: np.ndarray,
+                steps: int) -> dict:
+    """For each of `cfgs` (name -> PretrainConfig), `steps` PretrainTask
+    steps with dropout on, on this rank's rows of the global `batch` with
+    the global `noise`, from `weights`: each run's losses, last gradients
+    and parameters (`tests/test_torch_remat.py`)."""
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    distributed.initialize_distributed("cpu")
+    rank, world = distributed.rank(), distributed.world_size()
+    out = {}
+    for name, cfg in cfgs.items():
+        task = PretrainTask(cfg, device="cpu")
+        task.model.load_state_dict(
+            {k: torch.from_numpy(v) for k, v in weights.items()},
+            strict=True)
+        state = task.init_state()
+        b = len(batch["ids"]) // world
+        local = task.put_batch({k: v[rank * b:(rank + 1) * b]
+                                for k, v in batch.items()})
+        losses = []
+        for _ in range(steps):
+            state, m = task.train_step(state, local,
+                                       noise=torch.from_numpy(noise))
+            losses.append({k: float(v) for k, v in m.items()})
+        out[name] = {"losses": losses,
+                     "grads": {k: p.grad.clone()
+                               for k, p in state.params.items()},
+                     "params": {k: p.detach().clone()
+                                for k, p in state.params.items()}}
+    distributed.shutdown_distributed()
+    return out
+
+
 def cli_main(argv: list, tiny: dict, env: dict, sync_every: int) -> str:
     """`cli.pretrain.main(argv)` at the tiny model `tiny` (PretrainConfig
     fields), with `env` set and the ranks agreeing on a preemption every
