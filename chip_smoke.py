@@ -89,6 +89,20 @@
    one plain step bit for bit, 49 LayerNorm and 24 attention launches, both
    peaks. Every remat peak must be below plain's. The `remat` JSON line
    holds the figures.
+4e. (i) The pretraining feeder (`feeder_phase`), alone, after the CLI
+   corpus of (6) is written and before anything runs beside (6): the CLI's
+   `PretrainReportDataset` at 448 px, fp32 and `output_u8`, on corpora of
+   rows taken in turn over (6)'s 64 PNGs at 512 px, `DataLoader` at B =
+   32 with threads against worker processes (`mp_workers`, spawn) at K =
+   4: the process batches equal the thread batches bit for bit, images a
+   second over 2 batches a worker after an epoch's first batch, and the
+   first batch's seconds; the hand-over alone (2 processes, fp32), no
+   worker with torch imported; an abandoned iterator leaves no process
+   and no batch file. Host figures of the card's machine, printed with
+   its cores, SHM_DIR's size and the card; the `feeder` JSON line. A
+   check that the feeder runs, not a rate to plan by (its window is
+   mostly the batches queued before the first one came):
+   `tools/feeder_phase.py` times windows of 20 s at K = 1, 4 and 8.
 5. The fused vocab-projection + CE kernels (in 2., after the SR stack)
    against their plain versions at the step's shape (B * 256, 768, 30000)
    in bf16, at a ragged fp32 shape, and at a ragged bf16 shape (V = 3001:
@@ -98,9 +112,11 @@
    main shape.
 6. The pretraining CLI: `python -m ecamp_tpu_torch.cli.pretrain
    --fused_mlm_ce` at full width on a seeded MIMIC-style corpus written to
-   a temporary directory, 2 epochs and a resume for a third. Then on the
-   same corpus: (6b) `--accum_iter 2 --fused_mlm_ce` for 2 epochs (2
-   micro-steps an epoch): each epoch's launches a micro-step as before
+   a temporary directory, 2 epochs and a resume for a third (its `tb/`:
+   where tensorboard imports, the scalars equal `log.txt`'s, else no event
+   file). Then on the same corpus: (6b) `--accum_iter 2 --fused_mlm_ce`
+   for 2 epochs (2 micro-steps an epoch): each epoch's launches a
+   micro-step as before
    and one AdamW launch an update, the log's micro-steps and updates,
    checkpoint-1.pth's AdamW step the updates; (6c) the same with
    ECAMP_PREEMPT_AT_STEP=3 (epoch 1, batch 1, mid-cycle): exit 0 with
@@ -423,6 +439,12 @@ RESNET_WARMUP = 2
 RESNET50_TENSORS = 53 + 4 * 53  # a torchvision ResNet-50 (53 convs and BNs)
 # -- the visualizer -------------------------------------------------------
 VIZ_TOL = 2e-3       # max |heatmap with kernels - plain| on its [0, 1] map
+# -- (i) the data feeder: DataLoader threads against worker processes ----
+FEEDER_IMG = 448      # the recipe's input size, from the CLI corpus's 512 px
+FEEDER_B = 32
+FEEDER_ROUNDS = 2     # batches a worker after an epoch's first batch
+FEEDER_K = 4          # workers, threads against processes
+FEEDER_PROBE_B = 6    # batches of the hand-over probe (2 workers)
 # -- serving's remaining paths: int8 weights, embeddings, export ----------
 I8_PROJECTIONS = ((2304, 768), (768, 768), (3072, 768), (768, 3072))  # (N, K)
 I8_IMAGES = (1, 8, 64)           # M = 197 tokens an image
@@ -2584,6 +2606,171 @@ def write_cli_corpus(card: str, work: str) -> str:
     return data
 
 
+class ConstSamples:
+    """(i)'s hand-over probe: `n` samples of one fp32 (FEEDER_IMG,
+    FEEDER_IMG, 3) image, so that a worker process's cost is the collate
+    and the hand-over alone; each sample says whether its process has
+    imported torch. Module-level, so that a spawned worker unpickles it."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.image = None
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        if self.image is None:
+            self.image = np.full((FEEDER_IMG, FEEDER_IMG, 3), 0.5, np.float32)
+        return {"image": self.image,
+                "torch": np.int8("torch" in sys.modules)}
+
+
+def _feeder_rows(data: str, n: int, where: str) -> str:
+    """A corpus of `n` rows in `where` over the CLI corpus `data`'s images
+    and reports, taken in turn (the images are read as often as rows name
+    them, so an epoch of n samples decodes n files)."""
+    import csv
+
+    from ecamp_tpu_torch.data.datasets import (REPORTS_CSV, VOCAB_JSON,
+                                               WINDOWS_CSV)
+
+    os.makedirs(where, exist_ok=True)
+    shutil.copyfile(os.path.join(data, VOCAB_JSON),
+                    os.path.join(where, VOCAB_JSON))
+    for name in (REPORTS_CSV, WINDOWS_CSV):
+        with open(os.path.join(data, name), newline="",
+                  encoding="utf-8") as f:
+            rows = list(csv.DictReader(f))
+        with open(os.path.join(where, name), "w", newline="",
+                  encoding="utf-8") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows[i % len(rows)] for i in range(n))
+    return where
+
+
+def _feeder_epoch(loader, keep: bool) -> dict:
+    """One epoch of `loader`: seconds to its first batch, images a second
+    after it (host clock), and its batches if `keep`."""
+    t0 = time.perf_counter()
+    first, kept, n = None, [], 0
+    for b in loader:
+        n += 1
+        if first is None:
+            first = time.perf_counter()
+        if keep:
+            kept.append(b)
+    rest = time.perf_counter() - first
+    return {"first_batch_s": first - t0, "batches": n,
+            "images_per_s": (n - 1) * loader.batch_size / rest,
+            "kept": kept}
+
+
+def feeder_phase(card: str, work: str) -> dict:
+    """(i) The pretraining feeder on this machine's host CPU, alone: the
+    CLI's `PretrainReportDataset` at FEEDER_IMG px (fp32, and `output_u8`)
+    on `write_cli_corpus`'s images in `work`, `DataLoader` at B =
+    FEEDER_B, threads against worker processes at K = FEEDER_K: the
+    process batches must equal the thread batches bit for bit; images a
+    second over an epoch of FEEDER_ROUNDS batches a worker after its first
+    batch (first-batch seconds apart). Then the hand-over alone (`ConstSamples`, 2 processes, fp32); no
+    worker may have imported torch.
+    Last, an iterator abandoned after 2 batches must leave no child process
+    and no batch file. Returns the figures (host figures of this
+    machine)."""
+    import multiprocessing
+
+    import numpy as np
+
+    from ecamp_tpu_torch.data import loader as loader_mod
+    from ecamp_tpu_torch.data.datasets import PretrainReportDataset
+    from ecamp_tpu_torch.data.loader import DataLoader
+
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "mimic")
+    cores = os.cpu_count()
+    shm = shutil.disk_usage(loader_mod.SHM_DIR) if os.path.isdir(
+        loader_mod.SHM_DIR) else None
+    out = {"card": card, "cpu_count": cores,
+           "cpus_usable": len(os.sched_getaffinity(0)),
+           "img_size": FEEDER_IMG, "batch": FEEDER_B,
+           "rounds": FEEDER_ROUNDS, "corpus_images": CLI_IMAGES,
+           "shm_dir": loader_mod.SHM_DIR,
+           "shm_dir_gb": shm and round(shm.total / 2**30, 3),
+           "transport": ("shared memory: each batch's file on SHM_DIR, "
+                         "mapped by the consumer")}
+    print(f"(i) feeder on {card}: {cores} cores ({out['cpus_usable']} "
+          f"usable), SHM_DIR {loader_mod.SHM_DIR} "
+          f"{out['shm_dir_gb']} GiB, K = {FEEDER_K}")
+    k = FEEDER_K
+    n = FEEDER_B * (FEEDER_ROUNDS * k + 1)
+    rows = _feeder_rows(data, n, os.path.join(work, "feeder"))
+    equal = {}
+    for dtype in ("fp32", "u8"):
+        ds = PretrainReportDataset(rows, img_size=FEEDER_IMG, seed=SEED,
+                                   output_u8=dtype == "u8")
+        out[dtype], runs = {}, {}
+        for mode, kw in (("threads", {"num_workers": k}),
+                         ("processes", {"mp_workers": k})):
+            r = _feeder_epoch(DataLoader(ds, FEEDER_B, seed=SEED, **kw),
+                              keep=True)
+            runs[mode] = r.pop("kept")
+            check(r["batches"] == n // FEEDER_B,
+                  f"(i) {dtype} {mode} K={k}: {r['batches']} batches")
+            out[dtype][mode] = {str(k): r}
+            print(f"  {dtype} {mode:9s} K={k:2d}: "
+                  f"{r['images_per_s']:8.1f} images/s after the first "
+                  f"batch ({r['first_batch_s']:.2f} s), {n} images")
+        same = all(
+            a.keys() == b.keys() and all(
+                a[key].dtype == b[key].dtype
+                and np.array_equal(a[key], b[key]) for key in a)
+            for a, b in zip(runs["threads"], runs["processes"]))
+        check(same and len(runs["threads"]) == n // FEEDER_B,
+              f"(i) {dtype}: process batches differ from thread batches at "
+              f"K = {k}")
+        equal[dtype] = same
+        del runs
+    out["processes_equal_threads"] = {"k": k, **equal}
+    print(f"  process batches equal thread batches bit for bit at K = {k}: "
+          f"{equal}")
+
+    r = _feeder_epoch(DataLoader(ConstSamples(FEEDER_B * FEEDER_PROBE_B),
+                                 FEEDER_B, shuffle=False, mp_workers=2),
+                      keep=True)
+    torch_in_child = any(int(b["torch"].max()) for b in r.pop("kept"))
+    check(not torch_in_child, "(i) a worker process imported torch")
+    out["handover_fp32_2_processes"] = r
+    print(f"  hand-over alone: {r['images_per_s']:.1f} images/s (fp32, 2 "
+          f"processes)")
+
+    it = iter(DataLoader(PretrainReportDataset(
+        data, img_size=FEEDER_IMG, seed=SEED), FEEDER_B, seed=SEED,
+        mp_workers=FEEDER_K))
+    next(it)
+    next(it)
+    it.close()
+    deadline = time.perf_counter() + 5
+    while time.perf_counter() < deadline and any(
+            p.name.startswith("DataLoader-")
+            for p in multiprocessing.active_children()):
+        time.sleep(0.05)
+    left = [p.name for p in multiprocessing.active_children()
+            if p.name.startswith("DataLoader-")]
+    files = [f for f in os.listdir(loader_mod.SHM_DIR) if f.startswith(
+        f"ecamp-loader-{os.getpid()}-")] if shm else []
+    check(not left and not files, f"(i) an abandoned iterator left "
+          f"processes {left} and files {files}")
+    out["abandoned_iterator_left"] = {"processes": 0, "files": 0}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  abandoned iterator: no process and no file left; (i) took "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def cli_phase(card: str, per_step, work: str):
     """The pretraining entry point at full width on `write_cli_corpus`'s
     corpus in `work`: `python -m ecamp_tpu_torch.cli.pretrain
@@ -2647,7 +2834,44 @@ def cli_phase(card: str, per_step, work: str):
           f"checkpoint-2: epoch {last['epoch']}, steps {after}")
     print(f"  resume: {restored}, epoch 2 trained, checkpoint-2.pth at "
           f"AdamW step {3 * steps}")
+    cli_tensorboard_check(out, recs)
     return recs, os.path.join(out, "checkpoint-2.pth")
+
+
+def cli_tensorboard_check(out: str, recs: list) -> None:
+    """The CLI's TensorBoard log `out`/tb: where `torch.utils.tensorboard`
+    imports, its train/* scalars must equal the `log.txt` records `recs`
+    (fp32); elsewhere it must hold no event file."""
+    import numpy as np
+
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        importable = True
+    except Exception:
+        importable = False
+    events = sorted(f for f in (os.listdir(os.path.join(out, "tb"))
+                                if os.path.isdir(os.path.join(out, "tb"))
+                                else []) if f.startswith("events.out."))
+    print(f"  tensorboard importable here: {importable}; tb/ holds "
+          f"{len(events)} event files")
+    if not importable:
+        check(not events, f"tb/ holds {events} without tensorboard")
+        return
+    from tensorboard.backend.event_processing.event_file_loader import \
+        EventFileLoader
+    from tensorboard.util import tensor_util
+
+    got = {}
+    for name in events:
+        for event in EventFileLoader(os.path.join(out, "tb", name)).Load():
+            for v in event.summary.value:
+                got[(v.tag, event.step)] = tensor_util.make_ndarray(v.tensor)
+    want = {(f"train/{k}", r["epoch"]): np.float32(r[k]) for r in recs
+            for k in ("loss", "mim_loss", "res_loss", "mlm_loss", "lr")}
+    check(got.keys() == want.keys() and all(
+        got[key] == value for key, value in want.items()),
+          f"tb/ scalars {got} differ from log.txt's {want}")
+    print(f"  tb/ scalars equal log.txt's ({len(want)})")
 
 
 def cli_accum_phase(card: str, per_step, work: str) -> dict:
@@ -5988,6 +6212,8 @@ def main() -> int:
     try:
         cli_per_step = {k: v // PRE_STEPS for k, v in flaunches.items()}
         write_cli_corpus(card, work)
+        feeder = feeder_phase(card, work)  # alone: it measures the host
+        mark("feeder")
         spc = steps_per_call_cli_start(work)  # beside (6)
         cli, ckpt = cli_phase(card, cli_per_step, work)
         graphed["cli"] = steps_per_call_cli_finish(card, spc, cli_per_step)
@@ -6178,6 +6404,7 @@ def main() -> int:
     print(json.dumps({"graphed": graphed}))
     print(json.dumps({"remat": remat}))
     print(json.dumps({"cli_epochs": cli}))
+    print(json.dumps({"feeder": feeder}))
     print(json.dumps({"pretrain_recipe": recipe}))
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"finetune": finetune, "finetune_kernels": ft_times}))

@@ -7,11 +7,12 @@ every Pallas kernel on a ported path is a hand-written Hopper kernel
 same function beside it. The plain version runs for CPU tensors and is the
 kernels' test oracle; it is never a fallback for a CUDA tensor.
 
-Ported so far: the classification serving path (`serve.classifier_engine`,
-`cli/serve.py`), the ECAMP pretraining step (`train.pretrain.PretrainTask`,
-`cli/pretrain.py`) and the classification fine-tune
-(`train.classification.ClassificationTask`, `cli/finetune_cls.py`). This
-package never imports JAX.
+Every entry point of the JAX package has its counterpart here: the
+pretraining, fine-tuning, serving, export and visualizer CLIs (`cli/`),
+with data parallelism under torchrun (`core/distributed.py`), the data
+pipeline with thread or process workers (`data/`) and the TensorBoard
+writer and profiler hooks (`core/observability.py`). What is not ported
+is listed in ROADMAP.md (Queue 1). This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -18,7 +18,7 @@ JAX package (the global batch is N times it): each rank reads its shard
 of every epoch's order and steps on it, the gradients and the logged
 losses are averaged over the ranks (NCCL on CUDA, gloo with `--device
 cpu` or where a host runs more ranks than it has cards), and only rank 0
-prints, writes `log.txt` and writes checkpoints. `--shard_optimizer`
+prints, writes `log.txt`, `tb/` and checkpoints. `--shard_optimizer`
 keeps each rank's share of the AdamW moments only (ZeRO-1); a checkpoint
 has the same layout either way and loads into any number of ranks.
 
@@ -26,8 +26,11 @@ has the same layout either way and loads into any number of ranks.
 recipe's flags.) `--data_path` holds the two MIMIC-CXR CSVs, the images
 they name and `mimic_wordpiece.json` (`data/datasets.py`). Every epoch
 appends one JSON line to `<output_dir>/log.txt` (mean losses and lr, peak
-device memory, kernel launches, micro-steps and AdamW updates so far)
-and, at the reference's cadence, writes `<output_dir>/checkpoint-<epoch>.pth`.
+device memory, kernel launches, micro-steps and AdamW updates so far),
+adds its `train/{loss,mim_loss,res_loss,mlm_loss,lr}` scalars to the
+TensorBoard log `<output_dir>/tb` where `tensorboard` imports
+(`core/observability.py`; elsewhere nothing is written) and, at the
+reference's cadence, writes `<output_dir>/checkpoint-<epoch>.pth`.
 
 `--accum_iter k` averages the gradients of k micro-batches into one
 AdamW update (`train/optim.py::MultiSteps`): an epoch, the step, the RNG
@@ -69,6 +72,7 @@ from ..ckpt.checkpoint import (CYCLE_KEY, load_checkpoint, load_model_state,
 from ..core import config as cfg
 from ..core import distributed
 from ..core.metrics import JsonlLogger, MetricLogger, device_memory_mb
+from ..core.observability import SummaryWriter
 from ..core.preemption import PreemptionGuard
 from ..data.datasets import PretrainReportDataset
 from ..data.loader import DataLoader
@@ -277,9 +281,22 @@ def train(args, task: PretrainTask, state, loader: DataLoader,
           start_epoch: int, skip: int, guard: PreemptionGuard) -> None:
     """Epochs `start_epoch` to `args.epochs`, the first without its `skip`
     batches; stops at the micro-step (with `--steps_per_call K`, the call)
-    where `guard` asks for a save."""
+    where `guard` asks for a save. Rank 0 logs each completed epoch to
+    `log.txt` and the TensorBoard writer; a preempted one logs nothing."""
     jsonl = JsonlLogger(os.path.join(args.output_dir, "log.txt"),
                         enabled=distributed.rank() == 0)
+    tb = SummaryWriter(os.path.join(args.output_dir, "tb"),
+                       enabled=distributed.rank() == 0)
+    try:
+        _train_epochs(args, task, state, loader, start_epoch, skip, guard,
+                      jsonl, tb)
+    finally:
+        tb.close()
+
+
+def _train_epochs(args, task: PretrainTask, state, loader: DataLoader,
+                  start_epoch: int, skip: int, guard: PreemptionGuard,
+                  jsonl: JsonlLogger, tb: SummaryWriter) -> None:
     ckpt_epochs = pretrain_ckpt_epochs(args.epochs)
     per_call = max(1, args.steps_per_call)
     scan = (task.make_train_step_scan(state, per_call) if per_call > 1
@@ -344,6 +361,10 @@ def train(args, task: PretrainTask, state, loader: DataLoader,
                                          for k, c in _COUNTERS.items()},
                      "micro_steps": task.step,
                      "updates": int(adamw_state(state.opt_state).count)})
+        for k in ("loss", "mim_loss", "res_loss", "mlm_loss", "lr"):
+            if k in logger.meters:
+                tb.add_scalar(f"train/{k}", logger.meters[k].global_avg, epoch)
+        tb.flush()
         if epoch in ckpt_epochs:
             path = save_checkpoint(args.output_dir, epoch, task.model, state,
                                    args.weight_decay)

@@ -8,7 +8,8 @@
     at a tiny size for 2 epochs, then resumed for a third from its
     `checkpoint-1.pth`;
   * that checkpoint read by the JAX package's reference-checkpoint
-    importers into a tiny JAX ECAMP, with equal parameters and moments.
+    importers into a tiny JAX ECAMP, with equal parameters and moments;
+  * the run's TensorBoard scalars equal to its `log.txt`.
 """
 
 import contextlib
@@ -207,6 +208,23 @@ def test_cli_trains_checkpoints_and_resumes(cli_run):
     assert set(c2["model"]) == set(c1["model"])
     assert any(not torch.equal(c1["model"][k], c2["model"][k])
                for k in c1["model"])
+
+
+def test_cli_tensorboard_scalars_equal_the_log(cli_run):
+    """`<output_dir>/tb` holds each logged epoch's train/* scalars (the
+    two epochs and the resume's third), equal to `log.txt`'s in fp32."""
+    pytest.importorskip("torch.utils.tensorboard")
+    from test_torch_observability import read_scalars
+
+    out, _, _ = cli_run
+    recs = [json.loads(line)
+            for line in (out / "log.txt").read_text().splitlines()]
+    want = {(f"train/{k}", r["epoch"]): np.float32(r[k]) for r in recs
+            for k in ("loss", "mim_loss", "res_loss", "mlm_loss", "lr")}
+    got = read_scalars(str(out / "tb"))
+    assert len(want) == 15 and got.keys() == want.keys()
+    for key, value in want.items():
+        assert got[key] == value, key
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
