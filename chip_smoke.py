@@ -151,11 +151,23 @@
    itself is not bit-reproducible on the card (its upsample and scatter
    backwards add atomically): ZeRO-1 is held to plain data parallelism
    bit for bit on the same averaged gradients, and two runs' parameters
-   are compared by distance (printed). Beside those launches, `torchrun
-   -m ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce` on 2
-   ranks (gloo on one card) of B = 16 for an epoch of 6's corpus: one log
-   line, rank 0's, with every kernel's launches a micro-step, and whole
-   moments in its checkpoint.
+   are compared by distance (printed). (f) Under NCCL, from the same
+   weights and rows, 2 calls of K = 3 micro-steps through CUDA graphs of
+   the data-parallel step (`make_train_step_scan`: the global noise drawn,
+   the gradient and metrics all-reduces and, with ZeRO-1, the span
+   broadcasts captured), plain and ZeRO-1, against 6 eager micro-steps,
+   dropout on, under deterministic algorithms: losses and parameters bit
+   for bit, the step and AdamW's count, each kernel's launches (the
+   replays counted), ms a micro-step graphed and eager (host clock) and
+   the capture seconds; under gloo `make_train_step_scan` refuses, naming
+   it. Beside those launches, `torchrun -m ecamp_tpu_torch.cli.pretrain
+   --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) of B =
+   16 for an epoch of 6's corpus, and the same with `--steps_per_call 3`
+   on one NCCL rank (4 micro-steps: a graphed call and a tail): one log
+   line each, rank 0's, with every kernel's launches a micro-step (the
+   replays counted), and whole moments in its checkpoint; and with
+   `--steps_per_call 3` on 2 ranks sharing the first card (gloo): a
+   non-zero exit with the refusal.
    The `data_parallel` JSON line holds the figures.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
@@ -322,7 +334,9 @@
    lines of the results, of every kernel shape timed, of each phase's end
    (seconds after the build, `phase_end_seconds`; also printed as each
    phase ends) and of the kernels (with each kernel's launches in (6e)'s
-   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`, and in
+   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`,
+   `dp_graphed_launches` (the NCCL rank's graphed plain calls),
+   `dp_graphed_cli_launches` (the `--steps_per_call 3` CLI's epoch), and in
    (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
    micro-steps and CLI epoch: `graphed_launches`, `graphed_cli_launches`,
    and in (h)'s eager remat micro-steps and classification step:
@@ -395,6 +409,8 @@ DP_STEPS = 3         # data-parallel steps of (6e)
 DP_PREEMPT_AT = 2    # (6e): the ranks stop after this step
 DP_B = 16            # rows a rank of the torchrun CLI run
 DP_TIMEOUT = 300     # seconds for one torchrun launch
+DP_GRAPH_K = 3       # (6e) (f): micro-steps a graphed data-parallel call
+DP_GRAPH_CALLS = 2   # (6e) (f): graphed calls held against eager steps
 # the fine-tune: recipe cls_ft_ChestX-ray14_1 (ecamp_tpu/core/presets.py:
 # 32-48): batch 96, SGD momentum 0.9, lr 3e-2, warmup 50 of 3000 steps,
 # clip 1.0, drop-path 0.1, ViT-B/16 at 224, 14 multilabel findings
@@ -3243,6 +3259,72 @@ def _not_key_bias(name: str, p):
     return keep
 
 
+def dp_graphed(build, local: dict, counters: dict) -> dict:
+    """(6e) (f), on NCCL ranks: for plain data parallelism and ZeRO-1,
+    DP_GRAPH_CALLS calls of DP_GRAPH_K micro-steps through CUDA graphs of
+    the data-parallel step (`make_train_step_scan`: the global noise drawn
+    in the graph, the gradient and metrics all-reduces and ZeRO-1's
+    broadcasts captured) and as many eager micro-steps, both from the
+    seeded weights on the rank's rows `local` (every micro-step), dropout
+    on, under deterministic algorithms: each micro-step's metrics, whether
+    the parameters are bit-equal, the step and AdamW's count of each, each
+    kernel's launches (the replays counted), ms a micro-step (host clock,
+    synchronised: eager steps 2 on, the calls after the first, replays
+    alone) and the capture seconds."""
+    import torch
+
+    n = DP_GRAPH_K * DP_GRAPH_CALLS
+    superbatch = {k: torch.stack([v] * DP_GRAPH_K) for k, v in local.items()}
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, shard in (("plain", False), ("zero1", True)):
+            runs = {}
+            for graphed in (False, True):
+                task = build(shard)
+                state = task.init_state()
+                torch.cuda.synchronize()
+                for ctr in counters.values():
+                    ctr.reset()
+                rows, times = [], []
+                scan = (task.make_train_step_scan(state, DP_GRAPH_K)
+                        if graphed else None)
+                for _ in range(DP_GRAPH_CALLS if graphed else n):
+                    t = time.perf_counter()
+                    if graphed:
+                        state, m = scan(state, superbatch)
+                        got = [{k: float(v[i]) for k, v in m.items()}
+                               for i in range(DP_GRAPH_K)]
+                    else:
+                        state, m = task.train_step(state, local)
+                        got = [{k: float(v) for k, v in m.items()}]
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3 / len(got))
+                    rows += got
+                runs[graphed] = {
+                    "losses": rows, "step_ms": times[1:],
+                    "launches": {k: c.value for k, c in counters.items()},
+                    "counts": [int(state.step), task.step,
+                               int(state.opt_state.count)],
+                    "capture_s": scan.capture_seconds if graphed else None,
+                    "eager_steps": scan.eager_steps if graphed else n,
+                    "params": {k: p.detach().clone()
+                               for k, p in state.params.items()}}
+                del task, state, scan
+            eager, graph = runs[False], runs[True]
+            out[name] = {
+                "bit_equal": all(torch.equal(p, eager["params"][k])
+                                 for k, p in graph["params"].items()),
+                **{f: {"eager": eager[f], "graphed": graph[f]}
+                   for f in ("losses", "step_ms", "launches", "counts")},
+                "capture_s": graph["capture_s"],
+                "graphed_eager_steps": graph["eager_steps"]}
+            del runs, eager, graph
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
 def dp_worker(spec: dict) -> int:
     """One rank of `dp_phase`'s torchrun launch (`chip_smoke.py --dp-worker
     SPEC`): the full-width `PretrainTask` on this rank's PRE_B / ranks rows
@@ -3265,8 +3347,11 @@ def dp_worker(spec: dict) -> int:
     gathered moments), a new task on every rank loads the file (its share
     of the moments), the loaded state is compared with the saved one, and
     the run takes its remaining steps; its parameters' distance from
-    "plain" is the spread of two runs. Writes its results as JSON to
-    spec["out"] with the rank's number; a failed check exits non-zero."""
+    "plain" is the spread of two runs. Under NCCL, after "plain", (f)
+    `dp_graphed`: the graphed data-parallel step against the eager one;
+    under gloo (ranks sharing a card) `make_train_step_scan` must refuse,
+    naming the backend. Writes its results as JSON to spec["out"] with the
+    rank's number; a failed check exits non-zero."""
     import gc
 
     import torch
@@ -3413,8 +3498,21 @@ def dp_worker(spec: dict) -> int:
         bit_equal_to_one_process=all(torch.equal(p, ref[k])
                                      for k, p in plain.items()))
     out["checksum"] = float(sum(p.double().sum() for p in plain.values()))
+    if out["backend"] != "nccl":  # (f): gloo's collectives run on the host
+        try:
+            task.make_train_step_scan(state, DP_GRAPH_K)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and "gloo" in refused,
+              f"(f) rank {rank}: make_train_step_scan under gloo on a card "
+              f"did not refuse: {refused}")
+        out["graph_refused"] = refused
     del task, state, shadow
     gc.collect()
+    if out["backend"] == "nccl":
+        out["graphed"] = dp_graphed(build, local, counters)
+        gc.collect()
     if world == 1:  # one rank: ZeRO-1 keeps every moment; (e) runs at 2
         return finish(out)
 
@@ -3509,6 +3607,31 @@ def dp_zero1_checks(r: dict, who: str, n: int, launches: dict,
               f"{ref['loss']:.6g}")
 
 
+def dp_graphed_checks(g: dict, who: str, per_step: dict) -> None:
+    """(f): one NCCL rank's `dp_graphed` figures: for plain and ZeRO-1 the
+    graphed micro-steps' losses and parameters bit for bit the eager ones',
+    the step, host step and AdamW count equal, each kernel's launches
+    `per_step` a micro-step in both, and a replay made."""
+    import numpy as np
+
+    n = DP_GRAPH_K * DP_GRAPH_CALLS
+    want = {k: v * n for k, v in per_step.items()}
+    for name, run in g.items():
+        eager, graph = run["losses"]["eager"], run["losses"]["graphed"]
+        check(len(graph) == n and graph == eager
+              and all(np.isfinite(x["loss"]) for x in graph),
+              f"(f) {who} {name}: graphed losses {graph} against eager "
+              f"{eager}")
+        check(run["bit_equal"], f"(f) {who} {name}: graphed parameters "
+              f"differ from eager ones")
+        check(run["counts"]["graphed"] == run["counts"]["eager"] == [n] * 3,
+              f"(f) {who} {name}: step, host step, count {run['counts']}")
+        check(run["launches"]["graphed"] == run["launches"]["eager"] == want,
+              f"(f) {who} {name}: launches {run['launches']} != {want}")
+        check(run["graphed_eager_steps"] < n,
+              f"(f) {who} {name}: no micro-step replayed")
+
+
 def dp_phase(card: str, per_step: dict, cli_per_step: dict,
              work: str) -> dict:
     """Data-parallel pretraining (`torchrun`, `core/distributed.py`) at full
@@ -3528,15 +3651,20 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     DP_PREEMPT_AT on every rank, its resume restoring the saved
     parameters, moment pieces and count bit for bit, every step's loss
     within LOSS_TOL of plain's (the step is not bit-reproducible on the
-    card; the runs' distance is printed).
-    Beside the launches, `torchrun -m ecamp_tpu_torch.cli.pretrain
-    --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) at DP_B
-    a rank for an epoch of `cli_phase`'s corpus: one log line, from rank
+    card; the runs' distance is printed); under NCCL (f) the graphed
+    data-parallel step, plain and ZeRO-1, bit for bit against the eager
+    one under deterministic algorithms (`dp_graphed_checks`), under gloo
+    its refusal. Beside the launches, `torchrun -m
+    ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce` on 2
+    ranks (gloo on one card) at DP_B a rank for an epoch of `cli_phase`'s
+    corpus, and the same on one NCCL rank with `--steps_per_call
+    DP_GRAPH_K` (a graphed call and a tail): each one log line, from rank
     0, with `cli_per_step` launches a micro-step, and a checkpoint whose
-    moments are whole. Returns the `data_parallel` JSON line's content."""
+    moments are whole; and with `--steps_per_call DP_GRAPH_K` on 2 ranks
+    sharing the first card (gloo), which must exit non-zero with the
+    refusal. Returns the `data_parallel` JSON line's content."""
     import gc
 
-    import numpy as np
     import torch
 
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
@@ -3584,55 +3712,106 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     n_cli = 2
     cli_backend = "nccl" if n_cli <= cards else "gloo"
     out = os.path.join(work, "dp_cli")
+    base = ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
+            os.path.join(work, "mimic"), "--fused_mlm_ce",
+            "--shard_optimizer", "--batch_size", str(DP_B), "--epochs", "1",
+            "--seed", str(SEED), "--print_freq", "1"]
     t_cli = time.perf_counter()
-    cli = _start_group(
-        _torchrun(n_cli, _free_port())
-        + ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
-           os.path.join(work, "mimic"), "--fused_mlm_ce",
-           "--shard_optimizer", "--batch_size", str(DP_B), "--epochs", "1",
-           "--output_dir", out, "--seed", str(SEED), "--print_freq", "1"],
-        env)
+    cli = _start_group(_torchrun(n_cli, _free_port()) + base
+                       + ["--output_dir", out], env)
+    # (f) with --steps_per_call: one NCCL rank (its graphs), and 2 ranks
+    # sharing the first card (gloo), which must refuse
+    spc_out = os.path.join(work, "dp_spc_cli")
+    spc = _start_group(_torchrun(1, _free_port()) + base + [
+        "--steps_per_call", str(DP_GRAPH_K), "--output_dir", spc_out], env)
+    gloo = _start_group(_torchrun(2, _free_port()) + base + [
+        "--steps_per_call", str(DP_GRAPH_K), "--output_dir",
+        os.path.join(work, "dp_gloo_spc")], dict(env, CUDA_VISIBLE_DEVICES="0"))
     try:
         runs = _dp_launches(plan, cards, env, work, ref_path, ref,
                             per_step, moment_bytes=2 * 4 * n_params)
+        try:
+            _, gloo_err = gloo.communicate(
+                timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t_cli)))
+        except subprocess.TimeoutExpired:
+            check(False, "(f) the gloo --steps_per_call run outlived its time")
         _wait_group(cli, "torchrun cli.pretrain",
                     DP_TIMEOUT - (time.perf_counter() - t_cli))
+        cli_s = time.perf_counter() - t_cli
+        _wait_group(spc, "torchrun cli.pretrain --steps_per_call",
+                    DP_TIMEOUT - (time.perf_counter() - t_cli))
+        spc_s = time.perf_counter() - t_cli
     finally:
-        _stop(cli)
-    cli_s = time.perf_counter() - t_cli
-    with open(os.path.join(out, "log.txt")) as f:
-        recs = [json.loads(line) for line in f]
-    steps = CLI_IMAGES // (n_cli * DP_B)
-    want = {k: v * steps for k, v in cli_per_step.items()}
-    check(len(recs) == 1 and recs[0]["epoch"] == 0,
-          f"CLI log lines {recs}: rank 0 alone writes one an epoch")
-    rec = recs[0]
-    check(all(np.isfinite(rec[k]) for k in ("loss", "mim_loss", "res_loss",
-                                             "mlm_loss")),
-          f"CLI: non-finite loss {rec}")
-    check(rec["kernel_launches"] == want,
-          f"CLI launches {rec['kernel_launches']} != {want}")
-    check(rec["micro_steps"] == steps and rec["updates"] == steps,
-          f"CLI micro-steps {rec['micro_steps']}, updates {rec['updates']}")
-    ck = torch.load(os.path.join(out, "checkpoint-0.pth"), weights_only=True)
-    whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
-                .values())
-    check(whole == n_params, f"CLI checkpoint: {whole} moment elements")
-    del ck
-    shutil.rmtree(out, ignore_errors=True)
+        for p in (cli, spc, gloo):
+            _stop(p)
+    refusal = "--steps_per_call > 1 on CUDA captures"
+    check(gloo.returncode != 0 and refusal in gloo_err
+          and "gloo group" in gloo_err,
+          f"(f) 2 gloo ranks on one card with --steps_per_call "
+          f"{DP_GRAPH_K}: exit {gloo.returncode}, no refusal:\n"
+          f"{gloo_err[-3000:]}")
+    refused = next(line.strip() for line in gloo_err.splitlines()
+                   if refusal in line)
+    spc_rec = dp_cli_checks(spc_out, CLI_IMAGES // DP_B, cli_per_step,
+                            n_params, "(f) CLI --steps_per_call")
+    rec = dp_cli_checks(out, CLI_IMAGES // (n_cli * DP_B), cli_per_step,
+                        n_params, "CLI")
     os.remove(ref_path)
     print(f"  torchrun --nproc_per_node={n_cli} -m "
           f"ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce "
           f"({cli_backend}), {DP_B} a rank: "
           f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
           f"max_mem_mb {rec['max_mem_mb']:.1f}, whole moments in "
-          f"checkpoint-0.pth; {cli_s:.1f} s beside the launches; phase "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"checkpoint-0.pth; {cli_s:.1f} s beside the launches")
+    print(f"  (f) torchrun --nproc_per_node=1 -m ecamp_tpu_torch.cli.pretrain "
+          f"--steps_per_call {DP_GRAPH_K} --shard_optimizer --fused_mlm_ce "
+          f"(nccl), {DP_B} a rank: loss {spc_rec['loss']:.5f}, launches "
+          f"{spc_rec['kernel_launches']} (the replays counted), max_mem_mb "
+          f"{spc_rec['max_mem_mb']:.1f}, whole moments in checkpoint-0.pth; "
+          f"{spc_s:.1f} s; 2 gloo ranks on one card refused: {refused}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"reference": ref, "runs": runs,
             "predicted_saving_bytes": 4 * n_params,
             "cli": {"backend": cli_backend, "ranks": n_cli,
                     "rows_a_rank": DP_B, "log": rec, "seconds": cli_s},
+            "cli_steps_per_call": {
+                "backend": "nccl", "ranks": 1, "rows_a_rank": DP_B,
+                "steps_per_call": DP_GRAPH_K, "log": spc_rec,
+                "seconds": spc_s, "gloo_refused": refused},
             "seconds": time.perf_counter() - t_phase}
+
+
+def dp_cli_checks(out: str, steps: int, per_step: dict, n_params: int,
+                  what: str) -> dict:
+    """A torchrun pretrain CLI run of `dp_phase` (one epoch of `steps`
+    micro-steps, `--shard_optimizer`, no accumulation) in `out`: one log
+    line, rank 0's, finite losses, `per_step` launches a micro-step, the
+    micro-steps and updates, and whole moments in its checkpoint-0.pth;
+    returns the log line and removes `out`."""
+    import numpy as np
+    import torch
+
+    with open(os.path.join(out, "log.txt")) as f:
+        recs = [json.loads(line) for line in f]
+    want = {k: v * steps for k, v in per_step.items()}
+    check(len(recs) == 1 and recs[0]["epoch"] == 0,
+          f"{what} log lines {recs}: rank 0 alone writes one an epoch")
+    rec = recs[0]
+    check(all(np.isfinite(rec[k]) for k in ("loss", "mim_loss", "res_loss",
+                                             "mlm_loss")),
+          f"{what}: non-finite loss {rec}")
+    check(rec["kernel_launches"] == want,
+          f"{what} launches {rec['kernel_launches']} != {want}")
+    check(rec["micro_steps"] == steps and rec["updates"] == steps,
+          f"{what} micro-steps {rec['micro_steps']}, updates "
+          f"{rec['updates']}")
+    ck = torch.load(os.path.join(out, "checkpoint-0.pth"), weights_only=True)
+    whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
+                .values())
+    check(whole == n_params, f"{what} checkpoint: {whole} moment elements")
+    del ck
+    shutil.rmtree(out, ignore_errors=True)
+    return rec
 
 
 def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
@@ -3684,6 +3863,9 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
                   f"plain DP after steps {r['plain']['zero1_bit_equal']}")
             if "zero1" in r:
                 dp_zero1_checks(r, who, n, want, moment_bytes)
+            if backend == "nccl":
+                check("graphed" in r, f"(f) {who}: no graphed run")
+                dp_graphed_checks(r["graphed"], who, per_step)
         check(len({r["checksum"] for r in res}) == 1,
               f"(c) {tag}: checksums {[r['checksum'] for r in res]}")
         shutil.rmtree(spec["work"], ignore_errors=True)
@@ -3705,6 +3887,10 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
         if "zero1" in r0:
             runs[tag].update(repeat_distance=r0["repeat_distance"],
                              preempt=r0["preempt"])
+        if "graphed" in r0:
+            runs[tag]["graphed"] = r0["graphed"]
+        if "graph_refused" in r0:
+            runs[tag]["graph_refused"] = r0["graph_refused"]
         scaling = ("" if backend == "nccl" and n > 1 else
                    "; no scaling figure: "
                    + ("one rank" if n == 1 else "the ranks share one card"))
@@ -3717,6 +3903,16 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
               f"process: {r0['plain']['bit_equal_to_one_process']}; peak "
               f"bytes {runs[tag]['peak_bytes']}; ZeRO-1 on the same "
               f"gradients bit-equal; checksums equal; {wall:.1f} s")
+        for name, g in r0.get("graphed", {}).items():
+            print(f"    (f) {name}: {DP_GRAPH_CALLS} graphed calls of "
+                  f"{DP_GRAPH_K} against {DP_GRAPH_K * DP_GRAPH_CALLS} eager "
+                  f"micro-steps, bit for bit under deterministic algorithms; "
+                  f"ms a micro-step graphed {g['step_ms']['graphed']} "
+                  f"against eager {[round(t, 1) for t in g['step_ms']['eager']]} "
+                  f"(host clock), capture {g['capture_s']:.2f} s, launches "
+                  f"{g['launches']['graphed']}")
+        if "graph_refused" in r0:
+            print(f"    (f) refused under {backend}: {r0['graph_refused']}")
         if "zero1" in r0:
             pre = r0["preempt"]
             print(f"    ZeRO-1 preempted at {DP_PREEMPT_AT} ({pre['reason']}; "
@@ -6340,6 +6536,17 @@ def main() -> int:
         n = sum(cli_dp.get(k, 0) for k in parts.get(name, (name,)))
         if n:
             entry["dp_cli_launches"] = n
+        # (6e) (f): the NCCL rank's graphed plain calls and the
+        # --steps_per_call CLI's epoch, the replays counted
+        graphed_dp = next(r["graphed"]["plain"]["launches"]["graphed"]
+                          for r in dp["runs"].values() if "graphed" in r)
+        for key, run in (("dp_graphed_launches", graphed_dp),
+                         ("dp_graphed_cli_launches",
+                          dp["cli_steps_per_call"]["log"]
+                          ["kernel_launches"])):
+            n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
+            if n:
+                entry[key] = n
         # (9f) (a): a rank's DPF_STEPS steps of SegViT and of the ViT
         # detector in its multi-rank run
         dpf_run = dpf["runs"][max(dpf["runs"], key=lambda t: dpf["runs"][t]

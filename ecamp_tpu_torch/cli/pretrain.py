@@ -45,7 +45,10 @@ replayed once a micro-step over a (K, B, ...) superbatch placed through
 pinned memory one call ahead; on the CPU the K steps in order. An epoch's
 last group of fewer than K batches runs through the single step, a
 preemption is asked for once a call, and the log is the single step's.
-Under a process group it is refused (ROADMAP item 18b).
+Under torchrun the graphs hold the data-parallel step with its NCCL
+collectives (the gradient all-reduce, ZeRO-1's exchange, the metrics);
+`--device cpu` ranks (gloo) run the K steps in order. On CUDA it needs
+NCCL, one card a rank: where ranks share a card (gloo) it is refused.
 
 `--resume checkpoint-<e>.pth` restores the parameters, the AdamW moments
 and count and the cycle, and continues at epoch e + 1. On SIGTERM,
@@ -53,8 +56,9 @@ and count and the cycle, and continues at epoch e + 1. On SIGTERM,
 (`core/preemption.py`) the run writes `checkpoint-step-<step>.pth` at the
 exact micro-step and exits 0; `--resume` on it replays the interrupted
 epoch's loader order, skips the batches already taken and continues bit
-for bit. Data-parallel ranks agree on the step every 50 micro-steps
-(`core/preemption.py::SYNC_EVERY`), and each skips its own batches.
+for bit. Data-parallel ranks agree on the step at the call that reaches
+or crosses a multiple of 50 micro-steps (`core/preemption.py::
+SYNC_EVERY`), and each skips its own batches.
 `--device cuda` (the default) needs a card; `--device cpu` runs the
 kernels' plain versions.
 """
@@ -148,14 +152,8 @@ def get_args(argv=None):
 
 def refuse_what_is_not_ported(args) -> None:
     """Options of the JAX CLI that the port does not have raise; none is
-    ignored silently (ROADMAP Queue 1, "Not to port"). `run` asks again
-    once a launched rank has joined its process group."""
-    refused = [
-        (args.steps_per_call > 1 and distributed.is_distributed(),
-         "--steps_per_call > 1 under a process group (CUDA graphs of the "
-         "data-parallel step, item 18b)"),
-        (args.fsdp, "--fsdp"),
-    ]
+    ignored silently (ROADMAP Queue 1, "Not to port")."""
+    refused = [(args.fsdp, "--fsdp")]
     for path in (args.resume, args.pretrained):
         refused.append((bool(path) and not path.endswith(".pth"),
                         f"{path!r}: orbax checkpoint directories (only "
@@ -178,9 +176,24 @@ def main(argv=None):
         run(args, device)
 
 
+def refuse_ungraphable(args, device: torch.device) -> None:
+    """`--steps_per_call > 1` on a card runs CUDA graphs of the step, which
+    capture a process group's collectives under NCCL only: under gloo (the
+    rank's card shared with another rank) it raises, naming the backend."""
+    if (args.steps_per_call > 1 and device.type == "cuda"
+            and not distributed.graph_capturable()):
+        raise RuntimeError(
+            f"--steps_per_call > 1 on CUDA captures the data-parallel "
+            f"step's collectives in CUDA graphs, which needs NCCL, one card "
+            f"a rank; this {torch.distributed.get_backend()} group (ranks "
+            f"sharing a card) cannot be captured: run with --steps_per_call "
+            f"1 or one rank a card")
+
+
 def run(args, device: torch.device) -> None:
-    """Build the task, resume and train on `device` (the rank's)."""
-    refuse_what_is_not_ported(args)
+    """Build the task, resume and train on `device` (the rank's, in its
+    process group once launched)."""
+    refuse_ungraphable(args, device)
     setup_output(args.output_dir, args)
 
     dataset = PretrainReportDataset(
@@ -335,7 +348,7 @@ def _train_epochs(args, task: PretrainTask, state, loader: DataLoader,
                     if pending is not None:
                         log_metrics(logger, pending)
                     pending = metrics
-                    preempted = guard.should_save(task.step)
+                    preempted = guard.should_save(task.step, per_call)
                 if preempted:
                     break
         finally:

@@ -34,6 +34,16 @@ unsharded numbers bit for bit. JAX's `zero1_spec` shards each leaf along
 its first axis divisible by the ranks, which is not contiguous in general;
 a span of a flat buffer is, so every piece is a pointer and a length for
 the multi-tensor kernel, and the exchange writes the parameters in place.
+
+CUDA graphs of the data-parallel step (`train/graphed.py`) capture its
+collectives: the gradient all-reduce, ZeRO-1's broadcasts and the
+metrics' all-reduce. NCCL collectives can be captured; gloo's run on the
+host and cannot, so `graph_capturable` is true only under NCCL, which
+`initialize_distributed` picks only where every rank has a card of its
+own. A graphed step sends its collectives through a communicator of its
+own (`graph_group`, set as `DataParallel.group`), so the collectives that
+run eagerly between replays (the preemption agreement, ZeRO-1's gather at
+a checkpoint) never share a communicator with a captured one.
 """
 
 from __future__ import annotations
@@ -110,6 +120,7 @@ def initialize_distributed(device_type: str = "cuda") -> bool:
 def shutdown_distributed() -> None:
     """Leave the process group, if this process is in one."""
     if dist.is_initialized():
+        _GRAPH_GROUP.clear()
         dist.destroy_process_group()
 
 
@@ -141,22 +152,51 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def graph_capturable() -> bool:
+    """Whether a CUDA graph can capture this process's collectives: true
+    outside a process group (there are none) and under NCCL (one card a
+    rank); false under gloo, whose collectives run on the host, also where
+    they take CUDA tensors (ranks sharing a card)."""
+    return not is_distributed() or dist.get_backend() == "nccl"
+
+
+_GRAPH_GROUP = []
+
+
+def graph_group():
+    """The process group of every rank that a graphed step's collectives
+    go through: a second NCCL communicator, made on first use (a
+    collective: every rank calls it at the same point) and kept for the
+    process; None outside a process group."""
+    if not is_distributed():
+        return None
+    if not graph_capturable():
+        raise RuntimeError(
+            f"a CUDA graph of a step captures its collectives, which the "
+            f"{dist.get_backend()} process group runs on the host: graphed "
+            f"steps need NCCL, one card a rank (ranks that share a card "
+            f"talk over gloo)")
+    if not _GRAPH_GROUP:
+        _GRAPH_GROUP.append(dist.new_group(backend="nccl"))
+    return _GRAPH_GROUP[0]
+
+
 def barrier() -> None:
     if is_distributed():
         dist.barrier()
 
 
-def all_reduce_mean_(flat: torch.Tensor, bucket: int = BUCKET
-                     ) -> torch.Tensor:
-    """Average a contiguous tensor over the ranks in place: a sum of each
-    bucket of `bucket` elements, then one correctly rounded division by
-    the world size. Every rank gets the same bits. Outside a process
-    group it leaves `flat` as it is."""
+def all_reduce_mean_(flat: torch.Tensor, bucket: int = BUCKET,
+                     group=None) -> torch.Tensor:
+    """Average a contiguous tensor over the ranks (of `group`, by default
+    the whole group) in place: a sum of each bucket of `bucket` elements,
+    then one correctly rounded division by the world size. Every rank gets
+    the same bits. Outside a process group it leaves `flat` as it is."""
     if not is_distributed():
         return flat
     view = flat.view(-1)
     for s in range(0, view.numel(), bucket):
-        dist.all_reduce(view[s:s + bucket])
+        dist.all_reduce(view[s:s + bucket], group=group)
     return flat.div_(world_size())
 
 
@@ -240,15 +280,17 @@ class FlatLayout:
         return lo, hi
 
 
-def broadcast_spans_(flat: torch.Tensor, layout: FlatLayout) -> None:
+def broadcast_spans_(flat: torch.Tensor, layout: FlatLayout,
+                     group=None) -> None:
     """Every rank's span of `flat` from that rank to all others, in place
     (an all-gather made of broadcasts, which gloo also takes for CUDA
-    tensors); outside a process group there is one span and nothing to
-    send."""
+    tensors), over `group` (every rank; by default the whole group);
+    outside a process group there is one span and nothing to send."""
     if not is_distributed():
         return
     for r in range(layout.world):
-        dist.broadcast(flat[r * layout.span:(r + 1) * layout.span], src=r)
+        dist.broadcast(flat[r * layout.span:(r + 1) * layout.span], src=r,
+                       group=group)
 
 
 class DataParallel:
@@ -259,7 +301,9 @@ class DataParallel:
     set_to_none=False)`, the backward pass and `load_state_dict`'s in-place
     copies keep), the gradient average over the ranks, and ZeRO-1's
     parameter exchange. The trained parameters share one floating dtype
-    (fp32 for the kernels; the CPU tests' float64 models too)."""
+    (fp32 for the kernels; the CPU tests' float64 models too). `group` is
+    the process group the step's collectives go through: None (the whole
+    group) until a graphed step sets `graph_group()`."""
 
     def __init__(self, model: nn.Module,
                  trainable: Optional[Mapping[str, bool]] = None):
@@ -280,6 +324,7 @@ class DataParallel:
                                        device=dev)
         self.grads_flat = torch.zeros(self.layout.total, dtype=dtype,
                                       device=dev)
+        self.group = None
         with torch.no_grad():
             for k, p in params.items():
                 view = self.layout.view(self.params_flat, k)
@@ -289,11 +334,11 @@ class DataParallel:
 
     def all_reduce_grads_(self) -> None:
         """Average the gradients over the ranks, in place."""
-        all_reduce_mean_(self.grads_flat)
+        all_reduce_mean_(self.grads_flat, group=self.group)
 
     def exchange_params_(self) -> None:
         """Give every rank the parameters each rank updated in its span."""
-        broadcast_spans_(self.params_flat, self.layout)
+        broadcast_spans_(self.params_flat, self.layout, group=self.group)
 
 
 def reduce_step(dp: Optional[DataParallel], metrics: torch.Tensor

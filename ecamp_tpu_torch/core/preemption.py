@@ -2,7 +2,8 @@
 turn a preemption notice into a step-exact checkpoint and a clean exit.
 
 - A SIGTERM handler records the request (it only sets a flag).
-- The train loop polls `should_save(step)` after every micro-step.
+- The train loop polls `should_save(step)` after every micro-step, or
+  `should_save(step, taken=K)` after a call of K micro-steps.
 - On True the loop writes a checkpoint at that exact step and exits 0;
   `--resume` then continues from it bit for bit (the step-folded RNG and
   the loader's deterministic order; `cli/pretrain.py`).
@@ -18,10 +19,16 @@ kernel's OOM killer.
 Data parallelism: every rank must agree on the exit step, or the others
 wait forever in the next collective. A single process acts on its own
 flag at once; in a process group of more than one rank the guard answers
-only at `sync_every`-step boundaries (`SYNC_EVERY`, 50, by default), with
-the maximum of the ranks' flags (an all-reduce, a host synchronisation),
-so a notice that reaches one rank stops all of them at the same step.
-JAX's TPU-runtime preemption notice has no counterpart.
+only at the call that reaches or crosses a multiple of `sync_every`
+micro-steps (`SYNC_EVERY`, 50, by default; with one micro-step a call,
+every `sync_every`-th step), with the maximum of the ranks' flags (an
+all-reduce, a host synchronisation), so a notice that reaches one rank
+stops all of them at the same step. Every rank has the same step and
+takes the same micro-steps a call, so every rank asks together. (JAX's
+guard asks `step % sync_every` while its step moves by K a call, so its
+ranks agree only where a call ends on a multiple; the port's rule does
+not inherit that.) JAX's TPU-runtime preemption notice has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -79,14 +86,16 @@ class PreemptionGuard:
             pass
         return 0.0
 
-    def should_save(self, step: int) -> bool:
-        """True when training must checkpoint and exit at `step`; `reason`
-        then says why. Every rank of a process group calls it at every
-        step and gets the same answer."""
+    def should_save(self, step: int, taken: int = 1) -> bool:
+        """True when training must checkpoint and exit at `step`, reached
+        by a call of `taken` micro-steps; `reason` then says why. Every
+        rank of a process group calls it after every call and gets the
+        same answer: the ranks agree where the call reached or crossed a
+        multiple of `sync_every`."""
         local = self._local(step)
         if distributed.world_size() == 1:
             return local
-        if step % self.sync_every:
+        if (step - taken) // self.sync_every == step // self.sync_every:
             return False
         if distributed.any_rank(local):
             self.reason = self.reason or "another rank's request"

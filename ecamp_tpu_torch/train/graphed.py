@@ -43,10 +43,30 @@ What a replay needs, and how it gets it:
   block's recompute replay generators registered with its graph, and each
   replay first sets them to the step's seed at those offsets.
 
+- Data parallelism (a process group, `core/distributed.py`). The graphs
+  hold the step's collectives: the masking noise drawn for the global
+  batch from the registered generator, the gradient all-reduce, ZeRO-1's
+  broadcasts (in the update position's graph only) and the metrics'
+  all-reduce. A collective can be captured under NCCL only
+  (`distributed.graph_capturable`); under gloo the call raises, naming the
+  backend. The graphs' collectives go through a communicator of their own
+  (`distributed.graph_group`, made collectively here), so the eager ones
+  between replays (the preemption agreement, a checkpoint's gather) never
+  mix with captured ones on one communicator. Every rank warms up,
+  captures and replays the same kinds at the same micro-steps: the
+  schedule reads only the cycle position, whether noise is given and
+  `deterministic`, which every rank shares. It must: a capture records
+  its collectives without running them, so a rank that captured while a
+  peer ran the same micro-step eagerly (or replayed) would leave that
+  peer's collective waiting for a partner that never sends, and both
+  would hang. Drop the scan before leaving the group: NCCL's teardown
+  waits for the graphs that captured its collectives.
+
 Nothing falls back to eager steps: a capture or a replay that fails
 raises, and so does a call with the kernels routed to their plain
 versions (`PretrainTask.set_plain`), whose fused CE sizes a tensor on the
-host (`torch.nonzero`).
+host (`torch.nonzero`), or under a process group whose collectives cannot
+be captured.
 """
 
 from __future__ import annotations
@@ -56,6 +76,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..core import distributed
 from ..kernels import _build
 from ..nn.layers import RematTape, remat_tape
 from .optim import MultiStepsState
@@ -113,12 +134,8 @@ class GraphedSteps:
                 f"a CUDA graph (CUDAGraph.register_generator_state): a "
                 f"graphed step would draw another mask and dropout than the "
                 f"eager step, so --steps_per_call > 1 is refused")
-        if task.dp is not None:
-            raise NotImplementedError(
-                "CUDA graphs of the data-parallel step (its all-reduces, "
-                "ZeRO-1's exchange, the ranks' preemption agreement) are not "
-                "ported to ecamp_tpu_torch (ROADMAP Queue 1, \"Not to "
-                "port\", item 18b)")
+        if task.dp is not None:  # raises under gloo, naming it
+            task.dp.group = distributed.graph_group()
         self.task, self.k = task, k
         self.address = _address(state)
         self.every = max(1, task.cfg.optimizer.accum_steps)
@@ -213,7 +230,10 @@ class GraphedSteps:
             graph.register_generator_state(gen)
         tape.register(graph)
         with _build.GraphLaunches() as launches, remat_tape(tape, "replay"):
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            # thread_local: CUDA calls of other threads (the loader's, NCCL's
+            # watchdog polling its events) neither fail nor void the capture
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 new_state, m = task.step_body(
                     state, self.batch, None if noise is None else self.noise,
                     key[2])

@@ -22,7 +22,10 @@ shared fold and each rank takes its rows; after the backward pass the
 gradients are averaged over the ranks (`DataParallel.all_reduce_grads_`,
 in place, so the AdamW kernel's pointer table holds), and so are the
 metrics. `cfg.mesh.shard_optimizer` shards AdamW's moments (ZeRO-1,
-`kernels/fused_adamw.py`).
+`kernels/fused_adamw.py`). `make_train_step_scan` runs under a group too:
+on NCCL ranks its CUDA graphs hold those collectives (`train/graphed.py`),
+on gloo ranks on the CPU the K steps run in order, and gloo ranks on
+cards (sharing them) are refused.
 
 Randomness comes from explicit generators on the task's device:
 `masking_generator` for the MAE noise (or noise injected by the caller)
@@ -224,8 +227,13 @@ class PretrainTask:
         (state, metrics)`, the superbatch (K, B, ...) (`put_superbatch`),
         `noise` (K, B, grid**2) or None, the metrics stacked (K,) a key.
         The K steps equal K `train_step` calls. On a card they are CUDA
-        graphs of the step (`graphed.GraphedSteps`): a failed capture or
-        replay raises; nothing falls back to eager steps."""
+        graphs of the step (`graphed.GraphedSteps`), under a process group
+        the data-parallel step with its NCCL all-reduces and ZeRO-1
+        exchange captured (a gloo group on cards raises: its collectives
+        run on the host); a failed capture or replay raises; nothing falls
+        back to eager steps. On the CPU, in one process or on gloo ranks,
+        the K steps run in order. Under a group every rank makes the scan
+        and calls it with the same K (a collective)."""
         if k < 1:
             raise ValueError(f"steps per call must be >= 1, not {k}")
         if self.device.type == "cuda":
@@ -285,7 +293,8 @@ class PretrainTask:
         names = ("loss", "mim_loss", "res_loss", "mlm_loss")
         values = [loss.detach()] + [out[k].detach() for k in names[1:]]
         if self.dp is not None:
-            values = distributed.all_reduce_mean_(torch.stack(values)).unbind()
+            values = distributed.all_reduce_mean_(
+                torch.stack(values), group=self.dp.group).unbind()
         metrics = {"loss": values[0], "lr": lr}
         metrics.update(zip(names[1:], values[1:]))
         return new_state, metrics

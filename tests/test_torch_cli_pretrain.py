@@ -228,20 +228,29 @@ def test_cli_tensorboard_scalars_equal_the_log(cli_run):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """--fsdp, orbax directories, and --steps_per_call > 1 under a process
-    group (CUDA graphs of the data-parallel step; in one process it runs:
-    tests/test_torch_steps_per_call.py) raise."""
+    """--fsdp and orbax directories raise, and so does --steps_per_call > 1
+    on CUDA under a process group whose collectives a CUDA graph cannot
+    capture (gloo, where ranks share a card; patched in here), once the
+    rank has joined it. K > 1 in one process, on NCCL ranks and on the
+    CPU's gloo ranks runs (tests/test_torch_steps_per_call.py,
+    tests/test_torch_dp_steps_per_call.py), and so does K = 1 anywhere."""
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
-    steps = ["--steps_per_call", "2"]
-    cli.refuse_what_is_not_ported(cli.get_args(base + steps))
-    for extra, msg in ((steps, "steps_per_call > 1 under a process group"),
-                       (["--fsdp"], "fsdp"),
+    steps = cli.get_args(base + ["--steps_per_call", "2"])
+    cli.refuse_what_is_not_ported(steps)
+    for dev in ("cpu", "cuda"):  # one process: nothing to capture
+        cli.refuse_ungraphable(steps, torch.device(dev))
+    with monkeypatch.context() as mp:
+        mp.setattr(cli.distributed, "is_distributed", lambda: True)
+        mp.setattr(torch.distributed, "get_backend", lambda *a: "gloo")
+        cli.refuse_ungraphable(steps, torch.device("cpu"))
+        cli.refuse_ungraphable(cli.get_args(base), torch.device("cuda"))
+        with pytest.raises(RuntimeError,
+                           match="steps_per_call > 1 on CUDA .* gloo group"):
+            cli.run(steps, torch.device("cuda"))
+    for extra, msg in ((["--fsdp"], "fsdp"),
                        (["--resume", str(tmp_path)], "orbax")):
-        with monkeypatch.context() as mp:
-            if extra is steps:
-                mp.setattr(cli.distributed, "is_distributed", lambda: True)
-            with pytest.raises(NotImplementedError, match=msg):
-                cli.main(base + extra)
+        with pytest.raises(NotImplementedError, match=msg):
+            cli.main(base + extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             cli.main(["--data_path", str(tmp_path)])

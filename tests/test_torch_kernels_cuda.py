@@ -575,6 +575,82 @@ def test_graphed_steps_on_card_match_eager(cuda, fused, accum):
         assert torch.equal(task.model.state_dict()[n], w), n
 
 
+@pytest.mark.parametrize("shard,accum", [(False, 1), (True, 2)],
+                         ids=["plain", "zero1_accum2"])
+def test_graphed_dp_steps_on_card_match_eager(cuda, tmp_path, shard, accum):
+    """A world-size-1 NCCL group in this process (a FileStore): two calls
+    of K = 3 graphed micro-steps of the tiny step under `DataParallel`
+    (the gradient all-reduce, the metrics' all-reduce and, with ZeRO-1,
+    the span broadcasts captured, on the graphs' own communicator; dropout
+    on, the noise drawn) against 6 eager data-parallel micro-steps from
+    the same weights and batches, under deterministic algorithms: every
+    micro-step's metrics and the parameters bit for bit, the step, AdamW's
+    count and the cycle, each kernel's launches (the replays counted)."""
+    import torch.distributed as dist
+
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.core.config import MeshConfig
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    k = 3
+    card = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1, device_id=card)
+    try:
+        cfg = dataclasses.replace(_graph_cfg(False, accum),
+                                  mesh=MeshConfig(shard_optimizer=shard))
+        gen = torch.Generator(device=card).manual_seed(1)
+        batches = [{n: v.contiguous() for n, v in
+                    synthetic_batch(cfg, 4, gen).items()}
+                   for _ in range(2 * k)]
+        counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
+                    adamw_mod.launches)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = []
+        try:
+            for graphed in (False, True):
+                task = PretrainTask(cfg, device=card, steps_per_epoch=3)
+                assert task.dp is not None
+                state = task.init_state()
+                for ctr in counters:
+                    ctr.reset()
+                rows, scan = [], None
+                if graphed:
+                    scan = task.make_train_step_scan(state, k)
+                    assert task.dp.group is distributed.graph_group()
+                    for c in range(2):
+                        group = batches[c * k:(c + 1) * k]
+                        state, m = scan(state, {n: torch.stack(
+                            [b[n] for b in group]) for n in group[0]})
+                        rows += [{n: float(v[i]) for n, v in m.items()}
+                                 for i in range(k)]
+                    assert scan.graphs and scan.eager_steps < 2 * k
+                else:
+                    for b in batches:
+                        state, m = task.train_step(state, b)
+                        rows.append({n: float(v) for n, v in m.items()})
+                torch.cuda.synchronize()
+                runs.append((rows, [ctr.value for ctr in counters],
+                             {n: v.clone() for n, v in
+                              task.model.state_dict().items()},
+                             (int(state.step), task.step,
+                              int(adamw_state(state.opt_state).count))))
+                # the graphs go before the group: NCCL's teardown waits
+                # for the graphs that captured its collectives
+                del task, state, scan
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        distributed.shutdown_distributed()
+    (want, want_n, want_p, want_c), (got, got_n, got_p, got_c) = runs
+    assert got == want
+    assert got_n == want_n and want_n[3] == 2 * k // accum
+    assert got_c == want_c == (2 * k, 2 * k, 2 * k // accum)
+    for n, w in want_p.items():
+        assert torch.equal(got_p[n], w), n
+
+
 def _remat(cfg):
     """cfg with the three remat flags set."""
     return dataclasses.replace(

@@ -183,10 +183,12 @@ def cli_main(argv: list, tiny: dict, env: dict, sync_every: int) -> str:
     return buf.getvalue()
 
 
-def guard_steps(at_rank: int, at: int, sync_every: int, steps: int):
-    """A `PreemptionGuard` polled at steps 1.. with a preemption injected
-    at step `at` on rank `at_rank` only; returns (the step it stopped at,
-    its reason)."""
+def guard_steps(at_rank: int, at: int, sync_every: int, steps: int,
+                taken: int = 1):
+    """A `PreemptionGuard` polled after calls of `taken` micro-steps (at
+    steps taken, 2 taken, ... up to `steps`) with a preemption injected at
+    step `at` on rank `at_rank` only; returns (the step it stopped at, its
+    reason)."""
     from ecamp_tpu_torch.core import distributed
     from ecamp_tpu_torch.core.preemption import PreemptionGuard
 
@@ -195,13 +197,126 @@ def guard_steps(at_rank: int, at: int, sync_every: int, steps: int):
         os.environ["ECAMP_PREEMPT_AT_STEP"] = str(at)
     guard = PreemptionGuard(sync_every=sync_every)
     try:
-        for step in range(1, steps + 1):
-            if guard.should_save(step):
+        for step in range(taken, steps + 1, taken):
+            if guard.should_save(step, taken):
                 return step, guard.reason
         return None, None
     finally:
         guard.uninstall()
         distributed.shutdown_distributed()
+
+
+def cli_mains(runs: list, tiny: dict) -> list:
+    """Each of `runs` (dicts: `argv`; `env`, set for the run and removed
+    after it; `sync_every`) as `cli.pretrain.main(argv)` on this rank of
+    one gloo group, at the tiny model `tiny` (PretrainConfig fields);
+    returns what the rank printed, a run."""
+    from ecamp_tpu_torch.cli import pretrain as cli
+    from ecamp_tpu_torch.core import distributed, preemption
+
+    distributed.initialize_distributed("cpu")
+    orig = cli.cfg.PretrainConfig
+    cli.cfg.PretrainConfig = lambda **kw: orig(**dict(kw, **tiny))
+    printed = []
+    try:
+        for run in runs:
+            os.environ.update(run.get("env", {}))
+            preemption.SYNC_EVERY = run.get("sync_every", 50)
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(run["argv"])
+            finally:
+                for k in run.get("env", {}):
+                    del os.environ[k]
+            printed.append(buf.getvalue())
+    finally:
+        distributed.shutdown_distributed()
+    return printed
+
+
+def _snapshot(task, state) -> dict:
+    """The rank's parameters, AdamW moments (its pieces under ZeRO-1),
+    `MultiSteps`' running mean and the counters (state step, host step,
+    AdamW's count, cycle position)."""
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    st = state.opt_state
+    adam = adamw_state(st)
+    return {"params": {k: v.clone() for k, v in
+                       task.model.state_dict().items()},
+            "mu": {k: v.clone() for k, v in adam.mu.items()},
+            "nu": {k: v.clone() for k, v in adam.nu.items()},
+            "acc": {k: v.clone() for k, v in getattr(st, "acc_grads",
+                                                     {}).items()},
+            "counters": (int(state.step), task.step, int(adam.count),
+                         getattr(st, "mini_step", None))}
+
+
+def scan_parts(parity: dict, weights: dict, superbatch: dict,
+               noise: np.ndarray, bitwise: dict, batches: list, k: int,
+               guard: dict) -> dict:
+    """`tests/test_torch_dp_steps_per_call.py` on this rank of one gloo
+    group: for each of `parity` (name -> PretrainConfig), one K-step call
+    (`make_train_step_scan`) from `weights` on the rank's rows of the
+    global (K, G, ...) `superbatch` with the global `noise`, dropout off:
+    its (K,) metrics; for each of `bitwise` (name -> (PretrainConfig,
+    steps an epoch)), two K-step calls on the rank's rows of `batches`
+    and 2 K single steps from the same seed (dropout on, the noise
+    drawn): each run's metrics and `_snapshot`; whether the group's
+    collectives can be captured and `graph_group`'s refusal; then
+    `guard_steps(**guard)`."""
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    distributed.initialize_distributed("cpu")
+    rank, world = distributed.rank(), distributed.world_size()
+    out = {"parity": {}, "bitwise": {}}
+
+    def rows(a, axis=0):
+        b = a.shape[axis] // world
+        return torch.from_numpy(a).narrow(axis, rank * b, b)
+
+    for name, cfg in parity.items():
+        task = PretrainTask(cfg, device="cpu")
+        task.model.load_state_dict(
+            {n: torch.from_numpy(v) for n, v in weights.items()},
+            strict=True)
+        state = task.init_state()
+        scan = task.make_train_step_scan(state, k)
+        state, m = scan(state, {n: rows(v, 1) for n, v in superbatch.items()},
+                        torch.from_numpy(noise), deterministic=True)
+        out["parity"][name] = {
+            "metrics": {n: v.tolist() for n, v in m.items()},
+            "counters": _snapshot(task, state)["counters"]}
+    for name, (cfg, per_epoch) in bitwise.items():
+        local = [{n: rows(v) for n, v in b.items()} for b in batches]
+        runs = []
+        for scanned in (False, True):
+            task = PretrainTask(cfg, device="cpu", steps_per_epoch=per_epoch)
+            state = task.init_state()
+            metrics = []
+            if scanned:
+                scan = task.make_train_step_scan(state, k)
+                for c in range(len(local) // k):
+                    group = local[c * k:(c + 1) * k]
+                    state, m = scan(state, task.put_superbatch(group))
+                    metrics += [{n: float(v[i]) for n, v in m.items()}
+                                for i in range(k)]
+            else:
+                for b in local:
+                    state, m = task.train_step(state, b)
+                    metrics.append({n: float(v) for n, v in m.items()})
+            runs.append({"metrics": metrics,
+                         "state": _snapshot(task, state)})
+        out["bitwise"][name] = runs
+    out["capturable"] = distributed.graph_capturable()
+    try:
+        distributed.graph_group()
+    except RuntimeError as e:
+        out["graph_group_refused"] = str(e)
+    out["guard"] = guard_steps(**guard)  # it leaves the group
+    return out
 
 
 # -- data-parallel fine-tuning (tests/test_torch_dp_finetune.py) ------------
