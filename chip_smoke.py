@@ -160,14 +160,24 @@
    for bit, the step and AdamW's count, each kernel's launches (the
    replays counted), ms a micro-step graphed and eager (host clock) and
    the capture seconds; under gloo `make_train_step_scan` refuses, naming
-   it. Beside those launches, `torchrun -m ecamp_tpu_torch.cli.pretrain
-   --shard_optimizer --fused_mlm_ce` on 2 ranks (gloo on one card) of B =
-   16 for an epoch of 6's corpus, and the same with `--steps_per_call 3`
-   on one NCCL rank (4 micro-steps: a graphed call and a tail): one log
-   line each, rank 0's, with every kernel's launches a micro-step (the
-   replays counted), and whole moments in its checkpoint; and with
-   `--steps_per_call 3` on 2 ranks sharing the first card (gloo): a
-   non-zero exit with the refusal.
+   it. In every launch, "fsdp": FSDP (`shard_params`) from the same
+   weights and rows, 3 steps under deterministic algorithms, as "plain"
+   runs them: losses within 2e-2 and the first averaged gradient's norm
+   within 5% of the one-process reference, the losses, whole parameters
+   and moment pieces bit for bit plain data parallelism's, the launches
+   a step plain's, the fp32 state a rank keeps (parameter and gradient
+   shards, moments) 1/ranks of plain's to the units' padding (printed
+   beside the prediction 16 B x parameters / ranks, the allocator's figure
+   and the steps' peak), and its save, load (every rank its shards) and
+   one resumed step bit for bit. Beside those launches, `torchrun -m
+   ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` on 2 ranks (gloo
+   on one card) of B = 16 for an epoch of 6's corpus, and `--shard_optimizer
+   --steps_per_call 3` on one NCCL rank (4 micro-steps: a graphed call
+   and a tail): one log line each, rank 0's, with every kernel's launches
+   a micro-step (the replays counted), and whole parameters and moments in
+   its checkpoint; and with `--steps_per_call 3` on 2 ranks sharing the
+   first card (gloo), and `--fsdp --steps_per_call 3` on one NCCL rank: a
+   non-zero exit with the refusal (the latter naming ROADMAP item 16b).
    The `data_parallel` JSON line holds the figures.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
@@ -334,7 +344,8 @@
    lines of the results, of every kernel shape timed, of each phase's end
    (seconds after the build, `phase_end_seconds`; also printed as each
    phase ends) and of the kernels (with each kernel's launches in (6e)'s
-   runs: `dp_launches`, `dp_zero1_launches`, `dp_cli_launches`,
+   runs: `dp_launches`, `dp_zero1_launches`, `dp_fsdp_launches`,
+   `dp_cli_launches` (the `--fsdp` CLI's epoch),
    `dp_graphed_launches` (the NCCL rank's graphed plain calls),
    `dp_graphed_cli_launches` (the `--steps_per_call 3` CLI's epoch), and in
    (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
@@ -3220,13 +3231,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_config(shard: bool):
+def _dp_config(shard: bool, fsdp: bool = False):
     from ecamp_tpu_torch.core.config import (MeshConfig, OptimizerConfig,
                                              PretrainConfig)
 
     return PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
                                                     lr=1.5e-4),
-                          mesh=MeshConfig(shard_optimizer=shard), seed=SEED)
+                          mesh=MeshConfig(shard_optimizer=shard,
+                                          shard_params=fsdp), seed=SEED)
 
 
 def _dp_inputs(cfg, device):
@@ -3339,7 +3351,9 @@ def dp_worker(spec: dict) -> int:
     and optimizer state, allocated before the steps, are left out of the
     peak, as is what the comparisons hold). The step's backward is not
     bit-reproducible on the card (its upsample and scatter backwards add
-    atomically), so two runs are compared by distance. Run "zero1", at two
+    atomically), so two runs are compared by distance, and "plain" runs
+    under deterministic algorithms, so that run "fsdp" (`dp_fsdp`) is
+    held to it bit for bit. Run "zero1", at two
     or more ranks (at one, ZeRO-1 keeps every moment): ZeRO-1 with
     ECAMP_PREEMPT_AT_STEP = DP_PREEMPT_AT and the ranks agreeing every step
     (e): the guard stops
@@ -3382,10 +3396,10 @@ def dp_worker(spec: dict) -> int:
     local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
     ref = torch.load(spec["ref"], map_location=dev, weights_only=True)
 
-    def build(shard):
+    def build(shard, fsdp=False):
         gc.collect()
         torch.cuda.empty_cache()
-        return PretrainTask(_dp_config(shard), device=dev)
+        return PretrainTask(_dp_config(shard, fsdp), device=dev)
 
     class Shadow:
         """A copy of the task's parameters in its flat layout, and a ZeRO-1
@@ -3420,9 +3434,10 @@ def dp_worker(spec: dict) -> int:
             torch.cuda.synchronize(dev)
             times.append((time.perf_counter() - t) * 1e3)
             losses.append({k: float(v) for k, v in m.items()})
-            if gnorm is None:
+            if gnorm is None:  # FSDP's grads are the rank's pieces
                 gnorm = float(adamw.global_norm(
-                    [p.grad for p in state.params.values()]))
+                    [p.grad for p in state.params.values()],
+                    over_ranks=task.cfg.mesh.shard_params))
             if shadow is not None:
                 extra += shadow.step(task)
                 equal.append(bool(torch.equal(shadow.params_flat,
@@ -3475,10 +3490,16 @@ def dp_worker(spec: dict) -> int:
     shadow = Shadow(task)
     aside = torch.cuda.memory_allocated(dev) - before  # the copy, the shadow
     start(task)
-    state, res = steps(task, state, DP_STEPS, shadow=shadow)
+    # deterministic, so that "fsdp" can be held to it bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, res = steps(task, state, DP_STEPS, shadow=shadow)
+    finally:
+        torch.use_deterministic_algorithms(False)
     launches = {k: ctr.value for k, ctr in counters.items()}
     launches["adamw"] -= res.pop("shadow_launches")
     plain = snap(state.params)
+    plain_moments = (snap(state.opt_state.mu), snap(state.opt_state.nu))
     # (a): the update against the one-process run's
     dot = nd = nr = diff = 0.0
     for k, p in plain.items():
@@ -3491,6 +3512,9 @@ def dp_worker(spec: dict) -> int:
         diff += float(((du - dr) ** 2).sum())
     out["plain"] = dict(
         res, launches=launches, aside_bytes=aside,
+        state_bytes=4 * (task.dp.params_flat.numel()
+                         + task.dp.grads_flat.numel() + 2 * sum(
+                             t.numel() for t in state.opt_state.mu.values())),
         peak_bytes=torch.cuda.max_memory_allocated(dev) - outside - aside,
         moment_elements=sum(t.numel() for t in state.opt_state.mu.values()),
         update_norm=nd ** 0.5, ref_update_norm=nr ** 0.5,
@@ -3509,6 +3533,10 @@ def dp_worker(spec: dict) -> int:
               f"did not refuse: {refused}")
         out["graph_refused"] = refused
     del task, state, shadow
+    gc.collect()
+    out["fsdp"] = dp_fsdp(build, steps, start, counters, plain,
+                          plain_moments, res["losses"], spec["work"])
+    del plain_moments
     gc.collect()
     if out["backend"] == "nccl":
         out["graphed"] = dp_graphed(build, local, counters)
@@ -3569,6 +3597,147 @@ def dp_worker(spec: dict) -> int:
                       "restored_distance": restored, "count": count}
     del task, state
     return finish(out)
+
+
+def dp_fsdp(build, steps, start, counters, plain: dict,
+            plain_moments: tuple, plain_losses: list, work: str) -> dict:
+    """`dp_worker`'s run "fsdp" on this rank: FSDP (`shard_params`) from the
+    seeded weights on the rank's rows, DP_STEPS steps under deterministic
+    algorithms, as "plain" ran: its losses, first averaged gradient's norm
+    (over the ranks' pieces) and launches; whether the losses, the whole
+    parameters and the rank's moment pieces equal plain data
+    parallelism's bit for bit; the bytes of the shards and moments it
+    keeps (and the allocator's figure after `init_state`) and the steps'
+    peak. Then the state saved (`save_preemption_checkpoint`) and one more
+    step taken; a new task loads the file (every rank its shards), its
+    shards, moment pieces and count are held to the saved ones, and its
+    step to the uninterrupted one's, bit for bit."""
+    import gc
+
+    import torch
+
+    from ecamp_tpu_torch.ckpt.checkpoint import (load_checkpoint,
+                                                 load_model_state,
+                                                 save_preemption_checkpoint)
+    from ecamp_tpu_torch.core import distributed
+
+    dev = distributed.rank_device("cuda")
+
+    def shards(task, state):
+        """The rank's parameter shards, mu and nu pieces, copied."""
+        mu, nu = state.opt_state.mu, state.opt_state.nu
+        return [[t.detach().clone() for t in ts] for ts in (
+            [u.shard for u in task.dp.units], [mu[k] for k in state.params],
+            [nu[k] for k in state.params])]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    t_run = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        outside = torch.cuda.memory_allocated(dev)
+        task = build(False, fsdp=True)
+        state = task.init_state()
+        allocated = torch.cuda.memory_allocated(dev) - outside
+        share = state.zero1
+        elements = {
+            "param_shards": sum(u.shard.numel() for u in task.dp.units),
+            "grad_shards": sum(u.grad.numel() for u in task.dp.units),
+            "moments": 2 * sum(t.numel() for t in state.opt_state.mu.values())}
+        start(task)
+        state, res = steps(task, state, DP_STEPS)
+        launches = {k: ctr.value for k, ctr in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev) - outside
+        mu, nu = plain_moments
+        with distributed.whole_params(task.model, write_back=False) as m:
+            params_equal = all(torch.equal(p, plain[k])
+                               for k, p in m.named_parameters())
+        moments_equal = all(
+            torch.equal(state.opt_state.mu[k], share.local(mu[k], k))
+            and torch.equal(state.opt_state.nu[k], share.local(nu[k], k))
+            for k in mu)
+        saved = shards(task, state)
+        t = time.perf_counter()
+        path = save_preemption_checkpoint(work, task.step, task.model, state,
+                                          task.cfg.optimizer.weight_decay)
+        save_s = time.perf_counter() - t
+        state, more = steps(task, state, 1)
+        after = shards(task, state)
+        del task, state
+        task = build(False, fsdp=True)
+        state = task.init_state()
+        t = time.perf_counter()
+        ck = load_checkpoint(path)
+        load_model_state(task.model, ck["model"])
+        state = state.load_optimizer_state_dict(ck["optimizer"])
+        state.step = torch.full_like(state.step, int(ck["step"]))
+        task.step = int(ck["step"])
+        load_s = time.perf_counter() - t
+        del ck
+        restored = [same(a, b) for a, b in zip(shards(task, state), saved)]
+        count = int(state.opt_state.count)
+        state, resumed = steps(task, state, 1)
+        resumed_equal = (resumed["losses"] == more["losses"] and all(
+            same(a, b) for a, b in zip(shards(task, state), after)))
+        del task, state, saved, after
+    finally:
+        torch.use_deterministic_algorithms(False)
+        gc.collect()
+    return {"losses": res["losses"], "grad_norm": res["grad_norm"],
+            "step_ms": res["step_ms"], "launches": launches,
+            "losses_equal_plain": res["losses"] == plain_losses,
+            "params_equal_plain": params_equal,
+            "moments_equal_plain": moments_equal,
+            "elements": elements,
+            "state_bytes": 4 * sum(elements.values()),
+            "allocated_after_init_bytes": allocated, "peak_bytes": peak,
+            "save_s": save_s, "load_s": load_s,
+            "restored_equal": restored, "count": count,
+            "resumed_step_equal": resumed_equal,
+            "seconds": time.perf_counter() - t_run}
+
+
+def dp_fsdp_checks(r: dict, who: str, n: int, ref: dict, launches: dict,
+                   n_params: int, n_units: int) -> None:
+    """`dp_phase`'s checks of one rank's run "fsdp": every step's loss
+    within LOSS_TOL and the first averaged gradient's norm within
+    GNORM_TOL of the one-process reference, `launches` as plain data
+    parallelism's, the losses, whole parameters and moment pieces equal
+    to plain's bit for bit under deterministic algorithms, 1/n of the
+    four fp32 copies a rank (to the padding of the units' layouts), and
+    the save, load and resumed step bit for bit."""
+    from ecamp_tpu_torch.core.distributed import ALIGN
+
+    f = r["fsdp"]
+    for i, (got, want) in enumerate(zip(f["losses"], ref["losses"])):
+        for k in ("loss", "mim_loss", "res_loss", "mlm_loss"):
+            check(abs(got[k] - want[k]) <= LOSS_TOL * abs(want[k]),
+                  f"(fsdp) {who} step {i} {k} {got[k]:.6g} against "
+                  f"{want[k]:.6g}")
+    check(abs(f["grad_norm"] - ref["grad_norm"])
+          <= GNORM_TOL * ref["grad_norm"],
+          f"(fsdp) {who} grad norm {f['grad_norm']:.6g} against "
+          f"{ref['grad_norm']:.6g}")
+    check(f["launches"] == launches,
+          f"(fsdp) {who} launches {f['launches']} != {launches}")
+    check(f["losses_equal_plain"] and f["params_equal_plain"]
+          and f["moments_equal_plain"],
+          f"(fsdp) {who}: against plain data parallelism under "
+          f"deterministic algorithms, losses equal "
+          f"{f['losses_equal_plain']}, parameters {f['params_equal_plain']},"
+          f" moments {f['moments_equal_plain']}")
+    e = f["elements"]
+    pad = (r["leaves"] + n_units * n) * ALIGN
+    check(e["param_shards"] == e["grad_shards"] >= e["moments"] // 2
+          and n_params <= n * e["param_shards"] <= n_params + pad,
+          f"(fsdp) {who}: elements a rank {e} for {n_params} parameters on "
+          f"{n} ranks")
+    check(f["restored_equal"] == [True] * 3 and f["count"] == DP_STEPS
+          and f["resumed_step_equal"],
+          f"(fsdp) {who}: the loaded shards, moments {f['restored_equal']}, "
+          f"count {f['count']}, the resumed step equal "
+          f"{f['resumed_step_equal']}")
 
 
 def dp_zero1_checks(r: dict, who: str, n: int, launches: dict,
@@ -3651,18 +3820,24 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     DP_PREEMPT_AT on every rank, its resume restoring the saved
     parameters, moment pieces and count bit for bit, every step's loss
     within LOSS_TOL of plain's (the step is not bit-reproducible on the
-    card; the runs' distance is printed); under NCCL (f) the graphed
+    card; the runs' distance is printed); in every launch FSDP
+    (`dp_fsdp_checks`): the reference's bounds, bit for bit plain data
+    parallelism under deterministic algorithms, plain's launches, 1/ranks
+    of the fp32 state a rank, its save and resume bit for bit; under NCCL
+    (f) the graphed
     data-parallel step, plain and ZeRO-1, bit for bit against the eager
     one under deterministic algorithms (`dp_graphed_checks`), under gloo
     its refusal. Beside the launches, `torchrun -m
-    ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce` on 2
-    ranks (gloo on one card) at DP_B a rank for an epoch of `cli_phase`'s
-    corpus, and the same on one NCCL rank with `--steps_per_call
-    DP_GRAPH_K` (a graphed call and a tail): each one log line, from rank
-    0, with `cli_per_step` launches a micro-step, and a checkpoint whose
-    moments are whole; and with `--steps_per_call DP_GRAPH_K` on 2 ranks
-    sharing the first card (gloo), which must exit non-zero with the
-    refusal. Returns the `data_parallel` JSON line's content."""
+    ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` on 2 ranks (gloo
+    on one card) at DP_B a rank for an epoch of `cli_phase`'s corpus, and
+    with `--shard_optimizer --steps_per_call DP_GRAPH_K` on one NCCL rank
+    (a graphed call and a tail): each one log line, from rank 0, with
+    `cli_per_step` launches a micro-step, and a checkpoint whose
+    parameters and moments are whole; and with `--steps_per_call
+    DP_GRAPH_K` on 2 ranks sharing the first card (gloo), and with `--fsdp
+    --steps_per_call DP_GRAPH_K` on one NCCL rank, each of which must exit
+    non-zero with its refusal. Returns the `data_parallel` JSON line's
+    content."""
     import gc
 
     import torch
@@ -3675,6 +3850,7 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     t_phase = time.perf_counter()
     task = PretrainTask(_dp_config(False), device="cuda")
     n_params = sum(p.numel() for p in task.model.parameters())
+    n_units = len(task.model.fsdp_units()) + 1  # and the root
     batch, noise = _dp_inputs(task.cfg, task.device)
     state = task.init_state()
     ref = {"losses": [], "step_ms": []}
@@ -3714,37 +3890,48 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     out = os.path.join(work, "dp_cli")
     base = ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
             os.path.join(work, "mimic"), "--fused_mlm_ce",
-            "--shard_optimizer", "--batch_size", str(DP_B), "--epochs", "1",
+            "--batch_size", str(DP_B), "--epochs", "1",
             "--seed", str(SEED), "--print_freq", "1"]
     t_cli = time.perf_counter()
     cli = _start_group(_torchrun(n_cli, _free_port()) + base
-                       + ["--output_dir", out], env)
-    # (f) with --steps_per_call: one NCCL rank (its graphs), and 2 ranks
-    # sharing the first card (gloo), which must refuse
+                       + ["--fsdp", "--output_dir", out], env)
+    # (f) with --steps_per_call: one NCCL rank (its graphs, ZeRO-1), and 2
+    # ranks sharing the first card (gloo), which must refuse; --fsdp with
+    # it on one NCCL rank, which must refuse too (graphed FSDP, item 16b)
     spc_out = os.path.join(work, "dp_spc_cli")
-    spc = _start_group(_torchrun(1, _free_port()) + base + [
-        "--steps_per_call", str(DP_GRAPH_K), "--output_dir", spc_out], env)
-    gloo = _start_group(_torchrun(2, _free_port()) + base + [
-        "--steps_per_call", str(DP_GRAPH_K), "--output_dir",
-        os.path.join(work, "dp_gloo_spc")], dict(env, CUDA_VISIBLE_DEVICES="0"))
+    spc_args = ["--shard_optimizer", "--steps_per_call", str(DP_GRAPH_K)]
+    spc = _start_group(_torchrun(1, _free_port()) + base + spc_args
+                       + ["--output_dir", spc_out], env)
+    gloo = _start_group(_torchrun(2, _free_port()) + base + spc_args + [
+        "--output_dir", os.path.join(work, "dp_gloo_spc")],
+        dict(env, CUDA_VISIBLE_DEVICES="0"))
+    fsdp_spc = _start_group(_torchrun(1, _free_port()) + base + [
+        "--fsdp", "--steps_per_call", str(DP_GRAPH_K), "--output_dir",
+        os.path.join(work, "dp_fsdp_spc")], dict(env,
+                                                 CUDA_VISIBLE_DEVICES="0"))
     try:
         runs = _dp_launches(plan, cards, env, work, ref_path, ref,
-                            per_step, moment_bytes=2 * 4 * n_params)
-        try:
-            _, gloo_err = gloo.communicate(
-                timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t_cli)))
-        except subprocess.TimeoutExpired:
-            check(False, "(f) the gloo --steps_per_call run outlived its time")
-        _wait_group(cli, "torchrun cli.pretrain",
+                            per_step, moment_bytes=2 * 4 * n_params,
+                            n_params=n_params, n_units=n_units)
+        errs = {}
+        for what, p in (("gloo", gloo), ("fsdp", fsdp_spc)):
+            try:
+                errs[what] = p.communicate(timeout=max(
+                    1.0, DP_TIMEOUT - (time.perf_counter() - t_cli)))[1]
+            except subprocess.TimeoutExpired:
+                check(False, f"(f) the {what} --steps_per_call run outlived "
+                      f"its time")
+        _wait_group(cli, "torchrun cli.pretrain --fsdp",
                     DP_TIMEOUT - (time.perf_counter() - t_cli))
         cli_s = time.perf_counter() - t_cli
         _wait_group(spc, "torchrun cli.pretrain --steps_per_call",
                     DP_TIMEOUT - (time.perf_counter() - t_cli))
         spc_s = time.perf_counter() - t_cli
     finally:
-        for p in (cli, spc, gloo):
+        for p in (cli, spc, gloo, fsdp_spc):
             _stop(p)
     refusal = "--steps_per_call > 1 on CUDA captures"
+    gloo_err = errs["gloo"]
     check(gloo.returncode != 0 and refusal in gloo_err
           and "gloo group" in gloo_err,
           f"(f) 2 gloo ranks on one card with --steps_per_call "
@@ -3752,17 +3939,26 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
           f"{gloo_err[-3000:]}")
     refused = next(line.strip() for line in gloo_err.splitlines()
                    if refusal in line)
+    fsdp_refusal = "--fsdp --steps_per_call > 1 on CUDA"
+    check(fsdp_spc.returncode != 0 and fsdp_refusal in errs["fsdp"]
+          and "item 16b" in errs["fsdp"],
+          f"(fsdp) --fsdp --steps_per_call {DP_GRAPH_K} on CUDA: exit "
+          f"{fsdp_spc.returncode}, no refusal:\n{errs['fsdp'][-3000:]}")
+    fsdp_refused = next(line.strip() for line in errs["fsdp"].splitlines()
+                        if fsdp_refusal in line)
     spc_rec = dp_cli_checks(spc_out, CLI_IMAGES // DP_B, cli_per_step,
                             n_params, "(f) CLI --steps_per_call")
     rec = dp_cli_checks(out, CLI_IMAGES // (n_cli * DP_B), cli_per_step,
                         n_params, "CLI")
     os.remove(ref_path)
     print(f"  torchrun --nproc_per_node={n_cli} -m "
-          f"ecamp_tpu_torch.cli.pretrain --shard_optimizer --fused_mlm_ce "
+          f"ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce "
           f"({cli_backend}), {DP_B} a rank: "
           f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
-          f"max_mem_mb {rec['max_mem_mb']:.1f}, whole moments in "
-          f"checkpoint-0.pth; {cli_s:.1f} s beside the launches")
+          f"max_mem_mb {rec['max_mem_mb']:.1f}, whole parameters and "
+          f"moments in checkpoint-0.pth; {cli_s:.1f} s beside the "
+          f"launches; --fsdp --steps_per_call {DP_GRAPH_K} on CUDA refused: "
+          f"{fsdp_refused}")
     print(f"  (f) torchrun --nproc_per_node=1 -m ecamp_tpu_torch.cli.pretrain "
           f"--steps_per_call {DP_GRAPH_K} --shard_optimizer --fused_mlm_ce "
           f"(nccl), {DP_B} a rank: loss {spc_rec['loss']:.5f}, launches "
@@ -3772,8 +3968,9 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
           f"phase {time.perf_counter() - t_phase:.1f} s")
     return {"reference": ref, "runs": runs,
             "predicted_saving_bytes": 4 * n_params,
-            "cli": {"backend": cli_backend, "ranks": n_cli,
-                    "rows_a_rank": DP_B, "log": rec, "seconds": cli_s},
+            "cli": {"backend": cli_backend, "ranks": n_cli, "fsdp": True,
+                    "rows_a_rank": DP_B, "log": rec, "seconds": cli_s,
+                    "fsdp_steps_per_call_refused": fsdp_refused},
             "cli_steps_per_call": {
                 "backend": "nccl", "ranks": 1, "rows_a_rank": DP_B,
                 "steps_per_call": DP_GRAPH_K, "log": spc_rec,
@@ -3784,10 +3981,11 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
 def dp_cli_checks(out: str, steps: int, per_step: dict, n_params: int,
                   what: str) -> dict:
     """A torchrun pretrain CLI run of `dp_phase` (one epoch of `steps`
-    micro-steps, `--shard_optimizer`, no accumulation) in `out`: one log
-    line, rank 0's, finite losses, `per_step` launches a micro-step, the
-    micro-steps and updates, and whole moments in its checkpoint-0.pth;
-    returns the log line and removes `out`."""
+    micro-steps, `--fsdp` or `--shard_optimizer`, no accumulation) in
+    `out`: one log line, rank 0's, finite losses, `per_step` launches a
+    micro-step, the micro-steps and updates, and whole parameters and
+    moments in its checkpoint-0.pth; returns the log line and removes
+    `out`."""
     import numpy as np
     import torch
 
@@ -3809,13 +4007,15 @@ def dp_cli_checks(out: str, steps: int, per_step: dict, n_params: int,
     whole = sum(st["exp_avg"].numel() for st in ck["optimizer"]["state"]
                 .values())
     check(whole == n_params, f"{what} checkpoint: {whole} moment elements")
+    whole = sum(v.numel() for v in ck["model"].values())
+    check(whole == n_params, f"{what} checkpoint: {whole} parameter elements")
     del ck
     shutil.rmtree(out, ignore_errors=True)
     return rec
 
 
 def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
-                 moment_bytes):
+                 moment_bytes, n_params, n_units):
     """(6e)'s `dp_worker` launches, one a world size of `plan`, each held
     against the one-process reference `ref`; returns their figures."""
     import numpy as np
@@ -3861,6 +4061,7 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
             check(r["plain"]["zero1_bit_equal"] == [True] * DP_STEPS,
                   f"(b) {who}: ZeRO-1 on the same gradients differs from "
                   f"plain DP after steps {r['plain']['zero1_bit_equal']}")
+            dp_fsdp_checks(r, who, n, ref, want, n_params, n_units)
             if "zero1" in r:
                 dp_zero1_checks(r, who, n, want, moment_bytes)
             if backend == "nccl":
@@ -3868,6 +4069,10 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
                 dp_graphed_checks(r["graphed"], who, per_step)
         check(len({r["checksum"] for r in res}) == 1,
               f"(c) {tag}: checksums {[r['checksum'] for r in res]}")
+        moments = [r["fsdp"]["elements"]["moments"] for r in res]
+        check(sum(moments) == 2 * n_params,
+              f"(fsdp) {tag}: moment elements a rank {moments} for "
+              f"{n_params} parameters")
         shutil.rmtree(spec["work"], ignore_errors=True)
         r0 = res[0]
         runs[tag] = {
@@ -3884,6 +4089,14 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
         runs[tag].update({f: {run: [x[run][f] for x in res]
                               for run in ("plain", "zero1") if run in r0}
                           for f in ("step_ms", "peak_bytes", "launches")})
+        runs[tag]["fsdp"] = {f: [x["fsdp"][f] for x in res] for f in (
+            "step_ms", "grad_norm", "launches", "elements", "state_bytes",
+            "allocated_after_init_bytes", "peak_bytes", "save_s", "load_s",
+            "seconds")}
+        runs[tag]["fsdp"].update(
+            plain_state_bytes=[x["plain"]["state_bytes"] for x in res],
+            predicted_state_bytes=16 * n_params / n,
+            losses=[x["loss"] for x in r0["fsdp"]["losses"]])
         if "zero1" in r0:
             runs[tag].update(repeat_distance=r0["repeat_distance"],
                              preempt=r0["preempt"])
@@ -3913,6 +4126,20 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
                   f"{g['launches']['graphed']}")
         if "graph_refused" in r0:
             print(f"    (f) refused under {backend}: {r0['graph_refused']}")
+        f = runs[tag]["fsdp"]
+        print(f"    fsdp: {DP_STEPS} steps bit for bit with plain data "
+              f"parallelism under deterministic algorithms (losses, whole "
+              f"parameters, moment pieces), losses "
+              f"{[round(x, 5) for x in f['losses']]}, grad norm "
+              f"{f['grad_norm'][0]:.6g}; fp32 state a rank (shards, "
+              f"gradient shards, moments) {f['state_bytes']} bytes against "
+              f"{f['predicted_state_bytes']:.0f} predicted (plain "
+              f"{f['plain_state_bytes']}), allocated after init_state "
+              f"{f['allocated_after_init_bytes']}, peak of the steps "
+              f"{f['peak_bytes']} (plain {runs[tag]['peak_bytes']['plain']});"
+              f" step ms {f['step_ms']}; save {f['save_s']} s, load "
+              f"{f['load_s']} s, the shards restored and the resumed step "
+              f"bit for bit; {f['seconds']} s")
         if "zero1" in r0:
             pre = r0["preempt"]
             print(f"    ZeRO-1 preempted at {DP_PREEMPT_AT} ({pre['reason']}; "
@@ -6524,8 +6751,10 @@ def main() -> int:
                 entry[f"recipe_{tag}_launches"] = n
         # the data-parallel phase (6e): a rank's DP_STEPS steps of its
         # multi-rank run (plain, ZeRO-1), the torchrun CLI's rank 0 epoch
-        dp_run = dp["runs"][max(dp["runs"], key=lambda t: dp["runs"][t]
-                                ["ranks"])]["launches"]
+        dp_multi = dp["runs"][max(dp["runs"], key=lambda t: dp["runs"][t]
+                                  ["ranks"])]
+        dp_run, dp_run_fsdp = dp_multi["launches"], \
+            dp_multi["fsdp"]["launches"]
         cli_dp = dp["cli"]["log"]["kernel_launches"]
         n = sum(dp_run["plain"][0].get(k, 0) for k in parts.get(name, (name,)))
         if n:
@@ -6533,6 +6762,9 @@ def main() -> int:
             entry["dp_zero1_launches"] = sum(
                 dp_run["zero1"][0].get(k, 0)
                 for k in parts.get(name, (name,)))
+        n = sum(dp_run_fsdp[0].get(k, 0) for k in parts.get(name, (name,)))
+        if n:
+            entry["dp_fsdp_launches"] = n
         n = sum(cli_dp.get(k, 0) for k in parts.get(name, (name,)))
         if n:
             entry["dp_cli_launches"] = n

@@ -20,7 +20,10 @@ Under data parallelism every rank calls the save (ZeRO-1's moments and
 running mean are gathered from every rank first, so the file has the
 layout above), rank 0 alone writes, and all ranks wait for the write
 before going on. Every rank loads a file, whoever wrote it, and takes its
-share (`TrainState.load_optimizer_state_dict`).
+share (`TrainState.load_optimizer_state_dict`). Under FSDP the
+parameters are gathered whole as well (`core/distributed.py::
+whole_params`, on every rank), and a load copies into them whole and
+then takes the rank's shards back.
 
 The fine-tune CLIs' preemption file (`save_finetune_preemption`,
 `<output_dir>/preempt/checkpoint-step-<micro>.pth`, the counterpart of the
@@ -71,8 +74,9 @@ def save_on_rank0(path: str, payload: Callable[[], Dict[str, Any]]) -> str:
 def _save(path: str, model: nn.Module, state, weight_decay: float,
           **extra) -> str:
     """Write the model, the AdamW state and the open cycle, if any, with
-    `extra` (`save_on_rank0`); returns `path`. The optimizer state is
-    gathered on every rank first (a collective under ZeRO-1)."""
+    `extra` (`save_on_rank0`); returns `path`. The optimizer state, and
+    under FSDP the parameters, are gathered on every rank first (a
+    collective under ZeRO-1 and FSDP)."""
     optimizer = state.optimizer_state_dict(weight_decay)
     cycle = state.cycle_state_dict()
 
@@ -83,7 +87,8 @@ def _save(path: str, model: nn.Module, state, weight_decay: float,
             out[CYCLE_KEY] = cycle
         return out
 
-    return save_on_rank0(path, payload)
+    with distributed.whole_params(model, write_back=False):
+        return save_on_rank0(path, payload)
 
 
 def save_checkpoint(output_dir: str, epoch: int, model: nn.Module, state,
@@ -134,13 +139,15 @@ def load_model_state(model: nn.Module, state: Mapping[str, torch.Tensor]
     and MAE-init, util/misc.py:315-338); the visualizer's
     `cross_attn_layer` is read as `context_fusion_layer`. Entries the port
     holds otherwise (the sin-cos tables, HF's tied `cls.predictions.bias`)
-    are left out. Returns (loaded names, model names left at init)."""
+    are left out. Under FSDP every rank calls it (the parameters are
+    gathered whole, loaded, and each rank keeps its shards). Returns
+    (loaded names, model names left at init)."""
     state = {k[len("module."):] if k.startswith("module.") else k: v
              for k, v in state.items()}
     state = {k.replace("cross_attn_layer", "context_fusion_layer"): v
              for k, v in state.items()}
     loaded, missing = [], []
-    with torch.no_grad():
+    with distributed.whole_params(model), torch.no_grad():
         for name, p in model.state_dict().items():
             src = state.get(name)
             if src is not None and tuple(src.shape) == tuple(p.shape):

@@ -10,7 +10,7 @@ python -m ecamp_tpu_torch.cli.pretrain \\
 or data-parallel on N cards of a host, one process each:
 
 torchrun --nproc_per_node=N -m ecamp_tpu_torch.cli.pretrain \\
-  --data_path /data/mimic --batch_size 32 [--shard_optimizer] ...
+  --data_path /data/mimic --batch_size 32 [--shard_optimizer | --fsdp] ...
 
 Under a launcher (torchrun, or OpenMPI / SLURM with MASTER_ADDR and
 MASTER_PORT; `core/distributed.py`) `--batch_size` is per rank, as in the
@@ -19,8 +19,14 @@ of every epoch's order and steps on it, the gradients and the logged
 losses are averaged over the ranks (NCCL on CUDA, gloo with `--device
 cpu` or where a host runs more ranks than it has cards), and only rank 0
 prints, writes `log.txt`, `tb/` and checkpoints. `--shard_optimizer`
-keeps each rank's share of the AdamW moments only (ZeRO-1); a checkpoint
-has the same layout either way and loads into any number of ranks.
+keeps each rank's share of the AdamW moments only (ZeRO-1); `--fsdp`
+(ZeRO-3) keeps each rank's share of the parameters, their gradients and
+the moments: each unit of the model (a transformer block, BERT's
+embeddings, fusion layer and MLM head, the rest) is all-gathered at its
+call and its gradient reduce-scattered after its backward
+(`core/distributed.py::Fsdp`); `--fsdp --shard_optimizer` is `--fsdp`.
+A checkpoint has the same layout in every case and loads into any number
+of ranks, with or without either flag.
 
 (`python -m ecamp_tpu_torch.cli.run_preset pretrain_mimic` gives the
 recipe's flags.) `--data_path` holds the two MIMIC-CXR CSVs, the images
@@ -48,7 +54,8 @@ preemption is asked for once a call, and the log is the single step's.
 Under torchrun the graphs hold the data-parallel step with its NCCL
 collectives (the gradient all-reduce, ZeRO-1's exchange, the metrics);
 `--device cpu` ranks (gloo) run the K steps in order. On CUDA it needs
-NCCL, one card a rank: where ranks share a card (gloo) it is refused.
+NCCL, one card a rank: where ranks share a card (gloo) it is refused, and
+so is `--fsdp` (graphed FSDP is ROADMAP item 16b).
 
 `--resume checkpoint-<e>.pth` restores the parameters, the AdamW moments
 and count and the cycle, and continues at epoch e + 1. On SIGTERM,
@@ -131,7 +138,12 @@ def get_args(argv=None):
     p.add_argument("--shard_optimizer", action="store_true",
                    help="ZeRO-1: each data-parallel rank keeps and updates "
                         "its share of the AdamW moments only")
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP / ZeRO-3: each data-parallel rank keeps its "
+                        "share of the parameters, gradients and AdamW "
+                        "moments; a unit's parameters are all-gathered at "
+                        "its call and its gradient reduce-scattered after "
+                        "its backward (implies --shard_optimizer)")
     p.add_argument("--rss_limit_gb", type=float, default=0.0,
                    help="host-RSS watchdog: above this many GiB of RSS, "
                         "checkpoint at the exact step and exit 0 "
@@ -153,16 +165,12 @@ def get_args(argv=None):
 def refuse_what_is_not_ported(args) -> None:
     """Options of the JAX CLI that the port does not have raise; none is
     ignored silently (ROADMAP Queue 1, "Not to port")."""
-    refused = [(args.fsdp, "--fsdp")]
     for path in (args.resume, args.pretrained):
-        refused.append((bool(path) and not path.endswith(".pth"),
-                        f"{path!r}: orbax checkpoint directories (only "
-                        f"reference .pth files are read)"))
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      f"ecamp_tpu_torch (ROADMAP Queue 1, "
-                                      f"\"Not to port\")")
+        if path and not path.endswith(".pth"):
+            raise NotImplementedError(
+                f"{path!r}: orbax checkpoint directories are not ported "
+                f"to ecamp_tpu_torch, only reference .pth files are read "
+                f"(ROADMAP Queue 1, \"Not to port\")")
 
 
 def main(argv=None):
@@ -179,9 +187,18 @@ def main(argv=None):
 def refuse_ungraphable(args, device: torch.device) -> None:
     """`--steps_per_call > 1` on a card runs CUDA graphs of the step, which
     capture a process group's collectives under NCCL only: under gloo (the
-    rank's card shared with another rank) it raises, naming the backend."""
-    if (args.steps_per_call > 1 and device.type == "cuda"
-            and not distributed.graph_capturable()):
+    rank's card shared with another rank) it raises, naming the backend.
+    Graphs of the FSDP step are not ported: with `--fsdp` it raises,
+    naming ROADMAP item 16b."""
+    if args.steps_per_call <= 1 or device.type != "cuda":
+        return
+    if args.fsdp:
+        raise NotImplementedError(
+            "--fsdp --steps_per_call > 1 on CUDA needs CUDA graphs of the "
+            "FSDP step (its unit gathers and reduce-scatters), which are not "
+            "ported to ecamp_tpu_torch (ROADMAP Queue 1 item 16b, graphed "
+            "FSDP): run with --steps_per_call 1, or --device cpu")
+    if not distributed.graph_capturable():
         raise RuntimeError(
             f"--steps_per_call > 1 on CUDA captures the data-parallel "
             f"step's collectives in CUDA graphs, which needs NCCL, one card "
@@ -214,7 +231,8 @@ def run(args, device: torch.device) -> None:
             accum_steps=args.accum_iter),
         data=cfg.DataConfig(img_size=args.input_size,
                             batch_size=args.batch_size),
-        mesh=cfg.MeshConfig(shard_optimizer=args.shard_optimizer),
+        mesh=cfg.MeshConfig(shard_optimizer=args.shard_optimizer,
+                            shard_params=args.fsdp),
         mask_ratio=args.mask_ratio, epochs=args.epochs,
         max_epoch=args.max_epoch, bf16=not args.no_bf16, seed=args.seed,
         max_caption_length=args.max_caption_length,

@@ -1,12 +1,13 @@
 """Configuration tree, field for field the same as `ecamp_tpu.core.config`.
 
 Ported: `ViTConfig` and its factories, `BertConfig`, `MAEDecoderConfig`,
-`OptimizerConfig`, `DataConfig`, `MeshConfig` (its data-parallel fields:
-the data axis over torchrun's ranks, `core/distributed.py`, and ZeRO-1's
-`shard_optimizer`), `PretrainConfig`, `ClassificationConfig`,
-`SegmentationConfig` and `DetectionConfig`. Left out: `MeshConfig.
-shard_params` (FSDP) and the fine-tune configs' `mesh` fields (their
-data-parallel training is not ported; ROADMAP Queue 1).
+`OptimizerConfig`, `DataConfig`, `MeshConfig` (the data axis over
+torchrun's ranks, `core/distributed.py`, ZeRO-1's `shard_optimizer` and
+FSDP's `shard_params`; the model axis must stay 1), `PretrainConfig`,
+`ClassificationConfig`, `SegmentationConfig` and `DetectionConfig`. Left
+out: the fine-tune configs' `mesh` fields. The fine-tunes train data
+parallel under torchrun all the same (`DataParallel` over the ranks of the
+launch); they take no ZeRO-1 and no FSDP, as JAX's place them.
 """
 
 from __future__ import annotations
@@ -131,9 +132,9 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The data-parallel layout (`ecamp_tpu.core.config.MeshConfig` up to
-    `shard_optimizer`). The data axis is torchrun's ranks, one card each;
-    the model axis (tensor parallelism) is not ported and must stay 1."""
+    """The data-parallel layout, field for field `ecamp_tpu.core.config.
+    MeshConfig`. The data axis is torchrun's ranks, one card each; the
+    model axis (tensor parallelism) is not ported and must stay 1."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -144,6 +145,12 @@ class MeshConfig:
     # then exchange the spans (`core/distributed.py::Zero1`). Saves
     # 2 x params x 4 B x (1 - 1/N) a rank.
     shard_optimizer: bool = False
+    # FSDP / ZeRO-3: the parameters and their gradients sharded too, a
+    # span of each unit's flat layout a rank (`core/distributed.py::Fsdp`);
+    # a unit's parameters are all-gathered at its call and its gradient
+    # reduce-scattered after its backward. Implies sharded moments. Saves
+    # 4 x params x 4 B x (1 - 1/N) a rank against plain data parallelism.
+    shard_params: bool = False
 
 
 @dataclass(frozen=True)

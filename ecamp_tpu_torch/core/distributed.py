@@ -35,6 +35,21 @@ its first axis divisible by the ranks, which is not contiguous in general;
 a span of a flat buffer is, so every piece is a pointer and a length for
 the multi-tensor kernel, and the exchange writes the parameters in place.
 
+FSDP / ZeRO-3 (`Fsdp`): the parameters are sharded too. The model is cut
+into units (each transformer block, BERT's embeddings, fusion layer and
+MLM head, and a root unit for the rest; `nn/mae.py::ECAMP.fsdp_units`),
+each with a `FlatLayout` of its own leaves cut into `world` spans. Rank r
+keeps span r of every unit: an fp32 parameter shard and a gradient shard.
+A unit's call (`nn/layers.py::call`) all-gathers its flat parameters
+(`_GatherUnit`, an autograd Function), runs the unit's module on views of
+the gathered buffer (`torch.func.functional_call`) and, in the backward,
+reduce-scatters the unit's flat gradient into the rank's gradient shard,
+divided by the world size once. The module's own parameters are empty
+placeholders between calls; `whole_params` gives them their whole values
+for a moment (an initialisation, a load, a save). The same `Zero1` share,
+over the units' layouts, tells AdamW and `MultiSteps` the rank's pieces,
+which here are the shards themselves (`holds_pieces`).
+
 CUDA graphs of the data-parallel step (`train/graphed.py`) capture its
 collectives: the gradient all-reduce, ZeRO-1's broadcasts and the
 metrics' all-reduce. NCCL collectives can be captured; gloo's run on the
@@ -48,9 +63,10 @@ a checkpoint) never share a communicator with a captured one.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -200,6 +216,14 @@ def all_reduce_mean_(flat: torch.Tensor, bucket: int = BUCKET,
     return flat.div_(world_size())
 
 
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the ranks, in place, on every rank (no
+    autograd); outside a process group `t` as it is."""
+    if is_distributed():
+        dist.all_reduce(t)
+    return t
+
+
 class _AllReduceSum(torch.autograd.Function):
     """y = the sum of x over the ranks, on every rank. Each rank's loss
     reads y, so dL/dx on a rank is the sum of the ranks' dL/dy: the
@@ -293,6 +317,39 @@ def broadcast_spans_(flat: torch.Tensor, layout: FlatLayout,
                        group=group)
 
 
+def all_gather_spans_(flat: torch.Tensor, layout: FlatLayout,
+                      group=None) -> None:
+    """`broadcast_spans_`'s result, as one all-gather where the backend
+    has it for these tensors (NCCL's `all_gather_into_tensor`, in place:
+    the rank's span is the input); gloo keeps the broadcasts."""
+    if not is_distributed():
+        return
+    if dist.get_backend(group) == "nccl":
+        r = rank()
+        dist.all_gather_into_tensor(
+            flat, flat[r * layout.span:(r + 1) * layout.span], group=group)
+    else:
+        broadcast_spans_(flat, layout, group=group)
+
+
+def reduce_scatter_mean_(flat: torch.Tensor, layout: FlatLayout,
+                         out: torch.Tensor, group=None) -> torch.Tensor:
+    """Rank r's span of the ranks' mean of `flat` into `out` (span
+    elements): the sum over the ranks, then one correctly rounded division
+    by the world size, as `all_reduce_mean_` takes it, so every element
+    has its bits. NCCL reduce-scatters; gloo all-reduces `flat` (in place)
+    and slices. Outside a process group `out` is `flat`'s one span."""
+    if not is_distributed():
+        return out.copy_(flat)
+    r = rank()
+    if dist.get_backend(group) == "nccl":
+        dist.reduce_scatter_tensor(out, flat, group=group)
+    else:
+        dist.all_reduce(flat, group=group)
+        out.copy_(flat[r * layout.span:(r + 1) * layout.span])
+    return out.div_(world_size())
+
+
 class DataParallel:
     """One rank's share of data-parallel training of `model`: its trained
     parameters (those `trainable` marks True, every one without it) and
@@ -354,21 +411,35 @@ def reduce_step(dp: Optional[DataParallel], metrics: torch.Tensor
 
 
 class Zero1:
-    """One rank's ZeRO-1 share of a `FlatLayout`: the elements of each leaf
-    it updates and keeps optimizer state for (`piece`), those elements of
-    a leaf-shaped tensor (`local`, `take`), per-leaf pieces gathered back
-    into whole leaves (`gather`) and the parameter exchange. Without a
-    `DataParallel` there is nothing to exchange: a single process can
-    update each rank's pieces in turn."""
+    """One rank's share of training state sharded over the ranks: the
+    elements of each leaf it updates and keeps optimizer state for
+    (`piece`), those elements of a leaf-shaped tensor (`local`, `take`),
+    per-leaf pieces gathered back into whole leaves (`gather`) and the
+    parameter exchange after an update. ZeRO-1 shares one `FlatLayout`
+    (its `DataParallel`'s); FSDP one a unit (`Fsdp`), whose shards are
+    the pieces themselves, so the optimizer is handed pieces of the
+    parameters and gradients (`holds_pieces`) and exchanges nothing (the
+    next forward gathers). Without a `dp` there is nothing to exchange: a
+    single process can update each rank's pieces in turn."""
 
-    def __init__(self, layout: FlatLayout, rank: int,
-                 dp: Optional[DataParallel] = None):
-        self.layout = layout
+    def __init__(self, layout, rank: int, dp=None):
+        layouts = [layout] if isinstance(layout, FlatLayout) else list(layout)
+        self.layouts = layouts
+        self._layout_of = {k: lay for lay in layouts for k in lay.shapes}
         self.rank = rank
         self.dp = dp
+        self.holds_pieces = isinstance(dp, Fsdp)
+
+    @property
+    def world(self) -> int:
+        return self.layouts[0].world
+
+    def shapes(self) -> Dict[str, torch.Size]:
+        """Every leaf's whole shape, by name."""
+        return {k: lay.shapes[k] for k, lay in self._layout_of.items()}
 
     def piece(self, name: str) -> Tuple[int, int]:
-        return self.layout.piece(name, self.rank)
+        return self._layout_of[name].piece(name, self.rank)
 
     def local(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """The rank's elements of leaf-shaped `t`, a flat view."""
@@ -387,12 +458,205 @@ class Zero1:
         """Whole leaves from every rank's pieces (a collective: every rank
         calls it and gets them)."""
         dev = next(iter(pieces.values())).device
-        flat = torch.zeros(self.layout.total, device=dev)
-        for k, t in pieces.items():
-            self.local(self.layout.view(flat, k), k).copy_(t)
-        broadcast_spans_(flat, self.layout)
-        return {k: self.layout.view(flat, k) for k in pieces}
+        out = {}
+        for lay in self.layouts:
+            names = [k for k in lay.shapes if k in pieces]
+            if not names:
+                continue
+            flat = torch.zeros(lay.total, device=dev)
+            for k in names:
+                self.local(lay.view(flat, k), k).copy_(pieces[k])
+            broadcast_spans_(flat, lay)
+            out.update((k, lay.view(flat, k)) for k in names)
+        return {k: out[k] for k in pieces}
 
     def exchange_params(self) -> None:
         if self.dp is not None:
             self.dp.exchange_params_()
+
+
+# elements under which a unit's gathered leaf is handed out as a copy and
+# not as a view: autograd saves some small fp32 leaves whole (a LayerNorm
+# saves its weight), and a view would keep the unit's whole gathered
+# buffer alive until the backward
+SMALL_LEAF = 1 << 16
+
+
+class _GatherUnit(torch.autograd.Function):
+    """A unit's leaves from the ranks' shards: the forward all-gathers the
+    unit's flat parameters and returns each leaf in its shape (a view of
+    the gathered buffer, a copy under SMALL_LEAF elements); the backward
+    reduce-scatters the leaves' gradients, laid out flat, into the rank's
+    gradient shard (accumulated), divided by the world size once. The
+    shard itself gets no gradient from autograd."""
+
+    @staticmethod
+    def forward(ctx, shard, unit):
+        ctx.unit = unit
+        ctx.set_materialize_grads(False)
+        flat = unit.gathered()
+        return tuple(unit.layout.view(flat, k).clone()
+                     if unit.layout.shapes[k].numel() < SMALL_LEAF
+                     else unit.layout.view(flat, k) for k in unit.names)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        unit = ctx.unit
+        lay = unit.layout
+        flat = torch.zeros(lay.total, dtype=unit.grad.dtype,
+                           device=unit.grad.device)
+        for k, g in zip(unit.names, grads):
+            if g is not None:
+                lay.view(flat, k).copy_(g)
+        unit.grad.add_(reduce_scatter_mean_(
+            flat, lay, torch.empty_like(unit.grad), group=unit.owner.group))
+        return None, None
+
+
+class _Unit:
+    """One FSDP unit: `module` (named `prefix` in the model) and the
+    parameters under it that no smaller unit holds, in a `FlatLayout` of
+    their model names; the rank's span of it as a parameter shard and a
+    gradient shard. Calling it runs the module on the gathered leaves."""
+
+    def __init__(self, owner: "Fsdp", prefix: str, module: nn.Module,
+                 params: Mapping[str, nn.Parameter]):
+        self.owner, self.module = owner, module
+        self.names = list(params)
+        self.local_names = [k[len(prefix) + 1:] if prefix else k
+                            for k in self.names]
+        self.layout = FlatLayout({k: p.shape for k, p in params.items()},
+                                 owner.world)
+        first = next(iter(params.values()))
+        full = torch.zeros(self.layout.total, dtype=first.dtype,
+                           device=first.device)
+        with torch.no_grad():
+            for k, p in params.items():
+                self.layout.view(full, k).copy_(p)
+        self.shard = self.span(full).clone().requires_grad_(True)
+        self.grad = torch.zeros_like(self.shard, requires_grad=False)
+
+    def span(self, flat: torch.Tensor) -> torch.Tensor:
+        r, n = self.owner.rank, self.layout.span
+        return flat[r * n:(r + 1) * n]
+
+    def gathered(self) -> torch.Tensor:
+        """The unit's whole flat parameters (a collective), no autograd."""
+        with torch.no_grad():
+            flat = torch.empty(self.layout.total, dtype=self.shard.dtype,
+                               device=self.shard.device)
+            self.span(flat).copy_(self.shard)
+            all_gather_spans_(flat, self.layout, group=self.owner.group)
+        return flat
+
+    def __call__(self, *args, **kwargs):
+        leaves = _GatherUnit.apply(self.shard, self)
+        return torch.func.functional_call(
+            self.module, dict(zip(self.local_names, leaves)), args, kwargs,
+            tie_weights=False, strict=False)
+
+
+class Fsdp:
+    """One rank's share of fully sharded data parallelism (ZeRO-3) of
+    `model`, beside `DataParallel`: the model's parameters split into
+    units (`units`: module names; every parameter belongs to the longest
+    one it lies under, the rest to the root unit, ""), each unit's span of
+    this rank held as an fp32 parameter shard and a gradient shard, and
+    the module's parameters left as empty placeholders. A unit runs on its
+    gathered parameters where the model calls it through
+    `nn/layers.py::call` (each unit module carries its `_Unit` as
+    `fsdp_unit`); its backward reduce-scatters the gradient. `pieces`,
+    each leaf's elements in this rank's shard (a flat view, its `.grad`
+    the same elements of the gradient shard), are what the optimizer
+    updates. In one process there is one span: the shards are whole and
+    the collectives copies. The parameters share one floating dtype and
+    device, as `DataParallel`'s."""
+
+    def __init__(self, model: nn.Module, units: Sequence[str]):
+        params = dict(model.named_parameters())
+        first = next(iter(params.values()))
+        for k, p in params.items():
+            if p.dtype != first.dtype or p.device != first.device or \
+                    not p.is_floating_point():
+                raise ValueError(f"FSDP takes floating parameters of one "
+                                 f"dtype on one device: {k} is {p.dtype} on "
+                                 f"{p.device}, the first {first.dtype} on "
+                                 f"{first.device}")
+        self.world, self.rank = world_size(), rank()
+        self.group = None
+        self.model = model
+        self._params = params
+        by_length = sorted(units, key=len, reverse=True)
+        owner = {k: next((u for u in by_length if k.startswith(u + ".")), "")
+                 for k in params}
+        modules = dict(model.named_modules())
+        self.units: List[_Unit] = []
+        for prefix in ["", *units]:
+            mine = {k: p for k, p in params.items() if owner[k] == prefix}
+            if mine:
+                unit = _Unit(self, prefix, modules[prefix], mine)
+                modules[prefix].fsdp_unit = unit
+                self.units.append(unit)
+        self.pieces: Dict[str, torch.Tensor] = {}
+        for unit in self.units:
+            lay, base = unit.layout, self.rank * unit.layout.span
+            shard, grad = unit.shard.detach(), unit.grad
+            for k in unit.names:
+                lo, hi = lay.piece(k, self.rank)
+                at = lay.offsets[k] + lo - base  # [at, at) where empty
+                piece = shard[at:at + hi - lo]
+                piece.grad = grad[at:at + hi - lo]
+                self.pieces[k] = piece
+        self.pieces = {k: self.pieces[k] for k in params}  # model order
+        self._placeholders()
+
+    def _placeholders(self) -> None:
+        for p in self._params.values():
+            p.data = p.data.new_empty(0)
+
+    def layouts(self) -> List[FlatLayout]:
+        return [u.layout for u in self.units]
+
+    def zero_grad_(self) -> None:
+        for u in self.units:
+            u.grad.zero_()
+
+    def all_reduce_grads_(self) -> None:
+        """Nothing: each unit's backward reduce-scattered its gradient."""
+
+    def exchange_params_(self) -> None:
+        """Nothing: the next forward gathers the updated shards."""
+
+    @contextlib.contextmanager
+    def whole(self, write_back: bool = True):
+        """The model's parameters whole inside the block (a collective):
+        every unit gathered, each parameter's data a view of its unit's
+        buffer; on leaving, with `write_back`, each rank takes its span
+        back into its shards (what the block wrote into the parameters is
+        kept), and the placeholders return."""
+        with torch.no_grad():
+            flats = [u.gathered() for u in self.units]
+            for u, flat in zip(self.units, flats):
+                for k in u.names:
+                    self._params[k].data = u.layout.view(flat, k)
+        ok = False
+        try:
+            yield self.model
+            ok = True
+        finally:
+            with torch.no_grad():
+                if ok and write_back:
+                    for u, flat in zip(self.units, flats):
+                        u.shard.detach().copy_(u.span(flat))
+                self._placeholders()
+
+
+def whole_params(model: nn.Module, write_back: bool = True):
+    """`Fsdp.whole` of the FSDP share that holds `model`'s parameters (a
+    collective), or a block that changes nothing where they are not
+    sharded."""
+    unit = next((u for m in model.modules()
+                 if (u := getattr(m, "fsdp_unit", None)) is not None), None)
+    if unit is None:
+        return contextlib.nullcontext(model)
+    return unit.owner.whole(write_back)

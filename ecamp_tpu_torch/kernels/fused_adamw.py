@@ -23,10 +23,16 @@ Under ZeRO-1 (`zero1`, a `core/distributed.py::Zero1`) the moments hold
 this rank's piece of each leaf only (a flat tensor, empty for a leaf
 outside its span), the update (kernel or plain) runs on those pieces of
 the parameters and gradients, contiguous views, and the ranks then
-exchange their spans of the parameters (JAX `_zero1_update`). The
-gradients are averaged and whole on every rank, so the clip's global norm
-stays local, as in JAX. Every element sees the same arithmetic as
-unsharded, so the parameters equal the unsharded update's bit for bit.
+exchange their spans of the parameters (JAX `_zero1_update`). Under FSDP
+(a share that `holds_pieces`) the parameters and gradients handed in are
+those pieces already, views of the rank's shards, and nothing is
+exchanged: the next forward gathers. Every element sees the same
+arithmetic as unsharded, so the parameters equal the unsharded update's
+bit for bit. The clip's global norm is local where the gradients are
+whole (ZeRO-1 without accumulation, as in JAX); where they are pieces
+(FSDP, ZeRO-1's running mean) the ranks' sums of squares are all-reduced
+(`global_norm(..., over_ranks=True)`), so it is the norm of the whole
+gradients, as JAX's clip is under both layouts.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..core import distributed
 from ..core.distributed import Zero1
 from . import _build
 
@@ -150,25 +157,20 @@ class FusedAdamW:
         self.zero1 = zero1
         self._table: Optional[_LeafTable] = None
 
-    def _zeros(self, params: Mapping[str, torch.Tensor]
-               ) -> Dict[str, torch.Tensor]:
-        """A zero moment for every leaf: whole, or under ZeRO-1 the rank's
-        piece."""
-        if self.zero1 is None:
-            return {k: torch.zeros_like(p) for k, p in params.items()}
-        return {k: self.zero1.local(torch.zeros_like(p), k).clone()
-                for k, p in params.items()}
-
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
+        """Count 0 and zero moments: whole, or under ZeRO-1 and FSDP the
+        rank's pieces."""
         dev = next(iter(params.values())).device
         return AdamWState(
             count=torch.zeros((), dtype=torch.int32, device=dev),
-            mu=self._zeros(params), nu=self._zeros(params))
+            mu=zero_pieces(params, self.zero1),
+            nu=zero_pieces(params, self.zero1))
 
-    def scalars(self, count: torch.Tensor,
-                grads: List[torch.Tensor]) -> torch.Tensor:
+    def scalars(self, count: torch.Tensor, grads: List[torch.Tensor],
+                over_ranks: bool = False) -> torch.Tensor:
         """[lr, bc1, bc2, gdiv, gmul] as one fp32 tensor on the count's
-        device, from device ops only."""
+        device, from device ops only (`over_ranks`: `grads` are the rank's
+        pieces, the clip's norm sums every rank's)."""
         # torch.full, not torch.tensor: a blocking host-to-device copy
         # would synchronise the stream
         def full(value):
@@ -180,13 +182,13 @@ class FusedAdamW:
         lr = self.schedule(count).to(torch.float32)
         gdiv = gmul = one
         if self.grad_clip is not None:
-            gdiv, gmul = clip_scale(grads, self.grad_clip)
+            gdiv, gmul = clip_scale(grads, self.grad_clip, over_ranks)
         return torch.stack([lr, 1.0 - b1 ** cf, 1.0 - b2 ** cf, gdiv, gmul])
 
     def _decays(self, params: Mapping[str, torch.Tensor]) -> List[float]:
         wd = self.weight_decay
         if wd > 0 and self.mask_fn is not None:
-            mask = self.mask_fn(params)
+            mask = self.mask_fn(leaf_shaped(params, self.zero1))
             return [wd if mask[k] else 0.0 for k in params]
         return [wd] * len(params)
 
@@ -194,24 +196,32 @@ class FusedAdamW:
               grads: Mapping[str, torch.Tensor],
               state: AdamWState, sharded: bool = False) -> AdamWState:
         """One update: p, mu, nu and the count in place; returns the
-        state. Under ZeRO-1 `grads` are whole, or with `sharded`
-        already the rank's pieces (`MultiSteps`' running mean)."""
+        state. Under ZeRO-1 `params` and `grads` are whole, or with
+        `sharded` the grads already the rank's pieces (`MultiSteps`'
+        running mean); under FSDP both are the rank's pieces."""
         names = list(params)
-        if sharded and self.grad_clip is not None:
-            raise ValueError("the clip's global norm needs whole gradients: "
-                             "ZeRO-1 with accumulation takes no grad_clip")
+        z = self.zero1
+        pieces = z is not None and z.holds_pieces
+        over_ranks = pieces or sharded
+        if (over_ranks and self.grad_clip is not None
+                and z.world != distributed.world_size()):
+            raise ValueError(f"the clip's global norm sums the ranks' "
+                             f"pieces: a share of {z.world} ranks needs a "
+                             f"process group of {z.world}, not "
+                             f"{distributed.world_size()}")
         dev = params[names[0]].device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"no AdamW kernel for {dev}")
-        scal = self.scalars(state.count, [grads[k] for k in names])
-        z = self.zero1
+        scal = self.scalars(state.count, [grads[k] for k in names],
+                            over_ranks)
         with torch.no_grad():
             ps, gs, ms, vs, wd = [], [], [], [], []
             for k, w in zip(names, self._decays(params)):
                 p, g = params[k], grads[k]
                 if z is not None:
-                    p = z.local(p, k)
-                    g = g if sharded else z.local(g, k)
+                    if not pieces:
+                        p = z.local(p, k)
+                        g = g if sharded else z.local(g, k)
                     if not p.numel():
                         continue  # outside this rank's span
                 ps.append(p)
@@ -257,18 +267,50 @@ class FusedAdamW:
         launches.add()
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def zero_pieces(params: Mapping[str, torch.Tensor],
+                zero1: Optional[Zero1]) -> Dict[str, torch.Tensor]:
+    """A zero tensor for every leaf of `params`: its shape, or under a
+    share (ZeRO-1, FSDP) the rank's piece, flat."""
+    if zero1 is None:
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+    out = {}
+    for k, p in params.items():
+        lo, hi = zero1.piece(k)
+        out[k] = torch.zeros(hi - lo, dtype=p.dtype, device=p.device)
+    return out
+
+
+def leaf_shaped(params: Mapping[str, torch.Tensor],
+                zero1: Optional[Zero1]) -> Mapping[str, torch.Tensor]:
+    """`params` where they are whole; where they are the rank's pieces
+    (FSDP), leaf-shaped stand-ins on the meta device (no storage), for
+    what reads a leaf's shape (the decay mask, the reference order)."""
+    if zero1 is None or not zero1.holds_pieces:
+        return params
+    shapes = zero1.shapes()
+    return {k: torch.empty(shapes[k], device="meta") for k in params}
+
+
+def global_norm(tensors: List[torch.Tensor],
+                over_ranks: bool = False) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), an
-    fp32 device scalar."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(t.float()) for t in tensors]))
+    fp32 device scalar. With `over_ranks` the tensors are this rank's
+    pieces of the gradients: the ranks' sums of squares are all-reduced
+    first (outside a process group the pieces are whole)."""
+    if not over_ranks or not distributed.is_distributed():
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t.float()) for t in tensors]))
+    sq = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t.float()) for t in tensors])).square()
+    return distributed.all_reduce_sum_(sq.reshape(1)).sqrt().reshape(())
 
 
-def clip_scale(grads: List[torch.Tensor], max_norm: float):
+def clip_scale(grads: List[torch.Tensor], max_norm: float,
+               over_ranks: bool = False):
     """optax.clip_by_global_norm as (gdiv, gmul): updates are
     (g / gdiv) * gmul, (1, 1) inside the bound, (gnorm, max_norm) past it
-    (NaN norms propagate, as there)."""
-    gnorm = global_norm(grads)
+    (NaN norms propagate, as there). `over_ranks`: `global_norm`'s."""
+    gnorm = global_norm(grads, over_ranks)
     one = torch.ones_like(gnorm)
     trigger = gnorm < max_norm
     return (torch.where(trigger, one, gnorm),

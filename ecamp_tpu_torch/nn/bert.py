@@ -24,7 +24,7 @@ which materialises them, as the JAX package's does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +33,7 @@ from torch import nn
 from ..core.config import BertConfig
 from ..kernels import dot_product_attention
 from ..kernels.flash_attention import _attention_reference
-from .layers import Dense, Dropout, LayerNorm, compute_weight, remat
+from .layers import Dense, Dropout, LayerNorm, call, compute_weight, remat
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -266,6 +266,16 @@ class MultimodalBert(nn.Module):
             [BertLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers)])
         self.cls = MLMHead(cfg, dtype)
 
+    def fsdp_units(self) -> List[str]:
+        """FSDP's units here (`core/distributed.py::Fsdp`): the embeddings,
+        the fusion layer, each encoder layer and the MLM head, so the two
+        vocabulary-sized leaves (the word embeddings, the MLM decoder) sit
+        in units of their own."""
+        return (["bert.embeddings", "bert.context_fusion_layer"]
+                + [f"bert.encoder.layer.{i}"
+                   for i in range(len(self.bert.encoder.layer))]
+                + ["cls"])
+
     def forward(self, latent, gap_token, input_ids,
                 attention_mask: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
@@ -274,14 +284,16 @@ class MultimodalBert(nn.Module):
         bias = None
         if attention_mask is not None:
             bias = extend_attention_mask(attention_mask)
-        h = self.bert.embeddings(input_ids, token_type_ids)
-        h = self.bert.context_fusion_layer(h, latent, gap_token, bias,
-                                           return_cross_probs)
+        h = call(self.bert.embeddings, input_ids, token_type_ids)
+        h = call(self.bert.context_fusion_layer, h, latent, gap_token, bias,
+                 return_cross_probs)
         probs = None
         if return_cross_probs:
             h, probs = h
         for layer in self.bert.encoder.layer:
             # JAX nn.remat(BertLayer) per layer: the bias is an argument
-            h = remat(layer, h, bias) if self.remat else layer(h, bias)
-        out = self.cls(h, return_features=return_mlm_features)
+            h = remat(layer, h, bias) if self.remat else call(layer, h, bias)
+        # with the fused CE the decoder weight leaves the head: under FSDP
+        # a tensor of the gathered unit, whose gradient reaches the gather
+        out = call(self.cls, h, return_features=return_mlm_features)
         return (out, probs) if return_cross_probs else out

@@ -573,24 +573,37 @@ def _dropout_replay(gens):
                              lambda g, s: g.set_state(s))
 
 
+def call(module: nn.Module, *args, **kwargs):
+    """`module(*args, **kwargs)`; where `module` is a unit of a model whose
+    parameters are sharded over the ranks (FSDP, `core/distributed.py::
+    Fsdp`), on its parameters all-gathered for the call, whose backward
+    reduce-scatters their gradient."""
+    unit = getattr(module, "fsdp_unit", None)
+    if unit is None:
+        return module(*args, **kwargs)
+    return unit(*args, **kwargs)
+
+
 def remat(block: nn.Module, *args):
-    """`block(*args)` under an activation checkpoint, as the JAX package's
-    `nn.remat(Block)`: the forward keeps the block's inputs only, and the
-    backward runs the block again from them, through the same kernels
-    (their `autograd.Function`s save through `save_for_backward`, which
-    the non-reentrant checkpoint intercepts) and with the same dropout
-    bits, so gradients and updates equal the plain call's; only peak
-    memory and time change. The default generators are not stashed
+    """`call(block, *args)` under an activation checkpoint, as the JAX
+    package's `nn.remat(Block)`: the forward keeps the block's inputs
+    only, and the backward runs the block again from them, through the
+    same kernels (their `autograd.Function`s save through
+    `save_for_backward`, which the non-reentrant checkpoint intercepts)
+    and with the same dropout bits, so gradients and updates equal the
+    plain call's; only peak memory and time change. The default generators are not stashed
     (`preserve_rng_state=False`): the port draws from explicit ones
     (`set_generator`), which `_dropout_replay` sets back for the
-    recompute. Without autograd (`torch.no_grad`, an eval step, a
-    `stop_trunk_grad` trunk) or with nothing in the call that requires a
-    gradient, the block runs as it is."""
+    recompute. An FSDP unit's gather runs inside the checkpoint, so the
+    recompute gathers again and the gathered parameters are not held
+    from the forward to the backward. Without autograd (`torch.no_grad`,
+    an eval step, a `stop_trunk_grad` trunk) or with nothing in the call
+    that requires a gradient, the block runs as it is."""
     if not torch.is_grad_enabled() or not (
             any(torch.is_tensor(a) and a.requires_grad for a in args)
             or any(p.requires_grad for p in block.parameters())):
-        return block(*args)
-    return checkpoint(block, *args, use_reentrant=False,
+        return call(block, *args)
+    return checkpoint(call, block, *args, use_reentrant=False,
                       preserve_rng_state=False,
                       context_fn=functools.partial(_dropout_replay,
                                                    _generators(block)))

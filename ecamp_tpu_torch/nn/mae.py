@@ -34,7 +34,7 @@ Only the direct layout is ported: the JAX package's TPU layout variants
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -47,8 +47,8 @@ from ..ops.losses import masked_pixel_losses, weighted_mlm_loss
 from ..ops.masking import (mask_to_pixel, permute_tokens, random_masking,
                            unpatchify)
 from .bert import MultimodalBert
-from .layers import (Block, Dense, LayerNorm, PatchEmbed, compute_weight,
-                     lecun_normal_, remat)
+from .layers import (Block, Dense, LayerNorm, PatchEmbed, call,
+                     compute_weight, lecun_normal_, remat)
 from .pos_embed import get_2d_sincos_pos_embed
 
 
@@ -130,6 +130,19 @@ class ECAMP(nn.Module):
             self.register_buffer(name, torch.from_numpy(table)[None],
                                  persistent=False)
         self.reset_parameters(generator)
+
+    def fsdp_units(self) -> List[str]:
+        """The modules FSDP shards as units of their own
+        (`core/distributed.py::Fsdp`): each encoder and decoder block and
+        BERT's (`MultimodalBert.fsdp_units`); the rest (the patch
+        embedding, the tokens, the norms, the decoder's embedding and
+        pixel head, the SR head, `bert_mlp`) is the root unit, gathered
+        for the whole forward (`nn/layers.py::call` of the model)."""
+        bert = "bert_encoder.model."
+        return ([f"blocks.{i}" for i in range(len(self.blocks))]
+                + [f"decoder_blocks.{i}"
+                   for i in range(len(self.decoder_blocks))]
+                + [bert + u for u in self.bert_encoder.model.fsdp_units()])
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Initialise every parameter from `generator` (JAX init rules)."""
@@ -231,7 +244,7 @@ class ECAMP(nn.Module):
         cls = (self.cls_token.to(self.dtype) + pos[:, :1, :]).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1)
         for blk in self.blocks:
-            x = remat(blk, x) if self.vit.remat else blk(x)
+            x = remat(blk, x) if self.vit.remat else call(blk, x)
         return self.norm(x), mask, ids_restore, ids_keep
 
     def image_decoder(self, x, ids_restore):
@@ -246,6 +259,6 @@ class ECAMP(nn.Module):
         x = torch.cat([x[:, :1, :], x_], dim=1)
         x = x + self.decoder_pos_embed.to(self.dtype)
         for blk in self.decoder_blocks:
-            x = remat(blk, x) if self.decoder_cfg.remat else blk(x)
+            x = remat(blk, x) if self.decoder_cfg.remat else call(blk, x)
         x = self.decoder_pred(self.decoder_norm(x))
         return x[:, 1:, :]

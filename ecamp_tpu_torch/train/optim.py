@@ -29,7 +29,7 @@ import torch
 
 from ..core.config import OptimizerConfig
 from ..core.distributed import Zero1
-from ..kernels.fused_adamw import FusedAdamW, clip_scale
+from ..kernels.fused_adamw import FusedAdamW, clip_scale, zero_pieces
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -240,10 +240,11 @@ class MultiSteps:
 
     Under data parallelism the gradients a call folds are already averaged
     over the ranks (every micro-step reduces them; the mean of means is the
-    same linear mean). Under ZeRO-1 (the inner `FusedAdamW`'s `zero1`) the
-    running mean holds the rank's piece of each leaf only, as JAX's
-    `shard_opt_state_zero1` shards `acc_grads`, and the inner update takes
-    it as pieces."""
+    same linear mean). Under ZeRO-1 and FSDP (the inner `FusedAdamW`'s
+    `zero1`) the running mean holds the rank's piece of each leaf only, as
+    JAX's `shard_opt_state_zero1` shards `acc_grads`, and the inner update
+    takes it as pieces; under FSDP the gradients folded in are those
+    pieces already (the rank's gradient shard)."""
 
     def __init__(self, inner, every_k: int):
         self.inner = inner
@@ -251,19 +252,17 @@ class MultiSteps:
         self.zero1 = getattr(inner, "zero1", None)
 
     def init(self, params) -> MultiStepsState:
-        z = self.zero1
         return MultiStepsState(0, self.inner.init(params),
-                               {k: torch.zeros_like(p) if z is None
-                                else z.local(torch.zeros_like(p), k).clone()
-                                for k, p in params.items()})
+                               zero_pieces(params, self.zero1))
 
     def apply(self, params, grads, state: MultiStepsState) -> MultiStepsState:
         n = state.mini_step
         acc = state.acc_grads
         z = self.zero1
+        whole = z is not None and not z.holds_pieces
         with torch.no_grad():
             for k, a in acc.items():
-                g = grads[k] if z is None else z.local(grads[k], k)
+                g = z.local(grads[k], k) if whole else grads[k]
                 a.add_((g.to(a.dtype) - a) / (n + 1))
         if n < self.every_k - 1:
             return MultiStepsState(n + 1, state.inner_opt_state, acc)
@@ -291,12 +290,12 @@ def make_optimizer(cfg: OptimizerConfig, steps_per_epoch: int = 1,
     Under accumulation a step schedule counts updates, and the epoch
     cosine is read at each cycle's first micro-step, as in the JAX
     package (`ecamp_tpu/train/optim.py:153-165`). `zero1` shards AdamW's
-    moments and the running mean over the data-parallel ranks (pretraining:
-    no freeze mask, no lr scales)."""
+    moments and the running mean over the data-parallel ranks, ZeRO-1's or
+    FSDP's share (pretraining: no freeze mask, no lr scales)."""
     if zero1 is not None and (cfg.name != "adamw" or freeze_mask is not None
                               or lr_scales is not None):
-        raise ValueError("ZeRO-1 shards AdamW without a freeze mask or "
-                         "layer-wise lr scales only")
+        raise ValueError("ZeRO-1 and FSDP shard AdamW without a freeze mask "
+                         "or layer-wise lr scales only")
     sched = make_schedule(cfg, steps_per_epoch, max_epoch)
     if cfg.accum_steps > 1 and cfg.schedule == "warmup_cosine_epoch":
         inner_sched, accum = sched, cfg.accum_steps

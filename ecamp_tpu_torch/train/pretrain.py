@@ -27,6 +27,16 @@ on NCCL ranks its CUDA graphs hold those collectives (`train/graphed.py`),
 on gloo ranks on the CPU the K steps run in order, and gloo ranks on
 cards (sharing them) are refused.
 
+`cfg.mesh.shard_params` is FSDP (ZeRO-3, `core/distributed.py::Fsdp`),
+in one process (one span) or under a group: each rank keeps its span of
+every unit's parameters, gradients and AdamW moments (and `MultiSteps`'
+running mean); a unit's call gathers its parameters and its backward
+reduce-scatters its gradient, so there is no all-reduce after the
+backward and no exchange after the update. The step is data parallelism's
+bit for bit. AdamW stays the kernel, on the shards (JAX's FSDP falls back
+to optax). Graphed FSDP steps are not ported: `make_train_step_scan`
+refuses them on a card (ROADMAP item 16b).
+
 Randomness comes from explicit generators on the task's device:
 `masking_generator` for the MAE noise (or noise injected by the caller)
 and `dropout_generator` for every dropout site. Each step reseeds both in
@@ -47,7 +57,7 @@ import torch
 from ..core import distributed
 from ..core.config import PretrainConfig
 from ..core.dtypes import policy
-from ..nn.layers import set_generator, set_plain
+from ..nn.layers import call, set_generator, set_plain
 from ..nn.mae import ECAMP
 from ..ops.image_ops import device_normalize_image
 from .graphed import GraphedSteps, PinnedStager
@@ -144,19 +154,28 @@ class PretrainTask:
                 generator=torch.Generator(self.device).manual_seed(cfg.seed)
             ).to(self.device)  # the sin-cos buffers are made on the host
         set_generator(self.model, self.dropout_generator)
+        if cfg.mesh.shard_params and cfg.mesh.model > 1:
+            raise ValueError("shard_params (FSDP) and a model axis > 1 (TP) "
+                             "cannot be combined")
         if cfg.mesh.model != 1:
             raise NotImplementedError("tensor parallelism (MeshConfig.model "
                                       "> 1) is not ported to ecamp_tpu_torch")
-        # the data axis: every rank of the process group, if there is one
-        self.dp = (distributed.DataParallel(self.model)
-                   if distributed.is_distributed() else None)
         self.rank, self.world = distributed.rank(), distributed.world_size()
         if cfg.mesh.data not in (-1, self.world):
             raise ValueError(f"MeshConfig.data = {cfg.mesh.data}, but "
                              f"{self.world} ranks train")
-        zero1 = (distributed.Zero1(self.dp.layout, self.rank, self.dp)
-                 if self.dp is not None and cfg.mesh.shard_optimizer
-                 else None)
+        # the data axis: every rank of the process group, if there is one;
+        # FSDP also in one process (one span)
+        zero1 = None
+        if cfg.mesh.shard_params:
+            self.dp = distributed.Fsdp(self.model, self.model.fsdp_units())
+            zero1 = distributed.Zero1(self.dp.layouts(), self.rank, self.dp)
+        elif distributed.is_distributed():
+            self.dp = distributed.DataParallel(self.model)
+            if cfg.mesh.shard_optimizer:
+                zero1 = distributed.Zero1(self.dp.layout, self.rank, self.dp)
+        else:
+            self.dp = None
         self.schedule = make_schedule(cfg.optimizer, steps_per_epoch,
                                       max_epoch=cfg.max_epoch)
         self.tx = make_optimizer(cfg.optimizer, steps_per_epoch,
@@ -176,7 +195,8 @@ class PretrainTask:
         """A fresh train state at step 0; with `generator`, the parameters
         are drawn anew from it first."""
         if generator is not None:
-            self.model.reset_parameters(generator)
+            with distributed.whole_params(self.model):
+                self.model.reset_parameters(generator)
         self.step = 0
         return TrainState.create(self.model, self.tx)
 
@@ -233,9 +253,16 @@ class PretrainTask:
         run on the host); a failed capture or replay raises; nothing falls
         back to eager steps. On the CPU, in one process or on gloo ranks,
         the K steps run in order. Under a group every rank makes the scan
-        and calls it with the same K (a collective)."""
+        and calls it with the same K (a collective). FSDP's steps are not
+        graphed: on a card they raise (ROADMAP item 16b)."""
         if k < 1:
             raise ValueError(f"steps per call must be >= 1, not {k}")
+        if self.device.type == "cuda" and self.cfg.mesh.shard_params:
+            raise NotImplementedError(
+                "FSDP (shard_params) with K > 1 steps a call on CUDA needs "
+                "CUDA graphs of the unit gathers and reduce-scatters, which "
+                "are not ported to ecamp_tpu_torch (ROADMAP Queue 1 item "
+                "16b, graphed FSDP): run one step a call")
         if self.device.type == "cuda":
             return GraphedSteps(self, state, k)
 
@@ -279,8 +306,10 @@ class PretrainTask:
         # zero the grads in place: their addresses stay fixed, so the AdamW
         # kernel's leaf table is built once
         self.model.zero_grad(set_to_none=False)
-        out = self.model(batch, mask_ratio=self.cfg.mask_ratio, noise=noise,
-                         generator=self.masking_generator)
+        if self.cfg.mesh.shard_params:
+            self.dp.zero_grad_()
+        out = call(self.model, batch, mask_ratio=self.cfg.mask_ratio,
+                   noise=noise, generator=self.masking_generator)
         loss = out["mim_loss"] + out["res_loss"] + out["mlm_loss"]
         loss.backward()
         if self.dp is not None:

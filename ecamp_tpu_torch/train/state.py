@@ -14,7 +14,12 @@ state dict of its own (`cycle_state_dict`). Under ZeRO-1 (`zero1`) the
 moments and the running mean hold this rank's pieces: their state dicts
 gather the whole leaves from every rank first (a collective every rank
 calls), and loading one takes the rank's pieces, so a file has the same
-layout whatever wrote it and loads into any number of ranks.
+layout whatever wrote it and loads into any number of ranks. Under FSDP
+(a share that `holds_pieces`) the parameters themselves are this rank's
+pieces (`core/distributed.py::Fsdp.pieces`, views of its shards whose
+`.grad` views its gradient shard); what reads a leaf's shape reads the
+share's (`leaf_shaped`), and the model's whole parameters are gathered
+where a file needs them (`ckpt/checkpoint.py`).
 
 `opt_state_dict` / `load_opt_state_dict` round-trip every fine-tune
 optimizer state whole (the fine-tune CLIs' preemption files): SGD's count
@@ -33,7 +38,7 @@ import torch
 from torch import nn
 
 from ..core.distributed import Zero1
-from ..kernels.fused_adamw import AdamWState
+from ..kernels.fused_adamw import AdamWState, leaf_shaped
 from .optim import MultiStepsState, SGDState
 
 
@@ -82,15 +87,18 @@ class TrainState:
     step: torch.Tensor                 # int32 device scalar
     params: Dict[str, torch.Tensor]    # the model's parameters, by name
     opt_state: Any                     # AdamWState or SGDState
-    zero1: Optional[Zero1] = None      # the optimizer's ZeRO-1 share
+    zero1: Optional[Zero1] = None      # the optimizer's ZeRO-1 / FSDP share
 
     @classmethod
     def create(cls, model: nn.Module, tx) -> "TrainState":
-        params = dict(model.named_parameters())
+        """The step at 0, the parameters (under FSDP the rank's pieces)
+        and the optimizer's fresh state."""
+        zero1 = getattr(tx, "zero1", None)
+        params = (zero1.dp.pieces if zero1 is not None and zero1.holds_pieces
+                  else dict(model.named_parameters()))
         dev = next(iter(params.values())).device
         return cls(step=torch.zeros((), dtype=torch.int32, device=dev),
-                   params=params, opt_state=tx.init(params),
-                   zero1=getattr(tx, "zero1", None))
+                   params=params, opt_state=tx.init(params), zero1=zero1)
 
     def apply_gradients(self, tx) -> "TrainState":
         """One optimizer update from the parameters' `.grad` (a missing
@@ -123,7 +131,8 @@ class TrainState:
         (CPU tensors; Linear weights stay (out, in), as the moments live in
         the weight's coordinates)."""
         st = adamw_state(self.opt_state)
-        order, n_nd = reference_param_order(self.params)
+        order, n_nd = reference_param_order(leaf_shaped(self.params,
+                                                        self.zero1))
         step = st.count.detach().float().cpu()
         mu, nu = self._whole(st.mu), self._whole(st.nu)
         return {
@@ -141,7 +150,8 @@ class TrainState:
         reference AdamW state dict, copied onto the parameters' devices
         (under accumulation into the inner state; the cycle is kept)."""
         adamw_state(self.opt_state)
-        order, n_nd = reference_param_order(self.params)
+        order, n_nd = reference_param_order(leaf_shaped(self.params,
+                                                        self.zero1))
         sizes = [len(g["params"]) for g in sd["param_groups"]]
         if sizes != [n_nd, len(order) - n_nd]:
             raise ValueError(f"param-group sizes {sizes} do not match "

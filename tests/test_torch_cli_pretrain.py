@@ -228,12 +228,15 @@ def test_cli_tensorboard_scalars_equal_the_log(cli_run):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """--fsdp and orbax directories raise, and so does --steps_per_call > 1
-    on CUDA under a process group whose collectives a CUDA graph cannot
-    capture (gloo, where ranks share a card; patched in here), once the
-    rank has joined it. K > 1 in one process, on NCCL ranks and on the
-    CPU's gloo ranks runs (tests/test_torch_steps_per_call.py,
-    tests/test_torch_dp_steps_per_call.py), and so does K = 1 anywhere."""
+    """Orbax directories raise, and so does --steps_per_call > 1 on CUDA
+    under a process group whose collectives a CUDA graph cannot capture
+    (gloo, where ranks share a card; patched in here), once the rank has
+    joined it, and with --fsdp (graphed FSDP, ROADMAP item 16b), before
+    anything touches the card. K > 1 in one process, on NCCL ranks and on
+    the CPU's gloo ranks runs (tests/test_torch_steps_per_call.py,
+    tests/test_torch_dp_steps_per_call.py), and so does K = 1 anywhere;
+    --fsdp runs (tests/test_torch_fsdp.py), and with K > 1 on the CPU is
+    let through."""
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
     steps = cli.get_args(base + ["--steps_per_call", "2"])
     cli.refuse_what_is_not_ported(steps)
@@ -247,10 +250,15 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError,
                            match="steps_per_call > 1 on CUDA .* gloo group"):
             cli.run(steps, torch.device("cuda"))
-    for extra, msg in ((["--fsdp"], "fsdp"),
-                       (["--resume", str(tmp_path)], "orbax")):
-        with pytest.raises(NotImplementedError, match=msg):
-            cli.main(base + extra)
+    fsdp_steps = cli.get_args(base + ["--fsdp", "--steps_per_call", "2"])
+    cli.refuse_what_is_not_ported(fsdp_steps)
+    cli.refuse_ungraphable(fsdp_steps, torch.device("cpu"))
+    cli.refuse_ungraphable(cli.get_args(base + ["--fsdp"]),
+                           torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="fsdp .* item 16b"):
+        cli.run(fsdp_steps, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="orbax"):
+        cli.main(base + ["--resume", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             cli.main(["--data_path", str(tmp_path)])

@@ -527,3 +527,105 @@ def finetune_clis(runs: list) -> list:
         metrics.JsonlLogger.write = real_write
         distributed.shutdown_distributed()
     return out
+
+
+# -- FSDP (tests/test_torch_fsdp.py) ----------------------------------------
+
+
+def _fsdp_run(cfg, weights: dict, batch: dict, noise, steps: int,
+              deterministic: bool) -> dict:
+    """`steps` PretrainTask steps on this rank's rows of the global `batch`
+    from `weights` (`noise` the global noise, or None to draw it): the
+    losses, the whole parameters and the gathered optimizer and cycle
+    state dicts, and the elements the rank keeps of the parameters, their
+    gradients and the moments."""
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    rank, world = distributed.rank(), distributed.world_size()
+    task = PretrainTask(cfg, device="cpu")
+    with distributed.whole_params(task.model) as model:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in weights.items()}, strict=True)
+    state = task.init_state()
+    b = len(batch["ids"]) // world
+    local = task.put_batch({k: v[rank * b:(rank + 1) * b]
+                            for k, v in batch.items()})
+    losses = []
+    for _ in range(steps):
+        state, m = task.train_step(
+            state, local, None if noise is None else torch.from_numpy(noise),
+            deterministic)
+        losses.append({k: float(v) for k, v in m.items()})
+    with distributed.whole_params(task.model, write_back=False) as model:
+        params = {k: v.clone() for k, v in model.state_dict().items()}
+    adam = adamw_state(state.opt_state)
+    shards = getattr(task.dp, "units", [])
+    return {"losses": losses, "params": params,
+            "optimizer": state.optimizer_state_dict(0.05),
+            "cycle": state.cycle_state_dict(),
+            "elements": {
+                "params": sum(p.numel() for p in state.params.values()),
+                "param_shards": sum(u.shard.numel() for u in shards),
+                "grad_shards": sum(u.grad.numel() for u in shards),
+                "moments": sum(t.numel() for t in adam.mu.values())}}
+
+
+def _clip_norms(rank: int, world: int) -> dict:
+    """The clip's global norm over this rank's pieces of seeded gradients
+    (ZeRO-1's layout, every rank's norm over the ranks) beside the norm of
+    the whole gradients; and a clipped update of a ZeRO-1 `MultiSteps`
+    (the running mean in pieces) beside the unsharded one's, after 2
+    micro-steps: this rank's elements of each leaf."""
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.kernels.fused_adamw import FusedAdamW, global_norm
+    from ecamp_tpu_torch.train.optim import MultiSteps
+
+    g = torch.Generator().manual_seed(5)
+    shapes = {"w": (64, 48), "b": (3,), "pos": (1, 1, 40), "odd": (7, 13)}
+
+    def draw():
+        return {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+
+    params, grads = draw(), [draw(), draw()]
+    layout = distributed.FlatLayout(shapes, world)
+    z = distributed.Zero1(layout, rank)
+    out = {"whole_norm": float(global_norm(list(grads[0].values()))),
+           "sharded_norm": float(global_norm(
+               [z.local(t, k) for k, t in grads[0].items()],
+               over_ranks=True))}
+
+    def make(zero1):
+        return MultiSteps(FusedAdamW(
+            lambda c: torch.full((), 1e-2), 0.9, 0.95, 1e-8, 0.05,
+            grad_clip=0.5, zero1=zero1), 2)
+
+    updated = {}
+    for name, share in (("whole", None), ("zero1", z)):
+        p = {k: t.clone() for k, t in params.items()}
+        tx = make(share)
+        st = tx.init(p)
+        for gr in grads:
+            st = tx.apply(p, gr, st)
+        updated[name] = {k: z.local(t, k).clone() for k, t in p.items()}
+    out["updated"] = updated
+    return out
+
+
+def fsdp_parts(runs: dict, weights: dict, batch: dict, noise: np.ndarray,
+               steps: int, clis: list, tiny: dict) -> dict:
+    """`tests/test_torch_fsdp.py` on this rank of one gloo group: each of
+    `runs` (name -> (PretrainConfig, injected noise or not, dropout off or
+    not)) through `_fsdp_run`; the clip's norm over the ranks
+    (`_clip_norms`); then each of `clis` as `cli_mains` runs them, at the
+    tiny model `tiny`. Returns name -> result, "clip" and "printed"."""
+    from ecamp_tpu_torch.core import distributed
+
+    distributed.initialize_distributed("cpu")
+    out = {name: _fsdp_run(cfg, weights, batch, noise if inject else None,
+                           steps, det)
+           for name, (cfg, inject, det) in runs.items()}
+    out["clip"] = _clip_norms(distributed.rank(), distributed.world_size())
+    out["printed"] = cli_mains(clis, tiny)  # it leaves the group
+    return out

@@ -8,10 +8,12 @@ Builds the kernel library of this checkout, writes the seeded MIMIC-style
 corpus the phase's torchrun CLI run reads, and runs `dp_phase`: one
 process at B = 32, then `dp_worker` under torchrun (2 NCCL ranks on two or
 more cards; on one card NCCL at one rank and 2 gloo ranks sharing it; on
-NCCL ranks also the graphed data-parallel step against the eager one, (f))
-and `torchrun -m ecamp_tpu_torch.cli.pretrain --shard_optimizer
---fused_mlm_ce`, the same with `--steps_per_call 3` on one NCCL rank, and
-its refusal on 2 gloo ranks sharing the first card. The launch counts it expects a step are the full-width
+NCCL ranks also the graphed data-parallel step against the eager one, (f);
+in every launch FSDP against plain data parallelism) and `torchrun -m
+ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce`, `--shard_optimizer
+--steps_per_call 3` on one NCCL rank and its refusal on 2 gloo ranks
+sharing the first card, and the refusal of `--fsdp --steps_per_call 3` on
+CUDA. The launch counts it expects a step are the full-width
 model's: 51 LayerNorm, 24 attention, 1 SR stack, 1 AdamW; with the fused
 CE 1 + 1 forward and 8 dl, dx, dW. Prints the phase's lines and its JSON
 (`data_parallel`), also written to OUT.json if given; a failed check
