@@ -128,17 +128,19 @@
    with the max difference); (6d) `python -m
    ecamp_tpu_torch.cli.run_preset pretrain_mimic --batch_size 32 --epochs
    1 --fused_mlm_ce`: the preset's accumulation 8 over 2 micro-steps, 0
-   updates, no AdamW launch; (6b), (6c)'s first run and (6d) side by
-   side. The `pretrain_recipe` JSON line holds 4b's figures and these
+   updates, no AdamW launch. (6)'s two runs (in a thread), (g)'s two CLI
+   runs, (6b), (6c)'s first run, (6d) and (6e)'s `--fsdp` CLI run start
+   together. The `pretrain_recipe` JSON line holds 4b's figures and these
    results.
 6e. Data-parallel pretraining (`dp_phase`), at full width, bf16, dropout
    off, injected noise, AdamW lr 1.5e-4: one process at B = 32 on a seeded
    global batch for 3 steps (the reference), then `torchrun` of this
    script's `--dp-worker` mode: on two or more cards 2 NCCL ranks of B =
    16, on one card NCCL at world size 1 (B = 32) and 2 gloo ranks of B =
-   16 sharing the card. Each: (a) every step's losses within 2e-2, the
-   first averaged gradient's norm and the 3 steps' parameter update's norm
-   within 5% of the reference's (the update's cosine printed), the
+   16 sharing the card, the two launches side by side. Each: (a) every
+   step's losses within 2e-2, the first averaged gradient's norm and the 3
+   steps' parameter update's norm within 5% of the reference's (the
+   update's cosine printed), the
    materialised step's launches a step on every rank; (b) a ZeRO-1 AdamW
    fed the same averaged gradients after every step equal to plain data
    parallelism's parameters bit for bit; (c) the ranks' parameter
@@ -154,31 +156,40 @@
    are compared by distance (printed). (f) Under NCCL, from the same
    weights and rows, 2 calls of K = 3 micro-steps through CUDA graphs of
    the data-parallel step (`make_train_step_scan`: the global noise drawn,
-   the gradient and metrics all-reduces and, with ZeRO-1, the span
-   broadcasts captured), plain and ZeRO-1, against 6 eager micro-steps,
-   dropout on, under deterministic algorithms: losses and parameters bit
-   for bit, the step and AdamW's count, each kernel's launches (the
-   replays counted), ms a micro-step graphed and eager (host clock) and
-   the capture seconds; under gloo `make_train_step_scan` refuses, naming
-   it. In every launch, "fsdp": FSDP (`shard_params`) from the same
-   weights and rows, 3 steps under deterministic algorithms, as "plain"
+   the gradient and metrics all-reduces, with ZeRO-1 the span broadcasts,
+   with FSDP each unit's all-gather and reduce-scatter captured), plain,
+   ZeRO-1 and FSDP with accumulation 2 (both cycle positions' graphs),
+   against 6 eager micro-steps, dropout on, under deterministic
+   algorithms: losses, whole parameters and moments bit for bit, the
+   step, host step and AdamW's count (FSDP's: 3 updates), each kernel's
+   launches (the replays counted; AdamW once an update), ms a micro-step
+   graphed and eager (host clock), the capture seconds and the peak
+   memory, allocated and reserved; under gloo `make_train_step_scan`
+   refuses, naming it. Beside the launches, in this process: one graphed
+   call of K = 3 micro-steps of FSDP in one process (one span) at B = 32
+   against 3 eager ones, the same checks. In every launch, "fsdp": FSDP
+   (`shard_params`) from the same weights and rows, 3 steps under
+   deterministic algorithms, as "plain"
    runs them: losses within 2e-2 and the first averaged gradient's norm
    within 5% of the one-process reference, the losses, whole parameters
    and moment pieces bit for bit plain data parallelism's, the launches
    a step plain's, the fp32 state a rank keeps (parameter and gradient
    shards, moments) 1/ranks of plain's to the units' padding (printed
    beside the prediction 16 B x parameters / ranks, the allocator's figure
-   and the steps' peak), and its save, load (every rank its shards) and
-   one resumed step bit for bit. Beside those launches, `torchrun -m
+   and the steps' peak), and at 2 ranks its save, load (every rank its
+   shards) and one resumed step bit for bit. `torchrun -m
    ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` on 2 ranks (gloo
-   on one card) of B = 16 for an epoch of 6's corpus, and `--shard_optimizer
-   --steps_per_call 3` on one NCCL rank (4 micro-steps: a graphed call
-   and a tail): one log line each, rank 0's, with every kernel's launches
-   a micro-step (the replays counted), and whole parameters and moments in
-   its checkpoint; and with `--steps_per_call 3` on 2 ranks sharing the
-   first card (gloo), and `--fsdp --steps_per_call 3` on one NCCL rank: a
-   non-zero exit with the refusal (the latter naming ROADMAP item 16b).
-   The `data_parallel` JSON line holds the figures.
+   on one card) of B = 16 for an epoch of 6's corpus (started beside
+   (6)), and beside the launches `--shard_optimizer --steps_per_call 3`
+   and `--fsdp --steps_per_call 3`, each on one NCCL rank (4 micro-steps:
+   a graphed call and a tail): one log line each, rank 0's, with every
+   kernel's launches a micro-step (the replays counted), and whole
+   parameters and moments in its checkpoint; and with `--steps_per_call
+   3` on 2 ranks sharing the first card (gloo): a non-zero exit with the
+   refusal. The `data_parallel` JSON line holds the figures; the launches
+   run side by side and beside the CLIs, and the one-process call beside
+   them, so their times carry `beside`, the count of the started
+   processes that ran with them.
 7. The classification fine-tune at full width (ViT-B/16 at 224, 14
    multilabel classes, bf16, recipe cls_ft_ChestX-ray14_1: B = 96, SGD
    momentum 0.9, lr 3e-2, warmup 50, clip 1.0, drop-path 0.1), after the
@@ -191,11 +202,15 @@
    bit-unchanged, the head changed, the same launches; (c) `python -m
    ecamp_tpu_torch.cli.finetune_cls` from the pretrain CLI's checkpoint on
    a seeded 192/70/70 list corpus (eval batch 32, ragged), 2 epochs of
-   updates, patience 1: validation and test lines, the best `.pth`; (d)
-   `classifier_engine` on that `.pth` against `ClassificationTask.eval_step`
+   updates, patience 1: validation and test lines, the best `.pth` (the
+   corpus is written and the run started when the phase starts, so it
+   runs beside (a) and (b); 8 and 9 start theirs a phase ahead, 10 and
+   11 with their phase; so 7's steps are timed beside 8's CLI runs, and
+   their JSON says so: `beside`); (d) `classifier_engine` on that `.pth` against
+   `ClassificationTask.eval_step`
    plus a sigmoid (2e-2); (e) `preempt_drill`: (c)'s command in a fresh
    output directory with ECAMP_PREEMPT_AT_STEP at micro-step 3 (epoch 1,
-   batch 1, after the first validation), started beside (c) (it reads
+   batch 1, after the first validation), started with (c) (it reads
    nothing of (c)'s): exit 0, the message,
    `preempt/checkpoint-step-3.pth`, no test line; then again without the
    variable: the resume line, the test line, `preempt/` gone; the
@@ -211,16 +226,19 @@
 8. The segmentation fine-tune at full width (SegViT: ViT-B/16 at 224,
    seg_head, decoder 512/256/128/64, bf16, the encoder frozen; recipe
    seg_SIIM_100: B = 512, AdamW lr 5e-4 wd 0.05, warmup 50 of 3000, clip
-   1.0), after the fine-tune: LayerNorm and attention against their plain
-   versions at (512 * 197, 768) and (512, 12, 197, 64); (a) the first
-   step through the kernels against the plain step (loss 2e-2, grad norm
-   5%, BatchNorm running statistics 2e-2), the AdamW kernel on the 20
-   trainable leaves against the per-leaf formula at count 50 (the end of
-   the warmup: every leaf moves), the device time of the
-   last decoder upsample, 5 steps on a fixed seeded batch (the loss
-   falls), 24 LayerNorm, 12 attention and 1 AdamW launches a step, the
-   trunk bit-unchanged and seg_head and the decoder changed, step time,
-   device busy and peak memory; (b) SegViTDual (RIGA, B = 56) for 3
+   1.0), after the fine-tune. Its kernels are checked and timed earlier,
+   after 7's, where nothing runs beside them: LayerNorm and attention
+   against their plain versions at (512 * 197, 768) and (512, 12, 197,
+   64), the AdamW kernel on the 20 trainable leaves (seeded gradients)
+   against the per-leaf formula at count 50 (the end of the warmup: every
+   leaf moves), the device time of the last decoder upsample. Its CLI runs
+   (c) and (e) start with 7, so its steps' readings are taken beside them
+   (`beside` in its JSON). (a) The first step through the kernels against
+   the plain step (loss 2e-2, grad norm 5%, BatchNorm running statistics
+   2e-2), 5 steps on a fixed seeded batch (the loss falls), 24 LayerNorm,
+   12 attention and 1 AdamW launches a step, the trunk bit-unchanged and
+   seg_head and the decoder changed, step time, device busy and peak
+   memory; (b) SegViTDual (RIGA, B = 56) for 3
    steps, the same launches, both decoders changed; (c) `python -m
    ecamp_tpu_torch.cli.finetune_seg --task SIIM` from the pretrain CLI's
    checkpoint on a seeded SIIM corpus (PNGs at 512 px, RLE masks at 1024,
@@ -233,13 +251,16 @@
    768 -> 768, the Bottleneck neck at expansion 4 to 28^2 x 512, 14^2 x
    1024 and 7^2 x 2048, the YOLOv3 head with 1 class; bf16, the encoder
    frozen; recipe det_RSNA_100: B = 1024, AdamW lr 5e-4 wd 0.05, warmup
-   30 of 20000, clip 1.0), after the segmentation fine-tune: LayerNorm and
-   attention against their plain versions at (1024 * 197, 768) and (1024,
-   12, 197, 64); (a) on a fixed seeded u8 batch with 1-3 boxes an image,
-   the first step through the kernels against the plain step (loss 2e-2,
-   grad norm 5%, BatchNorm running statistics 2e-2), the AdamW kernel on
-   the 100 trainable leaves against the per-leaf formula at count 30 (the
-   end of the warmup: every leaf moves), 5 steps from count 30 (the peak
+   30 of 20000, clip 1.0), after the segmentation fine-tune. Its kernels
+   are checked and timed after 8's, alone: LayerNorm and attention against
+   their plain versions at (1024 * 197, 768) and (1024, 12, 197, 64), the
+   AdamW kernel on the 100 trainable leaves (seeded gradients) against the
+   per-leaf formula at count 30 (the end of the warmup: every leaf moves).
+   Its CLI runs (c) and (e) start with 8, so its steps' readings are
+   taken beside them (`beside`). (a) On a fixed seeded u8 batch with 1-3
+   boxes an image, the first step through the kernels against the plain
+   step (loss 2e-2, grad norm 5%, BatchNorm running statistics 2e-2), 5
+   steps from count 30 (the peak
    lr, reached through the 30 warmup steps; the loss falls), 24 LayerNorm, 12 attention and 1 AdamW launches a
    step, the trunk bit-unchanged and det_head, the neck and the head
    changed, step time, images/s, device busy and peak memory; (b)
@@ -261,8 +282,8 @@
    (16 and 32 a rank at 2 ranks), 3 steps each from the seeded weights on
    the rank's rows of a seeded global batch, under torchrun
    (`chip_smoke.py --dp-ft-worker SPEC`): 2 NCCL ranks on two or more
-   cards; on one card NCCL at one rank and 2 gloo ranks sharing it; each
-   launch against one process at the global
+   cards; on one card NCCL at one rank and 2 gloo ranks sharing it, side
+   by side; each launch against one process at the global
    batch: every step's loss within LOSS_TOL, the first averaged
    gradient's norm within GNORM_TOL, the BatchNorm running statistics
    within DPF_BN_TOL, the ranks' parameter and BatchNorm-buffer checksums
@@ -347,8 +368,10 @@
    runs: `dp_launches`, `dp_zero1_launches`, `dp_fsdp_launches`,
    `dp_cli_launches` (the `--fsdp` CLI's epoch),
    `dp_graphed_launches` (the NCCL rank's graphed plain calls),
-   `dp_graphed_cli_launches` (the `--steps_per_call 3` CLI's epoch), and in
-   (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
+   `dp_graphed_cli_launches` (the `--shard_optimizer --steps_per_call 3`
+   CLI's epoch), `dp_fsdp_graphed_launches` (the NCCL rank's graphed FSDP
+   calls), `dp_fsdp_graphed_cli_launches` (the `--fsdp --steps_per_call 3`
+   CLI's epoch), and in (9f)'s: `dp_seg_launches`, `dp_det_launches`, and in (g)'s graphed
    micro-steps and CLI epoch: `graphed_launches`, `graphed_cli_launches`,
    and in (h)'s eager remat micro-steps and classification step:
    `remat_launches`, `remat_finetune_launches`)
@@ -361,6 +384,7 @@ at once; it never runs on the CPU.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -422,6 +446,8 @@ DP_B = 16            # rows a rank of the torchrun CLI run
 DP_TIMEOUT = 300     # seconds for one torchrun launch
 DP_GRAPH_K = 3       # (6e) (f): micro-steps a graphed data-parallel call
 DP_GRAPH_CALLS = 2   # (6e) (f): graphed calls held against eager steps
+DP_GRAPH_ACCUM = 2   # (6e) (f): the graphed FSDP run's accumulation
+DP_GRAPH_TIMED_CALLS = 2  # (6e) (f): calls of replays only, timed
 # the fine-tune: recipe cls_ft_ChestX-ray14_1 (ecamp_tpu/core/presets.py:
 # 32-48): batch 96, SGD momentum 0.9, lr 3e-2, warmup 50 of 3000 steps,
 # clip 1.0, drop-path 0.1, ViT-B/16 at 224, 14 multilabel findings
@@ -3177,6 +3203,14 @@ def steps_per_call_cli_finish(card: str, runs: dict, per_step: dict
 _STARTED = []  # processes started to run beside a phase; main stops any
 
 
+def beside() -> int:
+    """How many of the processes this script started run now. A reading
+    taken while any does shares the card and the host with them: its JSON
+    gives the larger count of its start and end as `beside`, and 0 means
+    it ran alone."""
+    return sum(p.poll() is None for p in _STARTED)
+
+
 def _start_group(cmd, env):
     """Start `cmd` (a launcher and its ranks) from the repository root in a
     process group of its own, its output piped."""
@@ -3231,12 +3265,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_config(shard: bool, fsdp: bool = False):
+def _dp_config(shard: bool = False, fsdp: bool = False, accum: int = 1):
     from ecamp_tpu_torch.core.config import (MeshConfig, OptimizerConfig,
                                              PretrainConfig)
 
     return PretrainConfig(optimizer=OptimizerConfig(schedule="constant",
-                                                    lr=1.5e-4),
+                                                    lr=1.5e-4,
+                                                    accum_steps=accum),
                           mesh=MeshConfig(shard_optimizer=shard,
                                           shard_params=fsdp), seed=SEED)
 
@@ -3271,67 +3306,117 @@ def _not_key_bias(name: str, p):
     return keep
 
 
-def dp_graphed(build, local: dict, counters: dict) -> dict:
-    """(6e) (f), on NCCL ranks: for plain data parallelism and ZeRO-1,
-    DP_GRAPH_CALLS calls of DP_GRAPH_K micro-steps through CUDA graphs of
-    the data-parallel step (`make_train_step_scan`: the global noise drawn
-    in the graph, the gradient and metrics all-reduces and ZeRO-1's
-    broadcasts captured) and as many eager micro-steps, both from the
+# (6e) (f)'s graphed runs: name -> `build`'s keywords (ZeRO-1, FSDP, the
+# accumulation); FSDP with accumulation DP_GRAPH_ACCUM, so that both cycle
+# positions' graphs are captured and replayed
+DP_GRAPH_RUNS = {"plain": {}, "zero1": {"shard": True},
+                 "fsdp": {"fsdp": True, "accum": DP_GRAPH_ACCUM}}
+
+
+def dp_graphed(build, local: dict, counters: dict, runs: dict = None,
+               calls: int = DP_GRAPH_CALLS) -> dict:
+    """(6e) (f), on NCCL ranks or in one process: for each of `runs` (name
+    -> `build`'s keywords; DP_GRAPH_RUNS: plain data parallelism, ZeRO-1
+    and FSDP with accumulation), `calls` calls of DP_GRAPH_K micro-steps
+    through CUDA graphs of the data-parallel step (`make_train_step_scan`:
+    the global noise drawn in the graph, the gradient and metrics
+    all-reduces, ZeRO-1's broadcasts, FSDP's unit gathers and
+    reduce-scatters captured) and as many eager micro-steps, both from the
     seeded weights on the rank's rows `local` (every micro-step), dropout
     on, under deterministic algorithms: each micro-step's metrics, whether
-    the parameters are bit-equal, the step and AdamW's count of each, each
+    the whole parameters (gathered under FSDP) and the rank's moments are
+    bit-equal, the step, host step and AdamW's count of each, each
     kernel's launches (the replays counted), ms a micro-step (host clock,
-    synchronised: eager steps 2 on, the calls after the first, replays
-    alone) and the capture seconds."""
+    synchronised: eager steps 2 on, each graphed call, a capture in it
+    included), the capture seconds and the peak memory, allocated and
+    reserved, above what was held (and cached) before the task was built;
+    then DP_GRAPH_TIMED_CALLS more graphed calls, replays only (every kind
+    is captured by then), timed as ms a micro-step."""
+    import gc
+
     import torch
 
-    n = DP_GRAPH_K * DP_GRAPH_CALLS
-    superbatch = {k: torch.stack([v] * DP_GRAPH_K) for k, v in local.items()}
+    from ecamp_tpu_torch.core import distributed
+
+    k = DP_GRAPH_K
+    n = k * calls
+    superbatch = {name: torch.stack([v] * k) for name, v in local.items()}
     out = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for name, shard in (("plain", False), ("zero1", True)):
-            runs = {}
+        for name, kw in (runs or DP_GRAPH_RUNS).items():
+            res = {}
             for graphed in (False, True):
-                task = build(shard)
+                gc.collect()
+                torch.cuda.empty_cache()
+                outside = torch.cuda.memory_allocated()
+                reserved = torch.cuda.memory_reserved()
+                task = build(**kw)
                 state = task.init_state()
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 for ctr in counters.values():
                     ctr.reset()
                 rows, times = [], []
-                scan = (task.make_train_step_scan(state, DP_GRAPH_K)
+                scan = (task.make_train_step_scan(state, k)
                         if graphed else None)
-                for _ in range(DP_GRAPH_CALLS if graphed else n):
+                for _ in range(calls if graphed else n):
                     t = time.perf_counter()
                     if graphed:
                         state, m = scan(state, superbatch)
-                        got = [{k: float(v[i]) for k, v in m.items()}
-                               for i in range(DP_GRAPH_K)]
+                        got = [{key: float(v[i]) for key, v in m.items()}
+                               for i in range(k)]
                     else:
                         state, m = task.train_step(state, local)
-                        got = [{k: float(v) for k, v in m.items()}]
+                        got = [{key: float(v) for key, v in m.items()}]
                     torch.cuda.synchronize()
                     times.append((time.perf_counter() - t) * 1e3 / len(got))
                     rows += got
-                runs[graphed] = {
-                    "losses": rows, "step_ms": times[1:],
-                    "launches": {k: c.value for k, c in counters.items()},
-                    "counts": [int(state.step), task.step,
-                               int(state.opt_state.count)],
+                adam = state.opt_state
+                adam = getattr(adam, "inner_opt_state", adam)
+                peaks = (torch.cuda.max_memory_allocated() - outside,
+                         torch.cuda.max_memory_reserved() - reserved)
+                with distributed.whole_params(task.model,
+                                              write_back=False) as model:
+                    params = {key: v.detach().clone()
+                              for key, v in model.state_dict().items()}
+                res[graphed] = {
+                    "losses": rows,
+                    "step_ms": times if graphed else times[1:],
+                    "launches": {key: c.value for key, c in counters.items()},
+                    "counts": [int(state.step), task.step, int(adam.count)],
                     "capture_s": scan.capture_seconds if graphed else None,
                     "eager_steps": scan.eager_steps if graphed else n,
-                    "params": {k: p.detach().clone()
-                               for k, p in state.params.items()}}
-                del task, state, scan
-            eager, graph = runs[False], runs[True]
+                    "peak_bytes": {"allocated": peaks[0],
+                                   "reserved": peaks[1]},
+                    "params": params,
+                    "moments": [v.clone() for v in (*adam.mu.values(),
+                                                    *adam.nu.values())]}
+                if graphed:  # replays only: every kind is captured by now
+                    replay_ms = []
+                    for _ in range(DP_GRAPH_TIMED_CALLS):
+                        t = time.perf_counter()
+                        state, _m = scan(state, superbatch)
+                        torch.cuda.synchronize()
+                        replay_ms.append((time.perf_counter() - t) * 1e3 / k)
+                    res[graphed]["replay_ms"] = replay_ms
+                # the graphs go before the group: NCCL's teardown waits for
+                # the graphs that captured its collectives
+                del task, state, scan, adam, model
+            eager, graph = res[False], res[True]
             out[name] = {
-                "bit_equal": all(torch.equal(p, eager["params"][k])
-                                 for k, p in graph["params"].items()),
+                "accum": kw.get("accum", 1), "micro_steps": n,
+                "bit_equal": all(torch.equal(p, eager["params"][key])
+                                 for key, p in graph["params"].items()),
+                "moments_equal": all(torch.equal(a, b) for a, b in zip(
+                    graph["moments"], eager["moments"])),
                 **{f: {"eager": eager[f], "graphed": graph[f]}
-                   for f in ("losses", "step_ms", "launches", "counts")},
+                   for f in ("losses", "step_ms", "launches", "counts",
+                             "peak_bytes")},
                 "capture_s": graph["capture_s"],
+                "replay_ms": graph["replay_ms"],
                 "graphed_eager_steps": graph["eager_steps"]}
-            del runs, eager, graph
+            del res, eager, graph
     finally:
         torch.use_deterministic_algorithms(False)
     return out
@@ -3396,14 +3481,16 @@ def dp_worker(spec: dict) -> int:
     local = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
     ref = torch.load(spec["ref"], map_location=dev, weights_only=True)
 
-    def build(shard, fsdp=False):
+    def build(shard=False, fsdp=False, accum=1):
         gc.collect()
         torch.cuda.empty_cache()
-        return PretrainTask(_dp_config(shard, fsdp), device=dev)
+        return PretrainTask(_dp_config(shard, fsdp, accum), device=dev)
 
     class Shadow:
         """A copy of the task's parameters in its flat layout, and a ZeRO-1
         AdamW over it that takes the task's averaged gradients."""
+
+        group = None  # its collectives go through the whole group
 
         def __init__(self, task):
             self.layout = task.dp.layout
@@ -3535,7 +3622,8 @@ def dp_worker(spec: dict) -> int:
     del task, state, shadow
     gc.collect()
     out["fsdp"] = dp_fsdp(build, steps, start, counters, plain,
-                          plain_moments, res["losses"], spec["work"])
+                          plain_moments, res["losses"], spec["work"],
+                          resume=world > 1)
     del plain_moments
     gc.collect()
     if out["backend"] == "nccl":
@@ -3600,7 +3688,8 @@ def dp_worker(spec: dict) -> int:
 
 
 def dp_fsdp(build, steps, start, counters, plain: dict,
-            plain_moments: tuple, plain_losses: list, work: str) -> dict:
+            plain_moments: tuple, plain_losses: list, work: str,
+            resume: bool) -> dict:
     """`dp_worker`'s run "fsdp" on this rank: FSDP (`shard_params`) from the
     seeded weights on the rank's rows, DP_STEPS steps under deterministic
     algorithms, as "plain" ran: its losses, first averaged gradient's norm
@@ -3608,10 +3697,12 @@ def dp_fsdp(build, steps, start, counters, plain: dict,
     parameters and the rank's moment pieces equal plain data
     parallelism's bit for bit; the bytes of the shards and moments it
     keeps (and the allocator's figure after `init_state`) and the steps'
-    peak. Then the state saved (`save_preemption_checkpoint`) and one more
-    step taken; a new task loads the file (every rank its shards), its
-    shards, moment pieces and count are held to the saved ones, and its
-    step to the uninterrupted one's, bit for bit."""
+    peak. With `resume` (at two or more ranks: at one, the --fsdp
+    --steps_per_call CLI saves its one span), the state saved
+    (`save_preemption_checkpoint`) and one more step taken; a new task
+    loads the file (every rank its shards), its shards, moment pieces and
+    count are held to the saved ones, and its step to the uninterrupted
+    one's, bit for bit."""
     import gc
 
     import torch
@@ -3657,6 +3748,17 @@ def dp_fsdp(build, steps, start, counters, plain: dict,
             torch.equal(state.opt_state.mu[k], share.local(mu[k], k))
             and torch.equal(state.opt_state.nu[k], share.local(nu[k], k))
             for k in mu)
+        out = {"losses": res["losses"], "grad_norm": res["grad_norm"],
+               "step_ms": res["step_ms"], "launches": launches,
+               "losses_equal_plain": res["losses"] == plain_losses,
+               "params_equal_plain": params_equal,
+               "moments_equal_plain": moments_equal, "elements": elements,
+               "state_bytes": 4 * sum(elements.values()),
+               "allocated_after_init_bytes": allocated, "peak_bytes": peak,
+               "save_s": None, "load_s": None}
+        if not resume:
+            del task, state
+            return dict(out, seconds=time.perf_counter() - t_run)
         saved = shards(task, state)
         t = time.perf_counter()
         path = save_preemption_checkpoint(work, task.step, task.model, state,
@@ -3684,18 +3786,9 @@ def dp_fsdp(build, steps, start, counters, plain: dict,
     finally:
         torch.use_deterministic_algorithms(False)
         gc.collect()
-    return {"losses": res["losses"], "grad_norm": res["grad_norm"],
-            "step_ms": res["step_ms"], "launches": launches,
-            "losses_equal_plain": res["losses"] == plain_losses,
-            "params_equal_plain": params_equal,
-            "moments_equal_plain": moments_equal,
-            "elements": elements,
-            "state_bytes": 4 * sum(elements.values()),
-            "allocated_after_init_bytes": allocated, "peak_bytes": peak,
-            "save_s": save_s, "load_s": load_s,
-            "restored_equal": restored, "count": count,
-            "resumed_step_equal": resumed_equal,
-            "seconds": time.perf_counter() - t_run}
+    return dict(out, save_s=save_s, load_s=load_s, restored_equal=restored,
+                count=count, resumed_step_equal=resumed_equal,
+                seconds=time.perf_counter() - t_run)
 
 
 def dp_fsdp_checks(r: dict, who: str, n: int, ref: dict, launches: dict,
@@ -3706,7 +3799,7 @@ def dp_fsdp_checks(r: dict, who: str, n: int, ref: dict, launches: dict,
     parallelism's, the losses, whole parameters and moment pieces equal
     to plain's bit for bit under deterministic algorithms, 1/n of the
     four fp32 copies a rank (to the padding of the units' layouts), and
-    the save, load and resumed step bit for bit."""
+    at two or more ranks the save, load and resumed step bit for bit."""
     from ecamp_tpu_torch.core.distributed import ALIGN
 
     f = r["fsdp"]
@@ -3733,11 +3826,12 @@ def dp_fsdp_checks(r: dict, who: str, n: int, ref: dict, launches: dict,
           and n_params <= n * e["param_shards"] <= n_params + pad,
           f"(fsdp) {who}: elements a rank {e} for {n_params} parameters on "
           f"{n} ranks")
-    check(f["restored_equal"] == [True] * 3 and f["count"] == DP_STEPS
-          and f["resumed_step_equal"],
-          f"(fsdp) {who}: the loaded shards, moments {f['restored_equal']}, "
-          f"count {f['count']}, the resumed step equal "
-          f"{f['resumed_step_equal']}")
+    if n > 1:
+        check(f["restored_equal"] == [True] * 3 and f["count"] == DP_STEPS
+              and f["resumed_step_equal"],
+              f"(fsdp) {who}: the loaded shards, moments "
+              f"{f['restored_equal']}, count {f['count']}, the resumed step "
+              f"equal {f['resumed_step_equal']}")
 
 
 def dp_zero1_checks(r: dict, who: str, n: int, launches: dict,
@@ -3777,23 +3871,28 @@ def dp_zero1_checks(r: dict, who: str, n: int, launches: dict,
 
 
 def dp_graphed_checks(g: dict, who: str, per_step: dict) -> None:
-    """(f): one NCCL rank's `dp_graphed` figures: for plain and ZeRO-1 the
-    graphed micro-steps' losses and parameters bit for bit the eager ones',
-    the step, host step and AdamW count equal, each kernel's launches
-    `per_step` a micro-step in both, and a replay made."""
+    """(f): one NCCL rank's (or one process's) `dp_graphed` figures: for
+    each run the graphed micro-steps' losses, whole parameters and moment
+    pieces bit for bit the eager ones', the step and host step the
+    micro-steps and AdamW's count the updates in both, each kernel's
+    launches `per_step` a micro-step in both but AdamW's, one an update,
+    and a replay made."""
     import numpy as np
 
-    n = DP_GRAPH_K * DP_GRAPH_CALLS
-    want = {k: v * n for k, v in per_step.items()}
     for name, run in g.items():
+        n, accum = run["micro_steps"], run["accum"]
+        want = {k: v * n for k, v in per_step.items()}
+        want["adamw"] = n // accum
         eager, graph = run["losses"]["eager"], run["losses"]["graphed"]
         check(len(graph) == n and graph == eager
               and all(np.isfinite(x["loss"]) for x in graph),
               f"(f) {who} {name}: graphed losses {graph} against eager "
               f"{eager}")
-        check(run["bit_equal"], f"(f) {who} {name}: graphed parameters "
-              f"differ from eager ones")
-        check(run["counts"]["graphed"] == run["counts"]["eager"] == [n] * 3,
+        check(run["bit_equal"] and run["moments_equal"],
+              f"(f) {who} {name}: graphed parameters equal "
+              f"{run['bit_equal']}, moments {run['moments_equal']}")
+        check(run["counts"]["graphed"] == run["counts"]["eager"]
+              == [n, n, n // accum],
               f"(f) {who} {name}: step, host step, count {run['counts']}")
         check(run["launches"]["graphed"] == run["launches"]["eager"] == want,
               f"(f) {who} {name}: launches {run['launches']} != {want}")
@@ -3801,13 +3900,53 @@ def dp_graphed_checks(g: dict, who: str, per_step: dict) -> None:
               f"(f) {who} {name}: no micro-step replayed")
 
 
+def _dp_env() -> dict:
+    """The environment of (6e)'s torchrun launches: no preemption variable,
+    NCCL over the loopback (one host)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    return env
+
+
+def _dp_cli_cmd(n: int, work: str, out: str, *extra) -> list:
+    """`torchrun --nproc_per_node=n -m ecamp_tpu_torch.cli.pretrain
+    --fused_mlm_ce` at DP_B a rank for an epoch of `write_cli_corpus`'s
+    corpus in `work`, into `out`, with `extra`."""
+    return _torchrun(n, _free_port()) + [
+        "-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
+        os.path.join(work, "mimic"), "--fused_mlm_ce", "--batch_size",
+        str(DP_B), "--epochs", "1", "--seed", str(SEED), "--print_freq", "1",
+        "--output_dir", out, *extra]
+
+
+DP_CLI_RANKS = 2  # (6e): ranks of the torchrun --fsdp CLI run
+
+
+def dp_cli_start(work: str) -> dict:
+    """(6e)'s `torchrun -m ecamp_tpu_torch.cli.pretrain --fsdp
+    --fused_mlm_ce` on DP_CLI_RANKS ranks (gloo where they share one card)
+    at DP_B a rank for an epoch of the corpus in `work`: started beside the
+    pretraining CLI's runs (6)-(6d), which it does not read; `dp_phase`
+    checks it."""
+    import torch
+
+    out = os.path.join(work, "dp_cli")
+    return {"out": out, "t": time.perf_counter(),
+            "backend": ("nccl" if DP_CLI_RANKS <= torch.cuda.device_count()
+                        else "gloo"),
+            "proc": _start_group(_dp_cli_cmd(DP_CLI_RANKS, work, out,
+                                             "--fsdp"), _dp_env())}
+
+
 def dp_phase(card: str, per_step: dict, cli_per_step: dict,
-             work: str) -> dict:
+             work: str, fsdp_cli: dict) -> dict:
     """Data-parallel pretraining (`torchrun`, `core/distributed.py`) at full
     width. First one process at B = PRE_B on the seeded global batch
     (DP_STEPS steps, the reference); then `dp_worker` under torchrun: on
     two or more cards 2 NCCL ranks, on one card NCCL at world size 1 and 2
-    gloo ranks sharing the card (NCCL takes one rank a card). Each launch:
+    gloo ranks sharing the card (NCCL takes one rank a card), the launches
+    side by side. Each launch:
     (a) the losses of every step within LOSS_TOL and the first averaged
     gradient's norm within GNORM_TOL of the reference's, the parameter
     update's norm within GNORM_TOL of its, `per_step` launches a step of
@@ -3823,26 +3962,31 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     card; the runs' distance is printed); in every launch FSDP
     (`dp_fsdp_checks`): the reference's bounds, bit for bit plain data
     parallelism under deterministic algorithms, plain's launches, 1/ranks
-    of the fp32 state a rank, its save and resume bit for bit; under NCCL
-    (f) the graphed
-    data-parallel step, plain and ZeRO-1, bit for bit against the eager
+    of the fp32 state a rank, at two ranks its save and resume bit for
+    bit; under NCCL (f) the graphed data-parallel step, plain, ZeRO-1 and
+    FSDP with accumulation DP_GRAPH_ACCUM, bit for bit against the eager
     one under deterministic algorithms (`dp_graphed_checks`), under gloo
-    its refusal. Beside the launches, `torchrun -m
-    ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` on 2 ranks (gloo
-    on one card) at DP_B a rank for an epoch of `cli_phase`'s corpus, and
-    with `--shard_optimizer --steps_per_call DP_GRAPH_K` on one NCCL rank
-    (a graphed call and a tail): each one log line, from rank 0, with
-    `cli_per_step` launches a micro-step, and a checkpoint whose
-    parameters and moments are whole; and with `--steps_per_call
-    DP_GRAPH_K` on 2 ranks sharing the first card (gloo), and with `--fsdp
-    --steps_per_call DP_GRAPH_K` on one NCCL rank, each of which must exit
-    non-zero with its refusal. Returns the `data_parallel` JSON line's
-    content."""
+    its refusal. Beside the launches, in this process: one graphed call of
+    DP_GRAPH_K micro-steps of FSDP in one process (one span: the gathers
+    and reduce-scatters are copies) at B = PRE_B against as many eager
+    ones, bit for bit (`dp_graphed_checks`). The `torchrun -m
+    ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` run `fsdp_cli`
+    (`dp_cli_start`), and beside the launches the same CLI with
+    `--shard_optimizer --steps_per_call DP_GRAPH_K` and with `--fsdp
+    --steps_per_call DP_GRAPH_K`, each on one NCCL rank (a graphed call and
+    a tail): each one log line, from rank 0, with `cli_per_step` launches
+    a micro-step (the replays counted), and a checkpoint whose parameters
+    and moments are whole; and with `--steps_per_call DP_GRAPH_K` on 2
+    ranks sharing the first card (gloo), which must exit non-zero with its
+    refusal. Returns the `data_parallel` JSON line's content."""
     import gc
 
     import torch
 
+    from ecamp_tpu_torch.kernels import flash_attention as fa
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
+    from ecamp_tpu_torch.kernels import layer_norm as ln
+    from ecamp_tpu_torch.kernels import sr_head as sr
     from ecamp_tpu_torch.train.pretrain import PretrainTask
 
     gc.collect()
@@ -3867,7 +4011,7 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     ref_path = os.path.join(work, "dp_reference.pt")
     torch.save({k: p.detach().cpu() for k, p in state.params.items()},
                ref_path)
-    del task, state, batch, noise
+    del task, state, noise
     gc.collect()
     torch.cuda.empty_cache()
     print(f"data parallel on {card}: one process at B = {PRE_B} (the "
@@ -3880,58 +4024,76 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
     # the backend follows from ranks and cards: NCCL where every rank has a
     # card of its own, gloo where ranks share one
     plan = [2] if cards >= 2 else [1, 2]
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("ECAMP_PREEMPT_AT_STEP", "ECAMP_RSS_LIMIT_GB")}
-    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host
-    # the entry point itself, torchrun -m ecamp_tpu_torch.cli.pretrain,
-    # runs beside the launches (their step times are taken beside it)
-    n_cli = 2
-    cli_backend = "nccl" if n_cli <= cards else "gloo"
-    out = os.path.join(work, "dp_cli")
-    base = ["-m", "ecamp_tpu_torch.cli.pretrain", "--data_path",
-            os.path.join(work, "mimic"), "--fused_mlm_ce",
-            "--batch_size", str(DP_B), "--epochs", "1",
-            "--seed", str(SEED), "--print_freq", "1"]
+    env = _dp_env()
+    # (f) with --steps_per_call, beside the launches: one NCCL rank with
+    # ZeRO-1 and one with FSDP (their graphs), and 2 ranks sharing the
+    # first card (gloo), which must refuse
     t_cli = time.perf_counter()
-    cli = _start_group(_torchrun(n_cli, _free_port()) + base
-                       + ["--fsdp", "--output_dir", out], env)
-    # (f) with --steps_per_call: one NCCL rank (its graphs, ZeRO-1), and 2
-    # ranks sharing the first card (gloo), which must refuse; --fsdp with
-    # it on one NCCL rank, which must refuse too (graphed FSDP, item 16b)
     spc_out = os.path.join(work, "dp_spc_cli")
-    spc_args = ["--shard_optimizer", "--steps_per_call", str(DP_GRAPH_K)]
-    spc = _start_group(_torchrun(1, _free_port()) + base + spc_args
-                       + ["--output_dir", spc_out], env)
-    gloo = _start_group(_torchrun(2, _free_port()) + base + spc_args + [
-        "--output_dir", os.path.join(work, "dp_gloo_spc")],
-        dict(env, CUDA_VISIBLE_DEVICES="0"))
-    fsdp_spc = _start_group(_torchrun(1, _free_port()) + base + [
-        "--fsdp", "--steps_per_call", str(DP_GRAPH_K), "--output_dir",
-        os.path.join(work, "dp_fsdp_spc")], dict(env,
-                                                 CUDA_VISIBLE_DEVICES="0"))
+    fsdp_spc_out = os.path.join(work, "dp_fsdp_spc_cli")
+    spc_args = ("--steps_per_call", str(DP_GRAPH_K))
+    one_card = dict(env, CUDA_VISIBLE_DEVICES="0")
+    spc = _start_group(_dp_cli_cmd(1, work, spc_out, "--shard_optimizer",
+                                   *spc_args), one_card)
+    fsdp_spc = _start_group(_dp_cli_cmd(1, work, fsdp_spc_out, "--fsdp",
+                                        *spc_args), one_card)
+    gloo = _start_group(_dp_cli_cmd(2, work, os.path.join(
+        work, "dp_gloo_spc"), "--shard_optimizer", *spc_args), one_card)
+    cli = fsdp_cli["proc"]
     try:
-        runs = _dp_launches(plan, cards, env, work, ref_path, ref,
-                            per_step, moment_bytes=2 * 4 * n_params,
-                            n_params=n_params, n_units=n_units)
-        errs = {}
-        for what, p in (("gloo", gloo), ("fsdp", fsdp_spc)):
-            try:
-                errs[what] = p.communicate(timeout=max(
-                    1.0, DP_TIMEOUT - (time.perf_counter() - t_cli)))[1]
-            except subprocess.TimeoutExpired:
-                check(False, f"(f) the {what} --steps_per_call run outlived "
-                      f"its time")
-        _wait_group(cli, "torchrun cli.pretrain --fsdp",
-                    DP_TIMEOUT - (time.perf_counter() - t_cli))
-        cli_s = time.perf_counter() - t_cli
+        launches = _dp_launch_start(plan, cards, env, work, ref_path)
+        # one process: FSDP with one span, a graphed call against eager
+        counters = {"layer_norm": ln.launches, "attention": fa.launches,
+                    "sr_conv_stack": sr.launches,
+                    "sr_conv_stack_tma": sr.launches_tma,
+                    "adamw": adamw.launches}
+
+        def build(**kw):
+            gc.collect()
+            torch.cuda.empty_cache()
+            return PretrainTask(_dp_config(**kw), device="cuda")
+
+        near = beside()
+        one = dp_graphed(build, batch, counters, {"fsdp": {"fsdp": True}},
+                         calls=1)
+        one["fsdp"]["beside"] = max(near, beside())
+        dp_graphed_checks(one, "one process", per_step)
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = one["fsdp"]
+        print(f"  one process, FSDP (one span), B = {PRE_B}: a graphed call "
+              f"of {DP_GRAPH_K} against {DP_GRAPH_K} eager micro-steps, bit "
+              f"for bit under deterministic algorithms (beside the "
+              f"launches); ms a micro-step graphed {g['replay_ms']} (calls "
+              f"of replays only; the compared call, warm-up and capture "
+              f"included, {[round(t, 1) for t in g['step_ms']['graphed']]}) "
+              f"against eager {[round(t, 1) for t in g['step_ms']['eager']]}"
+              f", capture {g['capture_s']:.2f} s, peak bytes "
+              f"{g['peak_bytes']}, {g['beside']} started processes beside")
+        runs = _dp_launch_collect(launches, ref, per_step,
+                                  moment_bytes=2 * 4 * n_params,
+                                  n_params=n_params, n_units=n_units)
+        try:
+            gloo_err = gloo.communicate(timeout=max(
+                1.0, DP_TIMEOUT - (time.perf_counter() - t_cli)))[1]
+        except subprocess.TimeoutExpired:
+            check(False, "(f) the gloo --steps_per_call run outlived its "
+                  "time")
+        cli_printed, _ = _wait_group(
+            cli, "torchrun cli.pretrain --fsdp",
+            DP_TIMEOUT - (time.perf_counter() - fsdp_cli["t"]))
+        cli_s = time.perf_counter() - fsdp_cli["t"]
         _wait_group(spc, "torchrun cli.pretrain --steps_per_call",
                     DP_TIMEOUT - (time.perf_counter() - t_cli))
         spc_s = time.perf_counter() - t_cli
+        _wait_group(fsdp_spc, "torchrun cli.pretrain --fsdp --steps_per_call",
+                    DP_TIMEOUT - (time.perf_counter() - t_cli))
+        fsdp_spc_s = time.perf_counter() - t_cli
     finally:
-        for p in (cli, spc, gloo, fsdp_spc):
+        for p in (cli, spc, fsdp_spc, gloo):
             _stop(p)
     refusal = "--steps_per_call > 1 on CUDA captures"
-    gloo_err = errs["gloo"]
     check(gloo.returncode != 0 and refusal in gloo_err
           and "gloo group" in gloo_err,
           f"(f) 2 gloo ranks on one card with --steps_per_call "
@@ -3939,42 +4101,47 @@ def dp_phase(card: str, per_step: dict, cli_per_step: dict,
           f"{gloo_err[-3000:]}")
     refused = next(line.strip() for line in gloo_err.splitlines()
                    if refusal in line)
-    fsdp_refusal = "--fsdp --steps_per_call > 1 on CUDA"
-    check(fsdp_spc.returncode != 0 and fsdp_refusal in errs["fsdp"]
-          and "item 16b" in errs["fsdp"],
-          f"(fsdp) --fsdp --steps_per_call {DP_GRAPH_K} on CUDA: exit "
-          f"{fsdp_spc.returncode}, no refusal:\n{errs['fsdp'][-3000:]}")
-    fsdp_refused = next(line.strip() for line in errs["fsdp"].splitlines()
-                        if fsdp_refusal in line)
-    spc_rec = dp_cli_checks(spc_out, CLI_IMAGES // DP_B, cli_per_step,
-                            n_params, "(f) CLI --steps_per_call")
-    rec = dp_cli_checks(out, CLI_IMAGES // (n_cli * DP_B), cli_per_step,
-                        n_params, "CLI")
+    spc_steps = CLI_IMAGES // DP_B
+    spc_rec = dp_cli_checks(spc_out, spc_steps, cli_per_step, n_params,
+                            "(f) CLI --steps_per_call")
+    fsdp_spc_rec = dp_cli_checks(fsdp_spc_out, spc_steps, cli_per_step,
+                                 n_params, "(f) CLI --fsdp --steps_per_call")
+    rec = dp_cli_checks(fsdp_cli["out"], CLI_IMAGES // (DP_CLI_RANKS * DP_B),
+                        cli_per_step, n_params, "CLI")
+    epoch_line = [ln.strip() for ln in cli_printed.splitlines()
+                  if "Total time:" in ln]
     os.remove(ref_path)
-    print(f"  torchrun --nproc_per_node={n_cli} -m "
+    print(f"  torchrun --nproc_per_node={DP_CLI_RANKS} -m "
           f"ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce "
-          f"({cli_backend}), {DP_B} a rank: "
+          f"({fsdp_cli['backend']}), {DP_B} a rank: "
           f"loss {rec['loss']:.5f}, launches {rec['kernel_launches']}, "
           f"max_mem_mb {rec['max_mem_mb']:.1f}, whole parameters and "
-          f"moments in checkpoint-0.pth; {cli_s:.1f} s beside the "
-          f"launches; --fsdp --steps_per_call {DP_GRAPH_K} on CUDA refused: "
-          f"{fsdp_refused}")
-    print(f"  (f) torchrun --nproc_per_node=1 -m ecamp_tpu_torch.cli.pretrain "
-          f"--steps_per_call {DP_GRAPH_K} --shard_optimizer --fused_mlm_ce "
-          f"(nccl), {DP_B} a rank: loss {spc_rec['loss']:.5f}, launches "
-          f"{spc_rec['kernel_launches']} (the replays counted), max_mem_mb "
-          f"{spc_rec['max_mem_mb']:.1f}, whole moments in checkpoint-0.pth; "
-          f"{spc_s:.1f} s; 2 gloo ranks on one card refused: {refused}; "
-          f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"reference": ref, "runs": runs,
+          f"moments in checkpoint-0.pth; {cli_s:.1f} s from its start "
+          f"beside (6)-(6d); its epoch: {epoch_line}")
+    for what, r, secs in (("--shard_optimizer", spc_rec, spc_s),
+                          ("--fsdp", fsdp_spc_rec, fsdp_spc_s)):
+        print(f"  (f) torchrun --nproc_per_node=1 -m "
+              f"ecamp_tpu_torch.cli.pretrain --steps_per_call {DP_GRAPH_K} "
+              f"{what} --fused_mlm_ce (nccl), {DP_B} a rank, {spc_steps} "
+              f"micro-steps (a graphed call and a tail): loss "
+              f"{r['loss']:.5f}, launches {r['kernel_launches']} (the "
+              f"replays counted), max_mem_mb {r['max_mem_mb']:.1f}, whole "
+              f"parameters and moments in checkpoint-0.pth; {secs:.1f} s")
+    print(f"  (f) 2 gloo ranks on one card refused: {refused}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"reference": ref, "runs": runs, "one_process_graphed": one,
             "predicted_saving_bytes": 4 * n_params,
-            "cli": {"backend": cli_backend, "ranks": n_cli, "fsdp": True,
-                    "rows_a_rank": DP_B, "log": rec, "seconds": cli_s,
-                    "fsdp_steps_per_call_refused": fsdp_refused},
+            "cli": {"backend": fsdp_cli["backend"], "ranks": DP_CLI_RANKS,
+                    "fsdp": True, "rows_a_rank": DP_B, "log": rec,
+                    "seconds": cli_s},
             "cli_steps_per_call": {
                 "backend": "nccl", "ranks": 1, "rows_a_rank": DP_B,
                 "steps_per_call": DP_GRAPH_K, "log": spc_rec,
                 "seconds": spc_s, "gloo_refused": refused},
+            "cli_fsdp_steps_per_call": {
+                "backend": "nccl", "ranks": 1, "rows_a_rank": DP_B,
+                "steps_per_call": DP_GRAPH_K, "log": fsdp_spc_rec,
+                "seconds": fsdp_spc_s},
             "seconds": time.perf_counter() - t_phase}
 
 
@@ -4014,25 +4181,37 @@ def dp_cli_checks(out: str, steps: int, per_step: dict, n_params: int,
     return rec
 
 
-def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
-                 moment_bytes, n_params, n_units):
-    """(6e)'s `dp_worker` launches, one a world size of `plan`, each held
-    against the one-process reference `ref`; returns their figures."""
-    import numpy as np
-
-    runs = {}
+def _dp_launch_start(plan, cards, env, work, ref_path) -> list:
+    """(6e)'s `dp_worker` launches, one a world size of `plan`, started
+    side by side, each with the count of the other started processes that
+    run beside it at its start; `_dp_launch_collect` waits for them."""
+    started = []
     for n in plan:
         backend = "nccl" if n <= cards else "gloo"
         tag = f"{backend}{n}"
         spec = {"work": os.path.join(work, tag),
                 "ref": ref_path, "out": os.path.join(work, f"dp_{tag}_rank")}
         os.makedirs(spec["work"], exist_ok=True)
-        t = time.perf_counter()
-        _run_group(_torchrun(n, _free_port())
-                   + [os.path.abspath(__file__), "--dp-worker",
-                      json.dumps(spec)], env, DP_TIMEOUT,
-                   f"torchrun {n} x {backend}")
+        p = _start_group(_torchrun(n, _free_port())
+                         + [os.path.abspath(__file__), "--dp-worker",
+                            json.dumps(spec)], env)
+        started.append((n, backend, tag, spec, p, time.perf_counter()))
+    near = beside() - 1
+    return [(*run, near) for run in started]
+
+
+def _dp_launch_collect(started, ref, per_step, moment_bytes, n_params,
+                       n_units):
+    """Wait for `_dp_launch_start`'s launches and hold each against the
+    one-process reference `ref`; returns their figures."""
+    import numpy as np
+
+    runs = {}
+    for n, backend, tag, spec, p, t, near in started:
+        _wait_group(p, f"torchrun {n} x {backend}",
+                    DP_TIMEOUT - (time.perf_counter() - t))
         wall = time.perf_counter() - t
+        near = max(near, beside())
         res = []
         for r in range(n):
             with open(f"{spec['out']}{r}.json") as f:
@@ -4085,7 +4264,7 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
             "bit_equal_to_one_process":
                 r0["plain"]["bit_equal_to_one_process"],
             "zero1_shadow_bit_equal": r0["plain"]["zero1_bit_equal"],
-            "checksum": r0["checksum"]}
+            "checksum": r0["checksum"], "beside": near}
         runs[tag].update({f: {run: [x[run][f] for x in res]
                               for run in ("plain", "zero1") if run in r0}
                           for f in ("step_ms", "peak_bytes", "launches")})
@@ -4115,14 +4294,21 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
               f"{r0['plain']['update_rel_l2']:.4g}), bit-equal to one "
               f"process: {r0['plain']['bit_equal_to_one_process']}; peak "
               f"bytes {runs[tag]['peak_bytes']}; ZeRO-1 on the same "
-              f"gradients bit-equal; checksums equal; {wall:.1f} s")
+              f"gradients bit-equal; checksums equal; {wall:.1f} s, "
+              f"{near} started processes beside")
         for name, g in r0.get("graphed", {}).items():
-            print(f"    (f) {name}: {DP_GRAPH_CALLS} graphed calls of "
-                  f"{DP_GRAPH_K} against {DP_GRAPH_K * DP_GRAPH_CALLS} eager "
-                  f"micro-steps, bit for bit under deterministic algorithms; "
-                  f"ms a micro-step graphed {g['step_ms']['graphed']} "
-                  f"against eager {[round(t, 1) for t in g['step_ms']['eager']]} "
-                  f"(host clock), capture {g['capture_s']:.2f} s, launches "
+            print(f"    (f) {name} (accumulation {g['accum']}): "
+                  f"{DP_GRAPH_CALLS} graphed calls of {DP_GRAPH_K} against "
+                  f"{g['micro_steps']} eager micro-steps, bit for bit under "
+                  f"deterministic algorithms (metrics, whole parameters, "
+                  f"moments, counts); ms a micro-step graphed "
+                  f"{g['replay_ms']} (calls of replays only; the compared "
+                  f"calls {[round(t, 1) for t in g['step_ms']['graphed']]}) "
+                  f"against eager "
+                  f"{[round(t, 1) for t in g['step_ms']['eager']]} (host "
+                  f"clock), capture {g['capture_s']:.2f} s, peak bytes "
+                  f"graphed {g['peak_bytes']['graphed']} against eager "
+                  f"{g['peak_bytes']['eager']}, launches "
                   f"{g['launches']['graphed']}")
         if "graph_refused" in r0:
             print(f"    (f) refused under {backend}: {r0['graph_refused']}")
@@ -4137,9 +4323,10 @@ def _dp_launches(plan, cards, env, work, ref_path, ref, per_step,
               f"{f['plain_state_bytes']}), allocated after init_state "
               f"{f['allocated_after_init_bytes']}, peak of the steps "
               f"{f['peak_bytes']} (plain {runs[tag]['peak_bytes']['plain']});"
-              f" step ms {f['step_ms']}; save {f['save_s']} s, load "
-              f"{f['load_s']} s, the shards restored and the resumed step "
-              f"bit for bit; {f['seconds']} s")
+              f" step ms {f['step_ms']}"
+              + (f"; save {f['save_s']} s, load {f['load_s']} s, the shards "
+                 f"restored and the resumed step bit for bit" if n > 1
+                 else "") + f"; {f['seconds']} s")
         if "zero1" in r0:
             pre = r0["preempt"]
             print(f"    ZeRO-1 preempted at {DP_PREEMPT_AT} ({pre['reason']}; "
@@ -4164,6 +4351,24 @@ def _start_run(cmd: list, where: str, extra_env: dict):
                          env={**env, **extra_env}, start_new_session=True)
     _STARTED.append(p)
     return p, f, where + ".stdout", time.perf_counter()
+
+
+def _wait_run(run, what: str):
+    """Wait for a `_start_run` command (CLI_TIMEOUT from its start; killed
+    past it); a non-zero exit fails the check. Returns what it printed and
+    its seconds."""
+    p, f, path, t = run
+    try:
+        p.wait(timeout=max(1.0, CLI_TIMEOUT - (time.perf_counter() - t)))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    f.close()
+    with open(path) as fp:
+        printed = fp.read()
+    check(p.returncode == 0, f"{what} exited {p.returncode}:\n"
+          f"{printed[-4000:]}")
+    return printed, time.perf_counter() - t
 
 
 def start_preempted(cmd: list, ref_out: str, per_epoch: int):
@@ -4207,17 +4412,7 @@ def preempt_drill(tag: str, cmd: list, ref_out: str, per_epoch: int,
         return run
 
     def wait(what, run):
-        p, f, path, t = run
-        try:
-            p.wait(timeout=max(1.0, CLI_TIMEOUT - (time.perf_counter() - t)))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-        f.close()
-        printed = text(path)
-        check(p.returncode == 0,
-              f"({tag}) {what} exited {p.returncode}:\n{printed[-4000:]}")
-        return printed, time.perf_counter() - t
+        return _wait_run(run, f"({tag}) {what}")
 
     def text(path):
         with open(path) as f:
@@ -4488,6 +4683,27 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
         torch.cuda.synchronize()
         return float(m["loss"]), float(gnorm), counts()
 
+    # (c) the CLI from the pretrain CLI's checkpoint
+    from ecamp_tpu_torch.data.synthetic import write_classification_corpus
+
+    t0 = time.perf_counter()
+    data = write_classification_corpus(
+        os.path.join(work, "cxr14"), cfg.task, *FT_SPLITS, seed=SEED,
+        num_classes=cfg.num_classes, multilabel=True, img_size=FT_IMG)
+    out = os.path.join(work, "ft_out")
+    print(f"  (c) {'/'.join(map(str, FT_SPLITS))} JPEGs at {FT_IMG} px "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    per_epoch = FT_SPLITS[0] // FT_B
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_cls",
+           "--task", cfg.task, "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(FT_B), "--eval_batch_size",
+           str(FT_EVAL_B), "--lr", "3e-2", "--warmup_steps", "50",
+           "--num_steps", str(2 * per_epoch), "--patience", "1",
+           "--output_dir", out, "--seed", str(SEED)]
+    # (e)'s preempted run and (c)'s run start now, beside (a)-(d)
+    first = start_preempted(cmd, out, per_epoch)
+    cli = _start_run(cmd, out, {})
+
     # (a) the first step through the kernels, then the plain versions
     loss_k, gnorm_k, n_k = first_step(False)
     loss_p, gnorm_p, n_p = first_step(True)
@@ -4519,6 +4735,7 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset()
+        near = beside()
         losses, times = [], []
         for _ in range(n):
             t = time.perf_counter()
@@ -4534,9 +4751,11 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
             box[0], _ = task.train_step(box[0], images, labels)
 
         busy = device_ms(one_step, "", 3, "fine-tune step", alone=False)
-        return before, eval_loss(), losses, times, launches, peak, busy
+        return (before, eval_loss(), losses, times, launches, peak, busy,
+                max(near, beside()))
 
-    def report(tag, n, before, after, losses, times, launches, peak, busy):
+    def report(tag, n, before, after, losses, times, launches, peak, busy,
+               near):
         want = {k: v * n for k, v in per_step.items()}
         step_ms = float(np.median(times[1:]))
         print(f"  ({tag}) train losses {[round(x, 5) for x in losses]}; "
@@ -4545,7 +4764,8 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
         print(f"  ({tag}) step {step_ms:.3f} ms median of steps 2-{n} (host "
               f"clock, synchronised), {FT_B / step_ms * 1e3:.2f} images/s, "
               f"device busy {_ms(busy)} a step (profiler, 3 steps), peak "
-              f"device memory {peak / 2 ** 30:.3f} GiB on {card}")
+              f"device memory {peak / 2 ** 30:.3f} GiB on {card}, "
+              f"{near} started processes beside")
         check(all(np.isfinite(losses)), f"({tag}) non-finite loss")
         check(launches == want, f"({tag}) launches {launches} != {want}")
         return {"losses": losses, "eval_loss_before": before,
@@ -4553,7 +4773,7 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
                 "step_ms_median": step_ms,
                 "images_per_s": FT_B / step_ms * 1e3,
                 "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
-                "launches": launches}
+                "launches": launches, "beside": near}
 
     before, after, *rest = steps(FT_STEPS)
     result = {"batch": FT_B, "card": card, "loss_first_step": loss_k,
@@ -4581,35 +4801,10 @@ def finetune_phase(card: str, pretrained: str, work: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the CLI from the pretrain CLI's checkpoint
-    from ecamp_tpu_torch.data.synthetic import write_classification_corpus
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    data = write_classification_corpus(
-        os.path.join(work, "cxr14"), cfg.task, *FT_SPLITS, seed=SEED,
-        num_classes=cfg.num_classes, multilabel=True, img_size=FT_IMG)
-    out = os.path.join(work, "ft_out")
-    print(f"  (c) {'/'.join(map(str, FT_SPLITS))} JPEGs at {FT_IMG} px "
-          f"written in {time.perf_counter() - t0:.1f} s")
-    per_epoch = FT_SPLITS[0] // FT_B
-    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_cls",
-           "--task", cfg.task, "--dataset_path", data, "--pretrained",
-           pretrained, "--batch_size", str(FT_B), "--eval_batch_size",
-           str(FT_EVAL_B), "--lr", "3e-2", "--warmup_steps", "50",
-           "--num_steps", str(2 * per_epoch), "--patience", "1",
-           "--output_dir", out, "--seed", str(SEED)]
-    # (e)'s preempted run starts now and runs beside (c) and (d)
-    first = start_preempted(cmd, out, per_epoch)
-    t = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT)
-    check(r.returncode == 0, f"fine-tune CLI exited {r.returncode}:\n"
-          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    cli_s = time.perf_counter() - t
+    # (c) the CLI from the pretrain CLI's checkpoint, started with the phase
+    printed, cli_s = _wait_run(cli, "fine-tune CLI")
     with open(os.path.join(out, "log.txt")) as f:
         recs = [json.loads(line) for line in f]
-    printed = r.stdout
     for line in printed.splitlines():
         if line.startswith(("step ", "Epoch [", "TEST", pretrained,
                             "loaded ")):
@@ -4746,13 +4941,63 @@ def masked_adamw_check(label: str, opt, named: dict, count: int,
                  f"leaves, {n_train}) fp32", **times})
 
 
-def segmentation_kernel_phase(card: str, rows: list) -> dict:
-    """LayerNorm and attention forward at the frozen trunk's shapes in the
-    segmentation step (B = SEG_B, bf16: (B * 197, 768), (B, 12, 197, 64)),
-    each beside its library call and bound, both timed on the device by
-    queued events (the profiler dropped kernels of sessions at these
-    shapes); their rows join `rows`. Returns the rows by name."""
+def _seg_cfg(task: str, lr: float, warmup: int, total: int):
+    """(8)'s SegmentationConfig of `task`: AdamW wd 0.05 with a warmup
+    cosine of `total` steps, clip 1.0."""
+    from ecamp_tpu_torch.core import config
+
+    return config.SegmentationConfig(
+        optimizer=config.OptimizerConfig(
+            name="adamw", lr=lr, weight_decay=0.05, betas=(0.9, 0.999),
+            schedule="warmup_cosine_step", warmup_steps=warmup,
+            total_steps=total, grad_clip=1.0),
+        task=task, seed=SEED)
+
+
+def _det_cfg(expansion: int, warmup: int, total: int):
+    """(9)'s DetectionConfig: the neck's Bottleneck `expansion`, AdamW lr
+    5e-4 wd 0.05 with a warmup cosine of `total` steps, clip 1.0."""
+    from ecamp_tpu_torch.core import config
+
+    return config.DetectionConfig(
+        expansion=expansion,
+        optimizer=config.OptimizerConfig(
+            name="adamw", lr=5e-4, weight_decay=0.05, betas=(0.9, 0.999),
+            schedule="warmup_cosine_step", warmup_steps=warmup,
+            total_steps=total, grad_clip=1.0),
+        seed=SEED)
+
+
+def _trainable_adamw_check(label: str, task, gen, ktimes: dict,
+                           rows: list) -> None:
+    """`masked_adamw_check` on the fine-tune `task`'s trainable leaves
+    (its `freeze_mask`) at the end of its warmup, their gradients seeded
+    from `gen` (unit normal times 1e-2): the leaves, decay mask and
+    optimizer of the task's step, at a phase where nothing runs beside."""
     import torch
+
+    task.init_state()  # its optimizer
+    mask = task.freeze_mask()
+    named = {k: p for k, p in task.model.named_parameters() if mask[k]}
+    for p in named.values():
+        p.grad = 1e-2 * torch.randn(p.shape, device=p.device, generator=gen)
+    masked_adamw_check(label, task.tx.inner, named,
+                       task.cfg.optimizer.warmup_steps, ktimes, rows)
+
+
+def segmentation_kernel_phase(card: str, rows: list) -> dict:
+    """The kernels at the segmentation step's shapes (B = SEG_B, bf16),
+    timed here, where nothing runs beside them: LayerNorm and attention
+    forward at the frozen trunk's ((B * 197, 768), (B, 12, 197, 64)), each
+    beside its library call and bound, both timed on the device by queued
+    events (the profiler dropped kernels of sessions at these shapes); the
+    masked AdamW on the SIIM task's trainable leaves
+    (`_trainable_adamw_check`); the last decoder upsample stage's times.
+    The rows join `rows`. Returns the times by name."""
+    import torch
+
+    from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
+    from ecamp_tpu_torch.train.segmentation import SegmentationTask
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -4773,6 +5018,27 @@ def segmentation_kernel_phase(card: str, rows: list) -> dict:
         rows, f"segmentation attention fwd ({b}, 12, 197, 64) {dtype}", q, k,
         v, None, dtype, events=True)
     del q, k, v
+    task = SegmentationTask(_seg_cfg("SIIM", 5e-4, 50, 3000), device="cuda")
+    _trainable_adamw_check("segmentation", task, gen, main, rows)
+    del task
+    # one decoder upsample stage, the last: (B, 64, 112, 112) bf16
+    # channels_last -> 224, through fp32 as the JAX package computes it.
+    # Its device time is read by CUDA events around calls queued behind a
+    # held stream (`queued_ms`): its calls launch several kernels each, so
+    # `device_ms` could not tell a profiler session that dropped some
+    up_in = torch.randn(b, 112, 112, 64, device=dev,
+                        generator=gen).to(dtype).permute(0, 3, 1, 2)
+    up_bytes = up_in.numel() * 2 * (1 + 4)
+    main["upsample_stage4"] = upsample = {
+        "shape": f"({b}, 64, 112, 112) bf16 -> 224",
+        "ms": median_ms(lambda: upsample_align_corners(up_in, 2), 5, 2),
+        "device_ms": queued_ms(lambda: upsample_align_corners(up_in, 2), 5),
+        "bound_ms": up_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(f"  decoder upsample stage 4 {upsample['shape']}: "
+          f"{upsample['ms']:.3f} ms (events), device "
+          f"{upsample['device_ms']:.3f} ms (queued events), bound "
+          f"{upsample['bound_ms']:.3f} ms (bytes) on {card}")
+    del up_in
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return main
@@ -4798,34 +5064,55 @@ def _seg_batch(b, channels, gen):
     return img[..., None], torch.stack(masks, dim=-1)
 
 
-def segmentation_phase(card: str, pretrained: str, work: str,
-                       ktimes: dict, rows: list) -> dict:
-    """The segmentation fine-tune at full width (module docstring, 8). The
-    masked AdamW's times join `ktimes` and `rows`."""
+def segmentation_cli_start(work: str, pretrained: str) -> dict:
+    """(8) (c) and (e): the seeded SIIM corpus written under `work`, then
+    `cli.finetune_seg` from `pretrained` started, (c)'s run and (e)'s
+    preempted one (`start_preempted`); `segmentation_phase` checks them.
+    `main` starts them a phase ahead, beside (7)."""
+    from ecamp_tpu_torch.data.datasets import SIIMSegmentationDataset
+    from ecamp_tpu_torch.data.synthetic import write_segmentation_corpus
+
+    t0 = time.perf_counter()
+    data = write_segmentation_corpus(os.path.join(work, "siim"), "SIIM",
+                                     *SEG_SPLITS, seed=SEED,
+                                     img_size=SEG_IMG)
+    n_images = len(SIIMSegmentationDataset(data, data, "train"))
+    per_epoch = n_images // SEG_CLI_B
+    print(f"  (c) SIIM corpus {'/'.join(map(str, SEG_SPLITS))} rows, PNGs at "
+          f"{SEG_IMG} px, RLE masks at 1024, written in "
+          f"{time.perf_counter() - t0:.1f} s; {n_images} balanced training "
+          f"images, {per_epoch} updates an epoch at B = {SEG_CLI_B}")
+    check(per_epoch >= 1, "(c) the corpus fills no batch")
+    out = os.path.join(work, "seg_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_seg",
+           "--task", "SIIM", "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(SEG_CLI_B), "--eval_batch_size",
+           str(SEG_EVAL_B), "--lr", "5e-4", "--warmup_steps", "50",
+           "--num_steps", str(2 * per_epoch), "--patience", "1",
+           "--output_dir", out, "--seed", str(SEED)]
+    first = start_preempted(cmd, out, per_epoch)
+    cli = _start_run(cmd, out, {})
+    return {"data": data, "out": out, "cmd": cmd, "per_epoch": per_epoch,
+            "first": first, "cli": cli}
+
+
+def segmentation_phase(card: str, pretrained: str, clis: dict) -> dict:
+    """The segmentation fine-tune at full width (module docstring, 8);
+    `clis` are the CLI runs `segmentation_cli_start` started. Its kernels'
+    own times are `segmentation_kernel_phase`'s."""
     import gc
 
     import numpy as np
     import torch
 
-    from ecamp_tpu_torch.core import config as c
     from ecamp_tpu_torch.kernels import flash_attention as fa
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
     from ecamp_tpu_torch.kernels import layer_norm as ln
-    from ecamp_tpu_torch.ops.image_ops import upsample_align_corners
     from ecamp_tpu_torch.train.segmentation import SegmentationTask
 
     gc.collect()
     torch.cuda.empty_cache()
-
-    def seg_cfg(task, lr, warmup, total):
-        return c.SegmentationConfig(
-            optimizer=c.OptimizerConfig(
-                name="adamw", lr=lr, weight_decay=0.05, betas=(0.9, 0.999),
-                schedule="warmup_cosine_step", warmup_steps=warmup,
-                total_steps=total, grad_clip=1.0),
-            task=task, seed=SEED)
-
-    cfg = seg_cfg("SIIM", 5e-4, 50, 3000)
+    cfg = _seg_cfg("SIIM", 5e-4, 50, 3000)
     depth = cfg.vit.depth
     per_step = {"layer_norm": 2 * depth, "attention": depth, "adamw": 1}
     counters = {"layer_norm": ln.launches, "attention": fa.launches,
@@ -4872,6 +5159,9 @@ def segmentation_phase(card: str, pretrained: str, work: str,
         torch.cuda.synchronize()
         return float(m["loss"]), float(gnorm), counts(), stats()
 
+    data, out, cmd = clis["data"], clis["out"], clis["cmd"]
+    per_epoch, first, cli = clis["per_epoch"], clis["first"], clis["cli"]
+
     # (a) the first step through the kernels, then the plain versions
     loss_k, gnorm_k, n_k, stats_k = first_step(False)
     loss_p, gnorm_p, n_p, stats_p = first_step(True)
@@ -4892,34 +5182,6 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     check(stats_err <= LOSS_TOL * stats_scale,
           f"(a) BatchNorm statistics off by {stats_err:.3e}")
 
-    # the AdamW kernel on the masked leaves of that step against the
-    # per-leaf formula
-    masked_adamw_check("segmentation", task.tx.inner,
-                       {k: p for k, p in model.named_parameters()
-                        if mask[k]}, cfg.optimizer.warmup_steps, ktimes,
-                       rows)
-
-    # one decoder upsample stage, the last: (B, 64, 112, 112) bf16
-    # channels_last -> 224, through fp32 as the JAX package computes it.
-    # Its device time is read by CUDA events around calls queued behind a
-    # held stream (`queued_ms`): its calls launch several kernels each, so
-    # `device_ms` could not tell a profiler session that dropped some
-    up_in = torch.randn(SEG_B, 112, 112, 64, device="cuda",
-                        generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
-    up_bytes = up_in.numel() * 2 * (1 + 4)
-    upsample = {"shape": "(512, 64, 112, 112) bf16 -> 224",
-                "ms": median_ms(lambda: upsample_align_corners(up_in, 2), 5,
-                                2),
-                "device_ms": queued_ms(lambda: upsample_align_corners(up_in,
-                                                                      2), 5),
-                "bound_ms": up_bytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes"}
-    print(f"  decoder upsample stage 4 {upsample['shape']}: "
-          f"{upsample['ms']:.3f} ms (events), device "
-          f"{upsample['device_ms']:.3f} ms (queued events), bound "
-          f"{upsample['bound_ms']:.3f} ms (bytes) on {card}")
-    del up_in
-    torch.cuda.empty_cache()
 
     def steps(t, start, imgs, msks, n, b):
         """n steps of task t from the state dict `start` on a fixed batch,
@@ -4931,6 +5193,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset()
+        near = beside()
         losses, times = [], []
         for _ in range(n):
             t0 = time.perf_counter()
@@ -4946,20 +5209,22 @@ def segmentation_phase(card: str, pretrained: str, work: str,
             box[0], _ = t.train_step(box[0], imgs, msks)
 
         busy = device_ms(one_step, "", 3, "segmentation step", alone=False)
+        near = max(near, beside())
         step_ms = float(np.median(times[1:]))
         print(f"    train losses {[round(x, 5) for x in losses]}; launches "
               f"{launches} in {n} steps; step {step_ms:.3f} ms median of "
               f"steps 2-{n} (host clock, synchronised), "
               f"{b / step_ms * 1e3:.2f} images/s, device busy {_ms(busy)} a "
               f"step (profiler, 3 steps), peak device memory "
-              f"{peak / 2 ** 30:.3f} GiB on {card}")
+              f"{peak / 2 ** 30:.3f} GiB on {card}, {near} started processes "
+              f"beside")
         check(all(np.isfinite(losses)), "non-finite segmentation loss")
         want = {k: v * n for k, v in per_step.items()}
         check(launches == want, f"launches {launches} != {want}")
         return {"losses": losses, "step_ms": times,
                 "step_ms_median": step_ms, "images_per_s": b / step_ms * 1e3,
                 "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
-                "launches": launches}
+                "launches": launches, "beside": near}
 
     print(f"  (a) {SEG_STEPS} steps at B = {SEG_B}")
     result = {"card": card, "batch": SEG_B, "parameters": n_params,
@@ -4968,7 +5233,6 @@ def segmentation_phase(card: str, pretrained: str, work: str,
               "loss_first_step": loss_k, "loss_plain_step": loss_p,
               "grad_norm": gnorm_k, "grad_norm_plain": gnorm_p,
               "batch_norm_stats_max_err": stats_err,
-              "upsample_stage4": upsample,
               "siim": steps(task, init, images, masks, SEG_STEPS, SEG_B)}
     # the launches counted in (a)'s steps, a step
     result["launches_a_step"] = {
@@ -4991,7 +5255,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     torch.cuda.empty_cache()
 
     # (b) SegViTDual (RIGA) at B = SEG_DUAL_B
-    dtask = SegmentationTask(seg_cfg("RIGA", 5e-4, 15, 500), device="cuda")
+    dtask = SegmentationTask(_seg_cfg("RIGA", 5e-4, 15, 500), device="cuda")
     dual_init = {k: v.detach().clone()
                  for k, v in dtask.model.state_dict().items()}
     n_dual = sum(p.numel() for p in dtask.model.parameters())
@@ -5010,40 +5274,10 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the CLI from the pretrain CLI's checkpoint on a seeded SIIM corpus
-    from ecamp_tpu_torch.data.datasets import SIIMSegmentationDataset
-    from ecamp_tpu_torch.data.synthetic import write_segmentation_corpus
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    data = write_segmentation_corpus(os.path.join(work, "siim"), "SIIM",
-                                     *SEG_SPLITS, seed=SEED,
-                                     img_size=SEG_IMG)
-    n_images = len(SIIMSegmentationDataset(data, data, "train"))
-    per_epoch = n_images // SEG_CLI_B
-    print(f"  (c) SIIM corpus {'/'.join(map(str, SEG_SPLITS))} rows, PNGs at "
-          f"{SEG_IMG} px, RLE masks at 1024, written in "
-          f"{time.perf_counter() - t0:.1f} s; {n_images} balanced training "
-          f"images, {per_epoch} updates an epoch at B = {SEG_CLI_B}")
-    check(per_epoch >= 1, "(c) the corpus fills no batch")
-    out = os.path.join(work, "seg_out")
-    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_seg",
-           "--task", "SIIM", "--dataset_path", data, "--pretrained",
-           pretrained, "--batch_size", str(SEG_CLI_B), "--eval_batch_size",
-           str(SEG_EVAL_B), "--lr", "5e-4", "--warmup_steps", "50",
-           "--num_steps", str(2 * per_epoch), "--patience", "1",
-           "--output_dir", out, "--seed", str(SEED)]
-    # (e)'s preempted run starts now and runs beside (c) and (d)
-    first = start_preempted(cmd, out, per_epoch)
-    t = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT)
-    check(r.returncode == 0, f"segmentation CLI exited {r.returncode}:\n"
-          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    cli_s = time.perf_counter() - t
+    # (c) the CLI on the SIIM corpus, started with the phase
+    printed, cli_s = _wait_run(cli, "segmentation CLI")
     with open(os.path.join(out, "log.txt")) as f:
         recs = [json.loads(line) for line in f]
-    printed = r.stdout
     for line in printed.splitlines():
         if line.startswith(("step ", "Epoch [", "TEST", pretrained,
                             "loaded ")):
@@ -5078,6 +5312,7 @@ def segmentation_phase(card: str, pretrained: str, work: str,
     # (d) the serve engine on the best .pth against the task's eval step,
     # then one POST through the HTTP server
     from ecamp_tpu_torch.ckpt import load_reference_pth, load_reference_state
+    from ecamp_tpu_torch.data.datasets import SIIMSegmentationDataset
     from ecamp_tpu_torch.serve import segmenter_engine
     from ecamp_tpu_torch.serve.http_server import PredictionService, serve
 
@@ -5122,11 +5357,16 @@ def segmentation_phase(card: str, pretrained: str, work: str,
 
 
 def detection_kernel_phase(card: str, rows: list) -> dict:
-    """LayerNorm and attention forward at the frozen trunk's shapes in the
-    detection step (B = DET_B, bf16: (B * 197, 768), (B, 12, 197, 64)),
-    each beside its library call and bound, both timed on the device by
-    queued events; their rows join `rows`. Returns the rows by name."""
+    """The kernels at the detection step's shapes (B = DET_B, bf16), timed
+    here, where nothing runs beside them: LayerNorm and attention forward
+    at the frozen trunk's ((B * 197, 768), (B, 12, 197, 64)), each beside
+    its library call and bound, both timed on the device by queued events;
+    the masked AdamW on the detector's trainable leaves
+    (`_trainable_adamw_check`). The rows join `rows`. Returns the times by
+    name."""
     import torch
+
+    from ecamp_tpu_torch.train.detection import DetectionTask
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -5147,21 +5387,56 @@ def detection_kernel_phase(card: str, rows: list) -> dict:
         rows, f"detection attention fwd ({b}, 12, 197, 64) {dtype}", q, k, v,
         None, dtype, events=True)
     del q, k, v
+    task = DetectionTask(_det_cfg(4, 30, 20000), device="cuda")
+    _trainable_adamw_check("detection", task, gen, main, rows)
+    del task
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return main
 
 
-def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
-                    rows: list) -> dict:
-    """The detection fine-tune at full width (module docstring, 9). The
-    masked AdamW's times join `ktimes` and `rows`."""
+def detection_cli_start(work: str, pretrained: str) -> dict:
+    """(9) (c) and (e): the seeded RSNA corpus written under `work`, then
+    `cli.finetune_det` from `pretrained` started, (c)'s run and (e)'s
+    preempted one (`start_preempted`); `detection_phase` checks them.
+    `main` starts them a phase ahead, beside (8)."""
+    from ecamp_tpu_torch.data.datasets import RSNADetectionDataset
+    from ecamp_tpu_torch.data.synthetic import write_detection_corpus
+
+    t0 = time.perf_counter()
+    data = write_detection_corpus(os.path.join(work, "rsna_det"), "RSNA",
+                                  *DET_SPLITS, seed=SEED, img_size=DET_IMG)
+    n_images = len(RSNADetectionDataset(data, data, "train"))
+    per_epoch = n_images // DET_CLI_B
+    n_val = len(RSNADetectionDataset(data, data, "val"))
+    print(f"  (c) RSNA corpus {'/'.join(map(str, DET_SPLITS))} rows, PNGs at "
+          f"{DET_IMG} px, written in {time.perf_counter() - t0:.1f} s; "
+          f"{per_epoch} updates an epoch at B = {DET_CLI_B}, {n_val} "
+          f"validation images in batches of {DET_EVAL_B}")
+    check(per_epoch >= 1, "(c) the corpus fills no batch")
+    out = os.path.join(work, "det_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_det",
+           "--task", "RSNA", "--dataset_path", data, "--pretrained",
+           pretrained, "--batch_size", str(DET_CLI_B), "--eval_batch_size",
+           str(DET_EVAL_B), "--lr", "5e-4", "--weight_decay", "0.05",
+           "--warmup_steps", "2", "--num_steps", str(2 * per_epoch),
+           "--patience", "1", "--start_eval", "1", "--output_dir", out,
+           "--seed", str(SEED)]
+    first = start_preempted(cmd, out, per_epoch)
+    cli = _start_run(cmd, out, {})
+    return {"data": data, "out": out, "cmd": cmd, "per_epoch": per_epoch,
+            "n_val": n_val, "first": first, "cli": cli}
+
+
+def detection_phase(card: str, pretrained: str, clis: dict) -> dict:
+    """The detection fine-tune at full width (module docstring, 9); `clis`
+    are the CLI runs `detection_cli_start` started. Its kernels' own times
+    are `detection_kernel_phase`'s."""
     import gc
 
     import numpy as np
     import torch
 
-    from ecamp_tpu_torch.core import config as c
     from ecamp_tpu_torch.data.synthetic import detection_batch
     from ecamp_tpu_torch.kernels import flash_attention as fa
     from ecamp_tpu_torch.kernels import fused_adamw as adamw
@@ -5172,16 +5447,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     gc.collect()
     torch.cuda.empty_cache()
 
-    def det_cfg(expansion, warmup, total):
-        return c.DetectionConfig(
-            expansion=expansion,
-            optimizer=c.OptimizerConfig(
-                name="adamw", lr=5e-4, weight_decay=0.05, betas=(0.9, 0.999),
-                schedule="warmup_cosine_step", warmup_steps=warmup,
-                total_steps=total, grad_clip=1.0),
-            seed=SEED)
-
-    cfg = det_cfg(4, 30, 20000)
+    cfg = _det_cfg(4, 30, 20000)
     depth = cfg.vit.depth
     per_step = {"layer_norm": 2 * depth, "attention": depth, "adamw": 1}
     counters = {"layer_norm": ln.launches, "attention": fa.launches,
@@ -5235,6 +5501,10 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
         torch.cuda.synchronize()
         return float(m["loss"]), float(gnorm), counts(), stats()
 
+    data, out, cmd = clis["data"], clis["out"], clis["cmd"]
+    per_epoch, n_val = clis["per_epoch"], clis["n_val"]
+    first, cli = clis["first"], clis["cli"]
+
     # (a) the first step through the kernels, then the plain versions
     loss_k, gnorm_k, n_k, stats_k = first_step(False)
     loss_p, gnorm_p, n_p, stats_p = first_step(True)
@@ -5256,12 +5526,6 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     check(stats_err <= LOSS_TOL * stats_scale,
           f"(a) BatchNorm statistics off by {stats_err:.3e}")
 
-    # the AdamW kernel on the masked leaves of that step against the
-    # per-leaf formula
-    masked_adamw_check("detection", task.tx.inner,
-                       {k: p for k, p in model.named_parameters()
-                        if mask[k]}, cfg.optimizer.warmup_steps, ktimes,
-                       rows)
     torch.cuda.empty_cache()
 
     def steps(t, start, imgs, tgts, n, b, count):
@@ -5279,6 +5543,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset()
+        near = beside()
         losses, times, lrs = [], [], []
         for _ in range(n):
             t0 = time.perf_counter()
@@ -5295,6 +5560,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
             box[0], _ = t.train_step(box[0], imgs, tgts)
 
         busy = device_ms(one_step, "", 3, "detection step", alone=False)
+        near = max(near, beside())
         step_ms = float(np.median(times[1:]))
         print(f"    train losses {[round(x, 5) for x in losses]} at lr "
               f"{[float(f'{x:.4g}') for x in lrs]}; launches {launches} in "
@@ -5302,7 +5568,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
               f"(host clock, synchronised), {b / step_ms * 1e3:.2f} "
               f"images/s, device busy {_ms(busy)} a step (profiler, 3 "
               f"steps), peak device memory {peak / 2 ** 30:.3f} GiB on "
-              f"{card}")
+              f"{card}, {near} started processes beside")
         check(all(np.isfinite(losses)), "non-finite detection loss")
         check(min(lrs) > 0, f"lr {lrs} not past the warmup's start")
         want = {k: v * n for k, v in per_step.items()}
@@ -5310,7 +5576,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
         return {"losses": losses, "lr": lrs, "step_ms": times,
                 "step_ms_median": step_ms, "images_per_s": b / step_ms * 1e3,
                 "device_busy_ms": busy, "max_memory_allocated_bytes": peak,
-                "launches": launches}
+                "launches": launches, "beside": near}
 
     def changed(t, before):
         for k, v in t.model.state_dict().items():
@@ -5340,7 +5606,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     torch.cuda.empty_cache()
 
     # (b) det_RSNA_10: expansion 8 at B = DET10_B
-    cfg10 = det_cfg(8, 5, 3000)
+    cfg10 = _det_cfg(8, 5, 3000)
     task10 = DetectionTask(cfg10, device="cuda")
     init10 = {k: v.detach().clone()
               for k, v in task10.model.state_dict().items()}
@@ -5360,41 +5626,10 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the CLI from the pretrain CLI's checkpoint on a seeded RSNA corpus
-    from ecamp_tpu_torch.data.datasets import RSNADetectionDataset
-    from ecamp_tpu_torch.data.synthetic import write_detection_corpus
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    data = write_detection_corpus(os.path.join(work, "rsna_det"), "RSNA",
-                                  *DET_SPLITS, seed=SEED, img_size=DET_IMG)
-    n_images = len(RSNADetectionDataset(data, data, "train"))
-    per_epoch = n_images // DET_CLI_B
-    n_val = len(RSNADetectionDataset(data, data, "val"))
-    print(f"  (c) RSNA corpus {'/'.join(map(str, DET_SPLITS))} rows, PNGs at "
-          f"{DET_IMG} px, written in {time.perf_counter() - t0:.1f} s; "
-          f"{per_epoch} updates an epoch at B = {DET_CLI_B}, {n_val} "
-          f"validation images in batches of {DET_EVAL_B}")
-    check(per_epoch >= 1, "(c) the corpus fills no batch")
-    out = os.path.join(work, "det_out")
-    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli.finetune_det",
-           "--task", "RSNA", "--dataset_path", data, "--pretrained",
-           pretrained, "--batch_size", str(DET_CLI_B), "--eval_batch_size",
-           str(DET_EVAL_B), "--lr", "5e-4", "--weight_decay", "0.05",
-           "--warmup_steps", "2", "--num_steps", str(2 * per_epoch),
-           "--patience", "1", "--start_eval", "1", "--output_dir", out,
-           "--seed", str(SEED)]
-    # (e)'s preempted run starts now and runs beside (c) and (d)
-    first = start_preempted(cmd, out, per_epoch)
-    t = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT)
-    check(r.returncode == 0, f"detection CLI exited {r.returncode}:\n"
-          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    cli_s = time.perf_counter() - t
+    # (c) the CLI on the RSNA corpus, started with the phase
+    printed, cli_s = _wait_run(cli, "detection CLI")
     with open(os.path.join(out, "log.txt")) as f:
         recs = [json.loads(line) for line in f]
-    printed = r.stdout
     for line in printed.splitlines():
         if line.startswith(("step ", "Epoch [", "TEST", pretrained,
                             "loaded ")):
@@ -5430,6 +5665,7 @@ def detection_phase(card: str, pretrained: str, work: str, ktimes: dict,
     # (d) the serve engine on the best .pth against the task's eval step,
     # the same NMS on the same candidates, then one POST
     from ecamp_tpu_torch.ckpt import load_reference_pth, load_reference_state
+    from ecamp_tpu_torch.data.datasets import RSNADetectionDataset
     from ecamp_tpu_torch.serve import detector_engine
     from ecamp_tpu_torch.serve.http_server import PredictionService, serve
 
@@ -5688,16 +5924,18 @@ def _dpf_checks(card: str, work: str, env: dict, clis: dict,
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     plan = [2] if cards >= 2 else [1, 2]
-    runs = {}
-    for n in plan:
+    runs, started = {}, []
+    for n in plan:  # the launches side by side
         backend = "nccl" if n <= cards else "gloo"
+        spec = {"out": os.path.join(work, f"dpf_{backend}{n}_rank")}
+        started.append((n, backend, spec, time.perf_counter(), _start_group(
+            _torchrun(n, _free_port()) + [os.path.abspath(__file__),
+                                          "--dp-ft-worker", json.dumps(spec)],
+            env)))
+    for n, backend, spec, t, p in started:
         tag = f"{backend}{n}"
-        spec = {"out": os.path.join(work, f"dpf_{tag}_rank")}
-        t = time.perf_counter()
-        _run_group(_torchrun(n, _free_port())
-                   + [os.path.abspath(__file__), "--dp-ft-worker",
-                      json.dumps(spec)], env, DP_TIMEOUT,
-                   f"(9f a) torchrun {n} x {backend}")
+        _wait_group(p, f"(9f a) torchrun {n} x {backend}",
+                    DP_TIMEOUT - (time.perf_counter() - t))
         wall = time.perf_counter() - t
         res = []
         for r in range(n):
@@ -5914,6 +6152,29 @@ def resnet_phase(card: str, kind: str, work: str, pretrained: str,
                   if "running_" in k)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
+    # (b) the CLI on the earlier phase's corpus, from the torchvision .pth
+    from ecamp_tpu_torch.data.datasets import (RSNADetectionDataset,
+                                               SIIMSegmentationDataset)
+
+    data = os.path.join(work, "siim" if seg else "rsna_det")
+    ds_cls = SIIMSegmentationDataset if seg else RSNADetectionDataset
+    cli_b, eval_b = (SEG_CLI_B, SEG_EVAL_B) if seg else (DET_CLI_B,
+                                                         DET_EVAL_B)
+    per_epoch = len(ds_cls(data, data, "train")) // cli_b
+    check(per_epoch >= 1, "(b) the corpus fills no batch")
+    out = os.path.join(work, f"{name}_out")
+    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli."
+           + ("finetune_seg" if seg else "finetune_det"),
+           "--task", "SIIM" if seg else "RSNA", "--model", "resnet50",
+           "--dataset_path", data, "--pretrained", pretrained,
+           "--batch_size", str(cli_b), "--eval_batch_size", str(eval_b),
+           "--lr", "5e-4", "--weight_decay", "0.05", "--warmup_steps",
+           str(RESNET_WARMUP), "--num_steps", str(per_epoch),
+           "--patience", "1", "--output_dir", out, "--seed", str(SEED)]
+    if not seg:
+        cmd += ["--start_eval", "1"]
+    cli = _start_run(cmd, out, {})
+
     # the batch: the recipe's, halved until a step fits. A probe step's
     # peak memory (over the model and the optimizer) sets the first try
     def one_step(b):
@@ -6059,37 +6320,10 @@ def resnet_phase(card: str, kind: str, work: str, pretrained: str,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) the CLI on the earlier phase's corpus, from the torchvision .pth
-    from ecamp_tpu_torch.data.datasets import (RSNADetectionDataset,
-                                               SIIMSegmentationDataset)
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    data = os.path.join(work, "siim" if seg else "rsna_det")
-    ds_cls = SIIMSegmentationDataset if seg else RSNADetectionDataset
-    cli_b, eval_b = (SEG_CLI_B, SEG_EVAL_B) if seg else (DET_CLI_B,
-                                                         DET_EVAL_B)
-    per_epoch = len(ds_cls(data, data, "train")) // cli_b
-    check(per_epoch >= 1, "(b) the corpus fills no batch")
-    out = os.path.join(work, f"{name}_out")
-    cmd = [sys.executable, "-m", "ecamp_tpu_torch.cli."
-           + ("finetune_seg" if seg else "finetune_det"),
-           "--task", "SIIM" if seg else "RSNA", "--model", "resnet50",
-           "--dataset_path", data, "--pretrained", pretrained,
-           "--batch_size", str(cli_b), "--eval_batch_size", str(eval_b),
-           "--lr", "5e-4", "--weight_decay", "0.05", "--warmup_steps",
-           str(RESNET_WARMUP), "--num_steps", str(per_epoch),
-           "--patience", "1", "--output_dir", out, "--seed", str(SEED)]
-    if not seg:
-        cmd += ["--start_eval", "1"]
-    t = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
-                       timeout=CLI_TIMEOUT)
-    check(r.returncode == 0, f"{name} CLI exited {r.returncode}:\n"
-          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    cli_s = time.perf_counter() - t
+    # (b) the CLI on the earlier phase's corpus, started with the phase
+    printed, cli_s = _wait_run(cli, "ResNet CLI")
     with open(os.path.join(out, "log.txt")) as f:
         recs = [json.loads(line) for line in f]
-    printed = r.stdout
     for line in printed.splitlines():
         if line.startswith(("step ", "Epoch [", "TEST", pretrained,
                             "loaded ")):
@@ -6631,32 +6865,39 @@ def main() -> int:
     mark("remat")
     ft_times = finetune_kernel_phase(card, shape_rows)
     mark("finetune_kernels")
+    # the fine-tunes' kernel shapes now, while nothing runs beside them
+    seg_kernels = segmentation_kernel_phase(card, shape_rows)
+    mark("segmentation_kernels")
+    det_kernels = detection_kernel_phase(card, shape_rows)
+    mark("detection_kernels")
     work = tempfile.mkdtemp(prefix="ecamp_cli_")
     try:
         cli_per_step = {k: v // PRE_STEPS for k, v in flaunches.items()}
         write_cli_corpus(card, work)
         feeder = feeder_phase(card, work)  # alone: it measures the host
         mark("feeder")
-        spc = steps_per_call_cli_start(work)  # beside (6)
-        cli, ckpt = cli_phase(card, cli_per_step, work)
+        # (6), its (g) runs, (6b)-(6d) and (6e)'s --fsdp CLI side by side
+        spc = steps_per_call_cli_start(work)
+        dp_cli = dp_cli_start(work)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cli_run = pool.submit(cli_phase, card, cli_per_step, work)
+            recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
+            mark("pretrain_cli_accum")
+            cli, ckpt = cli_run.result()
         graphed["cli"] = steps_per_call_cli_finish(card, spc, cli_per_step)
         mark("pretrain_cli")
-        recipe["cli"] = cli_accum_phase(card, cli_per_step, work)
-        mark("pretrain_cli_accum")
         dp = dp_phase(card, {k: v // PRE_STEPS for k, v in launches.items()},
-                      cli_per_step, work)
+                      cli_per_step, work, dp_cli)
         mark("data_parallel")
+        # each fine-tune's CLI runs start a phase ahead, beside the phase
+        # before it
+        seg_clis = segmentation_cli_start(work, ckpt)
         finetune = finetune_phase(card, ckpt, work)
         mark("finetune")
-        seg_kernels = segmentation_kernel_phase(card, shape_rows)
-        mark("segmentation_kernels")
-        segmentation = segmentation_phase(card, ckpt, work, seg_kernels,
-                                          shape_rows)
+        det_clis = detection_cli_start(work, ckpt)
+        segmentation = segmentation_phase(card, ckpt, seg_clis)
         mark("segmentation")
-        det_kernels = detection_kernel_phase(card, shape_rows)
-        mark("detection_kernels")
-        detection = detection_phase(card, ckpt, work, det_kernels,
-                                    shape_rows)
+        detection = detection_phase(card, ckpt, det_clis)
         mark("detection")
         dpf = dp_finetune_phase(card, ckpt, work)
         mark("data_parallel_finetune")
@@ -6768,14 +7009,19 @@ def main() -> int:
         n = sum(cli_dp.get(k, 0) for k in parts.get(name, (name,)))
         if n:
             entry["dp_cli_launches"] = n
-        # (6e) (f): the NCCL rank's graphed plain calls and the
-        # --steps_per_call CLI's epoch, the replays counted
-        graphed_dp = next(r["graphed"]["plain"]["launches"]["graphed"]
-                          for r in dp["runs"].values() if "graphed" in r)
-        for key, run in (("dp_graphed_launches", graphed_dp),
-                         ("dp_graphed_cli_launches",
-                          dp["cli_steps_per_call"]["log"]
-                          ["kernel_launches"])):
+        # (6e) (f): the NCCL rank's graphed plain and FSDP calls and the
+        # --steps_per_call CLIs' epochs (ZeRO-1, FSDP), the replays counted
+        graphed_dp = next(r["graphed"] for r in dp["runs"].values()
+                          if "graphed" in r)
+        for key, run in (
+                ("dp_graphed_launches",
+                 graphed_dp["plain"]["launches"]["graphed"]),
+                ("dp_graphed_cli_launches",
+                 dp["cli_steps_per_call"]["log"]["kernel_launches"]),
+                ("dp_fsdp_graphed_launches",
+                 graphed_dp["fsdp"]["launches"]["graphed"]),
+                ("dp_fsdp_graphed_cli_launches",
+                 dp["cli_fsdp_steps_per_call"]["log"]["kernel_launches"])):
             n = sum(run.get(k, 0) for k in parts.get(name, (name,)))
             if n:
                 entry[key] = n

@@ -52,10 +52,10 @@ pinned memory one call ahead; on the CPU the K steps in order. An epoch's
 last group of fewer than K batches runs through the single step, a
 preemption is asked for once a call, and the log is the single step's.
 Under torchrun the graphs hold the data-parallel step with its NCCL
-collectives (the gradient all-reduce, ZeRO-1's exchange, the metrics);
-`--device cpu` ranks (gloo) run the K steps in order. On CUDA it needs
-NCCL, one card a rank: where ranks share a card (gloo) it is refused, and
-so is `--fsdp` (graphed FSDP is ROADMAP item 16b).
+collectives (the gradient all-reduce, ZeRO-1's exchange, with `--fsdp`
+each unit's all-gather and reduce-scatter, the metrics); `--device cpu`
+ranks (gloo) run the K steps in order. On CUDA it needs NCCL, one card a
+rank: where ranks share a card (gloo) it is refused.
 
 `--resume checkpoint-<e>.pth` restores the parameters, the AdamW moments
 and count and the cycle, and continues at epoch e + 1. On SIGTERM,
@@ -186,18 +186,11 @@ def main(argv=None):
 
 def refuse_ungraphable(args, device: torch.device) -> None:
     """`--steps_per_call > 1` on a card runs CUDA graphs of the step, which
-    capture a process group's collectives under NCCL only: under gloo (the
-    rank's card shared with another rank) it raises, naming the backend.
-    Graphs of the FSDP step are not ported: with `--fsdp` it raises,
-    naming ROADMAP item 16b."""
+    capture a process group's collectives (FSDP's gathers and
+    reduce-scatters too) under NCCL only: under gloo (the rank's card
+    shared with another rank) it raises, naming the backend."""
     if args.steps_per_call <= 1 or device.type != "cuda":
         return
-    if args.fsdp:
-        raise NotImplementedError(
-            "--fsdp --steps_per_call > 1 on CUDA needs CUDA graphs of the "
-            "FSDP step (its unit gathers and reduce-scatters), which are not "
-            "ported to ecamp_tpu_torch (ROADMAP Queue 1 item 16b, graphed "
-            "FSDP): run with --steps_per_call 1, or --device cpu")
     if not distributed.graph_capturable():
         raise RuntimeError(
             f"--steps_per_call > 1 on CUDA captures the data-parallel "

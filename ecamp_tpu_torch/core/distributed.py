@@ -51,14 +51,17 @@ over the units' layouts, tells AdamW and `MultiSteps` the rank's pieces,
 which here are the shards themselves (`holds_pieces`).
 
 CUDA graphs of the data-parallel step (`train/graphed.py`) capture its
-collectives: the gradient all-reduce, ZeRO-1's broadcasts and the
+collectives: the gradient all-reduce, ZeRO-1's broadcasts, FSDP's unit
+all-gathers and reduce-scatters, the clip's norm over the ranks and the
 metrics' all-reduce. NCCL collectives can be captured; gloo's run on the
 host and cannot, so `graph_capturable` is true only under NCCL, which
 `initialize_distributed` picks only where every rank has a card of its
 own. A graphed step sends its collectives through a communicator of its
-own (`graph_group`, set as `DataParallel.group`), so the collectives that
-run eagerly between replays (the preemption agreement, ZeRO-1's gather at
-a checkpoint) never share a communicator with a captured one.
+own (`graph_group`, set as `DataParallel.group` or `Fsdp.group`), so the
+collectives that run eagerly between replays (the preemption agreement,
+the gathers of a checkpoint: ZeRO-1's moments, FSDP's `whole`) never
+share a communicator with a captured one: only a step's own collectives
+read `group`.
 """
 
 from __future__ import annotations
@@ -216,11 +219,12 @@ def all_reduce_mean_(flat: torch.Tensor, bucket: int = BUCKET,
     return flat.div_(world_size())
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks, in place, on every rank (no
-    autograd); outside a process group `t` as it is."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `t` over the ranks (of `group`, by default the whole
+    group), in place, on every rank (no autograd); outside a process group
+    `t` as it is."""
     if is_distributed():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -494,7 +498,7 @@ class _GatherUnit(torch.autograd.Function):
     def forward(ctx, shard, unit):
         ctx.unit = unit
         ctx.set_materialize_grads(False)
-        flat = unit.gathered()
+        flat = unit.gathered(unit.owner.group)
         return tuple(unit.layout.view(flat, k).clone()
                      if unit.layout.shapes[k].numel() < SMALL_LEAF
                      else unit.layout.view(flat, k) for k in unit.names)
@@ -540,13 +544,14 @@ class _Unit:
         r, n = self.owner.rank, self.layout.span
         return flat[r * n:(r + 1) * n]
 
-    def gathered(self) -> torch.Tensor:
-        """The unit's whole flat parameters (a collective), no autograd."""
+    def gathered(self, group=None) -> torch.Tensor:
+        """The unit's whole flat parameters (a collective over `group`, by
+        default the whole group), no autograd."""
         with torch.no_grad():
             flat = torch.empty(self.layout.total, dtype=self.shard.dtype,
                                device=self.shard.device)
             self.span(flat).copy_(self.shard)
-            all_gather_spans_(flat, self.layout, group=self.owner.group)
+            all_gather_spans_(flat, self.layout, group=group)
         return flat
 
     def __call__(self, *args, **kwargs):
@@ -570,7 +575,10 @@ class Fsdp:
     the same elements of the gradient shard), are what the optimizer
     updates. In one process there is one span: the shards are whole and
     the collectives copies. The parameters share one floating dtype and
-    device, as `DataParallel`'s."""
+    device, as `DataParallel`'s. `group` is the process group of a step's
+    gathers and reduce-scatters (None, the whole group, until a graphed
+    step sets `graph_group()`); `whole` always gathers over the whole
+    group."""
 
     def __init__(self, model: nn.Module, units: Sequence[str]):
         params = dict(model.named_parameters())
@@ -629,11 +637,12 @@ class Fsdp:
 
     @contextlib.contextmanager
     def whole(self, write_back: bool = True):
-        """The model's parameters whole inside the block (a collective):
-        every unit gathered, each parameter's data a view of its unit's
-        buffer; on leaving, with `write_back`, each rank takes its span
-        back into its shards (what the block wrote into the parameters is
-        kept), and the placeholders return."""
+        """The model's parameters whole inside the block (a collective over
+        the whole group, not `group`): every unit gathered, each
+        parameter's data a view of its unit's buffer; on leaving, with
+        `write_back`, each rank takes its span back into its shards (what
+        the block wrote into the parameters is kept), and the placeholders
+        return."""
         with torch.no_grad():
             flats = [u.gathered() for u in self.units]
             for u, flat in zip(self.units, flats):

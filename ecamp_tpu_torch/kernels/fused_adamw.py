@@ -32,7 +32,10 @@ bit for bit. The clip's global norm is local where the gradients are
 whole (ZeRO-1 without accumulation, as in JAX); where they are pieces
 (FSDP, ZeRO-1's running mean) the ranks' sums of squares are all-reduced
 (`global_norm(..., over_ranks=True)`), so it is the norm of the whole
-gradients, as JAX's clip is under both layouts.
+gradients, as JAX's clip is under both layouts. That all-reduce goes
+through the share's step group (`zero1.dp.group`), as the step's other
+collectives do, so a CUDA graph of the update captures it on the
+graphs' communicator.
 """
 
 from __future__ import annotations
@@ -167,10 +170,10 @@ class FusedAdamW:
             nu=zero_pieces(params, self.zero1))
 
     def scalars(self, count: torch.Tensor, grads: List[torch.Tensor],
-                over_ranks: bool = False) -> torch.Tensor:
+                over_ranks: bool = False, group=None) -> torch.Tensor:
         """[lr, bc1, bc2, gdiv, gmul] as one fp32 tensor on the count's
         device, from device ops only (`over_ranks`: `grads` are the rank's
-        pieces, the clip's norm sums every rank's)."""
+        pieces, the clip's norm sums every rank's over `group`)."""
         # torch.full, not torch.tensor: a blocking host-to-device copy
         # would synchronise the stream
         def full(value):
@@ -182,7 +185,8 @@ class FusedAdamW:
         lr = self.schedule(count).to(torch.float32)
         gdiv = gmul = one
         if self.grad_clip is not None:
-            gdiv, gmul = clip_scale(grads, self.grad_clip, over_ranks)
+            gdiv, gmul = clip_scale(grads, self.grad_clip, over_ranks,
+                                    group)
         return torch.stack([lr, 1.0 - b1 ** cf, 1.0 - b2 ** cf, gdiv, gmul])
 
     def _decays(self, params: Mapping[str, torch.Tensor]) -> List[float]:
@@ -212,8 +216,9 @@ class FusedAdamW:
         dev = params[names[0]].device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"no AdamW kernel for {dev}")
+        group = None if z is None or z.dp is None else z.dp.group
         scal = self.scalars(state.count, [grads[k] for k in names],
-                            over_ranks)
+                            over_ranks, group)
         with torch.no_grad():
             ps, gs, ms, vs, wd = [], [], [], [], []
             for k, w in zip(names, self._decays(params)):
@@ -292,25 +297,28 @@ def leaf_shaped(params: Mapping[str, torch.Tensor],
 
 
 def global_norm(tensors: List[torch.Tensor],
-                over_ranks: bool = False) -> torch.Tensor:
+                over_ranks: bool = False, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), an
     fp32 device scalar. With `over_ranks` the tensors are this rank's
     pieces of the gradients: the ranks' sums of squares are all-reduced
-    first (outside a process group the pieces are whole)."""
+    first, over `group` (by default the whole group; outside a process
+    group the pieces are whole)."""
     if not over_ranks or not distributed.is_distributed():
         return torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(t.float()) for t in tensors]))
     sq = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(t.float()) for t in tensors])).square()
-    return distributed.all_reduce_sum_(sq.reshape(1)).sqrt().reshape(())
+    return distributed.all_reduce_sum_(sq.reshape(1),
+                                       group).sqrt().reshape(())
 
 
 def clip_scale(grads: List[torch.Tensor], max_norm: float,
-               over_ranks: bool = False):
+               over_ranks: bool = False, group=None):
     """optax.clip_by_global_norm as (gdiv, gmul): updates are
     (g / gdiv) * gmul, (1, 1) inside the bound, (gnorm, max_norm) past it
-    (NaN norms propagate, as there). `over_ranks`: `global_norm`'s."""
-    gnorm = global_norm(grads, over_ranks)
+    (NaN norms propagate, as there). `over_ranks`, `group`:
+    `global_norm`'s."""
+    gnorm = global_norm(grads, over_ranks, group)
     one = torch.ones_like(gnorm)
     trigger = gnorm < max_norm
     return (torch.where(trigger, one, gnorm),

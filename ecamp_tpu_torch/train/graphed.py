@@ -46,21 +46,36 @@ What a replay needs, and how it gets it:
 - Data parallelism (a process group, `core/distributed.py`). The graphs
   hold the step's collectives: the masking noise drawn for the global
   batch from the registered generator, the gradient all-reduce, ZeRO-1's
-  broadcasts (in the update position's graph only) and the metrics'
-  all-reduce. A collective can be captured under NCCL only
-  (`distributed.graph_capturable`); under gloo the call raises, naming the
-  backend. The graphs' collectives go through a communicator of their own
-  (`distributed.graph_group`, made collectively here), so the eager ones
-  between replays (the preemption agreement, a checkpoint's gather) never
-  mix with captured ones on one communicator. Every rank warms up,
-  captures and replays the same kinds at the same micro-steps: the
-  schedule reads only the cycle position, whether noise is given and
-  `deterministic`, which every rank shares. It must: a capture records
-  its collectives without running them, so a rank that captured while a
-  peer ran the same micro-step eagerly (or replayed) would leave that
-  peer's collective waiting for a partner that never sends, and both
-  would hang. Drop the scan before leaving the group: NCCL's teardown
-  waits for the graphs that captured its collectives.
+  broadcasts (in the update position's graph only), the clip's norm over
+  the ranks where a clip is set, and the metrics' all-reduce. A collective
+  can be captured under NCCL only (`distributed.graph_capturable`); under
+  gloo the call raises, naming the backend. The graphs' collectives go
+  through a communicator of their own (`distributed.graph_group`, made
+  collectively here and set as the share's `group`), so the eager ones
+  between replays (the preemption agreement, a checkpoint's gathers,
+  which take the whole group) never mix with captured ones on one
+  communicator. Every rank warms up, captures and replays the same kinds
+  at the same micro-steps: the schedule reads only the cycle position,
+  whether noise is given and `deterministic`, which every rank shares.
+  It must: a capture records its collectives without running them, so a
+  rank that captured while a peer ran the same micro-step eagerly (or
+  replayed) would leave that peer's collective waiting for a partner that
+  never sends, and both would hang. Drop the scan before leaving the
+  group: NCCL's teardown waits for the graphs that captured its
+  collectives.
+- FSDP (`distributed.Fsdp`, in one process or under a group). Each graph
+  holds every unit's all-gather at its call (the remat recompute's second
+  gather too) and its reduce-scatter in the backward, each on the
+  graphs' communicator (in one process, copies). The gathered flat
+  buffers, the small leaves' copies and the backward's flat gradient are
+  temporaries of the step, so they come from the pool and are freed
+  within the replay; the shards, the gradient shards, AdamW's moment
+  pieces and `MultiSteps`' running mean are the state, allocated with it
+  outside the pool. The non-update positions' graphs fold the gradient
+  shards into the running mean; the update position's graph also runs
+  AdamW on the pieces, whose leaf table the warm-up built. A checkpoint
+  between calls gathers the units eagerly over the whole group
+  (`Fsdp.whole`).
 
 Nothing falls back to eager steps: a capture or a replay that fails
 raises, and so does a call with the kernels routed to their plain

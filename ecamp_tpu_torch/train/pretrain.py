@@ -34,8 +34,10 @@ running mean); a unit's call gathers its parameters and its backward
 reduce-scatters its gradient, so there is no all-reduce after the
 backward and no exchange after the update. The step is data parallelism's
 bit for bit. AdamW stays the kernel, on the shards (JAX's FSDP falls back
-to optax). Graphed FSDP steps are not ported: `make_train_step_scan`
-refuses them on a card (ROADMAP item 16b).
+to optax). `make_train_step_scan` graphs the FSDP step on a card as it
+graphs the others: the unit gathers and reduce-scatters (the remat
+recompute's gathers too), the clip's norm and the metrics' all-reduce are
+captured on the graphs' communicator (`train/graphed.py`).
 
 Randomness comes from explicit generators on the task's device:
 `masking_generator` for the MAE noise (or noise injected by the caller)
@@ -248,21 +250,15 @@ class PretrainTask:
         `noise` (K, B, grid**2) or None, the metrics stacked (K,) a key.
         The K steps equal K `train_step` calls. On a card they are CUDA
         graphs of the step (`graphed.GraphedSteps`), under a process group
-        the data-parallel step with its NCCL all-reduces and ZeRO-1
-        exchange captured (a gloo group on cards raises: its collectives
+        the data-parallel step with its NCCL collectives captured (the
+        gradient all-reduce and ZeRO-1's exchange, or FSDP's unit gathers
+        and reduce-scatters; a gloo group on cards raises: its collectives
         run on the host); a failed capture or replay raises; nothing falls
         back to eager steps. On the CPU, in one process or on gloo ranks,
         the K steps run in order. Under a group every rank makes the scan
-        and calls it with the same K (a collective). FSDP's steps are not
-        graphed: on a card they raise (ROADMAP item 16b)."""
+        and calls it with the same K (a collective)."""
         if k < 1:
             raise ValueError(f"steps per call must be >= 1, not {k}")
-        if self.device.type == "cuda" and self.cfg.mesh.shard_params:
-            raise NotImplementedError(
-                "FSDP (shard_params) with K > 1 steps a call on CUDA needs "
-                "CUDA graphs of the unit gathers and reduce-scatters, which "
-                "are not ported to ecamp_tpu_torch (ROADMAP Queue 1 item "
-                "16b, graphed FSDP): run one step a call")
         if self.device.type == "cuda":
             return GraphedSteps(self, state, k)
 

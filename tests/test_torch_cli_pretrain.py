@@ -231,12 +231,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Orbax directories raise, and so does --steps_per_call > 1 on CUDA
     under a process group whose collectives a CUDA graph cannot capture
     (gloo, where ranks share a card; patched in here), once the rank has
-    joined it, and with --fsdp (graphed FSDP, ROADMAP item 16b), before
-    anything touches the card. K > 1 in one process, on NCCL ranks and on
-    the CPU's gloo ranks runs (tests/test_torch_steps_per_call.py,
+    joined it, before anything touches the card, with or without --fsdp.
+    K > 1 in one process, on NCCL ranks and on the CPU's gloo ranks runs
+    (tests/test_torch_steps_per_call.py,
     tests/test_torch_dp_steps_per_call.py), and so does K = 1 anywhere;
-    --fsdp runs (tests/test_torch_fsdp.py), and with K > 1 on the CPU is
-    let through."""
+    --fsdp runs (tests/test_torch_fsdp.py), and with K > 1 is let through
+    on the CPU and on CUDA, in one process and on NCCL ranks (patched in
+    here; graphed FSDP)."""
     base = ["--data_path", str(tmp_path), "--device", "cpu"]
     steps = cli.get_args(base + ["--steps_per_call", "2"])
     cli.refuse_what_is_not_ported(steps)
@@ -255,8 +256,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cli.refuse_ungraphable(fsdp_steps, torch.device("cpu"))
     cli.refuse_ungraphable(cli.get_args(base + ["--fsdp"]),
                            torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="fsdp .* item 16b"):
-        cli.run(fsdp_steps, torch.device("cuda"))
+    cli.refuse_ungraphable(fsdp_steps, torch.device("cuda"))  # one process
+    with monkeypatch.context() as mp:
+        mp.setattr(cli.distributed, "is_distributed", lambda: True)
+        mp.setattr(torch.distributed, "get_backend", lambda *a: "nccl")
+        assert cli.distributed.graph_capturable()
+        cli.refuse_ungraphable(fsdp_steps, torch.device("cuda"))
+        mp.setattr(torch.distributed, "get_backend", lambda *a: "gloo")
+        with pytest.raises(RuntimeError,
+                           match="steps_per_call > 1 on CUDA .* gloo group"):
+            cli.run(fsdp_steps, torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="orbax"):
         cli.main(base + ["--resume", str(tmp_path)])
     if not torch.cuda.is_available():

@@ -1,12 +1,23 @@
 """FSDP (ZeRO-3) pretraining in the port (`MeshConfig.shard_params`,
 `core/distributed.py::Fsdp`, AdamW on the shards, the pretrain CLI's
 `--fsdp`) on the CPU, over gloo ranks spawned by `tests/torch_dp_ranks.py`
-beside the one JAX compile, at the tiny sizes of
+beside the JAX compiles, at the tiny sizes of
 `tests/test_torch_pretrain.py`:
 
   * 2 ranks x 3 steps against the JAX `PretrainTask` with
     `MeshConfig(data=2, shard_params=True)` on a 2-device CPU mesh, from
-    the same weights and injected noise, dropout off;
+    the same weights and injected noise, dropout off, and the port's FSDP
+    `make_train_step_scan` of K = 3 against JAX's over 3 copies of the
+    batch;
+  * the port's FSDP scan against its own single steps bit for bit, with
+    and without accumulation (on gloo ranks the K steps run in order; on
+    NCCL ranks they are CUDA graphs, which `chip_smoke.py` (6e) and
+    `tests/test_torch_kernels_cuda.py` hold against eager steps);
+  * where the collectives go, with the step's group a second gloo group
+    (as a graphed step sets `graph_group()`): every gather, reduce-scatter,
+    the clip's norm and the metrics' all-reduce of an FSDP step, and of a
+    ZeRO-1 step with its accumulated, clipped update, through the step's
+    group; `whole_params` (init, save, load) through the default group;
   * FSDP against plain data parallelism bit for bit (parameters, moments,
     the open cycle), also with accumulation and with remat and dropout;
   * each rank's persistent shard elements, about half of plain's;
@@ -41,6 +52,7 @@ from ecamp_tpu_torch.train.pretrain import PretrainTask  # noqa: E402
 from test_torch_distributed import (B, LOSS_RTOL, NOISE, STEPS,  # noqa: E402
                                     WORLD, _batch, _rel)
 from test_torch_pretrain import _tiny  # noqa: E402
+from test_torch_steps_per_call import _dropout_cfg  # noqa: E402
 
 PREEMPT_AT = 5  # the CLI's micro-step: epoch 1, batch 1, mid-cycle
 
@@ -65,6 +77,31 @@ def _cfg(lib, shard: bool, **kw):
 # name -> (config keywords, noise injected, dropout off)
 VARIANTS = {"base": ({}, True, True), "accum": ({"accum": 2}, True, True),
             "remat": ({"remat": True}, False, False)}
+K = STEPS  # micro-steps a call of the scans
+
+
+def _bitwise_cases() -> dict:
+    """name -> (the port's FSDP config, micro-steps an epoch): dropout on
+    and an epoch cosine that moves every micro-step (`_dropout_cfg`)."""
+    return {name: (dataclasses.replace(_dropout_cfg(accum),
+                                       mesh=pcfg.MeshConfig(shard_params=True)),
+                   3)
+            for name, accum in (("fsdp", 1), ("fsdp_accum2", 2))}
+
+
+def _route_cases() -> dict:
+    """name -> the port's config of `torch_dp_ranks._step_groups`, a clip
+    set: FSDP, and ZeRO-1 with accumulation 2 (its update clips the
+    running mean's pieces, a norm over the ranks)."""
+    base = _tiny(pcfg)
+    return {
+        "fsdp": dataclasses.replace(
+            base, mesh=pcfg.MeshConfig(shard_params=True),
+            optimizer=dataclasses.replace(base.optimizer, grad_clip=1.0)),
+        "zero1_accum2": dataclasses.replace(
+            base, mesh=pcfg.MeshConfig(shard_optimizer=True),
+            optimizer=dataclasses.replace(base.optimizer, grad_clip=1.0,
+                                          accum_steps=2))}
 
 
 def _cli_runs(root, tmp):
@@ -84,9 +121,10 @@ def _cli_runs(root, tmp):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The port's FSDP and plain data-parallel runs of every variant, the
-    clip's norms and the three CLI runs on 2 gloo ranks, started first;
-    beside them the JAX task's FSDP run on a 2-device mesh, from the same
-    initial weights."""
+    clip's norms, the FSDP scans, the collectives' groups and the three
+    CLI runs on 2 gloo ranks, started first; beside them the JAX task's
+    STEPS FSDP steps and its FSDP scan of as many on a 2-device mesh, from
+    the same initial weights."""
     from test_torch_accum import _corpus
     from test_torch_cli_pretrain import _tiny_kw
 
@@ -103,14 +141,21 @@ def runs(tmp_path_factory):
     port = {f"{name}_{kind}": (_cfg(pcfg, kind == "fsdp", **kw), inject, det)
             for name, (kw, inject, det) in VARIANTS.items()
             for kind in ("fsdp", "dp")}
+    batch = _batch()
+    scans = {"parity": {"fsdp": _cfg(pcfg, True)},
+             "superbatch": {k: np.stack([v] * K) for k, v in batch.items()},
+             "noise": np.stack([NOISE] * K), "bitwise": _bitwise_cases(),
+             "batches": [_batch(20 + i) for i in range(2 * K)], "k": K}
     started = ranks.start(
         "fsdp_parts", WORLD, tmp / "ranks", runs=port, weights=sd,
-        batch=_batch(), noise=NOISE, steps=STEPS,
-        clis=_cli_runs(_corpus(tmp, 16), tmp), tiny=_tiny_kw(pcfg))
+        batch=batch, noise=NOISE, steps=STEPS,
+        clis=_cli_runs(_corpus(tmp, 16), tmp), tiny=_tiny_kw(pcfg),
+        scans=scans, routes=_route_cases(), work=str(tmp / "routes"))
     try:
-        state = task.place_state(JaxTrainState.create(
-            jax.tree_util.tree_map(jnp.asarray, weights), task.tx))
-        batch = task.shard_batch(_batch())
+        def placed():  # each jit donates the state it is given
+            return task.place_state(JaxTrainState.create(
+                jax.tree_util.tree_map(jnp.asarray, weights), task.tx))
+
         uniform = jax.random.uniform
 
         def fake(key, shape=(), *args, **kwargs):
@@ -120,16 +165,23 @@ def runs(tmp_path_factory):
 
         losses = []
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax.random, "uniform", fake)
+            mp.setattr(jax.random, "uniform", fake)  # while it is traced
+            state = placed()
             for _ in range(STEPS):
-                state, m = task.train_step(state, batch,
+                state, m = task.train_step(state, task.shard_batch(batch),
                                            jax.random.PRNGKey(7))
                 losses.append({k: float(v) for k, v in m.items()})
+            state = placed()
+            scan = task.make_train_step_scan(state)
+            state, m = scan(state, task.shard_superbatch([batch] * K),
+                            jax.random.PRNGKey(7))
+        assert int(state.step) == K
+        scanned = [{k: float(v[i]) for k, v in m.items()} for i in range(K)]
     except BaseException:
         ranks.stop(started)
         raise
-    return {"jax": losses, "port": ranks.collect(started), "tmp": tmp,
-            "weights": sd}
+    return {"jax": losses, "jax_scan": scanned,
+            "port": ranks.collect(started), "tmp": tmp, "weights": sd}
 
 
 def test_two_fsdp_ranks_match_jax_fsdp_step(runs):
@@ -319,3 +371,83 @@ def test_cli_fsdp_in_one_process_equals_plain(tmp_path):
             for f in ("exp_avg", "exp_avg_sq"):
                 assert torch.equal(st[f], ck["optimizer"]["state"][i][f]), \
                     (out, i, f)
+
+
+def test_two_fsdp_ranks_scan_matches_jax_scan(runs):
+    """The port's FSDP `make_train_step_scan` on 2 gloo ranks, one call of
+    K = 3 micro-steps from the JAX weights over the superbatch of 3 copies
+    of the batch with the injected noise, dropout off: each micro-step's
+    losses within LOSS_RTOL (1e-4 relative) of JAX's FSDP scan on the
+    2-device mesh, the lr exact, the step, host step and AdamW's count K,
+    on both ranks."""
+    for r, got in enumerate(runs["port"]):
+        run = got["scans"]["parity"]["fsdp"]
+        for i, want in enumerate(runs["jax_scan"]):
+            for k in ("loss", "mim_loss", "res_loss", "mlm_loss"):
+                assert _rel(run["metrics"][k][i], want[k]) < LOSS_RTOL, \
+                    (r, i, k)
+            assert run["metrics"]["lr"][i] == pytest.approx(want["lr"],
+                                                            rel=1e-7)
+        assert run["counters"] == (K, K, K, None)
+
+
+@pytest.mark.parametrize("name", list(_bitwise_cases()))
+def test_fsdp_scan_equals_single_steps_bitwise(runs, name):
+    """Two FSDP K-step calls (dropout on, the global noise drawn from the
+    masking generator) against 2 K single steps from the same seed, on
+    each rank: every metric, the whole parameters, the rank's moment
+    pieces and running mean, the step, count and cycle bit for bit;
+    under accumulation 2 a cycle crosses the calls."""
+    accum = 2 if name.endswith("accum2") else 1
+    for got in runs["port"]:
+        single, scanned = got["scans"]["bitwise"][name]
+        assert scanned["metrics"] == single["metrics"]
+        ref, res = single["state"], scanned["state"]
+        assert res["counters"] == ref["counters"] == (
+            2 * K, 2 * K, 2 * K // accum, None if accum == 1 else 0)
+        for part in ("params", "mu", "nu", "acc"):
+            assert set(res[part]) == set(ref[part])
+            for k, v in ref[part].items():
+                assert torch.equal(res[part][k], v), (part, k)
+        assert len({m["lr"] for m in single["metrics"]}) > 1
+
+
+@pytest.mark.parametrize("name", list(_route_cases()))
+def test_step_collectives_go_through_the_step_group(runs, name):
+    """With the step's group (`task.dp.group`) a second gloo group, as a
+    graphed step sets `graph_group()`, every collective of 2 steps goes
+    through it, on both ranks: under FSDP each unit's gather (gloo: a
+    broadcast a rank) and reduce-scatter (gloo: an all-reduce of the
+    unit's flat gradient) every step; the clip's norm over the ranks (an
+    all-reduce of one element) at every update, FSDP's and ZeRO-1's
+    accumulated one; the metrics' all-reduce every step."""
+    for got in runs["port"]:
+        calls, units = (got["routes"][name][k] for k in ("calls", "units"))
+        steps = calls["steps"]
+        assert {tag for _, tag, _ in steps} == {"step"}, steps
+        norms = [c for c in steps if c[0] == "all_reduce" and c[2] == 1]
+        metrics = [c for c in steps if c[0] == "all_reduce" and c[2] == 4]
+        assert len(norms) == (2 if name == "fsdp" else 1)
+        assert len(metrics) == 2
+        if name == "fsdp":
+            assert units > 1
+            assert sum(c[0] == "broadcast" for c in steps) == 2 * units * WORLD
+            assert sum(c[0] == "all_reduce" and c[2] > 4
+                       for c in steps) == 2 * units
+
+
+def test_whole_params_go_through_the_default_group(runs):
+    """The eager collectives between steps take the whole group, not the
+    step's: under FSDP `whole_params` at `init_state(generator)`, at the
+    checkpoint's save and at its load; the checkpoint's gathered moments
+    under FSDP and ZeRO-1."""
+    for got in runs["port"]:
+        for name in _route_cases():
+            calls = got["routes"][name]["calls"]
+            phases = ("init", "save", "load") if name == "fsdp" else ("save",)
+            for phase in phases:
+                assert calls[phase], (name, phase)
+            for phase, made in calls.items():
+                if phase != "steps":
+                    assert {tag for _, tag, _ in made} == {"default"}, \
+                        (name, phase, made)

@@ -651,6 +651,103 @@ def test_graphed_dp_steps_on_card_match_eager(cuda, tmp_path, shard, accum):
         assert torch.equal(got_p[n], w), n
 
 
+@pytest.mark.parametrize("group,accum,remat", [(False, 2, False),
+                                               (True, 1, True)],
+                         ids=["one_process_accum2", "nccl1_remat_clip"])
+def test_graphed_fsdp_steps_on_card_match_eager(cuda, tmp_path, group,
+                                                 accum, remat):
+    """FSDP (`shard_params`) in one process, or on a world-size-1 NCCL
+    group in this process (a FileStore) with remat and a clip: two calls
+    of K = 3 graphed micro-steps of the tiny step (every unit's gather and
+    reduce-scatter, the remat recompute's gathers, the clip's norm and the
+    metrics' all-reduce captured; dropout on, the noise drawn) against 6
+    eager FSDP micro-steps from the same weights and batches, under
+    deterministic algorithms: every micro-step's metrics, the whole
+    parameters (gathered by `whole_params` between the calls too, an eager
+    gather on the whole group) and the moment pieces bit for bit, the
+    step, AdamW's count and the cycle, each kernel's launches (the
+    replays counted)."""
+    import torch.distributed as dist
+
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.core.config import MeshConfig
+    from ecamp_tpu_torch.train.pretrain import PretrainTask, synthetic_batch
+    from ecamp_tpu_torch.train.state import adamw_state
+
+    k = 3
+    card = torch.device("cuda", torch.cuda.current_device())
+    if group:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1,
+            device_id=card)
+    try:
+        cfg = _graph_cfg(False, accum)
+        cfg = dataclasses.replace(
+            _remat(cfg) if remat else cfg,
+            mesh=MeshConfig(shard_params=True),
+            optimizer=dataclasses.replace(
+                cfg.optimizer, grad_clip=0.5 if remat else None))
+        gen = torch.Generator(device=card).manual_seed(1)
+        batches = [{n: v.contiguous() for n, v in
+                    synthetic_batch(cfg, 4, gen).items()}
+                   for _ in range(2 * k)]
+        counters = (ln_mod.launches, fa_mod.launches, sr_mod.launches,
+                    adamw_mod.launches)
+
+        def whole(task):
+            with distributed.whole_params(task.model, write_back=False) as m:
+                return {n: v.clone() for n, v in m.state_dict().items()}
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = []
+        try:
+            for graphed in (False, True):
+                task = PretrainTask(cfg, device=card, steps_per_epoch=3)
+                state = task.init_state()
+                for ctr in counters:
+                    ctr.reset()
+                rows, scan, between = [], None, None
+                if graphed:
+                    scan = task.make_train_step_scan(state, k)
+                    assert task.dp.group is distributed.graph_group()
+                    for c in range(2):
+                        part = batches[c * k:(c + 1) * k]
+                        state, m = scan(state, {n: torch.stack(
+                            [b[n] for b in part]) for n in part[0]})
+                        rows += [{n: float(v[i]) for n, v in m.items()}
+                                 for i in range(k)]
+                        if c == 0:
+                            between = whole(task)
+                    assert scan.graphs and scan.eager_steps < 2 * k
+                else:
+                    for i, b in enumerate(batches):
+                        state, m = task.train_step(state, b)
+                        rows.append({n: float(v) for n, v in m.items()})
+                        if i == k - 1:
+                            between = whole(task)
+                torch.cuda.synchronize()
+                adam = adamw_state(state.opt_state)
+                runs.append((rows, [ctr.value for ctr in counters],
+                             whole(task), between,
+                             {n: v.clone() for n, v in adam.mu.items()},
+                             (int(state.step), task.step, int(adam.count))))
+                # the graphs go before the group: NCCL's teardown waits
+                # for the graphs that captured its collectives
+                del task, state, scan, adam
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        distributed.shutdown_distributed()
+    (want, want_n, want_p, want_b, want_m, want_c), \
+        (got, got_n, got_p, got_b, got_m, got_c) = runs
+    assert got == want
+    assert got_n == want_n and want_n[3] == 2 * k // accum
+    assert got_c == want_c == (2 * k, 2 * k, 2 * k // accum)
+    for ref, res in ((want_p, got_p), (want_b, got_b), (want_m, got_m)):
+        for n, w in ref.items():
+            assert torch.equal(res[n], w), n
+
+
 def _remat(cfg):
     """cfg with the three remat flags set."""
     return dataclasses.replace(

@@ -236,15 +236,18 @@ def cli_mains(runs: list, tiny: dict) -> list:
 
 
 def _snapshot(task, state) -> dict:
-    """The rank's parameters, AdamW moments (its pieces under ZeRO-1),
-    `MultiSteps`' running mean and the counters (state step, host step,
-    AdamW's count, cycle position)."""
+    """The rank's parameters (whole, gathered under FSDP: a collective),
+    AdamW moments (its pieces under ZeRO-1 and FSDP), `MultiSteps`'
+    running mean and the counters (state step, host step, AdamW's count,
+    cycle position)."""
+    from ecamp_tpu_torch.core import distributed
     from ecamp_tpu_torch.train.state import adamw_state
 
     st = state.opt_state
     adam = adamw_state(st)
-    return {"params": {k: v.clone() for k, v in
-                       task.model.state_dict().items()},
+    with distributed.whole_params(task.model, write_back=False) as model:
+        params = {k: v.clone() for k, v in model.state_dict().items()}
+    return {"params": params,
             "mu": {k: v.clone() for k, v in adam.mu.items()},
             "nu": {k: v.clone() for k, v in adam.nu.items()},
             "acc": {k: v.clone() for k, v in getattr(st, "acc_grads",
@@ -253,23 +256,19 @@ def _snapshot(task, state) -> dict:
                          getattr(st, "mini_step", None))}
 
 
-def scan_parts(parity: dict, weights: dict, superbatch: dict,
-               noise: np.ndarray, bitwise: dict, batches: list, k: int,
-               guard: dict) -> dict:
-    """`tests/test_torch_dp_steps_per_call.py` on this rank of one gloo
-    group: for each of `parity` (name -> PretrainConfig), one K-step call
-    (`make_train_step_scan`) from `weights` on the rank's rows of the
-    global (K, G, ...) `superbatch` with the global `noise`, dropout off:
-    its (K,) metrics; for each of `bitwise` (name -> (PretrainConfig,
-    steps an epoch)), two K-step calls on the rank's rows of `batches`
-    and 2 K single steps from the same seed (dropout on, the noise
-    drawn): each run's metrics and `_snapshot`; whether the group's
-    collectives can be captured and `graph_group`'s refusal; then
-    `guard_steps(**guard)`."""
+def _scans(parity: dict, weights: dict, superbatch: dict,
+           noise: np.ndarray, bitwise: dict, batches: list, k: int) -> dict:
+    """On this rank of a process group: for each of `parity` (name ->
+    PretrainConfig), one K-step call (`make_train_step_scan`) from
+    `weights` on the rank's rows of the global (K, G, ...) `superbatch`
+    with the global `noise`, dropout off: its (K,) metrics and counters;
+    for each of `bitwise` (name -> (PretrainConfig, steps an epoch)), two
+    K-step calls on the rank's rows of `batches` and 2 K single steps
+    from the same seed (dropout on, the noise drawn): each run's metrics
+    and `_snapshot`."""
     from ecamp_tpu_torch.core import distributed
     from ecamp_tpu_torch.train.pretrain import PretrainTask
 
-    distributed.initialize_distributed("cpu")
     rank, world = distributed.rank(), distributed.world_size()
     out = {"parity": {}, "bitwise": {}}
 
@@ -279,9 +278,10 @@ def scan_parts(parity: dict, weights: dict, superbatch: dict,
 
     for name, cfg in parity.items():
         task = PretrainTask(cfg, device="cpu")
-        task.model.load_state_dict(
-            {n: torch.from_numpy(v) for n, v in weights.items()},
-            strict=True)
+        with distributed.whole_params(task.model) as model:
+            model.load_state_dict(
+                {n: torch.from_numpy(v) for n, v in weights.items()},
+                strict=True)
         state = task.init_state()
         scan = task.make_train_step_scan(state, k)
         state, m = scan(state, {n: rows(v, 1) for n, v in superbatch.items()},
@@ -310,6 +310,19 @@ def scan_parts(parity: dict, weights: dict, superbatch: dict,
             runs.append({"metrics": metrics,
                          "state": _snapshot(task, state)})
         out["bitwise"][name] = runs
+    return out
+
+
+def scan_parts(parity: dict, weights: dict, superbatch: dict,
+               noise: np.ndarray, bitwise: dict, batches: list, k: int,
+               guard: dict) -> dict:
+    """`tests/test_torch_dp_steps_per_call.py` on this rank of one gloo
+    group: `_scans`, whether the group's collectives can be captured and
+    `graph_group`'s refusal; then `guard_steps(**guard)`."""
+    from ecamp_tpu_torch.core import distributed
+
+    distributed.initialize_distributed("cpu")
+    out = _scans(parity, weights, superbatch, noise, bitwise, batches, k)
     out["capturable"] = distributed.graph_capturable()
     try:
         distributed.graph_group()
@@ -613,13 +626,80 @@ def _clip_norms(rank: int, world: int) -> dict:
     return out
 
 
+def _step_groups(cfg, batch: dict, noise: np.ndarray, steps: int,
+                 work: str) -> dict:
+    """The collectives of a `PretrainTask` of `cfg` (FSDP, or ZeRO-1) whose
+    step group (`task.dp.group`) is a second gloo group, as a graphed step
+    sets `graph_group()`: each call's function, group ("step", "default"
+    or "other") and elements, by phase: "init" (`init_state` with a
+    generator: `whole_params`), "steps" (`steps` train steps on the
+    rank's rows of `batch` with the global `noise`, dropout off), "save"
+    (`save_checkpoint` into `work`: the gathered parameters and moments)
+    and "load" (`load_model_state`, `load_optimizer_state_dict`); and the
+    number of FSDP units (0 without FSDP)."""
+    import torch.distributed as dist
+
+    from ecamp_tpu_torch.ckpt.checkpoint import (load_checkpoint,
+                                                 load_model_state,
+                                                 save_checkpoint)
+    from ecamp_tpu_torch.core import distributed
+    from ecamp_tpu_torch.train.pretrain import PretrainTask
+
+    rank, world = distributed.rank(), distributed.world_size()
+    second = dist.new_group(backend="gloo")
+    task = PretrainTask(cfg, device="cpu")
+    task.dp.group = second
+    calls, phase = {}, ["init"]
+    names = ("all_reduce", "broadcast", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+
+    def recorder(name):
+        def record(tensor, *args, **kwargs):
+            group = kwargs.get("group")
+            tag = ("step" if group is second else
+                   "default" if group is None else "other")
+            calls.setdefault(phase[0], []).append(
+                (name, tag, int(tensor.numel())))
+            return real[name](tensor, *args, **kwargs)
+        return record
+
+    for n in names:
+        setattr(dist, n, recorder(n))
+    try:
+        state = task.init_state(torch.Generator().manual_seed(1))
+        b = len(batch["ids"]) // world
+        local = task.put_batch({k: v[rank * b:(rank + 1) * b]
+                                for k, v in batch.items()})
+        phase[0] = "steps"
+        for _ in range(steps):
+            state, _m = task.train_step(state, local, torch.from_numpy(noise),
+                                        deterministic=True)
+        phase[0] = "save"
+        os.makedirs(work, exist_ok=True)
+        path = save_checkpoint(work, 0, task.model, state,
+                               cfg.optimizer.weight_decay)
+        phase[0] = "load"
+        ck = load_checkpoint(path)
+        load_model_state(task.model, ck["model"])
+        state.load_optimizer_state_dict(ck["optimizer"])
+    finally:
+        for n, fn in real.items():
+            setattr(dist, n, fn)
+    return {"calls": calls, "units": len(getattr(task.dp, "units", ()))}
+
+
 def fsdp_parts(runs: dict, weights: dict, batch: dict, noise: np.ndarray,
-               steps: int, clis: list, tiny: dict) -> dict:
+               steps: int, clis: list, tiny: dict, scans: dict,
+               routes: dict, work: str) -> dict:
     """`tests/test_torch_fsdp.py` on this rank of one gloo group: each of
     `runs` (name -> (PretrainConfig, injected noise or not, dropout off or
     not)) through `_fsdp_run`; the clip's norm over the ranks
-    (`_clip_norms`); then each of `clis` as `cli_mains` runs them, at the
-    tiny model `tiny`. Returns name -> result, "clip" and "printed"."""
+    (`_clip_norms`); `_scans(**scans)`; each of `routes` (name ->
+    PretrainConfig) through `_step_groups` (2 steps, its checkpoint in
+    `work`); then each of `clis` as `cli_mains` runs them, at the tiny
+    model `tiny`. Returns name -> result, "clip", "scans", "routes" and
+    "printed"."""
     from ecamp_tpu_torch.core import distributed
 
     distributed.initialize_distributed("cpu")
@@ -627,5 +707,9 @@ def fsdp_parts(runs: dict, weights: dict, batch: dict, noise: np.ndarray,
                            steps, det)
            for name, (cfg, inject, det) in runs.items()}
     out["clip"] = _clip_norms(distributed.rank(), distributed.world_size())
+    out["scans"] = _scans(weights=weights, **scans)
+    out["routes"] = {
+        name: _step_groups(cfg, batch, noise, 2, os.path.join(work, name))
+        for name, cfg in routes.items()}
     out["printed"] = cli_mains(clis, tiny)  # it leaves the group
     return out

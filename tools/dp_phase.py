@@ -5,15 +5,18 @@ machine:
     python3 tools/dp_phase.py [OUT.json]
 
 Builds the kernel library of this checkout, writes the seeded MIMIC-style
-corpus the phase's torchrun CLI run reads, and runs `dp_phase`: one
-process at B = 32, then `dp_worker` under torchrun (2 NCCL ranks on two or
-more cards; on one card NCCL at one rank and 2 gloo ranks sharing it; on
-NCCL ranks also the graphed data-parallel step against the eager one, (f);
-in every launch FSDP against plain data parallelism) and `torchrun -m
-ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce`, `--shard_optimizer
---steps_per_call 3` on one NCCL rank and its refusal on 2 gloo ranks
-sharing the first card, and the refusal of `--fsdp --steps_per_call 3` on
-CUDA. The launch counts it expects a step are the full-width
+corpus the phase's torchrun CLI runs read, starts `torchrun -m
+ecamp_tpu_torch.cli.pretrain --fsdp --fused_mlm_ce` (`dp_cli_start`) and
+runs `dp_phase`: one process at B = 32, then `dp_worker` under torchrun
+(2 NCCL ranks on two or more cards; on one card NCCL at one rank and 2
+gloo ranks sharing it, side by side; on NCCL ranks also the graphed
+data-parallel step against the eager one, (f): plain, ZeRO-1 and FSDP
+with accumulation 2; in every launch FSDP against plain data
+parallelism), beside them a graphed call of FSDP in one process against
+its eager micro-steps, and the CLI with `--shard_optimizer
+--steps_per_call 3` and with `--fsdp --steps_per_call 3`, each on one
+NCCL rank, and the former's refusal on 2 gloo ranks sharing the first
+card. The launch counts it expects a step are the full-width
 model's: 51 LayerNorm, 24 attention, 1 SR stack, 1 AdamW; with the fused
 CE 1 + 1 forward and 8 dl, dx, dW. Prints the phase's lines and its JSON
 (`data_parallel`), also written to OUT.json if given; a failed check
@@ -60,7 +63,8 @@ def main(argv) -> int:
             os.path.join(REPO, "ecamp_tpu", "assets", "mimic_wordpiece.json"),
             cs.CLI_IMAGES, cs.CLI_IMG, cfg.vit.grid_size - cfg.sr_window,
             seed=cs.SEED)
-        out = cs.dp_phase(card, per_step, cli_per_step, work)
+        out = cs.dp_phase(card, per_step, cli_per_step, work,
+                          cs.dp_cli_start(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"data_parallel": out}))
